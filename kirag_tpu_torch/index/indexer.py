@@ -1,0 +1,257 @@
+"""Device-resident exact inner-product index (port of
+:class:`kirag_tpu.index.indexer.TPUIndexer`, inner product, uncompressed,
+one device).
+
+The corpus matrix lives on ``device`` in ``device_dtype`` (float32 or
+bfloat16), pre-padded to the search chunk grid. On a CUDA device
+``search_knn`` runs the exact stream-capture search
+(:func:`kirag_tpu_torch.ops.exact.exact_topk_mips`) in flag mode and
+re-dispatches the checked search when the capture's exactness flag is
+False; on the CPU it runs the plain scan (:func:`topk_mips`). The on-disk
+format (``serialize``/``deserialize_from``) is the reference's, so an index
+written by ``TPUIndexer`` loads here and back.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import pickle
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from kirag_tpu_torch.ops.exact import exact_topk_mips
+from kirag_tpu_torch.ops.mips import topk_mips
+
+logger = logging.getLogger(__name__)
+
+_HOST_BLOCK = 1 << 16  # rows per host->device copy
+
+
+def _next_pow2(n: int, floor: int = 8) -> int:
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
+def _not_ported(what: str, entry: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A: {entry})")
+
+
+class TorchIndexer:
+    """Exact flat index over a device-resident embedding matrix.
+
+    ``exact_impl``: "kernel" runs the exact stream-capture search (CUDA
+    kernels on a GPU, their plain versions on the CPU), "plain" the chunked
+    scan of :func:`topk_mips`, "auto" the kernel search on CUDA and the scan
+    elsewhere (the reference's pallas/xla split).
+    """
+
+    def __init__(self, vector_sz: int, metric: str = "inner_product",
+                 device="cpu", device_dtype: torch.dtype = torch.float32,
+                 chunk_size: int = 262144, compression: str = "none",
+                 n_subquantizers: int = 0, mesh=None,
+                 max_device_rows: Optional[int] = None, exact_impl: str = "auto",
+                 pallas_chunk_size: int = 16384, pallas_select: str = "capdom",
+                 shuffle_rows: bool = False):
+        if metric != "inner_product":
+            raise _not_ported(f"metric={metric!r}", "l2 metric")
+        if compression != "none" or n_subquantizers:
+            raise _not_ported("index compression (int8, int4, pq)",
+                              "quantized exact search, K4")
+        if mesh is not None:
+            raise _not_ported("a sharded index over a device mesh", "multi-GPU index")
+        if max_device_rows is not None:
+            raise _not_ported("streaming corpora larger than device memory",
+                              "streaming search")
+        if shuffle_rows:
+            raise _not_ported("shuffle_rows", "approximate search, K5")
+        if pallas_select != "capdom":
+            raise _not_ported(f"pallas_select={pallas_select!r}",
+                              "selection variants, K8/K9")
+        if exact_impl not in ("auto", "kernel", "plain"):
+            raise KeyError(f"exact_impl must be auto|kernel|plain, got {exact_impl}")
+        if device_dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"device_dtype must be float32 or bfloat16, got {device_dtype}")
+        if pallas_chunk_size < 128 or pallas_chunk_size % 128 != 0:
+            raise ValueError("pallas_chunk_size must be a positive multiple of 128, "
+                             f"got {pallas_chunk_size}")
+        self.vector_sz = vector_sz
+        self.metric = metric
+        self.device = torch.device(device)
+        self.device_dtype = device_dtype
+        self.chunk_size = chunk_size
+        self.compression = compression
+        self.exact_impl = exact_impl
+        self.pallas_chunk_size = pallas_chunk_size
+        self.pallas_select = pallas_select
+        self._host_chunks: List[np.ndarray] = []
+        self.index_id_to_db_id: np.ndarray = np.empty((0,), dtype=object)
+        self._device_corpus: Optional[torch.Tensor] = None
+        self._device_rows: int = 0
+        # searches whose capture flag was False and that ran the checked search
+        self.redispatches = 0
+
+    # -- build ---------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.index_id_to_db_id)
+
+    def index_data(self, ids: Sequence, embeddings: np.ndarray) -> None:
+        """Append rows; the device copy refreshes on the next search."""
+        embeddings = np.asarray(embeddings, dtype=np.float32)
+        if embeddings.ndim != 2 or embeddings.shape[1] != self.vector_sz:
+            raise ValueError(f"expected [n, {self.vector_sz}] embeddings, "
+                             f"got {embeddings.shape}")
+        if len(ids) != len(embeddings):
+            raise ValueError(f"{len(ids)} ids for {len(embeddings)} embeddings")
+        self._host_chunks.append(embeddings)
+        new_ids = np.asarray([str(i) for i in ids], dtype=object)
+        self.index_id_to_db_id = np.concatenate([self.index_id_to_db_id, new_ids])
+        self._device_corpus = None
+        logger.info(f"Total data indexed {len(self.index_id_to_db_id)}")
+
+    def _host_rows(self, start: int, end: int) -> np.ndarray:
+        """Rows [start, end) across the host chunk list, without concatenating
+        the whole corpus (chunks may be mmap'd shard files)."""
+        parts, ofs = [], 0
+        for chunk in self._host_chunks:
+            lo, hi = max(start - ofs, 0), min(end - ofs, len(chunk))
+            if lo < hi:
+                parts.append(np.asarray(chunk[lo:hi], dtype=np.float32))
+            ofs += len(chunk)
+            if ofs >= end:
+                break
+        if not parts:
+            return np.zeros((0, self.vector_sz), dtype=np.float32)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+
+    def _use_kernels(self) -> bool:
+        if self.exact_impl == "auto":
+            return self.device.type == "cuda"
+        return self.exact_impl == "kernel"
+
+    def to_device(self) -> None:
+        """Place the corpus on the device, zero-padded: to a multiple of 8
+        rows, and for the kernel search of a corpus of at least one chunk to
+        the chunk grid (the search would otherwise pad a copy per call). Pad
+        rows are masked through ``valid_rows``."""
+        n = len(self)
+        unit = 8
+        if self.exact_impl != "plain" and n >= self.pallas_chunk_size:
+            unit = self.pallas_chunk_size
+        n_pad = max(-(-n // unit) * unit, unit)
+        mat = torch.zeros((n_pad, self.vector_sz), dtype=self.device_dtype,
+                          device=self.device)
+        for start in range(0, n, _HOST_BLOCK):
+            rows = self._host_rows(start, min(start + _HOST_BLOCK, n))
+            if not rows.flags.writeable:  # mmap'd shard: torch wants writable memory
+                rows = rows.copy()
+            mat[start:start + len(rows)] = torch.from_numpy(rows).to(
+                device=self.device, dtype=self.device_dtype)
+        self._device_corpus = mat
+        self._device_rows = n
+
+    # -- search ----------------------------------------------------------------
+
+    def _run_mips(self, queries: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        corpus = self._device_corpus
+        if not self._use_kernels():
+            return topk_mips(queries, corpus, k, chunk_size=min(self.chunk_size, len(corpus)),
+                             valid_rows=self._device_rows)
+        # flag mode: the capture result and its exactness flag; a False flag
+        # re-dispatches the checked search, which re-scores on a miss
+        vals, idx, ok = exact_topk_mips(queries, corpus, k,
+                                        chunk_size=self.pallas_chunk_size,
+                                        valid_rows=self._device_rows,
+                                        select=self.pallas_select, on_miss="flag")
+        if bool(ok):
+            return vals, idx
+        self.redispatches += 1
+        logger.info("stream capture missed a selected group; re-dispatching "
+                    "the checked exact search")
+        return exact_topk_mips(queries, corpus, k, chunk_size=self.pallas_chunk_size,
+                               valid_rows=self._device_rows, select=self.pallas_select)
+
+    def search_knn(self, query_vectors: np.ndarray, top_docs: int,
+                   index_batch_size: int = 1024, mode: str = "exact") -> List[Tuple[List[str], np.ndarray]]:
+        """Per-query ``([db_id, ...], scores)``, best first. Query batches are
+        zero-padded to power-of-two row counts, as in the reference."""
+        if mode != "exact":
+            raise _not_ported(f"mode={mode!r}", "approximate search, K5")
+        if len(self) == 0:
+            raise RuntimeError("search_knn on an empty index; call index_data first")
+        if self._device_corpus is None:
+            self.to_device()
+        query_vectors = np.asarray(query_vectors, dtype=np.float32)
+        if query_vectors.ndim == 1:
+            query_vectors = query_vectors[None]
+        n_q = len(query_vectors)
+        k = min(top_docs, len(self))
+        results: List[Tuple[List[str], np.ndarray]] = []
+        for start in range(0, n_q, index_batch_size):
+            q = query_vectors[start:start + index_batch_size]
+            q_pad = _next_pow2(len(q))
+            if q_pad != len(q):
+                q = np.pad(q, ((0, q_pad - len(q)), (0, 0)))
+            qt = torch.from_numpy(np.ascontiguousarray(q)).to(device=self.device,
+                                                              dtype=self.device_dtype)
+            vals, idx = self._run_mips(qt, k)
+            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+            for row in range(min(index_batch_size, n_q - start)):
+                db_ids = [str(self.index_id_to_db_id[i]) for i in idx[row]]
+                results.append((db_ids, vals[row]))
+        return results
+
+    # -- persistence -----------------------------------------------------------
+
+    def serialize(self, dir_path: str, rows_per_file: int = 1_000_000) -> None:
+        """Write ``index_{start}_{end}.npy`` shard files, the id map and the
+        config, in the reference's layout."""
+        os.makedirs(dir_path, exist_ok=True)
+        n = len(self)
+        files = []
+        for start in range(0, max(n, 1), rows_per_file):
+            end = min(start + rows_per_file, n)
+            name = f"index_{start:010d}_{end:010d}.npy"
+            np.save(os.path.join(dir_path, name), self._host_rows(start, end))
+            files.append(name)
+        with open(os.path.join(dir_path, "index_meta.pkl"), "wb") as f:
+            pickle.dump(list(self.index_id_to_db_id), f)
+        with open(os.path.join(dir_path, "index_config.json"), "w") as f:
+            json.dump({"vector_sz": self.vector_sz, "metric": self.metric,
+                       "compression": self.compression, "nrows": n, "pq_m": 0,
+                       "files": files}, f)
+
+    def deserialize_from(self, dir_path: str, mmap: bool = True) -> None:
+        """Load an index written by :meth:`serialize` or by ``TPUIndexer``."""
+        config_file = os.path.join(dir_path, "index_config.json")
+        files = None
+        if os.path.exists(config_file):
+            with open(config_file) as f:
+                cfg = json.load(f)
+            if cfg["vector_sz"] != self.vector_sz:
+                raise ValueError(f"index built with dim {cfg['vector_sz']}, "
+                                 f"indexer expects {self.vector_sz}")
+            if cfg.get("metric", "inner_product") != "inner_product":
+                raise _not_ported(f"metric={cfg['metric']!r}", "l2 metric")
+            if cfg.get("compression", "none") != "none":
+                raise _not_ported(f"compression={cfg['compression']!r}",
+                                  "quantized exact search, K4")
+            files = cfg.get("files")
+        mode = "r" if mmap else None
+        names = files or ["index.npy"]  # legacy monolithic layout
+        self._host_chunks = [np.load(os.path.join(dir_path, name), mmap_mode=mode)
+                             for name in names]
+        # the reference's own id map, written by serialize
+        with open(os.path.join(dir_path, "index_meta.pkl"), "rb") as f:
+            self.index_id_to_db_id = np.asarray(pickle.load(f), dtype=object)
+        n_rows = sum(len(c) for c in self._host_chunks)
+        if len(self.index_id_to_db_id) != n_rows:
+            raise ValueError(f"id map holds {len(self.index_id_to_db_id)} ids for "
+                             f"{n_rows} rows")
+        self._device_corpus = None

@@ -1,0 +1,22 @@
+"""Hand-written CUDA kernels of the port, their wrappers and plain versions."""
+
+from kirag_tpu_torch.kernels.build import build, load_library
+from kirag_tpu_torch.kernels.exact import (
+    gather_groups,
+    gather_groups_plain,
+    launch_counts,
+    reset_launch_counts,
+    stream_capture,
+    stream_capture_plain,
+)
+
+__all__ = [
+    "build",
+    "load_library",
+    "gather_groups",
+    "gather_groups_plain",
+    "launch_counts",
+    "reset_launch_counts",
+    "stream_capture",
+    "stream_capture_plain",
+]

@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``kirag_tpu_torch/csrc`` are compiled with ``nvcc`` for
+Hopper (``sm_90a``) into one shared library with a plain C interface, which
+is loaded through ``ctypes``. Nothing is built at import time: the first
+launch builds the library into ``kirag_tpu_torch/kernels/build/`` (listed in
+``.gitignore``), named by a hash of the sources and flags, so an edit to any
+source rebuilds and an unchanged tree reuses the file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # time spent in nvcc; 0.0 when the library already existed
+    log: str        # nvcc's messages (ptxas registers, shared memory, spills)
+
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                           "CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def _cu_sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libkirag_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> BuildInfo:
+    """Compile the library unless a build of these exact sources exists."""
+    out = library_path()
+    if out.exists():
+        return BuildInfo(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _cu_sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return BuildInfo(out, seconds, proc.stdout + proc.stderr)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kirag_stream_capture.argtypes = [
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,  # q, corpus, bf16, 5 outputs
+        i32, i32, i32, i32, i32, i64, i32, ptr]  # n_q .. qpt, stream
+    lib.kirag_stream_capture.restype = i32
+    lib.kirag_gather_groups.argtypes = [
+        ptr, ptr, i32, ptr, ptr, i32, i32, i32, i64, ptr]
+    lib.kirag_gather_groups.restype = i32
+    lib.kirag_error_string.argtypes = [i32]
+    lib.kirag_error_string.restype = ctypes.c_char_p
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use (once per process)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build().path))
+            _declare(lib)
+            _lib = lib
+    return _lib

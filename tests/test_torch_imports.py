@@ -1,0 +1,45 @@
+"""The port stands alone: every ``kirag_tpu_torch`` module imports with JAX,
+transformers, ml_dtypes and the JAX package itself unavailable (the GPU
+machine has none of them), and no source of the port imports JAX."""
+
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_every_module_imports_without_jax():
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "transformers", "ml_dtypes", "kirag_tpu"):
+            sys.modules[name] = None  # any import of them raises ImportError
+        import kirag_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(kirag_tpu_torch.__path__,
+                                                       "kirag_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "kirag_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_no_source_imports_jax():
+    offenders = []
+    for path in sorted((ROOT / "kirag_tpu_torch").rglob("*.py")):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1 and (
+                    words[1].split(".")[0] in ("jax", "jaxlib", "kirag_tpu")):
+                offenders.append(f"{path.relative_to(ROOT)}: {line.strip()}")
+    assert not offenders, offenders
+    chip_smoke = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in chip_smoke and "kirag_tpu." not in chip_smoke.replace(
+        "kirag_tpu_torch.", "")

@@ -1,0 +1,103 @@
+"""The CUDA kernels' wrappers: device dispatch, launch counts, and (on a GPU)
+each kernel against its plain version.
+
+This file imports neither JAX nor ``kirag_tpu``, so the GPU machine, which
+has neither, runs it alone:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
+
+Tests marked ``cuda`` skip without a GPU. On integer-valued data every score
+is exact in any summation order, so kernel and plain version agree bitwise.
+"""
+
+import pytest
+import torch
+
+from kirag_tpu_torch.kernels import (
+    gather_groups,
+    gather_groups_plain,
+    launch_counts,
+    reset_launch_counts,
+    stream_capture,
+    stream_capture_plain,
+)
+from kirag_tpu_torch.ops.exact import _capture_budget, exact_topk_mips, hier_topk
+
+
+def test_wrappers_reject_devices_without_kernels():
+    q = torch.zeros(2, 8, device="meta")
+    c = torch.zeros(256, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        stream_capture(q, c, 256, 128, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        gather_groups(q, c, torch.zeros(2, 1, dtype=torch.int32, device="meta"))
+
+
+def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
+    g = torch.Generator().manual_seed(0)
+    q = torch.randint(-2, 3, (3, 16), generator=g).float()
+    c = torch.randint(-2, 3, (1024, 16), generator=g).float()
+    gsel = torch.tensor([[0, 3], [1, 7], [2, 5]])
+    reset_launch_counts()
+    for x, y in zip(stream_capture(q, c, 1000, 512, 2),
+                    stream_capture_plain(q, c, 1000, 512, 2)):
+        assert torch.equal(x, y)
+    assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
+    exact_topk_mips(q, c, 5, chunk_size=512, on_miss="flag")
+    assert launch_counts() == {"stream_capture": 0, "gather_groups": 0}
+
+
+def test_wrappers_check_their_operands():
+    q = torch.zeros(2, 16)
+    with pytest.raises(ValueError, match="multiple of chunk_size"):
+        stream_capture(q, torch.zeros(1000, 16), 1000, 512, 2)
+    with pytest.raises(ValueError, match="capture budget"):
+        stream_capture(q, torch.zeros(1024, 16), 1024, 512, 5)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gather_groups(q, torch.zeros(256, 16, dtype=torch.float16),
+                      torch.zeros(2, 1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="gsel"):
+        gather_groups(q, torch.zeros(256, 16), torch.zeros(3, 1, dtype=torch.int64))
+
+
+# ------------------------------------------------------------ on the card
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_bitwise_equal_plain_on_integer_data(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    n, d, chunk, k = 32768, 200, 4096, 50  # d: a multiple of 8, not of 32
+    c = torch.randint(-2, 3, (n, d), generator=g, device=cuda_device).to(dtype)
+    b = _capture_budget(k, n // chunk, chunk // 128)
+    for n_q in (5, 8, 32):
+        q = torch.randint(-2, 3, (n_q, d), generator=g, device=cuda_device).to(dtype)
+        reset_launch_counts()
+        got = stream_capture(q, c, n - 300, chunk, b)
+        want = stream_capture_plain(q, c, n - 300, chunk, b)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, k)[1], dim=-1).values
+        assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
+        assert launch_counts() == {"stream_capture": 1, "gather_groups": 1}
+
+
+@pytest.mark.cuda
+def test_exact_search_on_the_card_matches_plain(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    c = torch.randint(-3, 4, (20000, 64), generator=g, device=cuda_device).float()
+    q = torch.zeros(8, 64, device=cuda_device)
+    q[:3] = torch.randint(-3, 4, (3, 64), generator=g, device=cuda_device).float()
+    for on_miss in ("flag", "fallback"):  # zero rows: the flag fails, K2 runs
+        got = exact_topk_mips(q, c, 30, chunk_size=2048, valid_rows=19000, on_miss=on_miss)
+        want = exact_topk_mips(q, c, 30, chunk_size=2048, valid_rows=19000,
+                               on_miss=on_miss, plain=True)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)

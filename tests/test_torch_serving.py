@@ -1,0 +1,211 @@
+"""The port's index, retriever and engine held against the JAX package.
+
+``TorchIndexer`` reads and writes ``TPUIndexer``'s on-disk format, its
+search re-dispatches the checked exact search when the capture flag is False,
+and the whole slice (RetrievalEngine -> DenseRetriever -> Encoder ->
+TorchIndexer -> exact search, the kernels' plain versions on the CPU) returns
+the doc ids the JAX package returns for the same texts and parameters.
+"""
+
+import threading
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kirag_tpu.data import E5Collator as JaxE5Collator
+from kirag_tpu.index import TPUIndexer
+from kirag_tpu.retrieval import DenseRetriever as JaxDenseRetriever
+from kirag_tpu.serving import RetrievalEngine as JaxRetrievalEngine
+from kirag_tpu_torch.data import E5Collator
+from kirag_tpu_torch.index import TorchIndexer
+from kirag_tpu_torch.models import BertConfig, Encoder
+from kirag_tpu_torch.retrieval import DenseRetriever
+from kirag_tpu_torch.serving import RetrievalEngine
+
+from tests.helpers import make_corpus_json, make_tiny_encoder, make_tokenizer
+
+
+def unit_rows(rng, n, d):
+    x = rng.randn(n, d).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def numpy_topk_ids(q, c, k):
+    s = q.astype(np.float64) @ c.T.astype(np.float64)
+    return np.lexsort((np.broadcast_to(np.arange(s.shape[1]), s.shape), -s), axis=1)[:, :k]
+
+
+@pytest.mark.parametrize("direction", ["tpu_to_torch", "torch_to_tpu"])
+def test_serialized_index_loads_across_packages(rng, tmp_path, direction):
+    rows = unit_rows(rng, 3000, 16)
+    ids = [f"d{i}" for i in range(3000)]
+    queries = unit_rows(rng, 5, 16)
+    writer = TPUIndexer(16) if direction == "tpu_to_torch" else TorchIndexer(16)
+    writer.index_data(ids, rows)
+    writer.serialize(str(tmp_path), rows_per_file=1000)
+    reader = TorchIndexer(16) if direction == "tpu_to_torch" else TPUIndexer(16)
+    reader.deserialize_from(str(tmp_path))
+    assert len(reader) == 3000
+    want = writer.search_knn(queries, 7)
+    got = reader.search_knn(queries, 7)
+    for (w_ids, w_scores), (g_ids, g_scores) in zip(want, got):
+        assert g_ids == w_ids
+        np.testing.assert_allclose(g_scores, w_scores, atol=1e-5, rtol=1e-6)
+    oracle = numpy_topk_ids(queries, rows, 7)
+    assert [r[0] for r in got] == [[f"d{i}" for i in row] for row in oracle]
+
+
+def test_search_knn_redispatches_on_miss_and_stays_exact(rng):
+    # chunk-clustered top rows: the capture misses and the flag says so
+    c = (rng.randn(65536, 16) * 0.01).astype(np.float32)
+    hot = np.arange(30) * 64
+    c[hot] = (rng.randn(30, 16) + 5.0).astype(np.float32)
+    index = TorchIndexer(16, exact_impl="kernel", pallas_chunk_size=2048)
+    index.index_data(list(range(65536)), c)
+    q = np.ones((8, 16), dtype=np.float32)
+    out = index.search_knn(q, 30)
+    assert index.redispatches == 1
+    oracle = numpy_topk_ids(q, c, 30)
+    assert [r[0] for r in out] == [[str(i) for i in row] for row in oracle]
+
+
+def test_zero_padded_batch_redispatches(rng):
+    # 8 chunks of 16 groups, capture 8: a partial capture, so a tie can fail it
+    rows = unit_rows(rng, 16384, 32)
+    index = TorchIndexer(32, exact_impl="kernel", pallas_chunk_size=2048)
+    index.index_data(list(range(16384)), rows)
+    full = unit_rows(rng, 8, 32)
+    index.search_knn(full, 10)
+    assert index.redispatches == 0
+    one = index.search_knn(full[:1], 10)  # padded to 8 rows with zeros
+    assert index.redispatches == 1
+    assert one[0][0] == [str(i) for i in numpy_topk_ids(full[:1], rows, 10)[0]]
+
+
+def test_to_device_pads_to_the_chunk_grid(rng):
+    rows = unit_rows(rng, 5000, 8)
+    index = TorchIndexer(8, pallas_chunk_size=2048)
+    index.index_data(list(range(5000)), rows)
+    index.to_device()
+    assert index._device_corpus.shape == (6144, 8) and index._device_rows == 5000
+    assert torch.equal(index._device_corpus[:5000], torch.from_numpy(rows))
+    assert not index._device_corpus[5000:].any()
+    plain = TorchIndexer(8, exact_impl="plain", pallas_chunk_size=2048)
+    plain.index_data(list(range(5000)), rows)
+    plain.to_device()
+    assert plain._device_corpus.shape == (5000, 8)
+
+
+def test_bf16_index_matches_reference(rng):
+    import jax.numpy as jnp
+
+    rows = unit_rows(rng, 4096, 32)
+    queries = unit_rows(rng, 3, 32)
+    ref = TPUIndexer(32, device_dtype=jnp.bfloat16)
+    port = TorchIndexer(32, device_dtype=torch.bfloat16, exact_impl="kernel",
+                        pallas_chunk_size=1024)
+    for index in (ref, port):
+        index.index_data(list(range(4096)), rows)
+    for (w_ids, w_scores), (g_ids, g_scores) in zip(ref.search_knn(queries, 10),
+                                                    port.search_knn(queries, 10)):
+        assert g_ids == w_ids
+        np.testing.assert_allclose(g_scores, w_scores, atol=1e-5, rtol=1e-6)
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchIndexer(8, metric="l2")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchIndexer(8, compression="int8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchIndexer(8, pallas_select="hier")
+    index = TorchIndexer(8)
+    index.index_data(["a"], np.ones((1, 8), np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        index.search_knn(np.ones((1, 8), np.float32), 1, mode="approx")
+
+
+def test_retriever_helpers_match_jax(tmp_path):
+    from kirag_tpu.data import HotPotQA
+
+    jax_ret, port_ret, texts = build_slice(tmp_path)
+    queries, docs = texts[:3], texts[3:9]
+    want = jax_ret.encode_score_rank(queries, docs, 4)
+    got = port_ret.encode_score_rank(queries, docs, 4)
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5)
+    path, _ = make_corpus_json(tmp_path)
+    port_ret.corpus = HotPotQA(title_prefix="title:", passage_prefix="text:",
+                               corpus_path=path)
+    ranked = port_ret.get_documents({"doc1": 0.2, "doc5": 0.9, "doc3": 0.5})
+    assert [d["id"] for d in ranked] == ["doc5", "doc3", "doc1"] and ranked[0]["score"] == 0.9
+    assert [d["id"] for d in port_ret.get_documents(["doc2", "doc0"])] == ["doc2", "doc0"]
+    one = port_ret(texts[7], topk=2)  # a single string: one ranked list, joined
+    assert one[0]["id"] == "doc7" and "sentences" in one[0]
+
+
+def build_slice(tmp_path, n_fill=4076):
+    """Both packages' retrievers over the same tokenizer, encoder parameters
+    and documents, plus seeded filler rows so that the port's search runs
+    the stream-capture path (4096 rows, 2 chunks of 2048, capture 8 of 16
+    groups)."""
+    tok = make_tokenizer(tmp_path)
+    jax_enc = make_tiny_encoder(vocab_size=tok.vocab_size)
+    port_enc = Encoder.from_jax(jax.tree.map(np.asarray, jax_enc.params),
+                                BertConfig(**jax_enc.config.__dict__), "e5")
+    _, docs = make_corpus_json(tmp_path)
+    texts = [" ".join([d["title"]] + d["sentences"]) for d in docs]
+    fill = 0.1 * unit_rows(np.random.RandomState(1), n_fill, 32)
+    jax_ret = JaxDenseRetriever(jax_enc, JaxE5Collator(tok, 64, 64),
+                                indexer=TPUIndexer(32, chunk_size=1024), batch_size=4)
+    port_ret = DenseRetriever(port_enc, E5Collator(tok, 64, 64),
+                              indexer=TorchIndexer(32, exact_impl="kernel",
+                                                   pallas_chunk_size=2048),
+                              batch_size=4)
+    for ret in (jax_ret, port_ret):
+        ret.indexer.index_data([f"doc{i}" for i in range(len(texts))],
+                               ret.calculate_document_embeddings(texts))
+        ret.indexer.index_data([f"fill{i}" for i in range(n_fill)], fill)
+    return jax_ret, port_ret, texts
+
+
+def test_engine_slice_matches_jax(tmp_path):
+    jax_ret, port_ret, texts = build_slice(tmp_path)
+    jax_eng = JaxRetrievalEngine(jax_ret, max_batch=16, max_wait_ms=20, topk_buckets=(3, 5))
+    port_eng = RetrievalEngine(port_ret, max_batch=16, max_wait_ms=20, topk_buckets=(3, 5))
+    try:
+        # one query alone: its batch is zero-padded to 8 rows, which fails the
+        # capture flag and re-dispatches the checked search
+        before = port_ret.indexer.redispatches
+        single = port_eng.search([texts[3]], topk=5)
+        assert port_ret.indexer.redispatches > before
+        assert single[0][0]["id"] == "doc3"
+        assert [d["id"] for d in single[0]] == [
+            d["id"] for d in jax_eng.search([texts[3]], topk=5)[0]]
+
+        results, errors = {}, []
+
+        def worker(i):
+            try:
+                results[i] = (port_eng.search(texts[i:i + 2], topk=3),
+                              jax_eng.search(texts[i:i + 2], topk=3))
+            except Exception as e:  # pragma: no cover - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(0, 12, 2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not errors and not any(t.is_alive() for t in threads)
+        for i, (port_rows, jax_rows) in results.items():
+            for j, (p, r) in enumerate(zip(port_rows, jax_rows)):
+                assert p[0]["id"] == f"doc{i + j}"
+                assert [d["id"] for d in p] == [d["id"] for d in r]
+                np.testing.assert_allclose([d["score"] for d in p], [d["score"] for d in r],
+                                           atol=1e-5)
+    finally:
+        port_eng.close()
+        jax_eng.close()
