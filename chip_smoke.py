@@ -3,28 +3,42 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``kirag_tpu_torch/csrc`` with nvcc,
-holds each against its plain PyTorch version on the card, then drives the
-retrieval server (``RetrievalEngine`` -> ``DenseRetriever`` -> E5-large
-encoder in bf16 -> ``TorchIndexer`` over 1,000,000 x 1024 rows -> exact
-search) with seeded random weights, once over a float32 and once over a
-bfloat16 index: 400 requests from 4 threads, then requests of 1, 8 and 32
-texts alone, each served batch's capture flag and result held against the
-plain versions. On each index K1 and K2 are compared with their plain
-versions again and timed. Every phase raises on failure. The last two lines of
-standard output are one JSON object with each kernel's launches, error and
-times, and the result line ``{"ok": true, "device": {...}}``. Without a CUDA
-device it exits with code 2 and prints no result.
+Builds the port's CUDA kernels from ``kirag_tpu_torch/csrc`` with nvcc (one
+process per source, in parallel), holds each against its plain PyTorch
+version on the card, then drives two paths of the system with seeded random
+weights at E5-large width:
+
+- the retrieval server (phases 4-5): ``RetrievalEngine`` -> ``DenseRetriever``
+  -> E5-large encoder in bf16 -> ``TorchIndexer`` over 1,000,000 x 1024 rows
+  -> exact search, once over a float32 and once over a bfloat16 index: 400
+  requests from 4 threads, then requests of 1, 8 and 32 texts alone, each
+  served batch's capture flag and result held against the plain versions;
+  K1 and K2 compared with their plain versions again and timed;
+- the offline index build (phase 6): a 16,384-passage DPR-format TSV through
+  ``compute_corpus_embeddings`` (bf16, batch 128, buckets of 128, 256 and 512
+  tokens, every encoder layer through the flash attention kernel K3) and
+  ``build_index``, then the built index reloaded and searched; K3 held
+  against its plain version at the encoder's shapes and timed beside
+  ``scaled_dot_product_attention``.
+
+Every phase raises on failure. The last lines of standard output are the
+card's name and power limit, one JSON object with each kernel's launches,
+error, times and bound, and the result line ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import os
 import re
 import runpy
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import zlib
@@ -42,6 +56,17 @@ K = 100
 N_TEXTS = 64
 CHECK_ROWS = 131072  # phase 3's corpora
 N_REQUESTS = 400     # phase 4's traffic per index, from 4 threads
+# phase 6: passages per section and words per passage; each section's batches
+# of 128 land in one bucket (128, 256, 512 tokens); the middle one is DPR's
+# psgs_w100 shape
+SECTIONS = ((4096, (48, 84), 128), (8192, (100, 100), 256), (4096, (280, 420), 512))
+BATCH = 128
+SHARD_ROWS = 8192
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, f32 FMA
+# on the CUDA cores and bf16 tensor-core operations per second
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 
 
 def log(*parts) -> None:
@@ -72,6 +97,18 @@ def cuda_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float, ops_s: float):
+    """The least time the card could take for this work, in ms, and what
+    bounds it: each input read once and each output written once at the HBM
+    rate, or the operations at their peak rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_topk_close(vals, idx, ref_vals, ref_idx, what: str) -> None:
@@ -349,7 +386,7 @@ def serve(label, encoder, collator, index, texts, text_rows, power) -> dict:
     return stats
 
 
-def index_kernels(label, index, gen, power, err) -> dict:
+def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> dict:
     """K1 and K2 against their plain versions on the served index itself
     (its rows, its capture budget): outputs compared as in phase 3 (largest
     errors into ``err``), then timed with CUDA events, median of 10 runs."""
@@ -361,16 +398,22 @@ def index_kernels(label, index, gen, power, err) -> dict:
     corpus, valid = index._device_corpus, index._device_rows
     b = _capture_budget(K, len(corpus) // CHUNK, CHUNK // 128)
     times = {}
-    for n_q in (8, 16, 32):
+    for n_q in query_counts:
         what = f"{label} Q={n_q}"
         q = unit_rows(n_q, gen, corpus.device).to(corpus.dtype)
         got = stream_capture(q, corpus, valid, CHUNK, b)
         k1_err, swapped = capture_error(got, stream_capture_plain(q, corpus, valid, CHUNK, b),
                                         what)
         gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, K)[1], dim=-1).values
-        k2_err = gather_error(gather_groups(q, corpus, gsel),
-                              gather_groups_plain(q, corpus, gsel), what)
-        del got
+        cand = gather_groups(q, corpus, gsel)
+        k2_err = gather_error(cand, gather_groups_plain(q, corpus, gsel), what)
+        # K1 reads the whole corpus and does 2 * Q * N * D f32 fma flops; K2 the
+        # selected groups' rows (each distinct group once), 2 * Q * k * 128 * D
+        k1_bound = bound(nbytes(q, corpus, *got), 2 * n_q * len(corpus) * DIM, F32_FLOP_S)
+        groups = int(torch.unique(gsel).numel())
+        k2_bound = bound(groups * 128 * DIM * corpus.element_size() + nbytes(q, gsel, cand),
+                         2 * gsel.numel() * 128 * DIM, F32_FLOP_S)
+        del got, cand
         err["stream_capture"] = max(err["stream_capture"], k1_err)
         err["gather_groups"] = max(err["gather_groups"], k2_err)
         t = {
@@ -379,15 +422,375 @@ def index_kernels(label, index, gen, power, err) -> dict:
                 lambda: stream_capture_plain(q, corpus, valid, CHUNK, b)),
             "gather_groups": cuda_ms(lambda: gather_groups(q, corpus, gsel)),
             "gather_groups_plain": cuda_ms(lambda: gather_groups_plain(q, corpus, gsel)),
+            "stream_capture_bound": k1_bound, "gather_groups_bound": k2_bound,
         }
         times[n_q] = t
         log(f"  {what}: K1 max abs err {k1_err:.3g} ({swapped} gids differ at near-ties), "
             f"K2 max abs err {k2_err:.3g}")
         log(f"  [{power}] {what}, {len(corpus)} x {DIM}, k={K}, capture {b} of "
             f"{CHUNK // 128} groups per chunk: K1 {t['stream_capture']:.3f} ms vs plain "
-            f"{t['stream_capture_plain']:.3f} ms; K2 {t['gather_groups']:.3f} ms vs plain "
-            f"{t['gather_groups_plain']:.3f} ms (CUDA events, median of 10)")
+            f"{t['stream_capture_plain']:.3f} ms (bound {k1_bound[0]:.3f} ms, {k1_bound[1]}); "
+            f"K2 {t['gather_groups']:.3f} ms vs plain {t['gather_groups_plain']:.3f} ms "
+            f"(bound {k2_bound[0]:.3f} ms, {k2_bound[1]}, {groups} distinct groups) "
+            "(CUDA events, median of 10)")
     return times
+
+
+# ----------------------------------------------------------------- phase 6
+
+# a fixed list of 400 made-up words, from which the passages are drawn
+WORDS = [a + b for a in ("ka", "lo", "mi", "ne", "ru", "sa", "to", "vi", "ze", "qu", "bra",
+                         "stel", "mon", "dar", "fen", "gil", "hor", "jun", "pel", "wex")
+         for b in ("n", "ra", "tis", "lo", "ven", "dor", "ka", "mir", "sel", "ton", "ar", "us",
+                   "eth", "ine", "ock", "ba", "zu", "rel", "ix", "om")]
+
+
+def write_corpus(path: Path) -> None:
+    """A DPR-format passage TSV (``id \t text \t title`` and a header row),
+    made from SEED: the SECTIONS of passages in turn, words from WORDS, one in
+    five followed by a comma or a full stop."""
+    rng = np.random.RandomState(SEED)
+    words = np.array(WORDS)
+    lines, pid = ["id\ttext\ttitle"], 0
+    for n_psg, (lo, hi), _ in SECTIONS:
+        for n in rng.randint(lo, hi + 1, n_psg):
+            marks = rng.choice(np.array(["", ",", "."]), size=n, p=[0.8, 0.12, 0.08])
+            text = " ".join(np.char.add(words[rng.randint(0, len(words), n)], marks))
+            title = " ".join(words[rng.randint(0, len(words), 2)]).title()
+            pid += 1
+            lines.append(f"{pid}\t{text}\t{title}")
+    path.write_text("\n".join(lines) + "\n", encoding="utf-8")
+
+
+class TimedTokenizer(HashTokenizer):
+    """The hashing tokenizer, adding up the host seconds it takes."""
+
+    def __init__(self):
+        super().__init__()
+        self.seconds = 0.0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return super().__call__(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+
+class TimedEncoder:
+    """Passes batches through to the encoder and records each batch's token
+    length and host seconds up to ``torch.cuda.synchronize()``."""
+
+    def __init__(self, encoder):
+        self.encoder = encoder
+        self.batches = []
+
+    def __call__(self, input_ids, attention_mask):
+        t0 = time.perf_counter()
+        out = self.encoder(input_ids, attention_mask)
+        torch.cuda.synchronize()
+        self.batches.append((input_ids.shape[1], time.perf_counter() - t0))
+        return out
+
+
+def flash_segments(b: int, t: int, dev) -> torch.Tensor:
+    """[b, t] segment ids, four kinds of row in turn: right-padded (random
+    length), unpadded, all padding, and 2-4 packed documents with a padded
+    tail."""
+    rng = np.random.RandomState(t)
+    seg = np.zeros((b, t), np.int32)
+    for i in range(b):
+        kind = i % 4
+        if kind == 0:
+            seg[i, :rng.randint(1, t)] = 1
+        elif kind == 1:
+            seg[i] = 1
+        elif kind == 3:
+            cuts = np.sort(rng.choice(np.arange(1, t), rng.randint(2, 5), replace=False))
+            for j, (lo, hi) in enumerate(zip(np.r_[0, cuts[:-1]], cuts)):
+                seg[i, lo:hi] = j + 1
+    return torch.from_numpy(seg).to(dev)
+
+
+def bf16_ulps(x: torch.Tensor, n: int = 2) -> float:
+    """n bf16 ulps at the largest magnitude of x (8 significant bits)."""
+    return n * 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
+
+
+def check_flash(dev, gen, heads: int, power) -> dict:
+    """K3 against its plain version at the encoder's shapes ([128, 16, T, 64],
+    T = 128, 256, 512; q, k, v as views of one fused projection, as the
+    encoder passes them), bf16 and f32, with every kind of segment row; then
+    K3, the plain version and scaled_dot_product_attention with the
+    same-segment boolean mask (the library's call for this function, a
+    yardstick only), timed with CUDA events, median of 10."""
+    from kirag_tpu_torch.kernels import flash_attention, flash_attention_plain
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (128, 256, 512):
+            what = f"K3 {str(dtype)[6:]} [{BATCH}, {heads}, {t}, 64]"
+            seg = flash_segments(BATCH, t, dev)
+            qkv = torch.randn(BATCH, t, 3 * heads * 64, generator=gen, device=dev).to(dtype)
+            q, k, v = (x.view(BATCH, t, heads, 64).transpose(1, 2)
+                       for x in qkv.split(heads * 64, dim=-1))
+            got = flash_attention(q, k, v, seg, 0.125)
+            want = flash_attention_plain(q, k, v, seg, 0.125)
+            mask = (seg[:, None, :, None] == seg[:, None, None, :])
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, scale=0.125)
+            lib_err = float((sdpa().float() - want.float()).abs().max())
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = 1e-5 if dtype == torch.float32 else bf16_ulps(want)
+            if not (torch.isfinite(got).all() and err <= tol):
+                raise AssertionError(f"{what}: K3 differs from plain by {err} > {tol} "
+                                     "or is not finite")
+            # each input read once, the output written once; 4 * 64 flops per
+            # same-segment (query, key) pair and head, in QK^T and PV
+            pairs = int((seg[:, :, None] == seg[:, None, :]).sum())
+            kb = bound(nbytes(q, k, v, got, seg), 4 * 64 * heads * pairs,
+                       BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S)
+            r = {"err": err, "tol": tol, "bound": kb,
+                 "ms": cuda_ms(lambda: flash_attention(q, k, v, seg, 0.125)),
+                 "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, seg, 0.125)),
+                 "library_ms": cuda_ms(sdpa)}
+            out[(dtype, t)] = r
+            log(f"  {what}: max abs err {err:.3g} (tolerance {tol:.3g}; SDPA vs plain "
+                f"{lib_err:.3g}); same-segment pairs {pairs / (BATCH * t * t):.3f} of all")
+            log(f"  [{power}] {what}: K3 {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, "
+                f"SDPA with mask {r['library_ms']:.3f} ms; bound {kb[0]:.3f} ms ({kb[1]}) "
+                "(CUDA events, median of 10)")
+            del q, k, v, qkv, got, want, mask
+    return out
+
+
+def profile_encoder(encoder, batches, power) -> None:
+    """Device time of one encoder batch per bucket by kernel (torch.profiler):
+    K3, the GEMMs, and the rest (LayerNorm, GELU, casts, copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for t, (ids, mask) in batches.items():
+        encoder(ids, mask)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            encoder(ids, mask)
+            torch.cuda.synchronize()
+        split = {"K3": 0.0, "GEMM": 0.0, "other": 0.0}
+        by_name = {}
+        for evt in prof.events():  # the kernels themselves, not the ops that launched them
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.device_time_total
+            name = evt.name.lower()
+            if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
+                split["K3"] += evt.device_time_total
+            elif any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+                split["GEMM"] += evt.device_time_total
+            else:
+                split["other"] += evt.device_time_total
+        total = sum(split.values())
+        if total <= 0:
+            log(f"  profiler: no device time for the {t}-token batch (not measured)")
+            continue
+        log(f"  [{power}] encoder batch {BATCH} x {t} tokens, device time by kernel "
+            f"(torch.profiler): total {total / 1e3:.2f} ms; "
+            + ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f}%)"
+                        for k, v in split.items()))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log("    largest: " + "; ".join(f"{n[:70]} {v / 1e3:.2f} ms" for n, v in top))
+
+
+def index_build(dev, gen, config, power, err) -> dict:
+    """Phase 6, the offline index build: write a DPR-format corpus, save the
+    seeded encoder in the reference's npz format, run the port's
+    compute_corpus_embeddings and build_index CLIs, reload the index on the
+    card and search it. Then hold K3, the encoder and the index against
+    their references, and time K3."""
+    from kirag_tpu_torch.cli import build_index
+    from kirag_tpu_torch.cli import compute_corpus_embeddings as embed_cli
+    from kirag_tpu_torch.data import CORPUS_MAP, E5Collator
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.models import BertModel, Encoder, load_encoder
+    from kirag_tpu_torch.retrieval import DenseRetriever
+
+    work = Path(tempfile.mkdtemp(prefix="kirag_smoke_"))
+    try:
+        t0 = time.perf_counter()
+        tsv = work / "psgs_w100.tsv"
+        write_corpus(tsv)
+        corpus = CORPUS_MAP["wikipedia"](corpus_path=str(tsv), title_prefix="title:",
+                                         passage_prefix="text:")
+        n_psg = sum(n for n, _, _ in SECTIONS)
+        if len(corpus) != n_psg:
+            raise AssertionError(f"corpus holds {len(corpus)} passages, wrote {n_psg}")
+        model_dir = work / "e5-large-seeded"
+        model = BertModel(config, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+        Encoder(model, "e5").save(str(model_dir))
+        del model
+        log(f"  corpus: {n_psg} passages in sections of {[n for n, _, _ in SECTIONS]} "
+            f"({os.path.getsize(tsv) / 1e6:.1f} MB TSV); encoder saved as npz; "
+            f"{time.perf_counter() - t0:.1f} s of set-up")
+
+        tokenizer = TimedTokenizer()
+        argv = ["--retriever_model_name_or_path", str(model_dir), "--corpus", "wikipedia",
+                "--corpus_path", str(tsv), "--per_device_batch_size", str(BATCH),
+                "--num_passage_per_index_file", str(SHARD_ROWS), "--save_dir", str(work),
+                "--name", "e5_seeded"]
+        build_encoder, timed = embed_cli.build_encoder, []
+
+        def build_timed(args, device=None):  # records each batch the CLI embeds
+            t0 = time.perf_counter()
+            timed.append(TimedEncoder(build_encoder(args, device)))
+            timed[-1].load_s = time.perf_counter() - t0
+            return timed[-1]
+
+        embed_cli.build_encoder = build_timed
+        reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            shard_dir = embed_cli.main(argv, tokenizer=tokenizer)
+            embed_s = time.perf_counter() - t0
+        finally:
+            embed_cli.build_encoder = build_encoder
+        t0 = time.perf_counter()
+        index_dir = build_index.main(["--embeddings_dir", shard_dir, "--embedding_size",
+                                      str(DIM), "--save_dir", str(work / "index")])
+        index_s = time.perf_counter() - t0
+        # the retrieve step: a fresh index on the card loads what was built
+        t0 = time.perf_counter()
+        index = TorchIndexer(DIM, device=dev)
+        index.deserialize_from(index_dir)
+        encoder = timed[0].encoder
+        collator = E5Collator(tokenizer, 512, 512)
+        retriever = DenseRetriever(encoder, collator, indexer=index, corpus=corpus)
+        shard_files = build_index.discover_shards(shard_dir)
+        stored, ids = [], []
+        for path in shard_files:
+            with np.load(path, allow_pickle=True) as data:
+                stored.append(data["embeddings"])
+                ids.extend(data["passage_ids"])
+        stored = np.concatenate(stored)
+        rows = np.sort(np.random.RandomState(SEED).choice(n_psg, 64, replace=False))
+        found = index.search_knn(stored[rows], top_docs=10)
+        docs = retriever.get_documents([ids[r] for r in rows])
+        again = retriever.calculate_document_embeddings([corpus[r]["passage"] for r in rows])
+        # three passages asked as questions: the batch is padded to 4 rows by
+        # the retriever and to 8 by the index, fails the capture flag and
+        # re-dispatches through K2
+        before = index.redispatches
+        asked = retriever([corpus[r]["passage"] for r in rows[:3]], topk=10)
+        torch.cuda.synchronize()
+        retrieve_s = time.perf_counter() - t0
+        counts = launch_counts()
+
+        # -- K1 and K2 against their plain versions at this index's shapes
+        index_kernels("built index", index, gen, power, err, query_counts=(8, 64))
+
+        # -- the path ran through every kernel, and its outputs are right
+        lengths = [t for t, _ in timed[0].batches]
+        want_lengths = [t for n, _, t in SECTIONS for _ in range(n // BATCH)]
+        if lengths != want_lengths:
+            raise AssertionError(f"batches landed in buckets {sorted(set(lengths))}, not "
+                                 f"the sections' {[t for _, _, t in SECTIONS]}")
+        if counts["flash_attention"] < config.num_hidden_layers * len(lengths) or not (
+                counts["stream_capture"] > 0 and counts["gather_groups"] > 0):
+            raise AssertionError(f"index build: a kernel of the path was not launched "
+                                 f"(or too few times): {counts}")
+        norms = np.linalg.norm(stored, axis=-1)
+        if not (stored.shape == (n_psg, DIM) and stored.dtype == np.float32
+                and np.isfinite(stored).all() and np.abs(norms - 1).max() < 1e-5
+                and len(shard_files) == n_psg // SHARD_ROWS
+                and ids == [corpus[i]["passage_id"] for i in range(n_psg)]):
+            raise AssertionError(f"shards: {len(shard_files)} files, {stored.shape}, "
+                                 f"norms {norms.min()}..{norms.max()}")
+        if not (rows.min() < SHARD_ROWS <= rows.max()):
+            raise AssertionError("the sampled rows do not span both shards")
+        for r, (db_ids, scores) in zip(rows, found):
+            if db_ids[0] != ids[r] or abs(float(scores[0]) - 1.0) > 1e-4:
+                raise AssertionError(f"stored row {r} found {db_ids[0]} at {scores[0]}, "
+                                     f"not itself ({ids[r]}) at 1")
+        if [d["title"] for d in docs] != [corpus.data[r]["title"] for r in rows]:
+            raise AssertionError("get_documents returned other titles")
+        cos = np.sum(again * stored[rows], axis=-1)
+        if not cos.min() >= 0.999:
+            raise AssertionError(f"re-embedded passages: cosine {cos.min()} < 0.999")
+        if index.redispatches <= before or not all(
+                len(hits) == 10 and all(h["title"] for h in hits) for hits in asked):
+            raise AssertionError("the padded retrieval did not re-dispatch or lacks hits")
+        others = stored[rows] @ stored[rows].T - 2 * np.eye(len(rows))
+        log(f"  compute_corpus_embeddings -> {len(shard_files)} shards of {stored.shape}: "
+            f"{embed_s:.2f} s; build_index {index_s:.2f} s; reload + search + retrieve "
+            f"{retrieve_s:.2f} s; launches {counts}")
+        log(f"  64 stored rows across both shards found themselves at top-1 (score within "
+            f"{max(abs(float(s[0]) - 1) for _, s in found):.2g} of 1; largest cosine "
+            f"between two of them {others.max():.4f}); titles joined; re-embedded through "
+            f"DenseRetriever: cosine >= {cos.min():.6f}; 3 passages asked as questions: "
+            f"re-dispatched, 10 hits each")
+        enc_s = sum(s for _, s in timed[0].batches)
+        for _, _, t in SECTIONS:
+            secs = [s for n, s in timed[0].batches if n == t]
+            log(f"  [{power}] bucket {t}: {len(secs)} batches of {BATCH}, "
+                f"{len(secs) * BATCH / sum(secs):.1f} passages/s in the encoder (host clock "
+                f"to torch.cuda.synchronize())")
+        load_s = timed[0].load_s
+        log(f"  [{power}] whole embedding run: {n_psg / embed_s:.1f} passages/s; of "
+            f"{embed_s:.2f} s, loading the encoder (npz -> card) {load_s:.2f} s, encoder "
+            f"batches {enc_s:.2f} s, tokenizing {tokenizer.seconds:.2f} s, the rest (corpus "
+            f"rendering, copies to the host, np.savez) "
+            f"{embed_s - load_s - enc_s - tokenizer.seconds:.2f} s (host clock); the card "
+            f"waits on the host for at least {embed_s - enc_s:.2f} s "
+            f"({100 * (embed_s - enc_s) / embed_s:.1f}%)")
+        log(f"  K3 launches: {counts['flash_attention']} = {config.num_hidden_layers} layers "
+            f"x ({len(lengths)} CLI batches + the retriever's re-embedding and question "
+            f"batches)")
+
+        # -- K3 against its plain version, and its times
+        flash = check_flash(dev, gen, config.num_attention_heads, power)
+        err["flash_attention"] = max(r["err"] for (d, _), r in flash.items()
+                                     if d == torch.bfloat16)
+        err["flash_attention_f32"] = max(r["err"] for (d, _), r in flash.items()
+                                         if d == torch.float32)
+
+        # -- the encoder through K3 and through the plain attention path, one
+        # batch per bucket, bf16 and f32 compute on the same weights
+        batches = {}
+        for start, (n, _, t) in zip(np.cumsum([0] + [n for n, _, _ in SECTIONS[:-1]]),
+                                    SECTIONS):
+            enc = collator.encode_doc([corpus[i]["passage"] for i in range(start,
+                                                                        start + BATCH)])
+            if enc["input_ids"].shape[1] != t:
+                raise AssertionError(f"section at {start}: bucket "
+                                     f"{enc['input_ids'].shape[1]}, not {t}")
+            batches[t] = (enc["input_ids"], enc["attention_mask"])
+        f32 = load_encoder(str(model_dir), "e5", compute_dtype=torch.float32, device=dev)
+        for label, model_enc in (("bf16", encoder), ("f32", f32)):
+            flash_enc = Encoder(model_enc.model, "e5", model_enc.compute_dtype, "flash")
+            plain_enc = Encoder(model_enc.model, "e5", model_enc.compute_dtype, "xla")
+            for t, (ids_, mask) in batches.items():
+                reset_launch_counts()
+                a = flash_enc(ids_, mask)
+                launched = launch_counts()["flash_attention"]
+                b = plain_enc(ids_, mask)
+                cos = float(torch.sum(a * b, dim=-1).min())
+                diff = float((a - b).abs().max())
+                # bf16: the two attention paths round differently; f32: 1e-4
+                ok = cos >= 0.999 if label == "bf16" else diff <= 1e-4
+                if not (ok and torch.isfinite(a).all()
+                        and launched == config.num_hidden_layers):
+                    raise AssertionError(f"encoder {label} T={t}: K3 vs plain attention "
+                                         f"cosine {cos}, max abs diff {diff}, {launched} "
+                                         "K3 launches")
+                log(f"  encoder {label}, batch {BATCH} x {t}: through K3 vs the plain "
+                    f"attention path, pooled cosine >= {cos:.7f}, max abs diff {diff:.3g}")
+        del f32
+        profile_encoder(encoder, batches, power)
+        return {"launches": counts, "flash": flash}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -420,8 +823,8 @@ def main() -> int:
     load_library()
     log(f"  nvcc -gencode arch=compute_90a,code=sm_90a: {info.seconds:.1f} s -> "
         f"{info.path.name}")
-    for line in info.log.splitlines():
-        if "registers" in line:
+    for line in info.log.splitlines():  # ptxas -v: each kernel, its registers and spills
+        if any(w in line for w in ("Compiling entry", "registers", "spill")):
             log("  " + line.strip())
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -479,16 +882,38 @@ def main() -> int:
         del index
         torch.cuda.empty_cache()
 
+    log("phase 6: the index build (E5-large geometry, bf16 compute, seeded weights)")
+    built = index_build(dev, gen, config, power, err)
+
+    # K1/K2 times at Q=32 on the float32 index; K3's at T=512 in bf16, the
+    # index build's largest bucket
     headline = timed["float32 index"][32]
     sources = {"stream_capture": ("kirag_tpu_torch/csrc/stream_capture.cu",
                                   "kirag_tpu/ops/pallas_exact.py:467"),
                "gather_groups": ("kirag_tpu_torch/csrc/gather_groups.cu",
                                  "kirag_tpu/ops/pallas_exact.py:785")}
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": sum(s["launches"][k] for s in served.values()),
+                "launches": sum(s["launches"][k] for s in served.values())
+                + built["launches"][k],
                 "max_abs_err": err[k], "ms": headline[k], "plain_ms": headline[k + "_plain"],
+                "bound_ms": headline[k + "_bound"][0], "bound_by": headline[k + "_bound"][1],
+                "library_ms": None,
                 "at": f"Q=32, float32 index {N_ROWS} x {DIM}, chunk {CHUNK}, k={K}"}
                for k, (src, rep) in sources.items()]
+    k3 = built["flash"][(torch.bfloat16, 512)]
+    kernels.append({"name": "flash_attention", "route": "cuda",
+                    "source": "kirag_tpu_torch/csrc/flash_attention.cu",
+                    "replaces": "kirag_tpu/models/bert.py:179",
+                    "launches": built["launches"]["flash_attention"],
+                    "max_abs_err": err["flash_attention"],
+                    "max_abs_err_f32": err["flash_attention_f32"], "ms": k3["ms"],
+                    "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"][0],
+                    "bound_by": k3["bound"][1], "library_ms": k3["library_ms"],
+                    "at": f"bf16 [{BATCH}, {config.num_attention_heads}, 512, 64], mixed "
+                          "padded, unpadded, all-padding and packed segment rows; "
+                          "library_ms: scaled_dot_product_attention with the "
+                          "same-segment mask"})
+    log(power)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

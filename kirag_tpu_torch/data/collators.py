@@ -1,7 +1,7 @@
 """Query/document tokenization with bucketed padding (port of the encoding
-half of :mod:`kirag_tpu.data.collators`, as the serving path uses it: E5
-prefixes and bucket padding; the training-batch ``__call__`` belongs to the
-aligner trainer, which is not ported).
+half of :mod:`kirag_tpu.data.collators`: E5 and BGE prefixes and bucket
+padding; the training-batch ``__call__`` belongs to the aligner trainer,
+which is not ported).
 
 The batch's longest sequence is rounded up to the next bucket (powers of two
 capped at ``maxlength``), so the encoder sees few distinct shapes. Pure host
@@ -67,3 +67,23 @@ class E5Collator(RetrieverCollator):
         if isinstance(doc_list, str):
             doc_list = [doc_list]
         return super().encode_doc(["passage: " + d for d in doc_list], max_length)
+
+
+class BGECollator(RetrieverCollator):
+    """BGE query instruction prefix."""
+
+    QUERY_INSTRUCTION = "Represent this sentence for searching relevant passages:"
+
+    def encode_query(self, query_list, max_length=None):
+        if isinstance(query_list, str):
+            query_list = [query_list]
+        return super().encode_query([f"{self.QUERY_INSTRUCTION} {q}" for q in query_list],
+                                    max_length)
+
+
+COLLATOR_MAP = {
+    "E5Retriever": E5Collator,
+    "BGERetriever": BGECollator,
+    "e5": E5Collator,
+    "bge": BGECollator,
+}

@@ -2,7 +2,8 @@
 :class:`kirag_tpu.index.indexer.TPUIndexer`, inner product, uncompressed,
 one device).
 
-The corpus matrix lives on ``device`` in ``device_dtype`` (float32 or
+The corpus matrix lives on ``device`` (default: the GPU; the CPU only when
+the caller passes ``device="cpu"``) in ``device_dtype`` (float32 or
 bfloat16), pre-padded to the search chunk grid. On a CUDA device
 ``search_knn`` runs the exact stream-capture search
 (:func:`kirag_tpu_torch.ops.exact.exact_topk_mips`) in flag mode and
@@ -23,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from kirag_tpu_torch.device import require_cuda
 from kirag_tpu_torch.ops.exact import exact_topk_mips
 from kirag_tpu_torch.ops.mips import topk_mips
 
@@ -52,7 +54,7 @@ class TorchIndexer:
     """
 
     def __init__(self, vector_sz: int, metric: str = "inner_product",
-                 device="cpu", device_dtype: torch.dtype = torch.float32,
+                 device=None, device_dtype: torch.dtype = torch.float32,
                  chunk_size: int = 262144, compression: str = "none",
                  n_subquantizers: int = 0, mesh=None,
                  max_device_rows: Optional[int] = None, exact_impl: str = "auto",
@@ -82,7 +84,7 @@ class TorchIndexer:
                              f"got {pallas_chunk_size}")
         self.vector_sz = vector_sz
         self.metric = metric
-        self.device = torch.device(device)
+        self.device = require_cuda() if device is None else torch.device(device)
         self.device_dtype = device_dtype
         self.chunk_size = chunk_size
         self.compression = compression

@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions."""
 
+from kirag_tpu_torch.kernels.attention import flash_attention, flash_attention_plain
 from kirag_tpu_torch.kernels.build import build, load_library
+from kirag_tpu_torch.kernels.common import launch_counts, reset_launch_counts
 from kirag_tpu_torch.kernels.exact import (
     gather_groups,
     gather_groups_plain,
-    launch_counts,
-    reset_launch_counts,
     stream_capture,
     stream_capture_plain,
 )
@@ -13,6 +13,8 @@ from kirag_tpu_torch.kernels.exact import (
 __all__ = [
     "build",
     "load_library",
+    "flash_attention",
+    "flash_attention_plain",
     "gather_groups",
     "gather_groups_plain",
     "launch_counts",

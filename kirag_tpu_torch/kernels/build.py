@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``kirag_tpu_torch/csrc`` are compiled with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, which
+Hopper (``sm_90a``), one ``nvcc`` process per ``.cu`` file, all started
+together, and linked into one shared library with a plain C interface, which
 is loaded through ``ctypes``. Nothing is built at import time: the first
 launch builds the library into ``kirag_tpu_torch/kernels/build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags, so an edit to any
@@ -18,19 +19,21 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
     path: Path
-    seconds: float  # time spent in nvcc; 0.0 when the library already existed
+    seconds: float  # wall time of the nvcc runs; 0.0 when the library already existed
     log: str        # nvcc's messages (ptxas registers, shared memory, spills)
 
 
@@ -55,11 +58,19 @@ def _cu_sources():
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libkirag_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
 
 
 def build() -> BuildInfo:
@@ -68,17 +79,21 @@ def build() -> BuildInfo:
     if out.exists():
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _cu_sources())]
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _cu_sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return BuildInfo(out, seconds, proc.stdout + proc.stderr)
+    try:
+        with ThreadPoolExecutor(max_workers=len(objects)) as pool:
+            logs = list(pool.map(
+                _run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                       for src, obj in zip(_cu_sources(), objects)]))
+        logs.append(_run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]))
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
+    return BuildInfo(out, time.perf_counter() - t0, "".join(logs))
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -90,6 +105,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kirag_gather_groups.argtypes = [
         ptr, ptr, i32, ptr, ptr, i32, i32, i32, i64, ptr]
     lib.kirag_gather_groups.restype = i32
+    lib.kirag_flash_attention.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,  # q, k, v, seg, out, bf16, b, h, t
+        ctypes.c_float, ctypes.POINTER(i64), ptr]     # sm_scale, strides[12], stream
+    lib.kirag_flash_attention.restype = i32
     lib.kirag_error_string.argtypes = [i32]
     lib.kirag_error_string.restype = ctypes.c_char_p
 

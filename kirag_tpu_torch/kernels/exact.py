@@ -5,51 +5,20 @@
 a wrapper launches its kernel or raises; on a CPU tensor it runs its plain
 PyTorch version, which computes the same function with f32 products and f32
 sums (a CUDA kernel cannot run on the CPU). Each launch adds one to the
-wrapper's count in :func:`launch_counts`.
+wrapper's count in :func:`~kirag_tpu_torch.kernels.common.launch_counts`.
 """
 
 from __future__ import annotations
 
-import threading
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from kirag_tpu_torch.kernels.build import load_library
+from kirag_tpu_torch.kernels.common import count_launch, on_cpu, raise_on
 
 LANES = 128
 FIN_MIN = -1e30
-
-_counts_lock = threading.Lock()
-_launches: Dict[str, int] = {"stream_capture": 0, "gather_groups": 0}
-
-
-def launch_counts() -> Dict[str, int]:
-    with _counts_lock:
-        return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    with _counts_lock:
-        for name in _launches:
-            _launches[name] = 0
-
-
-def _count(name: str) -> None:
-    with _counts_lock:
-        _launches[name] += 1
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
-    device = devices.pop()
-    if device.type == "cpu":
-        return True
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
-    return False
 
 
 def _check_corpus(corpus: torch.Tensor) -> None:
@@ -65,12 +34,6 @@ def _check_kernel_operands(corpus) -> None:
     if corpus.shape[1] % 8 or corpus.data_ptr() % 16:
         raise ValueError(f"the CUDA kernels need D % 8 == 0 and a 16-byte aligned "
                          f"corpus, got D={corpus.shape[1]}")
-
-
-def _raise_on(err: int, lib, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.kirag_error_string(err).decode()} (cudaError {err})")
 
 
 # ------------------------------------------------------------ stream_capture
@@ -103,7 +66,7 @@ def stream_capture(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
     captured scores stay raw.
     """
     num_chunks, groups_per_chunk = _capture_geometry(queries, corpus, chunk_size, b)
-    if _on_cpu(queries, corpus):
+    if on_cpu(queries, corpus):
         return stream_capture_plain(queries, corpus, valid_rows, chunk_size, b)
     _check_kernel_operands(corpus)
     lib = load_library()
@@ -125,8 +88,8 @@ def stream_capture(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
             gmax.data_ptr(), capture.data_ptr(), gids.data_ptr(), capmax.data_ptr(),
             resid.data_ptr(), n_q, d, num_chunks, chunk_size, b, int(valid_rows), qpt,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, lib, "stream_capture")
-    _count("stream_capture")
+    raise_on(err, lib, "stream_capture")
+    count_launch("stream_capture")
     return gmax, capture, gids, capmax, resid
 
 
@@ -186,7 +149,7 @@ def gather_groups(queries: torch.Tensor, corpus: torch.Tensor,
     outside the corpus gives zeros (the reference's one-hot semantics).
     """
     _check_gather(queries, corpus, gsel)
-    if _on_cpu(queries, corpus, gsel):
+    if on_cpu(queries, corpus, gsel):
         return gather_groups_plain(queries, corpus, gsel)
     _check_kernel_operands(corpus)
     lib = load_library()
@@ -200,8 +163,8 @@ def gather_groups(queries: torch.Tensor, corpus: torch.Tensor,
             q.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
             g32.data_ptr(), cand.data_ptr(), n_q, d, k, corpus.shape[0],
             torch.cuda.current_stream(corpus.device).cuda_stream)
-    _raise_on(err, lib, "gather_groups")
-    _count("gather_groups")
+    raise_on(err, lib, "gather_groups")
+    count_launch("gather_groups")
     return cand
 
 

@@ -1,11 +1,20 @@
 """BERT-family encoder as a PyTorch module (port of :mod:`kirag_tpu.models.bert`).
 
 One stack backs every bi-encoder (E5, BGE, Contriever); the pooling heads
-live in :mod:`kirag_tpu_torch.models.encoders`. The arithmetic follows the
-reference's plain path (``attention_impl="xla"``): embeddings and LayerNorm
-statistics in f32, matmuls in the compute dtype, attention logits and
-softmax in f32 with the additive ``finfo(f32).min`` mask, exact (erf) GELU
-in f32. Parameters are kept in f32; linear layers cast their weights to the
+live in :mod:`kirag_tpu_torch.models.encoders`. Embeddings and LayerNorm
+statistics run in f32, matmuls in the compute dtype, exact (erf) GELU in
+f32. Attention has the reference's two paths:
+
+- ``"xla"``: einsum logits and softmax in f32 with the additive
+  ``finfo(f32).min`` mask (or the block-diagonal bias of ``segment_ids``);
+- ``"flash"``: the flash attention kernel (K3,
+  :func:`kirag_tpu_torch.kernels.flash_attention`) with segment ids, so pad
+  queries attend among pads instead of over the real keys; pad rows never
+  reach the pooling heads.
+
+``"auto"`` takes ``"flash"`` on a CUDA device for T % 128 == 0 and head_dim
+64 (the reference's TPU gate read as "on the card"), else ``"xla"``.
+Parameters are kept in f32; linear layers cast their weights to the
 activation dtype when called (a no-op once :class:`Encoder` has cast them).
 """
 
@@ -13,12 +22,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from kirag_tpu_torch.kernels.attention import flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,16 +94,24 @@ class Attention(nn.Module):
         self.output = nn.Linear(h, h, device=device)
         self.output_layer_norm = LayerNorm(h, config.layer_norm_eps, device=device)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask_bias: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None, impl: str = "xla") -> torch.Tensor:
+        """``impl="xla"`` takes the additive ``mask_bias``, ``"flash"`` the
+        [B, T] ``segment_ids``."""
         b, t, h = x.shape
         nh, hd = self.config.num_attention_heads, self.config.head_dim
         if self.config.fused_qkv:
             q, k, v = _dense(x, self.qkv).split(h, dim=-1)
         else:
             q, k, v = (_dense(x, self.query), _dense(x, self.key), _dense(x, self.value))
-        q = q.reshape(b, t, nh, hd)
-        k = k.reshape(b, t, nh, hd)
-        v = v.reshape(b, t, nh, hd)
+        q = q.view(b, t, nh, hd)
+        k = k.view(b, t, nh, hd)
+        v = v.view(b, t, nh, hd)
+        if impl == "flash":
+            # [b, nh, t, hd] views of the projection: the kernel reads them by strides
+            ctx = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  segment_ids, 1.0 / math.sqrt(hd))
+            return _dense(ctx.transpose(1, 2).reshape(b, t, h), self.output)
         # [b, nh, t, t] logits and softmax in f32
         logits = torch.einsum("bqnd,bknd->bnqk", q.to(torch.float32), k.to(torch.float32))
         logits = logits / math.sqrt(hd) + mask_bias
@@ -116,8 +135,10 @@ class Layer(nn.Module):
         self.attention = Attention(config, device=device)
         self.mlp = Mlp(config, device=device)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
-        x = self.attention.output_layer_norm(x + self.attention(x, mask_bias))
+    def forward(self, x: torch.Tensor, mask_bias: Optional[torch.Tensor],
+                segment_ids: Optional[torch.Tensor], impl: str) -> torch.Tensor:
+        x = self.attention.output_layer_norm(x + self.attention(x, mask_bias, segment_ids,
+                                                                impl))
         inter = F.gelu(_dense(x, self.mlp.intermediate).to(torch.float32))
         mlp_out = _dense(inter.to(x.dtype), self.mlp.output)
         return self.mlp.output_layer_norm(x + mlp_out)
@@ -153,27 +174,57 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.float32, attention_impl: str = "auto",
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """last_hidden_state [B, T, H] in ``compute_dtype``.
+
+        ``position_ids`` / ``segment_ids`` pack several documents into one row:
+        positions restart per document, and attention stays within a segment
+        (segment 0 is padding, whose tokens attend among themselves)."""
         t = input_ids.shape[1]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
+        if position_ids is None:
+            position_ids = torch.arange(t, device=input_ids.device)[None]
         emb = self.embeddings
-        positions = torch.arange(t, device=input_ids.device)
-        x = (emb.word_embeddings(input_ids) + emb.position_embeddings(positions)[None]
+        x = (emb.word_embeddings(input_ids) + emb.position_embeddings(position_ids)
              + emb.token_type_embeddings(token_type_ids))
         x = emb.layer_norm(x).to(compute_dtype)
-        neg = torch.finfo(torch.float32).min
-        mask_bias = (1.0 - attention_mask[:, None, None, :].to(torch.float32)) * neg
+        impl = _resolve_attention_impl(attention_impl, x.device, t, self.config)
+        seg = attention_mask if segment_ids is None else segment_ids
+        mask_bias = None
+        if impl == "xla":
+            neg = torch.finfo(torch.float32).min
+            if segment_ids is None:
+                mask_bias = (1.0 - attention_mask[:, None, None, :].to(torch.float32)) * neg
+            else:
+                same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+                mask_bias = torch.where(same, 0.0, neg)
         for layer in self.layers:
-            x = layer(x, mask_bias)
+            x = layer(x, mask_bias, seg, impl)
         return x
+
+
+def _resolve_attention_impl(impl: str, device: torch.device, t: int, config: BertConfig) -> str:
+    if impl not in ("auto", "flash", "xla"):
+        raise KeyError(f"attention_impl must be auto|flash|xla, got {impl!r}")
+    if impl != "auto":
+        return impl
+    if device.type == "cuda" and t % 128 == 0 and config.head_dim == 64:
+        return "flash"
+    return "xla"
 
 
 def bert_encode(model: BertModel, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Run the stack; returns last_hidden_state [B, T, H] in ``compute_dtype``."""
-    return model(input_ids, attention_mask, token_type_ids, compute_dtype)
+                compute_dtype: torch.dtype = torch.float32, attention_impl: str = "auto",
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the stack; returns last_hidden_state [B, T, H] in ``compute_dtype``.
+    ``attention_impl``: "xla", "flash" or "auto" (see the module docstring)."""
+    return model(input_ids, attention_mask, token_type_ids, compute_dtype, attention_impl,
+                 position_ids, segment_ids)
 
 
 def params_from_jax(params: Dict[str, Any], config: BertConfig) -> Dict[str, torch.Tensor]:
@@ -217,3 +268,67 @@ def params_from_jax(params: Dict[str, Any], config: BertConfig) -> Dict[str, tor
         norm(f"{pre}.output_layer_norm", mlp["output_layer_norm"])
     linear("pooler", params["pooler"])
     return sd
+
+
+def _f32(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device="cpu", dtype=torch.float32)
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def convert_hf_state_dict(state_dict: Mapping[str, Any],
+                          config: BertConfig) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`BertModel` from an HF ``BertModel`` state dict
+    (numpy arrays or tensors, keys with or without a leading ``bert.``). HF
+    linear weights are already [out, in]; with ``config.fused_qkv`` q, k and
+    v are stacked into one ``qkv`` weight. A checkpoint without a pooler gets
+    a zero one (no pooling head reads it)."""
+    hf = {key.removeprefix("bert."): value for key, value in state_dict.items()}
+    sd: Dict[str, torch.Tensor] = {}
+
+    def copy(dst: str, src: str) -> None:
+        sd[f"{dst}.weight"] = _f32(hf[f"{src}.weight"])
+        sd[f"{dst}.bias"] = _f32(hf[f"{src}.bias"])
+
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"embeddings.{name}.weight"] = _f32(hf[f"embeddings.{name}.weight"])
+    copy("embeddings.layer_norm", "embeddings.LayerNorm")
+    for i in range(config.num_hidden_layers):
+        src, dst = f"encoder.layer.{i}", f"layers.{i}"
+        qkv = [f"{src}.attention.self.{n}" for n in ("query", "key", "value")]
+        if config.fused_qkv:
+            for part in ("weight", "bias"):
+                sd[f"{dst}.attention.qkv.{part}"] = torch.cat(
+                    [_f32(hf[f"{n}.{part}"]) for n in qkv])
+        else:
+            for n, name in zip(("query", "key", "value"), qkv):
+                copy(f"{dst}.attention.{n}", name)
+        copy(f"{dst}.attention.output", f"{src}.attention.output.dense")
+        copy(f"{dst}.attention.output_layer_norm", f"{src}.attention.output.LayerNorm")
+        copy(f"{dst}.mlp.intermediate", f"{src}.intermediate.dense")
+        copy(f"{dst}.mlp.output", f"{src}.output.dense")
+        copy(f"{dst}.mlp.output_layer_norm", f"{src}.output.LayerNorm")
+    if "pooler.dense.weight" in hf:
+        copy("pooler", "pooler.dense")
+    else:
+        sd["pooler.weight"] = torch.zeros(config.hidden_size, config.hidden_size)
+        sd["pooler.bias"] = torch.zeros(config.hidden_size)
+    return sd
+
+
+def config_from_hf(hf_config) -> BertConfig:
+    """A :class:`BertConfig` from a transformers BertConfig object or its
+    ``config.json`` dict."""
+    get = (hf_config.get if isinstance(hf_config, dict)
+           else lambda key, default=None: getattr(hf_config, key, default))
+    return BertConfig(
+        vocab_size=get("vocab_size"),
+        hidden_size=get("hidden_size"),
+        num_hidden_layers=get("num_hidden_layers"),
+        num_attention_heads=get("num_attention_heads"),
+        intermediate_size=get("intermediate_size"),
+        max_position_embeddings=get("max_position_embeddings"),
+        type_vocab_size=get("type_vocab_size", 2),
+        layer_norm_eps=get("layer_norm_eps", 1e-12),
+        pad_token_id=get("pad_token_id", 0) or 0,
+    )

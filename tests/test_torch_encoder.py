@@ -76,7 +76,7 @@ def test_encoder_heads_match_jax(rng, encoder_type):
     ids, mask = batch(rng)
     want = JaxEncoder(jax.tree.map(jnp.asarray, params), JaxBertConfig(**SMALL),
                       encoder_type, attention_impl="xla")(ids, mask)
-    got = Encoder.from_jax(params, BertConfig(**SMALL), encoder_type)(ids, mask)
+    got = Encoder.from_jax(params, BertConfig(**SMALL), encoder_type, device="cpu")(ids, mask)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     if encoder_type != "contriever":
         np.testing.assert_allclose(np.linalg.norm(got.numpy(), axis=-1), 1.0, atol=1e-5)
@@ -86,7 +86,7 @@ def test_encoder_loads_a_jax_saved_encoder(rng, tmp_path):
     params = init_bert_params(jax.random.key(7), JaxBertConfig(**SMALL))
     jax_enc = JaxEncoder(params, JaxBertConfig(**SMALL), "bge", attention_impl="xla")
     jax_enc.save(str(tmp_path))
-    enc = Encoder.load(str(tmp_path))
+    enc = Encoder.load(str(tmp_path), device="cpu")
     assert enc.encoder_type == "bge" and enc.config == BertConfig(**SMALL)
     ids, mask = batch(rng)
     np.testing.assert_allclose(enc(ids, mask).numpy(), np.asarray(jax_enc(ids, mask)), **TOL)
@@ -108,8 +108,9 @@ def test_seeded_init_is_reproducible():
 def test_bf16_compute_tracks_f32(rng):
     params = jax_params(SMALL, seed=4)
     ids, mask = batch(rng)
-    f32 = Encoder.from_jax(params, BertConfig(**SMALL))(ids, mask)
-    bf16 = Encoder.from_jax(params, BertConfig(**SMALL), compute_dtype=torch.bfloat16)(ids, mask)
+    f32 = Encoder.from_jax(params, BertConfig(**SMALL), device="cpu")(ids, mask)
+    bf16 = Encoder.from_jax(params, BertConfig(**SMALL), device="cpu",
+                            compute_dtype=torch.bfloat16)(ids, mask)
     assert bf16.dtype == torch.float32
     cos = torch.sum(f32 * bf16, dim=-1)  # both unit rows (e5 head)
     assert float(cos.min()) > 0.999

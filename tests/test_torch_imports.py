@@ -1,5 +1,5 @@
 """The port stands alone: every ``kirag_tpu_torch`` module imports with JAX,
-transformers, ml_dtypes and the JAX package itself unavailable (the GPU
+transformers, safetensors, ml_dtypes and the JAX package itself unavailable (the GPU
 machine has none of them), and no source of the port imports JAX."""
 
 import pathlib
@@ -13,7 +13,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 def test_every_module_imports_without_jax():
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "transformers", "ml_dtypes", "kirag_tpu"):
+        for name in ("jax", "jaxlib", "transformers", "safetensors", "ml_dtypes",
+                     "kirag_tpu"):
             sys.modules[name] = None  # any import of them raises ImportError
         import kirag_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(kirag_tpu_torch.__path__,
@@ -28,7 +29,7 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 29
 
 
 def test_no_source_imports_jax():

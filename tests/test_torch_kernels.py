@@ -1,5 +1,6 @@
 """The CUDA kernels' wrappers: device dispatch, launch counts, and (on a GPU)
-each kernel against its plain version.
+each kernel against its plain version: K1 and K2 of the exact search, K3
+the encoder's flash attention.
 
 This file imports neither JAX nor ``kirag_tpu``, so the GPU machine, which
 has neither, runs it alone:
@@ -10,10 +11,14 @@ Tests marked ``cuda`` skip without a GPU. On integer-valued data every score
 is exact in any summation order, so kernel and plain version agree bitwise.
 """
 
+import math
+
 import pytest
 import torch
 
 from kirag_tpu_torch.kernels import (
+    flash_attention,
+    flash_attention_plain,
     gather_groups,
     gather_groups_plain,
     launch_counts,
@@ -44,7 +49,7 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
         assert torch.equal(x, y)
     assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
     exact_topk_mips(q, c, 5, chunk_size=512, on_miss="flag")
-    assert launch_counts() == {"stream_capture": 0, "gather_groups": 0}
+    assert launch_counts() == {"stream_capture": 0, "gather_groups": 0, "flash_attention": 0}
 
 
 def test_wrappers_check_their_operands():
@@ -86,7 +91,8 @@ def test_kernels_bitwise_equal_plain_on_integer_data(cuda_device, dtype):
             assert torch.equal(x, y)
         gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, k)[1], dim=-1).values
         assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
-        assert launch_counts() == {"stream_capture": 1, "gather_groups": 1}
+        assert launch_counts() == {"stream_capture": 1, "gather_groups": 1,
+                                  "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -101,3 +107,36 @@ def test_exact_search_on_the_card_matches_plain(cuda_device):
                                on_miss=on_miss, plain=True)
         for x, y in zip(got, want):
             assert torch.equal(x, y)
+
+
+def bf16_ulps(x: torch.Tensor, n: int = 2) -> float:
+    """n bf16 ulps at the largest magnitude of x (8 significant bits)."""
+    return n * 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [128, 384])
+def test_flash_attention_matches_plain(cuda_device, dtype, t):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    b, h = 3, 4
+    seg = torch.ones(b, t, dtype=torch.int32, device=cuda_device)
+    seg[0, t - 50:] = 0                                    # right padding
+    seg[1] = 0                                             # a row of padding only
+    seg[2] = torch.repeat_interleave(                      # packed documents
+        torch.tensor([1, 2, 3, 0], device=cuda_device),
+        torch.tensor([30, 70, t - 110, 10], device=cuda_device))
+    # q, k, v as strided views of one fused projection, as the encoder passes them
+    qkv = 2.0 * torch.randn(b, t, 3 * h * 64, generator=g, device=cuda_device)
+    q, k, v = (x.view(b, t, h, 64).transpose(1, 2) for x in qkv.to(dtype).split(h * 64, -1))
+    reset_launch_counts()
+    got = flash_attention(q, k, v, seg, 0.125)
+    assert launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, seg, 0.125)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.transpose(1, 2).is_contiguous()
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:  # logits of sd 4: f32 sums in two orders, exps
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert float((got.float() - want.float()).abs().max()) <= bf16_ulps(want)

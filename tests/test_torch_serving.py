@@ -42,10 +42,10 @@ def test_serialized_index_loads_across_packages(rng, tmp_path, direction):
     rows = unit_rows(rng, 3000, 16)
     ids = [f"d{i}" for i in range(3000)]
     queries = unit_rows(rng, 5, 16)
-    writer = TPUIndexer(16) if direction == "tpu_to_torch" else TorchIndexer(16)
+    writer = TPUIndexer(16) if direction == "tpu_to_torch" else TorchIndexer(16, device="cpu")
     writer.index_data(ids, rows)
     writer.serialize(str(tmp_path), rows_per_file=1000)
-    reader = TorchIndexer(16) if direction == "tpu_to_torch" else TPUIndexer(16)
+    reader = TorchIndexer(16, device="cpu") if direction == "tpu_to_torch" else TPUIndexer(16)
     reader.deserialize_from(str(tmp_path))
     assert len(reader) == 3000
     want = writer.search_knn(queries, 7)
@@ -62,7 +62,7 @@ def test_search_knn_redispatches_on_miss_and_stays_exact(rng):
     c = (rng.randn(65536, 16) * 0.01).astype(np.float32)
     hot = np.arange(30) * 64
     c[hot] = (rng.randn(30, 16) + 5.0).astype(np.float32)
-    index = TorchIndexer(16, exact_impl="kernel", pallas_chunk_size=2048)
+    index = TorchIndexer(16, device="cpu", exact_impl="kernel", pallas_chunk_size=2048)
     index.index_data(list(range(65536)), c)
     q = np.ones((8, 16), dtype=np.float32)
     out = index.search_knn(q, 30)
@@ -74,7 +74,7 @@ def test_search_knn_redispatches_on_miss_and_stays_exact(rng):
 def test_zero_padded_batch_redispatches(rng):
     # 8 chunks of 16 groups, capture 8: a partial capture, so a tie can fail it
     rows = unit_rows(rng, 16384, 32)
-    index = TorchIndexer(32, exact_impl="kernel", pallas_chunk_size=2048)
+    index = TorchIndexer(32, device="cpu", exact_impl="kernel", pallas_chunk_size=2048)
     index.index_data(list(range(16384)), rows)
     full = unit_rows(rng, 8, 32)
     index.search_knn(full, 10)
@@ -86,13 +86,13 @@ def test_zero_padded_batch_redispatches(rng):
 
 def test_to_device_pads_to_the_chunk_grid(rng):
     rows = unit_rows(rng, 5000, 8)
-    index = TorchIndexer(8, pallas_chunk_size=2048)
+    index = TorchIndexer(8, device="cpu", pallas_chunk_size=2048)
     index.index_data(list(range(5000)), rows)
     index.to_device()
     assert index._device_corpus.shape == (6144, 8) and index._device_rows == 5000
     assert torch.equal(index._device_corpus[:5000], torch.from_numpy(rows))
     assert not index._device_corpus[5000:].any()
-    plain = TorchIndexer(8, exact_impl="plain", pallas_chunk_size=2048)
+    plain = TorchIndexer(8, device="cpu", exact_impl="plain", pallas_chunk_size=2048)
     plain.index_data(list(range(5000)), rows)
     plain.to_device()
     assert plain._device_corpus.shape == (5000, 8)
@@ -104,7 +104,7 @@ def test_bf16_index_matches_reference(rng):
     rows = unit_rows(rng, 4096, 32)
     queries = unit_rows(rng, 3, 32)
     ref = TPUIndexer(32, device_dtype=jnp.bfloat16)
-    port = TorchIndexer(32, device_dtype=torch.bfloat16, exact_impl="kernel",
+    port = TorchIndexer(32, device="cpu", device_dtype=torch.bfloat16, exact_impl="kernel",
                         pallas_chunk_size=1024)
     for index in (ref, port):
         index.index_data(list(range(4096)), rows)
@@ -121,7 +121,7 @@ def test_unported_options_raise():
         TorchIndexer(8, compression="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndexer(8, pallas_select="hier")
-    index = TorchIndexer(8)
+    index = TorchIndexer(8, device="cpu")
     index.index_data(["a"], np.ones((1, 8), np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         index.search_knn(np.ones((1, 8), np.float32), 1, mode="approx")
@@ -154,14 +154,14 @@ def build_slice(tmp_path, n_fill=4076):
     tok = make_tokenizer(tmp_path)
     jax_enc = make_tiny_encoder(vocab_size=tok.vocab_size)
     port_enc = Encoder.from_jax(jax.tree.map(np.asarray, jax_enc.params),
-                                BertConfig(**jax_enc.config.__dict__), "e5")
+                                BertConfig(**jax_enc.config.__dict__), "e5", device="cpu")
     _, docs = make_corpus_json(tmp_path)
     texts = [" ".join([d["title"]] + d["sentences"]) for d in docs]
     fill = 0.1 * unit_rows(np.random.RandomState(1), n_fill, 32)
     jax_ret = JaxDenseRetriever(jax_enc, JaxE5Collator(tok, 64, 64),
                                 indexer=TPUIndexer(32, chunk_size=1024), batch_size=4)
     port_ret = DenseRetriever(port_enc, E5Collator(tok, 64, 64),
-                              indexer=TorchIndexer(32, exact_impl="kernel",
+                              indexer=TorchIndexer(32, device="cpu", exact_impl="kernel",
                                                    pallas_chunk_size=2048),
                               batch_size=4)
     for ret in (jax_ret, port_ret):
