@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from ``kirag_tpu_torch/csrc`` with nvcc (one
 process per source, in parallel), holds each against its plain PyTorch
-version on the card, then drives two paths of the system with seeded random
-weights at E5-large width:
+version on the card, then drives three paths of the system with seeded random
+weights at E5-large and Llama-3-8B-Instruct width:
 
 - the retrieval server (phases 4-5): ``RetrievalEngine`` -> ``DenseRetriever``
   -> E5-large encoder in bf16 -> ``TorchIndexer`` over 1,000,000 x 1024 rows
@@ -19,7 +19,15 @@ weights at E5-large width:
   tokens, every encoder layer through the flash attention kernel K3) and
   ``build_index``, then the built index reloaded and searched; K3 held
   against its plain version at the encoder's shapes and timed beside
-  ``scaled_dot_product_attention``.
+  ``scaled_dot_product_attention``;
+- the KiRAG loop (phases 7-9): the 4-bit matmul kernel K6 held against its
+  plain version at every projection shape of Llama-3-8B and timed; the LLM
+  at Llama-3-8B-Instruct geometry with NF4 weights quantized on the card,
+  decoding 4 prompts through ``TorchLlamaBackend`` (225 K6 launches a step),
+  held against the same run through K6's plain version, with ``load_llama``
+  reading a full-width 2-layer checkpoint; then
+  ``kirag_tpu_torch.cli.retrieve`` over phase 6's index and encoder with that
+  LLM handed in, timed by stage.
 
 Every phase raises on failure. The last lines of standard output are the
 card's name and power limit, one JSON object with each kernel's launches,
@@ -36,6 +44,7 @@ import re
 import runpy
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -62,6 +71,16 @@ N_REQUESTS = 400     # phase 4's traffic per index, from 4 threads
 SECTIONS = ((4096, (48, 84), 128), (8192, (100, 100), 256), (4096, (280, 420), 512))
 BATCH = 128
 SHARD_ROWS = 8192
+# phase 8: the first decode step's logits through K6 and through its plain
+# version may differ by these shares of the largest logit. bf16: the two runs
+# round a few outputs of each projection one bf16 ulp apart (phase 7), and 32
+# layers of random weights amplify that; f32: the same path, whose two runs
+# differ only in the order of f32 sums
+LOGIT_TOL = 2.0 ** -3
+LOGIT_TOL_F32 = 1e-3
+# a spin of about 2 ms at the H100's 1.98 GHz, longer than the host takes to
+# enqueue any timed call (see cuda_ms)
+QUEUE_CYCLES = 4_000_000
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, f32 FMA
 # on the CUDA cores and bf16 tensor-core operations per second
 HBM_BYTES_S = 3.35e12
@@ -83,12 +102,18 @@ def unit_rows(n: int, gen: torch.Generator, device) -> torch.Tensor:
                                          dim=-1)
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median over ``reps`` runs of one call, timed with CUDA events."""
+def cuda_ms(fn, reps: int = 10, flush=None) -> float:
+    """Median over ``reps`` runs of one call, timed with CUDA events on the
+    card alone: before each, ``flush`` runs and then a spin of QUEUE_CYCLES
+    keeps the card busy while the host enqueues the call, so the host's
+    launch time (tens of microseconds in a Python wrapper) is not counted."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(QUEUE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -602,12 +627,13 @@ def profile_encoder(encoder, batches, power) -> None:
         log("    largest: " + "; ".join(f"{n[:70]} {v / 1e3:.2f} ms" for n, v in top))
 
 
-def index_build(dev, gen, config, power, err) -> dict:
+def index_build(work: Path, dev, gen, config, power, err) -> dict:
     """Phase 6, the offline index build: write a DPR-format corpus, save the
     seeded encoder in the reference's npz format, run the port's
     compute_corpus_embeddings and build_index CLIs, reload the index on the
     card and search it. Then hold K3, the encoder and the index against
-    their references, and time K3."""
+    their references, and time K3. Everything is written under ``work``;
+    returns the launches, K3's figures and the paths phase 9 reads."""
     from kirag_tpu_torch.cli import build_index
     from kirag_tpu_torch.cli import compute_corpus_embeddings as embed_cli
     from kirag_tpu_torch.data import CORPUS_MAP, E5Collator
@@ -616,181 +642,734 @@ def index_build(dev, gen, config, power, err) -> dict:
     from kirag_tpu_torch.models import BertModel, Encoder, load_encoder
     from kirag_tpu_torch.retrieval import DenseRetriever
 
-    work = Path(tempfile.mkdtemp(prefix="kirag_smoke_"))
+    t0 = time.perf_counter()
+    tsv = work / "psgs_w100.tsv"
+    write_corpus(tsv)
+    corpus = CORPUS_MAP["wikipedia"](corpus_path=str(tsv), title_prefix="title:",
+                                     passage_prefix="text:")
+    n_psg = sum(n for n, _, _ in SECTIONS)
+    if len(corpus) != n_psg:
+        raise AssertionError(f"corpus holds {len(corpus)} passages, wrote {n_psg}")
+    model_dir = work / "e5-large-seeded"
+    model = BertModel(config, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    Encoder(model, "e5").save(str(model_dir))
+    del model
+    log(f"  corpus: {n_psg} passages in sections of {[n for n, _, _ in SECTIONS]} "
+        f"({os.path.getsize(tsv) / 1e6:.1f} MB TSV); encoder saved as npz; "
+        f"{time.perf_counter() - t0:.1f} s of set-up")
+
+    tokenizer = TimedTokenizer()
+    argv = ["--retriever_model_name_or_path", str(model_dir), "--corpus", "wikipedia",
+            "--corpus_path", str(tsv), "--per_device_batch_size", str(BATCH),
+            "--num_passage_per_index_file", str(SHARD_ROWS), "--save_dir", str(work),
+            "--name", "e5_seeded"]
+    build_encoder, timed = embed_cli.build_encoder, []
+
+    def build_timed(args, device=None):  # records each batch the CLI embeds
+        t0 = time.perf_counter()
+        timed.append(TimedEncoder(build_encoder(args, device)))
+        timed[-1].load_s = time.perf_counter() - t0
+        return timed[-1]
+
+    embed_cli.build_encoder = build_timed
+    reset_launch_counts()
     try:
         t0 = time.perf_counter()
-        tsv = work / "psgs_w100.tsv"
-        write_corpus(tsv)
-        corpus = CORPUS_MAP["wikipedia"](corpus_path=str(tsv), title_prefix="title:",
-                                         passage_prefix="text:")
-        n_psg = sum(n for n, _, _ in SECTIONS)
-        if len(corpus) != n_psg:
-            raise AssertionError(f"corpus holds {len(corpus)} passages, wrote {n_psg}")
-        model_dir = work / "e5-large-seeded"
-        model = BertModel(config, device=dev,
-                          generator=torch.Generator(device=dev).manual_seed(SEED + 1))
-        Encoder(model, "e5").save(str(model_dir))
-        del model
-        log(f"  corpus: {n_psg} passages in sections of {[n for n, _, _ in SECTIONS]} "
-            f"({os.path.getsize(tsv) / 1e6:.1f} MB TSV); encoder saved as npz; "
-            f"{time.perf_counter() - t0:.1f} s of set-up")
+        shard_dir = embed_cli.main(argv, tokenizer=tokenizer)
+        embed_s = time.perf_counter() - t0
+    finally:
+        embed_cli.build_encoder = build_encoder
+    t0 = time.perf_counter()
+    index_dir = build_index.main(["--embeddings_dir", shard_dir, "--embedding_size",
+                                  str(DIM), "--save_dir", str(work / "index")])
+    index_s = time.perf_counter() - t0
+    # the retrieve step: a fresh index on the card loads what was built
+    t0 = time.perf_counter()
+    index = TorchIndexer(DIM, device=dev)
+    index.deserialize_from(index_dir)
+    encoder = timed[0].encoder
+    collator = E5Collator(tokenizer, 512, 512)
+    retriever = DenseRetriever(encoder, collator, indexer=index, corpus=corpus)
+    shard_files = build_index.discover_shards(shard_dir)
+    stored, ids = [], []
+    for path in shard_files:
+        with np.load(path, allow_pickle=True) as data:
+            stored.append(data["embeddings"])
+            ids.extend(data["passage_ids"])
+    stored = np.concatenate(stored)
+    rows = np.sort(np.random.RandomState(SEED).choice(n_psg, 64, replace=False))
+    found = index.search_knn(stored[rows], top_docs=10)
+    docs = retriever.get_documents([ids[r] for r in rows])
+    again = retriever.calculate_document_embeddings([corpus[r]["passage"] for r in rows])
+    # three passages asked as questions: the batch is padded to 4 rows by
+    # the retriever and to 8 by the index, fails the capture flag and
+    # re-dispatches through K2
+    before = index.redispatches
+    asked = retriever([corpus[r]["passage"] for r in rows[:3]], topk=10)
+    torch.cuda.synchronize()
+    retrieve_s = time.perf_counter() - t0
+    counts = launch_counts()
 
-        tokenizer = TimedTokenizer()
-        argv = ["--retriever_model_name_or_path", str(model_dir), "--corpus", "wikipedia",
-                "--corpus_path", str(tsv), "--per_device_batch_size", str(BATCH),
-                "--num_passage_per_index_file", str(SHARD_ROWS), "--save_dir", str(work),
-                "--name", "e5_seeded"]
-        build_encoder, timed = embed_cli.build_encoder, []
+    # -- K1 and K2 against their plain versions at this index's shapes
+    index_kernels("built index", index, gen, power, err, query_counts=(8, 64))
 
-        def build_timed(args, device=None):  # records each batch the CLI embeds
+    # -- the path ran through every kernel, and its outputs are right
+    lengths = [t for t, _ in timed[0].batches]
+    want_lengths = [t for n, _, t in SECTIONS for _ in range(n // BATCH)]
+    if lengths != want_lengths:
+        raise AssertionError(f"batches landed in buckets {sorted(set(lengths))}, not "
+                             f"the sections' {[t for _, _, t in SECTIONS]}")
+    if counts["flash_attention"] < config.num_hidden_layers * len(lengths) or not (
+            counts["stream_capture"] > 0 and counts["gather_groups"] > 0):
+        raise AssertionError(f"index build: a kernel of the path was not launched "
+                             f"(or too few times): {counts}")
+    norms = np.linalg.norm(stored, axis=-1)
+    if not (stored.shape == (n_psg, DIM) and stored.dtype == np.float32
+            and np.isfinite(stored).all() and np.abs(norms - 1).max() < 1e-5
+            and len(shard_files) == n_psg // SHARD_ROWS
+            and ids == [corpus[i]["passage_id"] for i in range(n_psg)]):
+        raise AssertionError(f"shards: {len(shard_files)} files, {stored.shape}, "
+                             f"norms {norms.min()}..{norms.max()}")
+    if not (rows.min() < SHARD_ROWS <= rows.max()):
+        raise AssertionError("the sampled rows do not span both shards")
+    for r, (db_ids, scores) in zip(rows, found):
+        if db_ids[0] != ids[r] or abs(float(scores[0]) - 1.0) > 1e-4:
+            raise AssertionError(f"stored row {r} found {db_ids[0]} at {scores[0]}, "
+                                 f"not itself ({ids[r]}) at 1")
+    if [d["title"] for d in docs] != [corpus.data[r]["title"] for r in rows]:
+        raise AssertionError("get_documents returned other titles")
+    cos = np.sum(again * stored[rows], axis=-1)
+    if not cos.min() >= 0.999:
+        raise AssertionError(f"re-embedded passages: cosine {cos.min()} < 0.999")
+    if index.redispatches <= before or not all(
+            len(hits) == 10 and all(h["title"] for h in hits) for hits in asked):
+        raise AssertionError("the padded retrieval did not re-dispatch or lacks hits")
+    others = stored[rows] @ stored[rows].T - 2 * np.eye(len(rows))
+    log(f"  compute_corpus_embeddings -> {len(shard_files)} shards of {stored.shape}: "
+        f"{embed_s:.2f} s; build_index {index_s:.2f} s; reload + search + retrieve "
+        f"{retrieve_s:.2f} s; launches {counts}")
+    log(f"  64 stored rows across both shards found themselves at top-1 (score within "
+        f"{max(abs(float(s[0]) - 1) for _, s in found):.2g} of 1; largest cosine "
+        f"between two of them {others.max():.4f}); titles joined; re-embedded through "
+        f"DenseRetriever: cosine >= {cos.min():.6f}; 3 passages asked as questions: "
+        f"re-dispatched, 10 hits each")
+    enc_s = sum(s for _, s in timed[0].batches)
+    for _, _, t in SECTIONS:
+        secs = [s for n, s in timed[0].batches if n == t]
+        log(f"  [{power}] bucket {t}: {len(secs)} batches of {BATCH}, "
+            f"{len(secs) * BATCH / sum(secs):.1f} passages/s in the encoder (host clock "
+            f"to torch.cuda.synchronize())")
+    load_s = timed[0].load_s
+    log(f"  [{power}] whole embedding run: {n_psg / embed_s:.1f} passages/s; of "
+        f"{embed_s:.2f} s, loading the encoder (npz -> card) {load_s:.2f} s, encoder "
+        f"batches {enc_s:.2f} s, tokenizing {tokenizer.seconds:.2f} s, the rest (corpus "
+        f"rendering, copies to the host, np.savez) "
+        f"{embed_s - load_s - enc_s - tokenizer.seconds:.2f} s (host clock); the card "
+        f"waits on the host for at least {embed_s - enc_s:.2f} s "
+        f"({100 * (embed_s - enc_s) / embed_s:.1f}%)")
+    log(f"  K3 launches: {counts['flash_attention']} = {config.num_hidden_layers} layers "
+        f"x ({len(lengths)} CLI batches + the retriever's re-embedding and question "
+        f"batches)")
+
+    # -- K3 against its plain version, and its times
+    flash = check_flash(dev, gen, config.num_attention_heads, power)
+    err["flash_attention"] = max(r["err"] for (d, _), r in flash.items()
+                                 if d == torch.bfloat16)
+    err["flash_attention_f32"] = max(r["err"] for (d, _), r in flash.items()
+                                     if d == torch.float32)
+
+    # -- the encoder through K3 and through the plain attention path, one
+    # batch per bucket, bf16 and f32 compute on the same weights
+    batches = {}
+    for start, (n, _, t) in zip(np.cumsum([0] + [n for n, _, _ in SECTIONS[:-1]]),
+                                SECTIONS):
+        enc = collator.encode_doc([corpus[i]["passage"] for i in range(start,
+                                                                    start + BATCH)])
+        if enc["input_ids"].shape[1] != t:
+            raise AssertionError(f"section at {start}: bucket "
+                                 f"{enc['input_ids'].shape[1]}, not {t}")
+        batches[t] = (enc["input_ids"], enc["attention_mask"])
+    f32 = load_encoder(str(model_dir), "e5", compute_dtype=torch.float32, device=dev)
+    for label, model_enc in (("bf16", encoder), ("f32", f32)):
+        flash_enc = Encoder(model_enc.model, "e5", model_enc.compute_dtype, "flash")
+        plain_enc = Encoder(model_enc.model, "e5", model_enc.compute_dtype, "xla")
+        for t, (ids_, mask) in batches.items():
+            reset_launch_counts()
+            a = flash_enc(ids_, mask)
+            launched = launch_counts()["flash_attention"]
+            b = plain_enc(ids_, mask)
+            cos = float(torch.sum(a * b, dim=-1).min())
+            diff = float((a - b).abs().max())
+            # bf16: the two attention paths round differently; f32: 1e-4
+            ok = cos >= 0.999 if label == "bf16" else diff <= 1e-4
+            if not (ok and torch.isfinite(a).all()
+                    and launched == config.num_hidden_layers):
+                raise AssertionError(f"encoder {label} T={t}: K3 vs plain attention "
+                                     f"cosine {cos}, max abs diff {diff}, {launched} "
+                                     "K3 launches")
+            log(f"  encoder {label}, batch {BATCH} x {t}: through K3 vs the plain "
+                f"attention path, pooled cosine >= {cos:.7f}, max abs diff {diff:.3g}")
+    del f32
+    profile_encoder(encoder, batches, power)
+    return {"launches": counts, "flash": flash, "tsv": tsv, "model_dir": model_dir,
+            "index_dir": index_dir}
+
+
+# ----------------------------------------------------------------- phase 7
+
+# Llama-3-8B-Instruct's projections (LlamaConfig()): the distinct [in, out]
+# shapes, each named by the projections that have it
+QMM_SHAPES = (("q_proj, o_proj", 4096, 4096), ("k_proj, v_proj", 4096, 1024),
+              ("gate_proj, up_proj", 4096, 14336), ("down_proj", 14336, 4096),
+              ("lm_head", 4096, 128256))
+QMM_ROWS = (1, 4, 32)
+L2_FLUSH_BYTES = 256 << 20  # more than the H100's 50 MB L2: each timed launch reads cold
+
+
+def int4_error(got, want, abs_sum):
+    """K6 against its plain version: each element within one bf16 ulp of
+    |plain|, or, where the sum is near zero, within 2^-18 of the sum of its
+    products' magnitudes (two f32 summation orders). Returns the largest
+    difference, the elements over one ulp, and whether all are within."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bound_ = torch.maximum(ulp, abs_sum * 2.0 ** -18)
+    return float(diff.max()), int((diff > ulp).sum()), bool((diff <= bound_).all())
+
+
+def check_qmm(dev, gen, power) -> dict:
+    """K6 against its plain version at every projection shape of the 8B
+    model, 1, 4 and 32 rows, NF4 and linear int4, bf16 x; then K6, the plain
+    version and torch.matmul of x with the dequantized bf16 kernel (the bf16
+    model's product for the same layer, 4x the weight bytes; a yardstick
+    only), timed with CUDA events, median of 10, the L2 cache flushed before
+    each run."""
+    from kirag_tpu_torch.kernels import int4_matmul, int4_matmul_plain
+    from kirag_tpu_torch.kernels.qmm import dequant_nibbles
+    from kirag_tpu_torch.models.llm import _quantize_kernel_int4, _quantize_kernel_nf4
+
+    scratch = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
+    flush = scratch.sum  # reads evict the L2 without leaving dirty lines to write back
+    out = {}
+    for names, in_dim, out_dim in QMM_SHAPES:
+        kernel = torch.randn(in_dim, out_dim, generator=gen, device=dev) * 0.02
+        for fmt, quantize in (("nf4", _quantize_kernel_nf4), ("int4", _quantize_kernel_int4)):
+            p = quantize(kernel)
+            packed, scales, cb = p["kernel_q4"], p["kernel_scale4"], p.get("kernel_cb4")
+            lo, hi = dequant_nibbles(packed, cb)
+            block_scale = scales.repeat_interleave(64, dim=0)
+            w_abs = torch.stack([lo.abs(), hi.abs()], dim=1).reshape(in_dim, out_dim) * block_scale
+            w_bf16 = (torch.stack([lo, hi], dim=1).reshape(in_dim, out_dim)
+                      * block_scale).to(torch.bfloat16)
+            del lo, hi, block_scale
+            for rows in QMM_ROWS:
+                what = f"K6 {fmt} {names} [{in_dim // 2}, {out_dim}] x {rows} rows"
+                x = torch.randn(rows, in_dim, generator=gen, device=dev).to(torch.bfloat16)
+                got = int4_matmul(x, packed, scales, cb)
+                want = int4_matmul_plain(x, packed, scales, cb)
+                err, over_ulp, ok = int4_error(got, want, x.float().abs() @ w_abs)
+                torch.cuda.synchronize()
+                if not (ok and torch.isfinite(got).all() and got.dtype == torch.bfloat16):
+                    raise AssertionError(f"{what}: differs from plain by {err} beyond one "
+                                         "bf16 ulp and the f32 bound, or is not finite")
+                kb = bound(nbytes(x, packed, scales, got) + (64 if cb is not None else 0),
+                           2 * rows * in_dim * out_dim, BF16_FLOP_S)
+                r = {"err": err, "over_ulp": over_ulp, "bound": kb,
+                     "ms": cuda_ms(lambda: int4_matmul(x, packed, scales, cb), flush=flush),
+                     "plain_ms": cuda_ms(lambda: int4_matmul_plain(x, packed, scales, cb),
+                                         flush=flush),
+                     "library_ms": cuda_ms(lambda: torch.matmul(x, w_bf16), flush=flush)}
+                out[(fmt, names, rows)] = r
+                log(f"  {what}: max abs err {err:.3g} ({over_ulp} of {got.numel()} elements "
+                    f"beyond one bf16 ulp, all within the f32 bound); [{power}] K6 "
+                    f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms, bf16 matmul "
+                    f"{r['library_ms']:.4f} ms; bound {kb[0]:.4f} ms ({kb[1]}) (CUDA events, "
+                    "median of 10, cold L2)")
+            del p, packed, scales, cb, w_abs, w_bf16
+        del kernel
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- phase 8
+
+LLM_ROWS = 4                             # the Generator's batch_size
+LLM_PROMPTS = (1800, 900, 400, 100)      # prompt tokens per row: the 2048 bucket
+LLM_NEW_TOKENS = 64                      # the constructor's max_new_tokens
+PREFILL_BUCKETS = (128, 512, 2048, 4096)
+EOS_ID = 128009                          # Llama-3-Instruct's <|eot_id|>
+
+
+def left_padded_prompts(lengths, vocab: int, seed: int):
+    rng = np.random.RandomState(seed)
+    width = max(lengths)
+    ids = np.zeros((len(lengths), width), np.int32)
+    mask = np.zeros((len(lengths), width), np.int32)
+    for i, n in enumerate(lengths):
+        ids[i, width - n:] = rng.randint(0, min(vocab, 128000), n)
+        mask[i, width - n:] = 1
+    return ids, mask
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """bf16 tensors into a ``.safetensors`` file: an 8-byte header length, a
+    JSON header, then the raw little-endian bytes."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 2
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.int16).cpu().numpy().tobytes())
+
+
+def check_load_llama(work: Path, dev, config, power) -> dict:
+    """load_llama reads a seeded full-width, 2-layer HF checkpoint (bf16
+    safetensors) written here, quantizes it to NF4 on the card, and gives
+    the bytes of quantizing the same tensors directly; 8 tokens through K6."""
+    import dataclasses
+
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.models.llm import _quantize_kernel_nf4, greedy_decode, load_llama
+
+    cfg = dataclasses.replace(config, num_hidden_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    h, i, kv = cfg.hidden_size, cfg.intermediate_size, cfg.num_key_value_heads * cfg.head_dim
+    rand = lambda *shape: (torch.randn(*shape, generator=gen, device=dev) * 0.02  # noqa: E731
+                           ).to(torch.bfloat16)
+    shapes = {"self_attn.q_proj": (h, h), "self_attn.k_proj": (kv, h),
+              "self_attn.v_proj": (kv, h), "self_attn.o_proj": (h, h),
+              "mlp.gate_proj": (i, h), "mlp.up_proj": (i, h), "mlp.down_proj": (h, i)}
+    tensors = {"model.embed_tokens.weight": rand(cfg.vocab_size, h),
+               "model.norm.weight": torch.ones(h, dtype=torch.bfloat16, device=dev),
+               "lm_head.weight": rand(cfg.vocab_size, h)}
+    for layer in range(2):
+        pre = f"model.layers.{layer}"
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"{pre}.{norm}.weight"] = torch.ones(h, dtype=torch.bfloat16, device=dev)
+        for name, shape in shapes.items():
+            tensors[f"{pre}.{name}.weight"] = rand(*shape)
+    ckpt = work / "llama3-8b-width-2-layers"
+    ckpt.mkdir()
+    (ckpt / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": cfg.vocab_size, "hidden_size": h,
+        "num_hidden_layers": 2, "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads, "intermediate_size": i,
+        "max_position_embeddings": 8192, "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
+        "tie_word_embeddings": False, "hidden_act": "silu"}))
+    t0 = time.perf_counter()
+    write_safetensors(ckpt / "model.safetensors", tensors)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, loaded_cfg = load_llama(str(ckpt), compute_dtype=torch.bfloat16, quant_bits=4)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if loaded_cfg != dataclasses.replace(cfg, int4_impl="kernel"):
+        raise AssertionError(f"load_llama read the config as {loaded_cfg}")
+    checks = [(params["lm_head"], tensors["lm_head.weight"])]
+    for layer in range(2):
+        for name in shapes:
+            checks.append((params["layers"][layer][name.split(".")[1]],
+                           tensors[f"model.layers.{layer}.{name}.weight"]))
+    for got, weight in checks:
+        want = _quantize_kernel_nf4(weight.float().T)
+        for key in ("kernel_q4", "kernel_scale4", "kernel_cb4"):
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"load_llama: {key} differs from quantizing the tensor")
+    if not torch.equal(params["embed_tokens"], tensors["model.embed_tokens.weight"]):
+        raise AssertionError("load_llama: embed_tokens differs from the written tensor")
+    ids, mask = left_padded_prompts((60, 30, 45, 12), cfg.vocab_size, SEED + 3)
+    reset_launch_counts()
+    out, logits = greedy_decode(params, ids, mask, loaded_cfg, 8, torch.bfloat16)
+    launched = launch_counts()["int4_matmul"]
+    if not (torch.isfinite(logits).all() and launched == 7 * (2 * 7 + 1)):
+        raise AssertionError(f"2-layer model: {launched} K6 launches, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    size = os.path.getsize(ckpt / "model.safetensors")
+    shutil.rmtree(ckpt)
+    log(f"  load_llama: a seeded {size / 1e9:.2f} GB bf16 safetensors checkpoint at "
+        f"Llama-3-8B width, 2 layers (written in {write_s:.1f} s), read and quantized to "
+        f"NF4 on the card in {load_s:.1f} s; {len(checks)} kernels byte-equal to quantizing "
+        f"the written tensors, embeddings equal; 8 tokens through K6 ({launched} launches), "
+        "logits finite")
+    return {"load_s": load_s, "launches": launched}
+
+
+def profile_decode(backend, ids, mask, steps: int, power) -> dict:
+    """Device time of ``steps`` decode steps by kernel (torch.profiler): K6,
+    the rest, and the share of the wall time the card is busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, state = backend.greedy_start(ids, mask, steps + 1, return_logits=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        backend.greedy_resume(state, steps, return_logits=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {"K6": 0.0, "GEMM": 0.0, "other": 0.0}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.name.lower()
+        if "int4_matmul_kernel" in name or "reduce_splits_kernel" in name:
+            split["K6"] += evt.device_time_total
+        elif any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+            split["GEMM"] += evt.device_time_total
+        else:
+            split["other"] += evt.device_time_total
+    busy = sum(split.values()) / 1e6
+    if busy <= 0:
+        log("  profiler: no device time for the decode steps (not measured)")
+        return {"busy_ms": None}
+    log(f"  [{power}] {steps} decode steps, {LLM_ROWS} rows, device time by kernel "
+        f"(torch.profiler): {busy * 1e3 / steps:.3f} ms per step of "
+        f"{wall * 1e3 / steps:.3f} ms wall (profiled): busy {100 * busy / wall:.1f}%, idle "
+        f"{100 * (1 - busy / wall):.1f}%; " + ", ".join(
+            f"{k} {v / 1e3 / steps:.3f} ms ({100 * v / 1e6 / busy:.1f}%)"
+            for k, v in split.items()))
+    return {"busy_ms": busy * 1e3 / steps, "k6_share": split["K6"] / 1e6 / busy}
+
+
+def llm_decode(work: Path, dev, power) -> dict:
+    """Phase 8, the LLM at Llama-3-8B-Instruct geometry (LlamaConfig()),
+    seeded, NF4 weights quantized on the card: greedy decode of 4 left-padded
+    prompts through TorchLlamaBackend with K6, held against the same run
+    with K6's plain version, start + resume against greedy, K6 launches per
+    step, prefill and decode times, and load_llama at full width."""
+    import dataclasses
+
+    from kirag_tpu_torch.kernels import int4_matmul_plain, launch_counts, reset_launch_counts
+    from kirag_tpu_torch.models import llm
+
+    config = dataclasses.replace(llm.LlamaConfig(), int4_impl="kernel")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llm.init_llama_params(config, seed=SEED, device=dev, dtype=torch.bfloat16,
+                                   quant_bits=4)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    quantized = sum(llm.param_bytes(p) for layer in params["layers"]
+                    for p in layer.values()) + llm.param_bytes(params["lm_head"])
+    log(f"  Llama-3-8B geometry ({config.num_hidden_layers} layers x {config.hidden_size}, "
+        f"{config.num_attention_heads} heads / {config.num_key_value_heads} KV, MLP "
+        f"{config.intermediate_size}, vocab {config.vocab_size}), NF4 built on the card in "
+        f"{init_s:.1f} s: {llm.param_bytes(params) / 1e9:.3f} GB of parameters resident "
+        f"({quantized / 1e9:.3f} GB packed projections + scales, embeddings "
+        f"{llm.param_bytes(params['embed_tokens']) / 1e9:.3f} GB bf16); "
+        f"torch.cuda.memory_allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB while building")
+    backend = llm.TorchLlamaBackend(params, config, eos_token_id=EOS_ID)
+    ids, mask = left_padded_prompts(LLM_PROMPTS, config.vocab_size, SEED)
+    per_step = 7 * config.num_hidden_layers + 1
+    steps = LLM_NEW_TOKENS - 1
+
+    reset_launch_counts()
+    got_ids, got_logits = backend.greedy(ids, mask, LLM_NEW_TOKENS)
+    k6_run = launch_counts()["int4_matmul"]
+    kernel_fn = llm.int4_matmul
+    llm.int4_matmul = int4_matmul_plain  # _dense's K6 call -> the plain version
+    try:
+        plain_ids, plain_logits = backend.greedy(ids, mask, LLM_NEW_TOKENS)
+    finally:
+        llm.int4_matmul = kernel_fn
+    if k6_run != per_step * steps:
+        raise AssertionError(f"{k6_run} K6 launches for {steps} decode steps, not "
+                             f"{per_step} per step")
+    # the same two runs at f32 compute (K6 on f32 rows), one decode step
+    f32 = {}
+    for label, fn in (("K6", kernel_fn), ("plain", int4_matmul_plain)):
+        llm.int4_matmul = fn
+        try:
+            f32[label] = llm.greedy_decode(params, ids, mask, config, 2, torch.float32)[1][:, 1]
+        finally:
+            llm.int4_matmul = kernel_fn
+    f32_err = float((f32["K6"] - f32["plain"]).abs().max())
+    f32_tol = LOGIT_TOL_F32 * float(f32["plain"].abs().max())
+    if not f32_err <= f32_tol:
+        raise AssertionError(f"f32 compute, first decode step: K6 logits differ from plain "
+                             f"by {f32_err} > {f32_tol}")
+    del f32
+    # token 0 and its logits come from the prefill (the parity path, no K6):
+    # the same in both runs; the first decode step's logits within LOGIT_TOL
+    # of the plain run's; ids equal up to the first step whose plain top-2
+    # margin is under that tolerance
+    tol = LOGIT_TOL * float(np.abs(plain_logits[:, 1]).max())
+    if not (np.array_equal(got_logits[:, 0], plain_logits[:, 0])
+            and np.isfinite(got_logits).all()):
+        raise AssertionError("prefill logits differ between the two runs, or are not finite")
+    step1_err = float(np.abs(got_logits[:, 1] - plain_logits[:, 1]).max())
+    if not step1_err <= tol:
+        raise AssertionError(f"first decode step: K6 logits differ from plain by "
+                             f"{step1_err} > {tol}")
+    top2 = np.sort(plain_logits, axis=-1)[..., -2:]
+    margins = top2[..., 1] - top2[..., 0]                       # [rows, steps]
+    agree = []
+    for row in range(LLM_ROWS):
+        close = np.nonzero(margins[row] < tol)[0]
+        upto = int(close[0]) + 1 if len(close) else LLM_NEW_TOKENS
+        if not np.array_equal(got_ids[row, :upto], plain_ids[row, :upto]):
+            raise AssertionError(f"row {row}: ids differ from the plain run before the "
+                                 f"first near-tie (step {upto})")
+        agree.append(int(np.argmin(got_ids[row] == plain_ids[row]))
+                     if not np.array_equal(got_ids[row], plain_ids[row]) else LLM_NEW_TOKENS)
+    log(f"  greedy {LLM_NEW_TOKENS} tokens, {LLM_ROWS} rows of {list(LLM_PROMPTS)} prompt "
+        f"tokens (bucket {backend._bucket(max(LLM_PROMPTS))}): {k6_run} K6 launches = "
+        f"{per_step} x {steps} decode steps; first decode step's logits within "
+        f"{step1_err:.3g} of the plain-K6 run (tolerance {tol:.3g} = {LOGIT_TOL} x max "
+        f"|logit|; at f32 compute {f32_err:.3g}, tolerance {f32_tol:.3g} = {LOGIT_TOL_F32} "
+        f"x max |logit|); ids equal to it for {agree} tokens per row (each up to its first "
+        f"near-tie at least)")
+
+    reset_launch_counts()
+    first, _, state = backend.greedy_start(ids, mask, LLM_NEW_TOKENS, return_logits=False)
+    parts = [first]
+    for n in (steps // 3, steps // 3, steps - 2 * (steps // 3)):
+        part, _, state = backend.greedy_resume(state, n, return_logits=False)
+        parts.append(part)
+    k6_resume = launch_counts()["int4_matmul"]
+    if not (np.array_equal(np.concatenate(parts, axis=1), got_ids)
+            and k6_resume == per_step * steps):
+        raise AssertionError(f"greedy_start + greedy_resume differ from greedy, or "
+                             f"{k6_resume} K6 launches")
+    log(f"  greedy_start + 3 x greedy_resume ({steps} steps) == greedy: ids equal, "
+        f"{k6_resume} K6 launches")
+
+    # times: prefill per bucket (full rows, no K6), decode steps at 4 rows
+    prefill = {}
+    for t in PREFILL_BUCKETS:
+        b_ids, b_mask = left_padded_prompts((t,) * LLM_ROWS, config.vocab_size, SEED + t)
+        secs = []
+        for _ in range(3):
             t0 = time.perf_counter()
-            timed.append(TimedEncoder(build_encoder(args, device)))
-            timed[-1].load_s = time.perf_counter() - t0
-            return timed[-1]
+            backend.greedy(b_ids, b_mask, 1, return_logits=False)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        prefill[t] = statistics.median(secs)
+    reset_launch_counts()
+    _, _, state = backend.greedy_start(ids, mask, LLM_NEW_TOKENS, return_logits=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    backend.greedy_resume(state, steps, return_logits=False)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    k6_timed = launch_counts()["int4_matmul"]
+    t_cache = backend._bucket(max(LLM_PROMPTS)) + LLM_NEW_TOKENS
+    kv_bytes = (2 * config.num_hidden_layers * LLM_ROWS * t_cache * config.num_key_value_heads
+                * config.head_dim * 2)
+    step_bound = (quantized + kv_bytes) / HBM_BYTES_S
+    log(f"  [{power}] prefill, {LLM_ROWS} rows (host clock to synchronize, median of 3): "
+        + ", ".join(f"{t} tokens {s * 1e3:.1f} ms" for t, s in prefill.items()))
+    log(f"  [{power}] decode, {LLM_ROWS} rows at a {t_cache}-slot cache: {step_s * 1e3:.3f} "
+        f"ms per step, {LLM_ROWS / step_s:.1f} tokens/s (host clock over {steps} steps); "
+        f"bound {step_bound * 1e3:.3f} ms (weights {quantized / 1e9:.3f} GB + KV "
+        f"{kv_bytes / 1e9:.3f} GB at 3.35 TB/s)")
+    profiled = profile_decode(backend, ids, mask, 8, power)
+    if profiled["busy_ms"] is not None:
+        idle = 1 - profiled["busy_ms"] / (step_s * 1e3)
+        log(f"  [{power}] the card is busy {profiled['busy_ms']:.3f} ms of an unprofiled "
+            f"{step_s * 1e3:.3f} ms step: idle {100 * idle:.1f}%")
+    loaded = check_load_llama(work, dev, config, power)
+    return {"params": params, "config": config, "launches": k6_run + k6_resume + k6_timed,
+            "step_ms": step_s * 1e3, "step_bound_ms": step_bound * 1e3, "prefill": prefill,
+            "init_s": init_s, "profile": profiled, "load": loaded}
 
-        embed_cli.build_encoder = build_timed
+
+# ----------------------------------------------------------------- phase 9
+
+# questions per run, cut from 4 and 2 to keep the smoke inside half its time
+# limit: each question's 10 passages cost 3 KG batches of 512 decode steps
+KIRAG_QUESTIONS = 1   # run A, the reference-shaped sequential loop
+KIRAG_CACHED = 1      # run B, over a seeded KG cache
+
+
+class ByteLevelTokenizer:
+    """Stand-in for Llama-3's tokenizer (its vocabulary file is not in the
+    repository): ids 0-255 are UTF-8 bytes, the chat template's special
+    tokens have Llama-3's ids, and every other id decodes to one fixed word
+    of WORDS. Text round-trips, so stop words and the triple parser see real
+    text. Callable as the Generator calls a HuggingFace tokenizer."""
+
+    SPECIAL = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+               "<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
+               "<|eot_id|>": 128009}
+    eos_token_id = pad_token_id = EOS_ID
+    bos_token_id = 128000
+    _split = re.compile("(" + "|".join(re.escape(s) for s in SPECIAL) + ")")
+
+    def __init__(self):
+        self.padding_side, self.truncation_side = "left", "left"
+        self.names = {v: k for k, v in self.SPECIAL.items()}
+
+    def encode(self, text: str, add_special_tokens: bool = True):
+        ids = [self.bos_token_id] if add_special_tokens else []
+        for piece in self._split.split(text):
+            ids.extend([self.SPECIAL[piece]] if piece in self.SPECIAL else piece.encode())
+        return ids
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        out, run = [], bytearray()
+        for i in (int(i) for i in ids):
+            if i < 256:
+                run.append(i)
+                continue
+            out.append(run.decode(errors="replace"))
+            run = bytearray()
+            if i in self.names:
+                out.append("" if skip_special_tokens else self.names[i])
+            else:
+                out.append(" " + WORDS[i % len(WORDS)])
+        out.append(run.decode(errors="replace"))
+        return "".join(out)
+
+    def batch_decode(self, rows, skip_special_tokens: bool = False):
+        return [self.decode(r, skip_special_tokens) for r in rows]
+
+    def __call__(self, text, max_length=None, padding=False, truncation=False,
+                 return_tensors=None, add_special_tokens=True):
+        if isinstance(text, str):
+            return {"input_ids": self.encode(text, add_special_tokens)}
+        rows = [self.encode(t, add_special_tokens) for t in text]
+        if truncation and max_length:
+            rows = [r[-max_length:] if self.truncation_side == "left" else r[:max_length]
+                    for r in rows]
+        width = max(len(r) for r in rows)
+        ids = np.full((len(rows), width), self.pad_token_id, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            cols = slice(width - len(r), width) if self.padding_side == "left" else slice(0, len(r))
+            ids[i, cols], mask[i, cols] = r, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+class StageTimer:
+    """Host seconds spent in named calls, each of which ends with its results
+    on the host (numpy or text), so the device work is inside the span."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+
+class TimedRetriever:
+    """The KiRAG loop's retriever, its searches timed as "retrieve"."""
+
+    def __init__(self, retriever, timer: StageTimer):
+        self.retriever = retriever
+        self._call = timer.wrap("retrieve", retriever.__call__)
+
+    def __call__(self, *args, **kwargs):
+        return self._call(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.retriever, name)
+
+
+def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
+    """Phase 9, KiRAG through kirag_tpu_torch.cli.retrieve.main: phase 6's
+    DPR TSV, index and E5 npz (as retriever and Aligner), phase 8's NF4
+    Llama handed in, questions of tests/fixtures_realtext.py. Run A: the
+    reference-shaped sequential loop, the KG cache starting empty. Run B:
+    the same CLI over a KG cache of run A's documents seeded with one triple
+    each from the passage's own words (the random LLM extracts none), so the
+    Aligner rescoring and the constructor run too."""
+    import pickle
+
+    from kirag_tpu_torch.cli import retrieve as retrieve_cli
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    fixtures = runpy.run_path(str(Path(__file__).resolve().parent / "tests"
+                                  / "fixtures_realtext.py"))
+    questions = [{"id": f"q{i}", "question": r["question"], "answers": [r["gold"]]}
+                 for i, r in enumerate(fixtures["REALTEXT_QA"][:KIRAG_QUESTIONS])]
+    (work / "questions.json").write_text(json.dumps(questions))
+    with open(Path(built["index_dir"]) / "index_meta.pkl", "rb") as f:
+        index_ids = set(pickle.load(f))
+    cache = work / "kg_cache.pkl"
+    setup = retrieve_cli.setup_kirag_model
+    runs = {}
+    for run, n_q in (("A", KIRAG_QUESTIONS), ("B", KIRAG_CACHED)):
+        timer = StageTimer()
+
+        def instrumented(*args, **kwargs):
+            kirag = setup(*args, **kwargs)
+            kirag.retriever = TimedRetriever(kirag.retriever, timer)
+            kg_llm = kirag.kg_generator.generator
+            kg_llm.generate_texts = timer.wrap("KG decode", kg_llm.generate_texts)
+            kirag.filter_candidate_triples = timer.wrap("Aligner rescoring",
+                                                        kirag.filter_candidate_triples)
+            kirag._decode_constructor = timer.wrap("constructor decode",
+                                                   kirag._decode_constructor)
+            return kirag
+
+        argv = ["--dataset", "hotpotqa", "--query_file", str(work / "questions.json"),
+                "--num_queries", str(n_q), "--corpus", "wikipedia", "--corpus_path",
+                str(built["tsv"]), "--index_folder", str(built["index_dir"]),
+                "--embedding_size", str(DIM), "--retriever_model_name_or_path",
+                str(built["model_dir"]), "--llm", "Meta-Llama-3-8B-Instruct",
+                "--llm_quant_bits", "4", "--aligner_model", "e5",
+                "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns", "2",
+                "--topk", "10", "--num_beams", "1", "--concurrent_questions", "1",
+                "--cached_kg_triples_file", str(cache), "--save_dir", str(work),
+                "--name", f"kirag_{run}", "--save_file", "results.json"]
+        retrieve_cli.setup_kirag_model = instrumented
         reset_launch_counts()
         try:
             t0 = time.perf_counter()
-            shard_dir = embed_cli.main(argv, tokenizer=tokenizer)
-            embed_s = time.perf_counter() - t0
+            path = retrieve_cli.main(argv, tokenizer=HashTokenizer(),
+                                     llm_tokenizer=ByteLevelTokenizer(),
+                                     aligner_tokenizer=HashTokenizer(),
+                                     llm=(decoded["params"], decoded["config"]))
+            wall = time.perf_counter() - t0
         finally:
-            embed_cli.build_encoder = build_encoder
-        t0 = time.perf_counter()
-        index_dir = build_index.main(["--embeddings_dir", shard_dir, "--embedding_size",
-                                      str(DIM), "--save_dir", str(work / "index")])
-        index_s = time.perf_counter() - t0
-        # the retrieve step: a fresh index on the card loads what was built
-        t0 = time.perf_counter()
-        index = TorchIndexer(DIM, device=dev)
-        index.deserialize_from(index_dir)
-        encoder = timed[0].encoder
-        collator = E5Collator(tokenizer, 512, 512)
-        retriever = DenseRetriever(encoder, collator, indexer=index, corpus=corpus)
-        shard_files = build_index.discover_shards(shard_dir)
-        stored, ids = [], []
-        for path in shard_files:
-            with np.load(path, allow_pickle=True) as data:
-                stored.append(data["embeddings"])
-                ids.extend(data["passage_ids"])
-        stored = np.concatenate(stored)
-        rows = np.sort(np.random.RandomState(SEED).choice(n_psg, 64, replace=False))
-        found = index.search_knn(stored[rows], top_docs=10)
-        docs = retriever.get_documents([ids[r] for r in rows])
-        again = retriever.calculate_document_embeddings([corpus[r]["passage"] for r in rows])
-        # three passages asked as questions: the batch is padded to 4 rows by
-        # the retriever and to 8 by the index, fails the capture flag and
-        # re-dispatches through K2
-        before = index.redispatches
-        asked = retriever([corpus[r]["passage"] for r in rows[:3]], topk=10)
-        torch.cuda.synchronize()
-        retrieve_s = time.perf_counter() - t0
+            retrieve_cli.setup_kirag_model = setup
         counts = launch_counts()
-
-        # -- K1 and K2 against their plain versions at this index's shapes
-        index_kernels("built index", index, gen, power, err, query_counts=(8, 64))
-
-        # -- the path ran through every kernel, and its outputs are right
-        lengths = [t for t, _ in timed[0].batches]
-        want_lengths = [t for n, _, t in SECTIONS for _ in range(n // BATCH)]
-        if lengths != want_lengths:
-            raise AssertionError(f"batches landed in buckets {sorted(set(lengths))}, not "
-                                 f"the sections' {[t for _, _, t in SECTIONS]}")
-        if counts["flash_attention"] < config.num_hidden_layers * len(lengths) or not (
-                counts["stream_capture"] > 0 and counts["gather_groups"] > 0):
-            raise AssertionError(f"index build: a kernel of the path was not launched "
-                                 f"(or too few times): {counts}")
-        norms = np.linalg.norm(stored, axis=-1)
-        if not (stored.shape == (n_psg, DIM) and stored.dtype == np.float32
-                and np.isfinite(stored).all() and np.abs(norms - 1).max() < 1e-5
-                and len(shard_files) == n_psg // SHARD_ROWS
-                and ids == [corpus[i]["passage_id"] for i in range(n_psg)]):
-            raise AssertionError(f"shards: {len(shard_files)} files, {stored.shape}, "
-                                 f"norms {norms.min()}..{norms.max()}")
-        if not (rows.min() < SHARD_ROWS <= rows.max()):
-            raise AssertionError("the sampled rows do not span both shards")
-        for r, (db_ids, scores) in zip(rows, found):
-            if db_ids[0] != ids[r] or abs(float(scores[0]) - 1.0) > 1e-4:
-                raise AssertionError(f"stored row {r} found {db_ids[0]} at {scores[0]}, "
-                                     f"not itself ({ids[r]}) at 1")
-        if [d["title"] for d in docs] != [corpus.data[r]["title"] for r in rows]:
-            raise AssertionError("get_documents returned other titles")
-        cos = np.sum(again * stored[rows], axis=-1)
-        if not cos.min() >= 0.999:
-            raise AssertionError(f"re-embedded passages: cosine {cos.min()} < 0.999")
-        if index.redispatches <= before or not all(
-                len(hits) == 10 and all(h["title"] for h in hits) for hits in asked):
-            raise AssertionError("the padded retrieval did not re-dispatch or lacks hits")
-        others = stored[rows] @ stored[rows].T - 2 * np.eye(len(rows))
-        log(f"  compute_corpus_embeddings -> {len(shard_files)} shards of {stored.shape}: "
-            f"{embed_s:.2f} s; build_index {index_s:.2f} s; reload + search + retrieve "
-            f"{retrieve_s:.2f} s; launches {counts}")
-        log(f"  64 stored rows across both shards found themselves at top-1 (score within "
-            f"{max(abs(float(s[0]) - 1) for _, s in found):.2g} of 1; largest cosine "
-            f"between two of them {others.max():.4f}); titles joined; re-embedded through "
-            f"DenseRetriever: cosine >= {cos.min():.6f}; 3 passages asked as questions: "
-            f"re-dispatched, 10 hits each")
-        enc_s = sum(s for _, s in timed[0].batches)
-        for _, _, t in SECTIONS:
-            secs = [s for n, s in timed[0].batches if n == t]
-            log(f"  [{power}] bucket {t}: {len(secs)} batches of {BATCH}, "
-                f"{len(secs) * BATCH / sum(secs):.1f} passages/s in the encoder (host clock "
-                f"to torch.cuda.synchronize())")
-        load_s = timed[0].load_s
-        log(f"  [{power}] whole embedding run: {n_psg / embed_s:.1f} passages/s; of "
-            f"{embed_s:.2f} s, loading the encoder (npz -> card) {load_s:.2f} s, encoder "
-            f"batches {enc_s:.2f} s, tokenizing {tokenizer.seconds:.2f} s, the rest (corpus "
-            f"rendering, copies to the host, np.savez) "
-            f"{embed_s - load_s - enc_s - tokenizer.seconds:.2f} s (host clock); the card "
-            f"waits on the host for at least {embed_s - enc_s:.2f} s "
-            f"({100 * (embed_s - enc_s) / embed_s:.1f}%)")
-        log(f"  K3 launches: {counts['flash_attention']} = {config.num_hidden_layers} layers "
-            f"x ({len(lengths)} CLI batches + the retriever's re-embedding and question "
-            f"batches)")
-
-        # -- K3 against its plain version, and its times
-        flash = check_flash(dev, gen, config.num_attention_heads, power)
-        err["flash_attention"] = max(r["err"] for (d, _), r in flash.items()
-                                     if d == torch.bfloat16)
-        err["flash_attention_f32"] = max(r["err"] for (d, _), r in flash.items()
-                                         if d == torch.float32)
-
-        # -- the encoder through K3 and through the plain attention path, one
-        # batch per bucket, bf16 and f32 compute on the same weights
-        batches = {}
-        for start, (n, _, t) in zip(np.cumsum([0] + [n for n, _, _ in SECTIONS[:-1]]),
-                                    SECTIONS):
-            enc = collator.encode_doc([corpus[i]["passage"] for i in range(start,
-                                                                        start + BATCH)])
-            if enc["input_ids"].shape[1] != t:
-                raise AssertionError(f"section at {start}: bucket "
-                                     f"{enc['input_ids'].shape[1]}, not {t}")
-            batches[t] = (enc["input_ids"], enc["attention_mask"])
-        f32 = load_encoder(str(model_dir), "e5", compute_dtype=torch.float32, device=dev)
-        for label, model_enc in (("bf16", encoder), ("f32", f32)):
-            flash_enc = Encoder(model_enc.model, "e5", model_enc.compute_dtype, "flash")
-            plain_enc = Encoder(model_enc.model, "e5", model_enc.compute_dtype, "xla")
-            for t, (ids_, mask) in batches.items():
-                reset_launch_counts()
-                a = flash_enc(ids_, mask)
-                launched = launch_counts()["flash_attention"]
-                b = plain_enc(ids_, mask)
-                cos = float(torch.sum(a * b, dim=-1).min())
-                diff = float((a - b).abs().max())
-                # bf16: the two attention paths round differently; f32: 1e-4
-                ok = cos >= 0.999 if label == "bf16" else diff <= 1e-4
-                if not (ok and torch.isfinite(a).all()
-                        and launched == config.num_hidden_layers):
-                    raise AssertionError(f"encoder {label} T={t}: K3 vs plain attention "
-                                         f"cosine {cos}, max abs diff {diff}, {launched} "
-                                         "K3 launches")
-                log(f"  encoder {label}, batch {BATCH} x {t}: through K3 vs the plain "
-                    f"attention path, pooled cosine >= {cos:.7f}, max abs diff {diff:.3g}")
-        del f32
-        profile_encoder(encoder, batches, power)
-        return {"launches": counts, "flash": flash}
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        results = json.loads(Path(path).read_text())
+        if len(results) != n_q or not all(
+                r["ctxs"] and "paths" in r and all(c["id"] in index_ids for c in r["ctxs"])
+                for r in results):
+            raise AssertionError(f"run {run}: results lack ctxs or paths, or hold ids "
+                                 "outside the index")
+        if min(counts.values()) == 0:
+            raise AssertionError(f"run {run}: a kernel of the path was not launched: {counts}")
+        stages = dict(timer.seconds)
+        stages["rest (load, examplar ranking, host)"] = wall - sum(stages.values())
+        n_triples = sum(len(p) for r in results for p in r["paths"] if p and p[0])
+        log(f"  run {run}: {n_q} questions, {len(results[0]['ctxs'])} ctxs for the first, "
+            f"every ctxs id in the index; {n_triples} chain steps parsed; launches {counts}")
+        log(f"  [{power}] run {run}: {wall:.2f} s, {3600 * n_q / wall:.2f} questions/hour; "
+            + ", ".join(f"{k} {v:.2f} s ({100 * v / wall:.1f}%)" for k, v in stages.items()))
+        runs[run] = {"wall": wall, "stages": stages, "launches": counts}
+        if run == "A":  # seed the cache: one triple per cached passage, its own words
+            with open(cache, "rb") as f:
+                cached = pickle.load(f)
+            for doc in cached.values():
+                words = re.findall(r"\w+", doc.get("text") or " ".join(doc["sentences"]))
+                doc["triples"] = [{"text": f"<{doc['title']}; {words[0]}; {words[-1]}>",
+                                   "sentence": 0}]
+            with open(cache, "wb") as f:
+                pickle.dump(cached, f)
+    if not (runs["B"]["stages"].get("Aligner rescoring") and
+            runs["B"]["stages"].get("constructor decode")):
+        raise AssertionError("run B did not reach the Aligner and the constructor")
+    return runs
 
 
 def main() -> int:
@@ -882,19 +1461,41 @@ def main() -> int:
         del index
         torch.cuda.empty_cache()
 
-    log("phase 6: the index build (E5-large geometry, bf16 compute, seeded weights)")
-    built = index_build(dev, gen, config, power, err)
+    work = Path(tempfile.mkdtemp(prefix="kirag_smoke_"))
+    try:
+        log("phase 6: the index build (E5-large geometry, bf16 compute, seeded weights)")
+        built = index_build(work, dev, gen, config, power, err)
+        del encoder, model
+        torch.cuda.empty_cache()
+
+        log("phase 7: K6 (int4 matmul) vs its plain version at the 8B model's projections")
+        qmm = check_qmm(dev, gen, power)
+        err["int4_matmul"] = max(r["err"] for r in qmm.values())
+
+        log("phase 8: the LLM at Llama-3-8B-Instruct geometry, NF4 weights, seeded")
+        decoded = llm_decode(work, dev, power)
+
+        log("phase 9: KiRAG through kirag_tpu_torch.cli.retrieve (the phase 6 index, the "
+            "phase 8 LLM)")
+        kirag = kirag_cli(work, built, decoded, power)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # K1/K2 times at Q=32 on the float32 index; K3's at T=512 in bf16, the
-    # index build's largest bucket
+    # index build's largest bucket; K6's at gate_proj, NF4, 4 rows (a decode
+    # step's largest per-layer projection at the Generator's batch). Launches:
+    # every main-path run (phases 4, 6, 8 and 9), not the comparisons.
+    paths = [s["launches"] for s in served.values()] + [built["launches"]] + [
+        r["launches"] for r in kirag.values()]
+    launches = {k: sum(c[k] for c in paths) for k in paths[0]}
+    launches["int4_matmul"] += decoded["launches"]
     headline = timed["float32 index"][32]
     sources = {"stream_capture": ("kirag_tpu_torch/csrc/stream_capture.cu",
                                   "kirag_tpu/ops/pallas_exact.py:467"),
                "gather_groups": ("kirag_tpu_torch/csrc/gather_groups.cu",
                                  "kirag_tpu/ops/pallas_exact.py:785")}
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": sum(s["launches"][k] for s in served.values())
-                + built["launches"][k],
+                "launches": launches[k],
                 "max_abs_err": err[k], "ms": headline[k], "plain_ms": headline[k + "_plain"],
                 "bound_ms": headline[k + "_bound"][0], "bound_by": headline[k + "_bound"][1],
                 "library_ms": None,
@@ -904,7 +1505,7 @@ def main() -> int:
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": "kirag_tpu_torch/csrc/flash_attention.cu",
                     "replaces": "kirag_tpu/models/bert.py:179",
-                    "launches": built["launches"]["flash_attention"],
+                    "launches": launches["flash_attention"],
                     "max_abs_err": err["flash_attention"],
                     "max_abs_err_f32": err["flash_attention_f32"], "ms": k3["ms"],
                     "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"][0],
@@ -913,6 +1514,16 @@ def main() -> int:
                           "padded, unpadded, all-padding and packed segment rows; "
                           "library_ms: scaled_dot_product_attention with the "
                           "same-segment mask"})
+    k6 = qmm[("nf4", "gate_proj, up_proj", 4)]
+    kernels.append({"name": "int4_matmul", "route": "cuda",
+                    "source": "kirag_tpu_torch/csrc/int4_matmul.cu",
+                    "replaces": "kirag_tpu/ops/pallas_qmm.py:69",
+                    "launches": launches["int4_matmul"], "max_abs_err": err["int4_matmul"],
+                    "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound"][0],
+                    "bound_by": k6["bound"][1], "library_ms": k6["library_ms"],
+                    "at": "NF4 gate_proj [2048, 14336] packed, 4 bf16 rows, cold L2; "
+                          "library_ms: torch.matmul with the dequantized bf16 kernel (the "
+                          "bf16 model's product, 4x the weight bytes)"})
     log(power)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,6 +9,7 @@ from kirag_tpu_torch.kernels.exact import (
     stream_capture,
     stream_capture_plain,
 )
+from kirag_tpu_torch.kernels.qmm import int4_matmul, int4_matmul_plain
 
 __all__ = [
     "build",
@@ -17,6 +18,8 @@ __all__ = [
     "flash_attention_plain",
     "gather_groups",
     "gather_groups_plain",
+    "int4_matmul",
+    "int4_matmul_plain",
     "launch_counts",
     "reset_launch_counts",
     "stream_capture",

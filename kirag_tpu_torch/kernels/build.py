@@ -109,6 +109,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,  # q, k, v, seg, out, bf16, b, h, t
         ctypes.c_float, ctypes.POINTER(i64), ptr]     # sm_scale, strides[12], stream
     lib.kirag_flash_attention.restype = i32
+    lib.kirag_int4_matmul.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr, ptr,  # x, bf16, packed, scales, codebook, out, partial
+        i32, i32, i32, i32, ptr]            # rows, half, out_dim, n_split, stream
+    lib.kirag_int4_matmul.restype = i32
     lib.kirag_error_string.argtypes = [i32]
     lib.kirag_error_string.restype = ctypes.c_char_p
 

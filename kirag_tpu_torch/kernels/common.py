@@ -13,7 +13,8 @@ from typing import Dict
 import torch
 
 _counts_lock = threading.Lock()
-_launches: Dict[str, int] = {"stream_capture": 0, "gather_groups": 0, "flash_attention": 0}
+_launches: Dict[str, int] = {"stream_capture": 0, "gather_groups": 0, "flash_attention": 0,
+                             "int4_matmul": 0}
 
 
 def launch_counts() -> Dict[str, int]:

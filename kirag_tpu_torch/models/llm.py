@@ -1,0 +1,902 @@
+"""Llama-family decoder-only LM in PyTorch with KV-cache greedy decode (port
+of :mod:`kirag_tpu.models.llm`).
+
+The generation backend behind :class:`kirag_tpu_torch.generation.Generator`:
+Llama-2/3/3.1, Qwen2 (QKV biases), Mistral and Gemma-2 (sandwich norms,
+GeGLU, soft-capping, alternating sliding-window attention). Parameters are a
+dict of tensors in the reference's layout: kernels ``[in, out]``, int8
+``kernel_q`` [in, out] + ``kernel_scale`` [out], 4-bit ``kernel_q4``
+[in/2, out] uint8 + ``kernel_scale4`` [in/64, out] f32 (+ ``kernel_cb4``
+[16] for NF4).
+
+Decode: prefill, then one step per generated token in a Python loop (the
+reference's ``lax.scan``) over a preallocated KV cache in the compute dtype.
+The cache, its mask and positions are updated in place; a state handed to
+:func:`resume_decode` is consumed by it. With 4-bit weights and
+``config.int4_impl == "kernel"``, every projection of a step with at most 32
+rows goes through the hand-written kernel :func:`~kirag_tpu_torch.kernels.qmm.int4_matmul`
+(K6); prefill (more rows) takes the "parity" formulation in plain PyTorch, as
+the reference does (``kirag_tpu/models/llm.py:294-314``).
+
+Entry points (:func:`init_llama_params`, :func:`llama_params_from_jax`,
+:func:`load_llama`) build on the GPU unless the caller passes
+``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from kirag_tpu_torch.device import require_cuda
+from kirag_tpu_torch.kernels.qmm import int4_matmul, supported
+
+Params = Dict[str, Any]
+
+# attention over a long prompt runs this many queries at a time, so the f32
+# logits of a 4096-token prefill stay ~1 GB instead of the reference's
+# [B, nh, T, T] in one piece; every logit and softmax row is the same
+PREFILL_QUERY_CHUNK = 512
+# output columns quantized at a time, to bound the temporaries of the
+# quantizers on an 8B model (quantization is per column: chunking is exact)
+QUANT_COLUMNS = 8192
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    intermediate_size: int = 14336
+    max_position_embeddings: int = 8192
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False  # True for Qwen2 QKV
+    # 4-bit matmul formulation: "parity", "blockdot" (plain PyTorch, as the
+    # reference's XLA ones) or "kernel" (K6 for steps of <= 32 rows, the
+    # reference's "pallas"); load_llama picks "kernel" on the GPU
+    int4_impl: str = "parity"
+    # int8 KV cache: not ported (ROADMAP.md §A: LLM decode)
+    kv_quant_bits: Optional[int] = None
+    # Gemma-2 extensions (model_type == "gemma2")
+    model_type: str = "llama"
+    head_dim_override: Optional[int] = None
+    query_pre_attn_scalar: Optional[float] = None
+    attn_logit_softcapping: Optional[float] = None
+    final_logit_softcapping: Optional[float] = None
+    sliding_window: Optional[int] = None          # applied on every other layer
+    hidden_activation: str = "silu"               # gemma2: gelu_pytorch_tanh
+
+    @property
+    def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def is_gemma2(self) -> bool:
+        return self.model_type == "gemma2"
+
+
+def config_from_hf(hf_config) -> LlamaConfig:
+    get = hf_config.get if isinstance(hf_config, dict) else lambda k, d=None: getattr(hf_config, k, d)
+    model_type = str(get("model_type", "llama"))
+    is_gemma2 = model_type == "gemma2"
+    return LlamaConfig(
+        vocab_size=get("vocab_size"),
+        hidden_size=get("hidden_size"),
+        num_hidden_layers=get("num_hidden_layers"),
+        num_attention_heads=get("num_attention_heads"),
+        num_key_value_heads=get("num_key_value_heads") or get("num_attention_heads"),
+        intermediate_size=get("intermediate_size"),
+        max_position_embeddings=get("max_position_embeddings", 8192),
+        rms_norm_eps=get("rms_norm_eps", 1e-5 if not is_gemma2 else 1e-6),
+        rope_theta=get("rope_theta", 10000.0),
+        tie_word_embeddings=bool(get("tie_word_embeddings", is_gemma2)),
+        attention_bias=bool(get("attention_bias", False)) or "qwen" in model_type,
+        model_type="gemma2" if is_gemma2 else "llama",
+        head_dim_override=get("head_dim") if is_gemma2 else None,
+        query_pre_attn_scalar=get("query_pre_attn_scalar") if is_gemma2 else None,
+        attn_logit_softcapping=get("attn_logit_softcapping") if is_gemma2 else None,
+        final_logit_softcapping=get("final_logit_softcapping") if is_gemma2 else None,
+        sliding_window=get("sliding_window") if is_gemma2 else None,
+        hidden_activation=("gelu_pytorch_tanh" if is_gemma2
+                           else str(get("hidden_act", "silu"))),
+    )
+
+
+def _not_ported(what: str, entry: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A: {entry})")
+
+
+def _check_config(config: LlamaConfig) -> None:
+    if config.kv_quant_bits is not None:
+        raise _not_ported(f"kv_quant_bits={config.kv_quant_bits} (the int8 KV cache)",
+                          "LLM decode")
+    if config.int4_impl not in ("parity", "blockdot", "kernel"):
+        raise KeyError(f"int4_impl must be parity|blockdot|kernel, got {config.int4_impl!r}")
+
+
+def _entry_device(device) -> torch.device:
+    return require_cuda() if device is None else torch.device(device)
+
+
+# ----------------------------------------------------------------- quantizers
+
+INT4_BLOCK = 64  # input rows per int4 quantization block (NF4 uses 64 too)
+
+# The bitsandbytes NF4 codebook (the reference's 4-bit weight format): the 16
+# quantiles of a standard normal, normalized to [-1, 1].
+NF4_CODEBOOK = np.array(
+    [-1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+     -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+     0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+     0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+     0.7229568362236023, 1.0], dtype=np.float32)
+
+
+def _by_columns(quantize):
+    """Run a per-column quantizer over QUANT_COLUMNS output columns at a
+    time and join the pieces (the same bytes as one pass)."""
+    def run(kernel: torch.Tensor, *args) -> Dict[str, torch.Tensor]:
+        kernel = torch.as_tensor(kernel)
+        if kernel.shape[1] <= QUANT_COLUMNS:
+            return quantize(kernel, *args)
+        parts = [quantize(kernel[:, c:c + QUANT_COLUMNS], *args)
+                 for c in range(0, kernel.shape[1], QUANT_COLUMNS)]
+        out = {k: torch.cat([p[k] for p in parts], dim=-1) for k in parts[0]
+               if k != "kernel_cb4"}
+        if "kernel_cb4" in parts[0]:
+            out["kernel_cb4"] = parts[0]["kernel_cb4"]
+        return out
+    run.__doc__ = quantize.__doc__
+    return run
+
+
+def _pad_rows(k: torch.Tensor, block: int) -> torch.Tensor:
+    in_dim = k.shape[0]
+    in_pad = -(-in_dim // block) * block
+    return F.pad(k, (0, 0, 0, in_pad - in_dim)) if in_pad != in_dim else k
+
+
+@_by_columns
+def _quantize_kernel_int8(kernel: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-output-channel symmetric int8 of a [in, out] kernel, on the
+    kernel's device; the bytes of the reference's quantizer."""
+    k = kernel.to(torch.float32)
+    absmax = k.abs().amax(dim=0)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    q = torch.clamp(torch.round(k / scale[None, :]), -127, 127).to(torch.int8)
+    return {"kernel_q": q, "kernel_scale": scale}
+
+
+@_by_columns
+def _quantize_kernel_int4(kernel: torch.Tensor, block: int = INT4_BLOCK
+                          ) -> Dict[str, torch.Tensor]:
+    """Blockwise symmetric int4 of a [in, out] kernel: one f32 scale per
+    (64-input-row block, output column), two signed nibbles per byte along
+    the input dim (low nibble = even row); the reference's bytes."""
+    k = _pad_rows(kernel.to(torch.float32), block)
+    in_pad, out_dim = k.shape
+    blocks = k.reshape(in_pad // block, block, out_dim)
+    absmax = blocks.abs().amax(dim=1)                               # [nb, out]
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+    q = torch.clamp(torch.round(blocks / scale[:, None, :]), -7, 7).to(torch.int16)
+    q = q.reshape(in_pad, out_dim)
+    packed = ((q[0::2] & 0x0F) | ((q[1::2] << 4) & 0xF0)).to(torch.uint8)
+    return {"kernel_q4": packed, "kernel_scale4": scale}
+
+
+@_by_columns
+def _quantize_kernel_nf4(kernel: torch.Tensor, block: int = INT4_BLOCK,
+                         codebook=NF4_CODEBOOK) -> Dict[str, torch.Tensor]:
+    """Blockwise NF4 of a [in, out] kernel (the reference's bitsandbytes
+    format): per (64-input-row block, output column) absmax scale, each value
+    snapped to the nearest of the 16 codebook entries (the codebook first
+    rounded to bf16), two unsigned indices per byte (low nibble = even row);
+    the reference's bytes."""
+    k = _pad_rows(kernel.to(torch.float32), block)
+    cb = (torch.as_tensor(np.asarray(codebook, dtype=np.float32), device=k.device)
+          .to(torch.bfloat16).to(torch.float32))
+    if cb.shape != (16,) or not bool((cb[1:] > cb[:-1]).all()):
+        raise ValueError("the codebook must hold 16 increasing values")
+    in_pad, out_dim = k.shape
+    blocks = k.reshape(in_pad // block, block, out_dim)
+    absmax = blocks.abs().amax(dim=1)                               # [nb, out]
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
+    normed = blocks / scale[:, None, :]
+    mids = (cb[1:] + cb[:-1]) / 2.0
+    idx = torch.searchsorted(mids, normed.reshape(-1), right=False).to(torch.uint8)
+    idx = idx.reshape(in_pad, out_dim)
+    packed = idx[0::2] | (idx[1::2] << 4)
+    return {"kernel_q4": packed, "kernel_scale4": scale, "kernel_cb4": cb}
+
+
+_PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def _quantizer(bits: Optional[int], int4_codebook: str):
+    if bits is None:
+        return None
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if int4_codebook not in ("nf4", "linear"):
+        raise ValueError(f"int4_codebook must be nf4|linear, got {int4_codebook}")
+    if bits == 8:
+        return _quantize_kernel_int8
+    return _quantize_kernel_nf4 if int4_codebook == "nf4" else _quantize_kernel_int4
+
+
+def quantize_llama_params(params: Params, bits: int = 8,
+                          int4_codebook: str = "nf4") -> Params:
+    """Weight-only quantization of every projection kernel (q/k/v/o/gate/up/
+    down and lm_head), on each kernel's device: int8 with per-column scales,
+    or 4-bit with block-64 scales (NF4 by default, ``"linear"`` for the
+    signed integer grid). Embeddings and norms stay as they are."""
+    quantize = _quantizer(bits, int4_codebook)
+
+    def quant_lin(p):
+        if "kernel" not in p:
+            return p
+        out = quantize(p["kernel"])
+        if "bias" in p:
+            out["bias"] = p["bias"]
+        return out
+
+    out: Params = {"embed_tokens": params["embed_tokens"], "norm": params["norm"],
+                   "layers": []}
+    if "lm_head" in params:
+        out["lm_head"] = quant_lin(params["lm_head"])
+    for layer in params["layers"]:
+        out["layers"].append({name: (quant_lin(p) if name in _PROJ_NAMES else p)
+                              for name, p in layer.items()})
+    return out
+
+
+# ----------------------------------------------------------------- parameters
+
+
+def init_llama_params(config: LlamaConfig, seed: int = 0, device=None,
+                      dtype: torch.dtype = torch.float32, quant_bits: Optional[int] = None,
+                      int4_codebook: str = "nf4") -> Params:
+    """Seeded random parameters in the reference's layout (normal, std 0.02;
+    unit norm scales, zero biases), built on ``device`` (default: the GPU).
+    Float matrices are stored in ``dtype``, 1-D leaves in f32, as
+    :func:`load_llama` casts. With ``quant_bits`` each projection kernel is
+    quantized right after it is drawn, on the device, so an 8B model never
+    sits whole in f32. The numbers differ from ``jax.random``'s; tests carry
+    the reference's parameters across with :func:`llama_params_from_jax`."""
+    _check_config(config)
+    device = _entry_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    quantize = _quantizer(quant_bits, int4_codebook)
+    h, i = config.hidden_size, config.intermediate_size
+    kv_dim = config.num_key_value_heads * config.head_dim
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device=device) * 0.02
+
+    def lin(in_dim, out_dim, bias=False):
+        kernel = normal(in_dim, out_dim)
+        p = quantize(kernel) if quantize is not None else {"kernel": kernel.to(dtype)}
+        del kernel
+        if bias:
+            p["bias"] = torch.zeros(out_dim, device=device)
+        return p
+
+    ones = lambda: torch.ones(h, device=device)  # noqa: E731
+    params: Params = {"embed_tokens": normal(config.vocab_size, h).to(dtype),
+                      "norm": {"scale": ones()}, "layers": []}
+    if not config.tie_word_embeddings:
+        params["lm_head"] = lin(h, config.vocab_size)
+    b = config.attention_bias
+    for _ in range(config.num_hidden_layers):
+        params["layers"].append({
+            "input_layernorm": {"scale": ones()},
+            "post_attention_layernorm": {"scale": ones()},
+            "q_proj": lin(h, config.num_attention_heads * config.head_dim, bias=b),
+            "k_proj": lin(h, kv_dim, bias=b),
+            "v_proj": lin(h, kv_dim, bias=b),
+            "o_proj": lin(config.num_attention_heads * config.head_dim, h),
+            "gate_proj": lin(h, i),
+            "up_proj": lin(h, i),
+            "down_proj": lin(i, h),
+        })
+    return params
+
+
+def _tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: the upper half of an f32
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def llama_params_from_jax(tree, device=None) -> Params:
+    """The JAX package's parameter pytree (leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as tensors on ``device`` (default:
+    the GPU), in the same structure and dtypes: float, int8 and 4-bit trees,
+    biases and the Gemma-2 norms."""
+    device = _entry_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _tensor_from_numpy(node, device)
+
+    return walk(tree)
+
+
+def param_bytes(params: Params) -> int:
+    """Bytes of every tensor in the tree."""
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(param_bytes(v) for v in params)
+    return params.numel() * params.element_size()
+
+
+# ----------------------------------------------------------------- layers
+
+
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+              plus_one: bool = False) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    w = scale.to(torch.float32)
+    if plus_one:  # gemma2 parameterizes the scale as (1 + w)
+        w = 1.0 + w
+    return (out * w).to(x.dtype)
+
+
+def _unpack_int4(packed: torch.Tensor, dtype) -> torch.Tensor:
+    """[in/2, out] uint8 (two signed nibbles per byte, low = even row) ->
+    [in, out] values in ``dtype``."""
+    p = packed.view(torch.int8)
+    lo = torch.bitwise_left_shift(p, 4) >> 4
+    hi = p >> 4
+    half, out = p.shape
+    return torch.stack([lo, hi], dim=1).reshape(2 * half, out).to(dtype)
+
+
+def _dense(x: torch.Tensor, p: Dict[str, torch.Tensor], int4_impl: str = "parity"
+           ) -> torch.Tensor:
+    """``x @ kernel (+ bias)`` for float, int8 (``kernel_q``) and 4-bit
+    (``kernel_q4``, NF4 with ``kernel_cb4``) parameters, with the reference's
+    formulations and its dispatch by row count."""
+    if "kernel_q4" in p:
+        packed = p["kernel_q4"]
+        half, out_dim = packed.shape
+        in_pad = 2 * half
+        cb = p.get("kernel_cb4")
+        if x.shape[-1] != in_pad:  # kernel rows were padded to the block grid
+            x = F.pad(x, (0, in_pad - x.shape[-1]))  # zero activations x zero rows: exact
+        if int4_impl == "kernel":
+            rows = math.prod(x.shape[:-1])
+            if rows <= 32 and supported(half, out_dim):
+                out = int4_matmul(x, packed, p["kernel_scale4"], codebook=cb)
+                return out + p["bias"].to(x.dtype) if "bias" in p else out
+            int4_impl = "parity" if rows > 32 else "blockdot"
+        if cb is not None:  # NF4: codebook lookup in f32, rounded to x's dtype after
+            cb32 = cb.to(torch.float32)
+            lo = cb32[(packed & 0xF).long()].to(x.dtype)
+            hi = cb32[(packed >> 4).long()].to(x.dtype)
+        else:
+            pk = packed.view(torch.int8)
+            lo = (torch.bitwise_left_shift(pk, 4) >> 4).to(x.dtype)  # rows 0, 2, 4, ...
+            hi = (pk >> 4).to(x.dtype)                                # rows 1, 3, 5, ...
+        scale = p["kernel_scale4"]                                    # [in_pad/64, out]
+        nb = scale.shape[0]
+        sub = half // nb
+        if int4_impl == "blockdot":
+            # per-block dots of the raw nibbles in f32; the block scale lands
+            # on the [nb, B, out] partial products
+            lead = x.shape[:-1]
+            xf = x.reshape(-1, in_pad).to(torch.float32)
+            xe = xf[:, 0::2].reshape(-1, nb, sub).transpose(0, 1)
+            xo = xf[:, 1::2].reshape(-1, nb, sub).transpose(0, 1)
+            part = (torch.bmm(xe, lo.to(torch.float32).reshape(nb, sub, out_dim))
+                    + torch.bmm(xo, hi.to(torch.float32).reshape(nb, sub, out_dim)))
+            out = (part * scale.to(torch.float32)[:, None, :]).sum(0).to(x.dtype)
+            out = out.reshape(*lead, out_dim)
+        elif int4_impl == "parity":
+            # y = x_even @ deq(lo) + x_odd @ deq(hi), the scale applied in x's dtype
+            s = scale.to(x.dtype)[:, None, :]
+            deq_lo = (lo.reshape(nb, sub, out_dim) * s).reshape(half, out_dim)
+            deq_hi = (hi.reshape(nb, sub, out_dim) * s).reshape(half, out_dim)
+            out = torch.matmul(x[..., 0::2], deq_lo) + torch.matmul(x[..., 1::2], deq_hi)
+        else:
+            raise KeyError(f"int4_impl must be parity|blockdot|kernel, got {int4_impl!r}")
+    elif "kernel_q" in p:
+        kernel = p["kernel_q"].to(x.dtype) * p["kernel_scale"].to(x.dtype)[None, :]
+        out = torch.matmul(x, kernel)
+    else:
+        out = torch.matmul(x, p["kernel"].to(x.dtype))
+    if "bias" in p:
+        out = out + p["bias"].to(x.dtype)
+    return out
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, HF 'half-rotation' layout. x: [B, T, H, D]."""
+    d = x.shape[-1]
+    inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                             device=x.device) / d))
+    angles = positions.to(torch.float32)[..., None] * inv_freq      # [B, T, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    xf1, xf2 = x[..., : d // 2].to(torch.float32), x[..., d // 2:].to(torch.float32)
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def _cache_alloc(bsz: int, t_cache: int, nkv: int, hd: int, dtype, device=None) -> torch.Tensor:
+    """Zeroed KV cache for one layer, [B, T, nkv, hd] in the compute dtype."""
+    return torch.zeros(bsz, t_cache, nkv, hd, dtype=dtype, device=device)
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, *idx) -> torch.Tensor:
+    """Write K/V rows into the cache at ``idx`` (leading batch/token axes),
+    in place; returns the cache."""
+    cache[idx] = new.to(cache.dtype)
+    return cache
+
+
+def _attend(q5, keys, values, valid, config: LlamaConfig, x_dtype) -> torch.Tensor:
+    """Softmax attention of [B, t, nkv, group, hd] queries over [B, T, nkv,
+    hd] keys/values; f32 logits (the products of the compute dtype's values
+    are exact in f32), masked with the most negative f32."""
+    bsz, t_new, nkv, group, hd = q5.shape
+    logits = torch.einsum("bqngd,bknd->bngqk", q5.to(torch.float32),
+                          keys.to(torch.float32)).reshape(bsz, nkv * group, t_new, -1)
+    scale = config.query_pre_attn_scalar if config.query_pre_attn_scalar else hd
+    logits = logits / math.sqrt(scale)
+    if config.attn_logit_softcapping:
+        cap = config.attn_logit_softcapping
+        logits = cap * torch.tanh(logits / cap)
+    logits = torch.where(valid, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(x_dtype)
+    p5 = probs.reshape(bsz, nkv, group, t_new, -1)
+    return torch.einsum("bngqk,bknd->bqngd", p5, values).reshape(bsz, t_new, nkv * group * hd)
+
+
+def _attention_block(x, layer_p, config: LlamaConfig, positions, k_cache, v_cache,
+                     cache_mask, new_mask, cache_positions=None, sliding=False):
+    """Attend new tokens (x) against cache+self. Returns (out, new_k, new_v).
+
+    k_cache/v_cache: [B, T_cache, n_kv, hd]; ``cache_mask`` [B, T_cache] marks
+    written cache slots, ``new_mask`` [B, T_new] valid (non-pad) new tokens.
+    New tokens attend cache slots per cache_mask and each other causally AND
+    per new_mask. GQA splits the query-head axis (kv head n serves query
+    heads [n*group, (n+1)*group)); the cache is never repeated. Long inputs
+    run PREFILL_QUERY_CHUNK queries at a time.
+    """
+    bsz, t_new, _ = x.shape
+    nh, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    q = _dense(x, layer_p["q_proj"], config.int4_impl).reshape(bsz, t_new, nh, hd)
+    k = _dense(x, layer_p["k_proj"], config.int4_impl).reshape(bsz, t_new, nkv, hd)
+    v = _dense(x, layer_p["v_proj"], config.int4_impl).reshape(bsz, t_new, nkv, hd)
+    q = _rope(q, positions, config.rope_theta)
+    k = _rope(k, positions, config.rope_theta)
+
+    t_cache = k_cache.shape[1]
+    keys = torch.cat([k_cache, k], dim=1).to(x.dtype)
+    values = torch.cat([v_cache, v], dim=1).to(x.dtype)
+    q5 = q.reshape(bsz, t_new, nkv, nh // nkv, hd)
+    cache_valid = cache_mask.bool()[:, None, None, :].expand(bsz, 1, t_new, t_cache)
+    causal = torch.tril(torch.ones(t_new, t_new, dtype=torch.bool, device=x.device))
+    new_valid = (causal[None, None] & new_mask.bool()[:, None, None, :]).expand(
+        bsz, 1, t_new, t_new)
+    valid = torch.cat([cache_valid, new_valid], dim=-1)
+    if sliding and config.sliding_window:
+        # gemma2 local attention: the key's position within the window of the query's
+        if cache_positions is None:
+            cache_positions = torch.zeros(bsz, t_cache, dtype=positions.dtype,
+                                          device=x.device)
+        key_pos = torch.cat([cache_positions, positions], dim=1)
+        delta = positions[:, :, None] - key_pos[:, None, :]
+        valid = valid & (delta < config.sliding_window)[:, None, :, :]
+    ctx = torch.cat([_attend(q5[:, s:s + PREFILL_QUERY_CHUNK], keys, values,
+                             valid[:, :, s:s + PREFILL_QUERY_CHUNK], config, x.dtype)
+                     for s in range(0, t_new, PREFILL_QUERY_CHUNK)], dim=1)
+    return _dense(ctx, layer_p["o_proj"], config.int4_impl), k, v
+
+
+def llama_block_forward(params: Params, input_ids, positions, config: LlamaConfig,
+                        k_caches, v_caches, cache_mask, new_mask=None,
+                        compute_dtype=torch.float32, cache_positions=None):
+    """Forward ``t_new`` tokens given per-layer caches; returns (logits [B,
+    t_new, V] f32, new_ks, new_vs). The llama family (pre-norm, SwiGLU) and
+    gemma2 (sandwich norms, GeGLU, soft-capping, alternating sliding-window
+    attention)."""
+    _check_config(config)
+    g2 = config.is_gemma2
+    x = params["embed_tokens"][input_ids].to(compute_dtype)
+    if g2:  # gemma scales embeddings by sqrt(hidden)
+        x = x * torch.tensor(math.sqrt(config.hidden_size), dtype=compute_dtype)
+    if new_mask is None:
+        new_mask = torch.ones(input_ids.shape, dtype=torch.int32, device=input_ids.device)
+    eps = config.rms_norm_eps
+    new_ks, new_vs = [], []
+    for li, layer_p in enumerate(params["layers"]):
+        # gemma2 applies the sliding window on even layers (HF: not bool(li % 2))
+        sliding = g2 and config.sliding_window is not None and li % 2 == 0
+        h = _rms_norm(x, layer_p["input_layernorm"]["scale"], eps, plus_one=g2)
+        attn, nk, nv = _attention_block(h, layer_p, config, positions, k_caches[li],
+                                        v_caches[li], cache_mask, new_mask,
+                                        cache_positions=cache_positions, sliding=sliding)
+        new_ks.append(nk)
+        new_vs.append(nv)
+        if g2:
+            attn = _rms_norm(attn, layer_p["post_attention_layernorm"]["scale"], eps,
+                             plus_one=True)
+            x = x + attn
+            h = _rms_norm(x, layer_p["pre_feedforward_layernorm"]["scale"], eps,
+                          plus_one=True)
+        else:
+            x = x + attn
+            h = _rms_norm(x, layer_p["post_attention_layernorm"]["scale"], eps)
+        gate = _dense(h, layer_p["gate_proj"], config.int4_impl)
+        up = _dense(h, layer_p["up_proj"], config.int4_impl)
+        if config.hidden_activation == "gelu_pytorch_tanh":
+            act = F.gelu(gate.to(torch.float32), approximate="tanh")
+        else:
+            act = F.silu(gate.to(torch.float32))
+        mlp = _dense(act.to(x.dtype) * up, layer_p["down_proj"], config.int4_impl)
+        if g2:
+            mlp = _rms_norm(mlp, layer_p["post_feedforward_layernorm"]["scale"], eps,
+                            plus_one=True)
+        x = x + mlp
+    x = _rms_norm(x, params["norm"]["scale"], eps, plus_one=g2)
+    if config.tie_word_embeddings:
+        logits = torch.einsum("bth,vh->btv", x.to(torch.float32),
+                              params["embed_tokens"].to(torch.float32))
+    else:
+        logits = _dense(x, params["lm_head"], config.int4_impl).to(torch.float32)
+    if config.final_logit_softcapping:
+        cap = config.final_logit_softcapping
+        logits = cap * torch.tanh(logits / cap)
+    return logits, new_ks, new_vs
+
+
+# ----------------------------------------------------------------- decode
+
+
+def _prefill_state(params, input_ids, attention_mask, config, total_new_tokens,
+                   compute_dtype, eos_token_id):
+    """Run the prompt, preallocate caches with room for ``total_new_tokens``,
+    and return (first_token, first_logits, decode-state dict). ``pending`` is
+    the latest generated token, already counted in the output but not yet
+    fed; ``write_at`` is where its K/V will be written."""
+    bsz, t_prompt = input_ids.shape
+    nkv, hd, nl = config.num_key_value_heads, config.head_dim, config.num_hidden_layers
+    device = input_ids.device
+    t_cache = t_prompt + total_new_tokens
+    # positions: left padding -> clip(cumsum(mask) - 1, 0)
+    positions = torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
+    empty = [_cache_alloc(bsz, 0, nkv, hd, compute_dtype, device) for _ in range(nl)]
+    empty_mask = torch.zeros(bsz, 0, dtype=attention_mask.dtype, device=device)
+    empty_pos = torch.zeros(bsz, 0, dtype=positions.dtype, device=device)
+    logits, new_ks, new_vs = llama_block_forward(
+        params, input_ids, positions, config, empty, empty, empty_mask,
+        new_mask=attention_mask, compute_dtype=compute_dtype, cache_positions=empty_pos)
+
+    def alloc(new):
+        cache = _cache_alloc(bsz, t_cache, nkv, hd, compute_dtype, device)
+        return _cache_write(cache, new, slice(None), slice(0, t_prompt))
+
+    next_token = torch.argmax(logits[:, -1], dim=-1)
+    done0 = (torch.zeros(bsz, dtype=torch.bool, device=device) if eos_token_id is None
+             else next_token == eos_token_id)
+    state = {
+        "k": [alloc(k) for k in new_ks],
+        "v": [alloc(v) for v in new_vs],
+        "cache_mask": F.pad(attention_mask, (0, total_new_tokens)),
+        "cache_pos": F.pad(positions, (0, total_new_tokens)),
+        "pending": next_token,
+        "pos": positions[:, -1] + 1,
+        "done": done0,
+        "write_at": t_prompt,
+    }
+    return next_token, logits[:, -1], state
+
+
+def _decode_step(params, state, config, compute_dtype, eos_token_id):
+    """Feed the pending token, write its K/V at ``write_at`` (in place),
+    greedy-pick the next. Returns (logits [B, V] of the fed token, state)."""
+    token, pos = state["pending"], state["pos"]
+    lg, nk, nv = llama_block_forward(
+        params, token[:, None], pos[:, None], config, state["k"], state["v"],
+        state["cache_mask"], compute_dtype=compute_dtype,
+        cache_positions=state["cache_pos"])
+    w = state["write_at"]
+    new_token = torch.argmax(lg[:, -1], dim=-1)
+    done = state["done"]
+    if eos_token_id is not None:
+        new_token = torch.where(done, torch.full_like(new_token, eos_token_id), new_token)
+        done = done | (new_token == eos_token_id)
+    for cache, new in zip(state["k"] + state["v"], nk + nv):
+        _cache_write(cache, new[:, 0], slice(None), w)
+    state["cache_mask"][:, w] = 1
+    state["cache_pos"][:, w] = pos
+    state.update(pending=new_token, pos=pos + 1, done=done, write_at=w + 1)
+    return lg[:, -1], state
+
+
+def _to_device(input_ids, attention_mask, device):
+    ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long, device=device)
+    mask = torch.as_tensor(np.asarray(attention_mask), dtype=torch.long, device=device)
+    return ids, mask
+
+
+def _params_device(params: Params) -> torch.device:
+    return params["embed_tokens"].device
+
+
+def greedy_decode(params: Params, input_ids, attention_mask, config: LlamaConfig,
+                  max_new_tokens: int, compute_dtype=torch.float32,
+                  eos_token_id: Optional[int] = None, return_logits: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Prefill + greedy decode of left-padded inputs. Returns (generated ids
+    [B, max_new], per-step logits [B, max_new, V] f32, or None with
+    ``return_logits=False``). Rows that emit ``eos_token_id`` keep emitting
+    it. Without logits the loop stops once every row is done: the remaining
+    ids are eos, as the full loop would give."""
+    ids, mask = _to_device(input_ids, attention_mask, _params_device(params))
+    with torch.inference_mode():
+        next_token, first_logits, state = _prefill_state(
+            params, ids, mask, config, max_new_tokens, compute_dtype, eos_token_id)
+        tokens, logits = [next_token], [first_logits]
+        for _ in range(max_new_tokens - 1):
+            if not return_logits and eos_token_id is not None and bool(state["done"].all()):
+                tokens.append(torch.full_like(next_token, eos_token_id))
+                continue
+            lg, state = _decode_step(params, state, config, compute_dtype, eos_token_id)
+            tokens.append(state["pending"])
+            if return_logits:
+                logits.append(lg)
+        gen_ids = torch.stack(tokens, dim=1).to(torch.int32)
+        return gen_ids, (torch.stack(logits, dim=1) if return_logits else None)
+
+
+def prefill_decode(params: Params, input_ids, attention_mask, config: LlamaConfig,
+                   total_new_tokens: int, compute_dtype=torch.float32,
+                   eos_token_id: Optional[int] = None):
+    """Prefill once, emit the FIRST generated token, return a resumable state
+    (the KV-cache-resumable half of segmented decoding): (ids [B, 1], logits
+    [B, 1, V], state)."""
+    ids, mask = _to_device(input_ids, attention_mask, _params_device(params))
+    with torch.inference_mode():
+        next_token, first_logits, state = _prefill_state(
+            params, ids, mask, config, total_new_tokens, compute_dtype, eos_token_id)
+    return next_token[:, None].to(torch.int32), first_logits[:, None], state
+
+
+def resume_decode(params: Params, state, config: LlamaConfig, n_steps: int,
+                  compute_dtype=torch.float32, eos_token_id: Optional[int] = None,
+                  return_logits: bool = True):
+    """Continue greedy decoding ``n_steps`` tokens from a prefill/resume
+    state, which is updated in place. Returns (ids [B, n_steps], logits [B,
+    n_steps, V] | None, state); prefill + resume outputs concatenated equal
+    :func:`greedy_decode`'s."""
+    tokens, logits = [], []
+    with torch.inference_mode():
+        for _ in range(n_steps):
+            lg, state = _decode_step(params, state, config, compute_dtype, eos_token_id)
+            tokens.append(state["pending"])
+            if return_logits:
+                logits.append(lg)
+    ids = torch.stack(tokens, dim=1).to(torch.int32)
+    return ids, (torch.stack(logits, dim=1) if return_logits else None), state
+
+
+# ----------------------------------------------------------------- backend
+
+
+class TorchLlamaBackend:
+    """Token-level greedy backend of the Generator harness, with the
+    reference's prompt buckets (left-pad up to a bucket, left-truncate past
+    the largest). numpy in, numpy out.
+
+    Draft models (speculative decoding) and prefix-KV groups are not ported
+    and raise."""
+
+    def __init__(self, params: Params, config: LlamaConfig, eos_token_id: int,
+                 compute_dtype=torch.bfloat16,
+                 prompt_buckets=(128, 256, 512, 1024, 2048, 4096),
+                 draft_params: Optional[Params] = None,
+                 draft_config: Optional[LlamaConfig] = None, prefix_cache_groups: int = 0):
+        if draft_params is not None or draft_config is not None:
+            raise _not_ported("speculative decoding with a draft model",
+                              "speculative decoding")
+        if prefix_cache_groups:
+            raise _not_ported(f"prefix_cache_groups={prefix_cache_groups} (the prefix KV "
+                              "pool)", "utilities and prefix-KV")
+        _check_config(config)
+        self.params = params
+        self.config = config
+        self.eos_token_id = eos_token_id
+        self.compute_dtype = compute_dtype
+        self.prompt_buckets = prompt_buckets
+
+    def _bucket(self, t: int) -> int:
+        for b in self.prompt_buckets:
+            if b >= t:
+                return b
+        return self.prompt_buckets[-1]
+
+    def _bucket_inputs(self, input_ids: np.ndarray, attention_mask: np.ndarray):
+        t = input_ids.shape[1]
+        bucket = self._bucket(t)
+        if bucket > t:  # extend LEFT padding to the bucket
+            pad = bucket - t
+            input_ids = np.pad(input_ids, ((0, 0), (pad, 0)))
+            attention_mask = np.pad(attention_mask, ((0, 0), (pad, 0)))
+        elif bucket < t:  # prompt longer than the largest bucket: truncate left
+            input_ids = input_ids[:, -bucket:]
+            attention_mask = attention_mask[:, -bucket:]
+        return input_ids, attention_mask
+
+    @staticmethod
+    def _numpy(ids, logits):
+        return (ids.cpu().numpy().astype(np.int32),
+                None if logits is None else logits.float().cpu().numpy())
+
+    def greedy(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+               max_new_tokens: int, return_logits: bool = True
+               ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        input_ids, attention_mask = self._bucket_inputs(input_ids, attention_mask)
+        ids, logits = greedy_decode(self.params, input_ids, attention_mask, self.config,
+                                    max_new_tokens, self.compute_dtype,
+                                    eos_token_id=self.eos_token_id,
+                                    return_logits=return_logits)
+        return self._numpy(ids, logits)
+
+    def greedy_start(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+                     total_new_tokens: int, return_logits: bool = True):
+        """Prefill + first token; reserves cache room for ``total_new_tokens``.
+        Returns (ids [B, 1], logits [B, 1, V] | None, device-resident state)."""
+        input_ids, attention_mask = self._bucket_inputs(input_ids, attention_mask)
+        ids, logits, state = prefill_decode(self.params, input_ids, attention_mask,
+                                            self.config, total_new_tokens,
+                                            self.compute_dtype, eos_token_id=self.eos_token_id)
+        ids, logits = self._numpy(ids, logits if return_logits else None)
+        return ids, logits, state
+
+    def greedy_resume(self, state, n_steps: int, return_logits: bool = True):
+        """Decode ``n_steps`` more tokens from a greedy_start/resume state (no
+        re-prefill; the KV cache stays on the device)."""
+        ids, logits, state = resume_decode(self.params, state, self.config, n_steps,
+                                           self.compute_dtype, eos_token_id=self.eos_token_id,
+                                           return_logits=return_logits)
+        ids, logits = self._numpy(ids, logits)
+        return ids, logits, state
+
+
+# ----------------------------------------------------------------- checkpoints
+
+
+def convert_hf_llama_state_dict(state_dict: Dict[str, Any], config: LlamaConfig,
+                                int8_weights: bool = False, quant_bits: Optional[int] = None,
+                                int4_codebook: str = "nf4", device=None) -> Params:
+    """Map an HF llama state_dict to the reference's parameter layout, on
+    ``device`` (default: the tensors' own). With ``int8_weights`` (or
+    ``quant_bits`` in {4, 8}) each projection kernel is quantized as it is
+    converted; ``quant_bits=4`` uses NF4 unless ``int4_codebook="linear"``."""
+    if int8_weights and quant_bits is None:
+        quant_bits = 8
+    quantize = _quantizer(quant_bits, int4_codebook)
+
+    def tensor(name):
+        t = torch.as_tensor(np.asarray(state_dict[name]) if not torch.is_tensor(
+            state_dict[name]) else state_dict[name])
+        return t.to(device) if device is not None else t
+
+    sd = {k.removeprefix("model."): k for k in state_dict}
+
+    def get(name):
+        return tensor(sd[name])
+
+    def lin(prefix):
+        kernel = get(f"{prefix}.weight").to(torch.float32).T
+        p = quantize(kernel) if quantize is not None else {"kernel": kernel.contiguous()}
+        if f"{prefix}.bias" in sd:
+            p["bias"] = get(f"{prefix}.bias")
+        return p
+
+    params: Params = {"embed_tokens": get("embed_tokens.weight"),
+                      "norm": {"scale": get("norm.weight")}, "layers": []}
+    if not config.tie_word_embeddings:
+        params["lm_head"] = lin("lm_head")
+    for l in range(config.num_hidden_layers):
+        pre = f"layers.{l}"
+        layer = {
+            "input_layernorm": {"scale": get(f"{pre}.input_layernorm.weight")},
+            "post_attention_layernorm": {"scale": get(f"{pre}.post_attention_layernorm.weight")},
+            "q_proj": lin(f"{pre}.self_attn.q_proj"),
+            "k_proj": lin(f"{pre}.self_attn.k_proj"),
+            "v_proj": lin(f"{pre}.self_attn.v_proj"),
+            "o_proj": lin(f"{pre}.self_attn.o_proj"),
+            "gate_proj": lin(f"{pre}.mlp.gate_proj"),
+            "up_proj": lin(f"{pre}.mlp.up_proj"),
+            "down_proj": lin(f"{pre}.mlp.down_proj"),
+        }
+        for extra in ("pre_feedforward_layernorm", "post_feedforward_layernorm"):
+            if f"{pre}.{extra}.weight" in sd:  # gemma2 sandwich norms
+                layer[extra] = {"scale": get(f"{pre}.{extra}.weight")}
+        params["layers"].append(layer)
+    return params
+
+
+def _cast_tree(node, compute_dtype):
+    """2-D float tensors (the big ones) to ``compute_dtype``; quantized
+    kernels, ``kernel_scale4`` and 1-D leaves (norms, biases, scales) as they
+    are."""
+    if isinstance(node, dict):
+        return {k: (v if k == "kernel_scale4" else _cast_tree(v, compute_dtype))
+                for k, v in node.items()}
+    if isinstance(node, list):
+        return [_cast_tree(v, compute_dtype) for v in node]
+    if node.is_floating_point() and node.dim() >= 2:
+        return node.to(compute_dtype)
+    return node
+
+
+def load_llama(model_name_or_path: str, compute_dtype=torch.bfloat16,
+               int8_weights: bool = False, quant_bits: Optional[int] = None,
+               kv_quant_bits: Optional[int] = None, int4_codebook: str = "nf4",
+               device=None) -> Tuple[Params, LlamaConfig]:
+    """Load a Llama-architecture causal LM from a local HF checkpoint
+    directory (``config.json`` + ``model.safetensors`` (or its sharded
+    index) or ``pytorch_model.bin``) onto ``device`` (default: the GPU),
+    quantizing projections there with ``int8_weights``/``quant_bits``. The
+    4-bit matmul runs K6 on the GPU (``int4_impl="kernel"``) and the "parity"
+    formulation on the CPU."""
+    if kv_quant_bits is not None:
+        raise _not_ported(f"kv_quant_bits={kv_quant_bits} (the int8 KV cache)", "LLM decode")
+    from kirag_tpu_torch.models.encoders import read_safetensors
+
+    if not os.path.isdir(model_name_or_path):
+        raise FileNotFoundError(
+            f"{model_name_or_path} is not a local directory; pass the path of a downloaded "
+            "checkpoint")
+    device = _entry_device(device)
+    with open(os.path.join(model_name_or_path, "config.json")) as f:
+        config = config_from_hf(json.load(f))
+    st_index = os.path.join(model_name_or_path, "model.safetensors.index.json")
+    st_single = os.path.join(model_name_or_path, "model.safetensors")
+    bin_path = os.path.join(model_name_or_path, "pytorch_model.bin")
+    if os.path.exists(st_index):
+        with open(st_index) as f:
+            weight_map = json.load(f)["weight_map"]
+        state_dict: Dict[str, torch.Tensor] = {}
+        for shard in sorted(set(weight_map.values())):
+            state_dict.update(read_safetensors(os.path.join(model_name_or_path, shard)))
+    elif os.path.exists(st_single):
+        state_dict = read_safetensors(st_single)
+    elif os.path.exists(bin_path):
+        state_dict = {k: v.to(torch.float32) for k, v in
+                      torch.load(bin_path, map_location="cpu", weights_only=True).items()}
+    else:
+        raise FileNotFoundError(f"no safetensors/bin weights under {model_name_or_path}")
+    params = convert_hf_llama_state_dict(state_dict, config, int8_weights=int8_weights,
+                                         quant_bits=quant_bits, int4_codebook=int4_codebook,
+                                         device=device)
+    del state_dict
+    params = _cast_tree(params, compute_dtype)
+    if quant_bits == 4:
+        config = dataclasses.replace(
+            config, int4_impl="kernel" if device.type == "cuda" else "parity")
+    return params, config

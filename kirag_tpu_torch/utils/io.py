@@ -1,10 +1,50 @@
-"""JSON / JSONL reading and writing (port of ``load_json`` and ``save_json``
-from :mod:`kirag_tpu.utils.io`)."""
+"""JSON / JSONL reading and writing and stable object hashing (port of
+``load_json``, ``save_json`` and ``hash_object`` from :mod:`kirag_tpu.utils.io`).
+
+``hash_object`` hashes a canonical JSON serialization with blake2b and writes
+it in base 58, so the KiRAG loop's triple ids are the reference's, stable
+across processes and Python versions.
+"""
 
 from __future__ import annotations
 
+import hashlib
 import json
 from typing import Any
+
+_B58_ALPHABET = "123456789ABCDEFGHJKLMNPQRSTUVWXYZabcdefghijkmnopqrstuvwxyz"
+
+
+def _b58encode(data: bytes) -> str:
+    num = int.from_bytes(data, "big")
+    out = []
+    while num > 0:
+        num, rem = divmod(num, 58)
+        out.append(_B58_ALPHABET[rem])
+    for byte in data:  # leading zero bytes become '1's, as in standard base58
+        if byte != 0:
+            break
+        out.append(_B58_ALPHABET[0])
+    return "".join(reversed(out))
+
+
+def _canonicalize(obj: Any) -> Any:
+    """A JSON-serializable canonical form of ``obj``."""
+    if isinstance(obj, dict):
+        return {str(k): _canonicalize(v) for k, v in sorted(obj.items(), key=lambda kv: str(kv[0]))}
+    if isinstance(obj, (list, tuple)):
+        return [_canonicalize(v) for v in obj]
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    if hasattr(obj, "tolist"):  # numpy arrays / scalars, tensors
+        return _canonicalize(obj.tolist())
+    return repr(obj)
+
+
+def hash_object(obj: Any) -> str:
+    """Stable base58 blake2b hash of a (JSON-like) Python object."""
+    payload = json.dumps(_canonicalize(obj), sort_keys=True, ensure_ascii=False).encode("utf-8")
+    return _b58encode(hashlib.blake2b(payload).digest())
 
 
 def load_json(path: str, type: str = "json") -> Any:

@@ -1,6 +1,6 @@
 """The CUDA kernels' wrappers: device dispatch, launch counts, and (on a GPU)
 each kernel against its plain version: K1 and K2 of the exact search, K3
-the encoder's flash attention.
+the encoder's flash attention, K6 the LLM's 4-bit weight matmul.
 
 This file imports neither JAX nor ``kirag_tpu``, so the GPU machine, which
 has neither, runs it alone:
@@ -21,11 +21,14 @@ from kirag_tpu_torch.kernels import (
     flash_attention_plain,
     gather_groups,
     gather_groups_plain,
+    int4_matmul,
+    int4_matmul_plain,
     launch_counts,
     reset_launch_counts,
     stream_capture,
     stream_capture_plain,
 )
+from kirag_tpu_torch.kernels.qmm import dequant_nibbles
 from kirag_tpu_torch.ops.exact import _capture_budget, exact_topk_mips, hier_topk
 
 
@@ -49,7 +52,8 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
         assert torch.equal(x, y)
     assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
     exact_topk_mips(q, c, 5, chunk_size=512, on_miss="flag")
-    assert launch_counts() == {"stream_capture": 0, "gather_groups": 0, "flash_attention": 0}
+    assert launch_counts() == {"stream_capture": 0, "gather_groups": 0, "flash_attention": 0,
+                               "int4_matmul": 0}
 
 
 def test_wrappers_check_their_operands():
@@ -92,7 +96,7 @@ def test_kernels_bitwise_equal_plain_on_integer_data(cuda_device, dtype):
         gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, k)[1], dim=-1).values
         assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
         assert launch_counts() == {"stream_capture": 1, "gather_groups": 1,
-                                  "flash_attention": 0}
+                                  "flash_attention": 0, "int4_matmul": 0}
 
 
 @pytest.mark.cuda
@@ -140,3 +144,51 @@ def test_flash_attention_matches_plain(cuda_device, dtype, t):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     else:
         assert float((got.float() - want.float()).abs().max()) <= bf16_ulps(want)
+
+
+def int4_abs_sum(x, packed, scales, codebook=None):
+    """sum_i |x_i| |w_i| s per output: the scale of the f32 rounding error
+    that two summation orders of the same products can differ by."""
+    half, out_dim = packed.shape
+    lo, hi = (p.abs() for p in dequant_nibbles(packed, codebook))
+    xf = x.reshape(-1, 2 * half).float().abs()
+    w = torch.stack([lo, hi], dim=1).reshape(2 * half, out_dim)
+    w = w * scales.float().repeat_interleave(64, dim=0)
+    return xf @ w
+
+
+def assert_int4_close(got, want, abs_sum):
+    """bf16: at most 1 bf16 ulp of |want| at each element (two f32 sums in
+    another order, rounded once); both dtypes: or within 2^-18 of the sum of
+    the products' magnitudes, the f32 rounding bound near zero."""
+    diff = (got.float() - want.float()).abs()
+    f32_bound = abs_sum * 2.0 ** -18
+    if got.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        bound = torch.maximum(ulp, f32_bound)
+    else:
+        bound = f32_bound
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nf4", [False, True])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 32])
+@pytest.mark.parametrize("half,out_dim", [(256, 128), (512, 1536), (2048, 1024)])
+def test_int4_matmul_matches_plain(cuda_device, dtype, nf4, rows, half, out_dim):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    packed = torch.randint(0, 256, (half, out_dim), generator=g, device=cuda_device,
+                           dtype=torch.uint8)
+    scales = torch.rand(half // 32, out_dim, generator=g, device=cuda_device) * 0.01
+    cb = torch.linspace(-1, 1, 16, device=cuda_device) if nf4 else None
+    x = torch.randn(rows, 2 * half, generator=g, device=cuda_device).to(dtype)
+    reset_launch_counts()
+    got = int4_matmul(x, packed, scales, cb)
+    assert launch_counts()["int4_matmul"] == 1
+    want = int4_matmul_plain(x, packed, scales, cb)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (rows, out_dim)
+    assert torch.isfinite(got).all()
+    assert_int4_close(got, want, int4_abs_sum(x, packed, scales, cb))

@@ -1,0 +1,307 @@
+"""The port's KiRAG loop held against the JAX package.
+
+- ``Generator`` over the rule-based ``StubBackend``: forced prefixes spliced
+  at the token level, segmented stop words, text trimming;
+- ``KGGenerator`` (examplar ranking, the pickle cache) and ``KiRAG.retrieve``
+  / ``retrieve_batch`` on a tiny corpus, with the encoder carried across by
+  ``Encoder.from_jax``: the same chains, documents in the same order, scores
+  within 1e-5 (f32 encoders, sums in another order);
+- both packages' ``cli/retrieve.py`` on a tiny on-disk workspace give the
+  same results json.
+"""
+
+import json
+import os
+import pickle
+import re
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+import transformers
+
+from kirag_tpu.data import E5Collator as JaxE5Collator
+from kirag_tpu.data import HotPotQA as JaxHotPotQA
+from kirag_tpu.generation import make_stub_generator as jax_make_stub_generator
+from kirag_tpu.index import TPUIndexer
+from kirag_tpu.kg import KGGenerator as JaxKGGenerator
+from kirag_tpu.pipeline import KiRAG as JaxKiRAG
+from kirag_tpu.retrieval import DenseRetriever as JaxDenseRetriever
+from kirag_tpu.utils.io import hash_object as jax_hash_object
+from kirag_tpu_torch.data import E5Collator, HotPotQA
+from kirag_tpu_torch.evaluation import f1_score
+from kirag_tpu_torch.generation import make_stub_generator
+from kirag_tpu_torch.index import TorchIndexer
+from kirag_tpu_torch.kg import KGGenerator
+from kirag_tpu_torch.models import BertConfig, Encoder
+from kirag_tpu_torch.pipeline import KiRAG
+from kirag_tpu_torch.retrieval import DenseRetriever
+from kirag_tpu_torch.utils.io import hash_object
+
+from tests.helpers import BASE_VOCAB, WORDS, make_corpus_json, make_tiny_encoder, make_tokenizer
+
+PKG = {
+    "jax": dict(stub=jax_make_stub_generator, kg=JaxKGGenerator, kirag=JaxKiRAG,
+                retriever=JaxDenseRetriever, collator=JaxE5Collator, corpus=JaxHotPotQA),
+    "port": dict(stub=make_stub_generator, kg=KGGenerator, kirag=KiRAG,
+                 retriever=DenseRetriever, collator=E5Collator, corpus=HotPotQA),
+}
+
+
+def kg_rule():
+    """Every KG-construction prompt: a triple from the document's title."""
+    def match(prompt):
+        return "knowledge" in prompt and "title :" in prompt
+
+    def respond(prompt):
+        m = re.findall(r"title : (w\d+)", prompt)
+        n = int(m[-1][1:]) if m else 0
+        return f"< w{n} ; is ; w{n + 100} >"
+
+    return (match, respond)
+
+
+def constructor_rule(prompt):
+    """Keyed on the question and the forced Thought, so the sequential and
+    the batched loops see the same responses."""
+    seg = prompt.lower().split("question :")[-1]
+    m = re.findall(r"w(\d+)", seg)
+    n = int(m[0]) if m else 0
+    if n == 9:
+        return ""                                   # question 9 stops after turn 1
+    if f"w{n + 150}" in seg:
+        return "so the answer is : w%d" % (n + 100)
+    return f"< w{n} ; is ; w{n + 150} >"
+
+
+def test_metrics_and_hash_match_jax():
+    from kirag_tpu.evaluation.metrics import f1_score as jax_f1, normalize_answer as jax_norm
+    from kirag_tpu_torch.evaluation import normalize_answer
+
+    pairs = [("The Eiffel Tower!", "eiffel tower"), ("yes", "no"), ("an apple a day", "apple"),
+             ("Zürich, the city", "zurich city"), ("", "x"), ("noanswer", "noanswer")]
+    for a, b in pairs:
+        assert normalize_answer(a) == jax_norm(a)
+        assert f1_score(a, b) == jax_f1(a, b)
+    for obj in ({"title": "w1", "text": "<a; b; c>", "reference": ["doc1", 0]},
+                [1, 2.5, None, "ü"], {"n": np.arange(3)}, {}, b"\x00\x01"):
+        assert hash_object(obj) == jax_hash_object(obj)
+
+
+def test_generator_over_stub_matches_jax(tmp_path):
+    tok = make_tokenizer(tmp_path)
+    rules = [("alpha", "w1 is the city . question : w2"), ("beta", "< w3 ; of ; w4 > and more")]
+    outs = {}
+    for name, pkg in PKG.items():
+        gen = pkg["stub"](tok, rules=rules, default_response="w9 w9 w9 w9",
+                          max_new_tokens=12, stop_check_every=3)
+        ids, logits = gen.generator_generate(
+            ["inst", "inst", "inst"], ["alpha w5", "beta", "gamma"],
+            current_generated_texts=["Thought: w1 .", "", "Thought:"])
+        texts = gen.generate_texts(["inst"] * 3, ["alpha", "beta", "gamma"],
+                                   stop_words=["question", ";"])
+        seg_ids, _ = gen.greedy_generate(gen.tokenizer_encode(["alpha", "beta w2"]),
+                                         stop_words=["city"], return_logits=False)
+        outs[name] = (ids, logits, texts, seg_ids, gen.backend.calls)
+    for got, want in zip(outs["port"], outs["jax"]):
+        if isinstance(got, np.ndarray):
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert got == want
+
+
+def build_stack(tmp_path, pkg_name, cache_path=None):
+    """One package's KiRAG over the tiny corpus: the same tokenizer, encoder
+    parameters, documents and stub LLMs in both packages."""
+    pkg = PKG[pkg_name]
+    tok = make_tokenizer(tmp_path)
+    jax_enc = make_tiny_encoder(vocab_size=tok.vocab_size)
+    if pkg_name == "jax":
+        enc = jax_enc
+        indexer = TPUIndexer(enc.embedding_size, chunk_size=32)
+    else:
+        enc = Encoder.from_jax(jax.tree.map(np.asarray, jax_enc.params),
+                               BertConfig(**jax_enc.config.__dict__), "e5", device="cpu")
+        indexer = TorchIndexer(enc.embedding_size, device="cpu")
+    collator = pkg["collator"](tokenizer=tok, query_maxlength=64, doc_maxlength=64)
+    path, _ = make_corpus_json(tmp_path)
+    corpus = pkg["corpus"](title_prefix="title:", passage_prefix="text:", corpus_path=path)
+    retriever = pkg["retriever"](enc, collator, indexer=indexer, corpus=corpus, batch_size=8)
+    indexer.index_data([corpus[i]["passage_id"] for i in range(len(corpus))],
+                       retriever.calculate_document_embeddings(
+                           [corpus[i]["passage"] for i in range(len(corpus))]))
+    aligner = pkg["retriever"](enc, collator, batch_size=8)
+    kg_llm = pkg["stub"](tok, rules=[kg_rule()])
+    kg_generator = pkg["kg"](kg_llm, examplar_type="hotpotqa", embedder=aligner,
+                             max_length=2048, batch_size=4)
+    if cache_path is not None:
+        kg_generator.load_cached_kg_triples(cache_path)
+    constructor = pkg["stub"](tok, rules=[(lambda p: "question :" in p.lower(),
+                                          constructor_rule)], max_new_tokens=64)
+    kirag = pkg["kirag"](retriever=retriever, kg_generator=kg_generator,
+                         constructor=constructor, aligner=aligner, examplar_type="hotpotqa",
+                         num_turns=3, topk=3, num_candidate_triples=5)
+    return kirag, corpus
+
+
+def assert_same_results(got, want):
+    assert len(got) == len(want)
+    for (g_chains, g_docs), (w_chains, w_docs) in zip(got, want):
+        assert g_chains == w_chains
+        assert list(g_docs) == list(w_docs)
+        np.testing.assert_allclose(list(g_docs.values()), list(w_docs.values()),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("num_beams", [1, 2])
+def test_kirag_retrieve_and_batch_match_jax(tmp_path, num_beams):
+    results = {}
+    for name in PKG:
+        kirag, corpus = build_stack(tmp_path, name)
+        questions = [corpus[i]["passage"].replace("title :", "") for i in (5, 9, 2)]
+        seq = [kirag.retrieve(q, num_beams=num_beams) for q in questions]
+        kirag, _ = build_stack(tmp_path, name)
+        results[name] = (seq, kirag.retrieve_batch(questions, num_beams=num_beams))
+    assert_same_results(results["port"][0], results["jax"][0])
+    assert_same_results(results["port"][1], results["jax"][1])
+    assert_same_results(results["port"][1], results["port"][0])
+    assert results["port"][0][0][0][0][0].startswith("<w5")  # a chain was built
+
+
+def test_kg_generator_and_cache_match_jax(tmp_path):
+    docs_out, cached = {}, {}
+    for name in PKG:
+        cache = str(tmp_path / f"{name}.pkl")
+        kirag, corpus = build_stack(tmp_path, name, cache_path=cache)
+        kg = kirag.kg_generator
+        docs = [dict(corpus.get_document(f"doc{i}")) for i in (1, 4, 7, 11, 13)]
+        calls = len(kg.generator.backend.calls)
+        docs_out[name] = kg(docs)
+        again = kg(docs)                                # served from the cache
+        assert len(kg.generator.backend.calls) == calls + 2 and again == docs_out[name]
+        kg.save_cached_kg_triples(cache)
+        with open(cache, "rb") as f:
+            cached[name] = pickle.load(f)
+    assert docs_out["port"] == docs_out["jax"]
+    assert cached["port"] == cached["jax"]
+    assert docs_out["port"][0]["triples"][0]["text"].startswith("<w1 ; is ; w101")
+
+
+# ------------------------------------------------------------------ the CLIs
+
+
+@pytest.fixture(scope="module")
+def cli_workspace(tmp_path_factory):
+    """A tiny E5 checkpoint and tokenizer, a tiny Llama whose final norm is
+    zero (every step's logits tie, so both packages emit token 0 at bf16
+    compute: the decode is fixed and the test holds the plumbing), a corpus,
+    queries, an index built by the JAX CLIs, and a KG cache of one triple
+    per passage (which makes the constructor run)."""
+    from kirag_tpu.cli import build_index, compute_corpus_embeddings
+
+    root = tmp_path_factory.mktemp("torch_retrieve_cli")
+    (root / "vocab.txt").write_text("\n".join(BASE_VOCAB + WORDS))
+    tok = transformers.BertTokenizerFast(vocab_file=str(root / "vocab.txt"),
+                                         do_lower_case=True)
+    torch.manual_seed(0)
+    enc_dir = root / "e5-tiny"
+    transformers.BertModel(transformers.BertConfig(
+        vocab_size=tok.vocab_size, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        intermediate_size=64, max_position_embeddings=128)).save_pretrained(str(enc_dir))
+    tok.save_pretrained(str(enc_dir))
+    llm_dir = root / "llama-tiny-instruct"
+    model = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=tok.vocab_size, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, intermediate_size=64, max_position_embeddings=512))
+    with torch.no_grad():
+        model.model.norm.weight.zero_()
+    model.save_pretrained(str(llm_dir))
+    tok.save_pretrained(str(llm_dir))
+    corpus_path, docs = make_corpus_json(root)
+    queries = [{"id": "q0", "question": "what is w3 ?", "answers": ["w103"]},
+               {"id": "q1", "question": "what is w7 ?", "answers": ["w107"]}]
+    (root / "queries.json").write_text(json.dumps(queries))
+    cache = {d["id"]: dict(d, triples=[{"text": f"<{d['title']}; is; w{100 + i}>",
+                                        "sentence": 0}])
+             for i, d in enumerate(docs)}
+    with open(root / "kg.pkl", "wb") as f:
+        pickle.dump(cache, f)
+    out = str(root / "out")
+    argv = sys.argv
+    try:
+        sys.argv = ["prog", "--retriever_model_name_or_path", str(enc_dir), "--corpus",
+                    "2wikimultihopqa", "--corpus_path", corpus_path, "--per_device_batch_size",
+                    "8", "--compute_dtype", "float32", "--save_dir", out, "--name", "e5"]
+        compute_corpus_embeddings.main()
+        sys.argv = ["prog", "--embeddings_dir", os.path.join(out, "e5"), "--embedding_size",
+                    "32", "--save_dir", os.path.join(out, "index")]
+        build_index.main()
+    finally:
+        sys.argv = argv
+    return {"root": root, "enc_dir": str(enc_dir), "llm_dir": str(llm_dir),
+            "corpus_path": corpus_path, "index": os.path.join(out, "index")}
+
+
+@pytest.mark.parametrize("concurrent,cached", [(1, False), (2, True)])
+def test_retrieve_cli_matches_jax(cli_workspace, monkeypatch, concurrent, cached):
+    from kirag_tpu.cli import retrieve as jax_retrieve
+    from kirag_tpu_torch.cli import retrieve
+
+    ws = cli_workspace
+    results = {}
+    for name in ("jax", "port"):
+        extra = []
+        if cached:
+            cache = str(ws["root"] / f"kg_{name}_{concurrent}.pkl")
+            with open(ws["root"] / "kg.pkl", "rb") as src, open(cache, "wb") as dst:
+                dst.write(src.read())
+            extra = ["--cached_kg_triples_file", cache]
+        argv = ["--dataset", "2wikimultihopqa", "--query_file", str(ws["root"] / "queries.json"),
+                "--corpus", "2wikimultihopqa", "--corpus_path", ws["corpus_path"],
+                "--index_folder", ws["index"], "--embedding_size", "32",
+                "--retriever_model_name_or_path", ws["enc_dir"], "--compute_dtype", "float32",
+                "--llm", ws["llm_dir"], "--aligner_model_name_or_path", ws["enc_dir"],
+                "--num_turns", "2", "--topk", "3", "--num_candidate_triples", "5",
+                "--concurrent_questions", str(concurrent), "--save_dir",
+                str(ws["root"] / name), "--name", "kirag", "--save_file", "results.json",
+                *extra]
+        if name == "jax":
+            monkeypatch.setattr(sys, "argv", ["prog"] + argv)
+            jax_retrieve.main()
+            path = str(ws["root"] / name / "kirag" / "results.json")
+        else:
+            path = retrieve.main(argv, device="cpu")
+        with open(path) as f:
+            results[name] = json.load(f)
+    got, want = results["port"], results["jax"]
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g["paths"] == w["paths"]
+        assert [c["id"] for c in g["ctxs"]] == [c["id"] for c in w["ctxs"]]
+        np.testing.assert_allclose([c["score"] for c in g["ctxs"]],
+                                   [c["score"] for c in w["ctxs"]], rtol=1e-5, atol=1e-5)
+        assert ({k: v for k, v in g.items() if k != "ctxs"}
+                == {k: v for k, v in w.items() if k != "ctxs"})
+        assert len(g["ctxs"]) > 0
+    if cached:  # the triples ranked the documents and the constructor ran
+        assert all(g["paths"] == [[""]] for g in got)
+
+
+def test_retrieve_cli_refuses_what_is_not_ported(cli_workspace):
+    from kirag_tpu_torch.cli import retrieve
+
+    ws = cli_workspace
+    base = ["--dataset", "hotpotqa", "--query_file", "q.json", "--index_folder", ws["index"],
+            "--retriever_model_name_or_path", ws["enc_dir"], "--llm", ws["llm_dir"],
+            "--aligner_model_name_or_path", ws["enc_dir"], "--save_dir",
+            str(ws["root"] / "refused"), "--save_file", "r.json"]
+    for flag in (["--search_mode", "approx"], ["--draft_llm", ws["llm_dir"]],
+                 ["--llm_kv_quant_bits", "8"], ["--llm_prefix_cache_groups", "4"],
+                 ["--mesh_model", "2"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            retrieve.main(base + flag, device="cpu")
+    if not torch.cuda.is_available():  # without device="cpu" the CLI runs on the card
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            retrieve.main(base)
