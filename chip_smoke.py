@@ -27,7 +27,14 @@ weights at E5-large and Llama-3-8B-Instruct width:
   held against the same run through K6's plain version, with ``load_llama``
   reading a full-width 2-layer checkpoint; then
   ``kirag_tpu_torch.cli.retrieve`` over phase 6's index and encoder with that
-  LLM handed in, timed by stage.
+  LLM handed in, timed by stage;
+- the Aligner's contrastive training (phase 10): K3's two backward kernels
+  held against their plain version and timed beside the backward of
+  ``scaled_dot_product_attention``; a training step's gradients through the
+  kernels against the plain K3 and across the remat modes; then
+  ``kirag_tpu_torch.cli.train_aligner`` at its defaults for one epoch over a
+  seeded hotpotqa-format folder, from phase 6's E5-large npz to a saved
+  encoder; and step times at the JAX package's training-benchmark geometry.
 
 Every phase raises on failure. The last lines of standard output are the
 card's name and power limit, one JSON object with each kernel's launches,
@@ -37,6 +44,7 @@ error, times and bound, and the result line ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -590,10 +598,35 @@ def check_flash(dev, gen, heads: int, power) -> dict:
     return out
 
 
+GEMM_WORDS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")  # cuBLAS's kernel names
+
+
+def kernel_times(prof, groups):
+    """Device time (microseconds) of a torch.profiler run's kernels, the
+    kernels themselves and not the ops that launched them: by group, the
+    first of ``groups`` ((label, words) pairs) one of whose words is in the
+    kernel's lower-cased name, then "GEMM", else "other"; and by kernel
+    name."""
+    from torch.autograd import DeviceType
+
+    groups = (*groups, ("GEMM", GEMM_WORDS))
+    split = {label: 0.0 for label, _ in groups}
+    split["other"] = 0.0
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.device_time_total
+        name = evt.name.lower()
+        label = next((label for label, words in groups if any(w in name for w in words)),
+                     "other")
+        split[label] += evt.device_time_total
+    return split, by_name
+
+
 def profile_encoder(encoder, batches, power) -> None:
     """Device time of one encoder batch per bucket by kernel (torch.profiler):
     K3, the GEMMs, and the rest (LayerNorm, GELU, casts, copies)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for t, (ids, mask) in batches.items():
@@ -602,19 +635,8 @@ def profile_encoder(encoder, batches, power) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             encoder(ids, mask)
             torch.cuda.synchronize()
-        split = {"K3": 0.0, "GEMM": 0.0, "other": 0.0}
-        by_name = {}
-        for evt in prof.events():  # the kernels themselves, not the ops that launched them
-            if evt.device_type != DeviceType.CUDA:
-                continue
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.device_time_total
-            name = evt.name.lower()
-            if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
-                split["K3"] += evt.device_time_total
-            elif any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
-                split["GEMM"] += evt.device_time_total
-            else:
-                split["other"] += evt.device_time_total
+        split, by_name = kernel_times(prof, [("K3", ("flash_bf16_kernel",
+                                                      "flash_f32_kernel"))])
         total = sum(split.values())
         if total <= 0:
             log(f"  profiler: no device time for the {t}-token batch (not measured)")
@@ -1006,7 +1028,6 @@ def check_load_llama(work: Path, dev, config, power) -> dict:
 def profile_decode(backend, ids, mask, steps: int, power) -> dict:
     """Device time of ``steps`` decode steps by kernel (torch.profiler): K6,
     the rest, and the share of the wall time the card is busy."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _, _, state = backend.greedy_start(ids, mask, steps + 1, return_logits=False)
@@ -1016,17 +1037,7 @@ def profile_decode(backend, ids, mask, steps: int, power) -> dict:
         backend.greedy_resume(state, steps, return_logits=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    split = {"K6": 0.0, "GEMM": 0.0, "other": 0.0}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        name = evt.name.lower()
-        if "int4_matmul_kernel" in name or "reduce_splits_kernel" in name:
-            split["K6"] += evt.device_time_total
-        elif any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
-            split["GEMM"] += evt.device_time_total
-        else:
-            split["other"] += evt.device_time_total
+    split, _ = kernel_times(prof, [("K6", ("int4_matmul_kernel", "reduce_splits_kernel"))])
     busy = sum(split.values()) / 1e6
     if busy <= 0:
         log("  profiler: no device time for the decode steps (not measured)")
@@ -1347,8 +1358,10 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
                 for r in results):
             raise AssertionError(f"run {run}: results lack ctxs or paths, or hold ids "
                                  "outside the index")
-        if min(counts.values()) == 0:
-            raise AssertionError(f"run {run}: a kernel of the path was not launched: {counts}")
+        idle = [k for k in ("stream_capture", "gather_groups", "flash_attention", "int4_matmul")
+                if counts[k] == 0]
+        if idle:
+            raise AssertionError(f"run {run}: kernels of the path were not launched: {idle}")
         stages = dict(timer.seconds)
         stages["rest (load, examplar ranking, host)"] = wall - sum(stages.values())
         n_triples = sum(len(p) for r in results for p in r["paths"] if p and p[0])
@@ -1370,6 +1383,493 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
             runs["B"]["stages"].get("constructor decode")):
         raise AssertionError("run B did not reach the Aligner and the constructor")
     return runs
+
+
+# ---------------------------------------------------------------- phase 10
+
+# (a) K3's backward against its plain version at the aligner's query batch,
+# 32 sequences x 16 heads x 256 tokens. dq, dk and dv each within a share of
+# the tensor's largest magnitude: bf16 2^-6 (both versions round P and dS to
+# bf16 before their products; exponentials and sums run in other orders),
+# f32 1e-4 (f32 sums of up to 256 products in other orders)
+BWD_SHAPE = (32, 16, 256, 64)
+BWD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
+# (b) one training step through the kernels against the same step through
+# the plain K3 forward and backward: f32 gradients within 1e-4 of each
+# tensor's norm, bf16 gradients at a cosine of at least 0.99 per tensor; the
+# three remat modes' f32 gradients within 1e-6 of the norm (the same
+# operations, recomputed). The check runs under
+# torch.use_deterministic_algorithms: PyTorch's embedding backward sums the
+# rows of a repeated index (all 4,096 packed tokens share token type 0) in
+# an order that changes from run to run, 8e-7 of that gradient's norm
+# between two identical runs on the H100
+GRAD_TOL_F32 = 1e-4
+GRAD_COS_BF16 = 0.99
+REMAT_TOL = 1e-6
+GRAD_QUERIES = 8  # the gradient check's batch: 8 queries and their 32 docs
+# (d) the geometry of benchmarks/bench_train.py, the JAX package's training
+# benchmark: 32 queries x 256 tokens, 4 docs each (1 positive, 3 negatives)
+# x 64 tokens, bf16 compute over f32 master weights, 20 steps on one batch
+TRAIN_QUERIES, DOCS_PER_QUERY, TRAIN_Q_LEN, TRAIN_D_LEN, TRAIN_STEPS = 32, 4, 256, 64, 20
+# (c) the CLI's data: 64 training examples (8 micro batches of 8 at the
+# defaults: 4 updates at accumulation 2), 8 dev examples, 14 hard negatives each
+CLI_TRAIN, CLI_DEV, CLI_NEG_TITLES = 64, 8, 7
+K3_NAMES = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+
+
+def check_flash_bwd(dev, gen, power) -> dict:
+    """(a) K3's two backward kernels against the plain backward at BWD_SHAPE
+    (q, k, v as views of one fused projection; flash_segments' rows), bf16
+    and f32: on the plain forward's residuals, and through the autograd
+    Function (the forward kernel's own lse). Then each kernel, the plain
+    backward and the backward of scaled_dot_product_attention with the
+    same-segment boolean mask (a yardstick only), timed with CUDA events,
+    median of 10."""
+    from kirag_tpu_torch.kernels import (flash_attention, flash_attention_bwd_dkv,
+                                         flash_attention_bwd_dq, flash_attention_bwd_plain,
+                                         flash_attention_plain)
+
+    b, h, t, d = BWD_SHAPE
+    scale = 1.0 / math.sqrt(d)
+    seg = flash_segments(b, t, dev)
+    mask = seg[:, None, :, None] == seg[:, None, None, :]
+    pairs = int(mask.sum())  # same-segment (query, key) pairs, over the batch
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        what = f"K3 backward {str(dtype)[6:]} {list(BWD_SHAPE)}"
+        qkv = torch.randn(b, t, 3 * h * d, generator=gen, device=dev).to(dtype)
+        q, k, v = (x.view(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
+        do = torch.randn(b, h, t, d, generator=gen, device=dev).to(dtype)
+        o, lse = flash_attention_plain(q, k, v, seg, scale, return_lse=True)
+        di = torch.sum(o.float() * do.float(), dim=-1)
+        want = flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, seg, lse, di, do, scale)
+        dq = flash_attention_bwd_dq(q, k, v, seg, lse, di, do, scale)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        through = torch.autograd.grad(flash_attention(qg, kg, vg, seg, scale), (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        errs = {}
+        for label, got in (("kernels", (dq, dk, dv)), ("Function", through)):
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                err = float((x.float() - y.float()).abs().max())
+                lim = BWD_TOL[dtype] * float(y.float().abs().max())
+                if not (x.dtype == dtype and torch.isfinite(x).all() and err <= lim):
+                    raise AssertionError(f"{what}: {label} {name} differs from plain by {err} "
+                                         f"> {lim}, or is not finite")
+                errs[(label, name)] = err
+        # each input read once, each output written once; 2 * 64 operations per
+        # product, same-segment pair and head: dK/dV recomputes S = Q K^T and
+        # takes dP = dO V^T, dV = P^T dO, dK = dS^T Q (8 * 64); dQ recomputes S
+        # and dP and takes dQ = dS K (6 * 64); the backward as a whole needs S,
+        # dP, dV, dK and dQ once each (10 * 64)
+        ops_s = BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S
+        r = {"err_dkv": max(errs[("kernels", "dk")], errs[("kernels", "dv")]),
+             "err_dq": errs[("kernels", "dq")],
+             "bound_dkv": bound(nbytes(q, k, v, do, lse, di, seg, dk, dv), 8 * d * h * pairs,
+                                ops_s),
+             "bound_dq": bound(nbytes(q, k, v, do, lse, di, seg, dq), 6 * d * h * pairs, ops_s),
+             "bound": bound(nbytes(q, k, v, o, do, lse, seg, dq, dk, dv), 10 * d * h * pairs,
+                            ops_s)}
+        del dq, dk, dv, through, want, qg, kg, vg
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                                   scale=scale)
+        r.update({
+            "dkv_ms": cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, seg, lse, di, do, scale)),
+            "dq_ms": cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, seg, lse, di, do, scale)),
+            "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, seg, o, lse, do,
+                                                                  scale)),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                                              retain_graph=True))})
+        out[dtype] = r
+        log(f"  {what}: dq, dk, dv within {errs[('kernels', 'dq')]:.3g}, "
+            f"{errs[('kernels', 'dk')]:.3g}, {errs[('kernels', 'dv')]:.3g} of plain on the "
+            f"plain forward's residuals; through the Function (the forward kernel's lse) "
+            f"{errs[('Function', 'dq')]:.3g}, {errs[('Function', 'dk')]:.3g}, "
+            f"{errs[('Function', 'dv')]:.3g} (tolerance {BWD_TOL[dtype]:.3g} x each tensor's "
+            f"largest magnitude); same-segment pairs {pairs / (b * t * t):.3f} of all")
+        log(f"  [{power}] {what}: dK/dV {r['dkv_ms']:.3f} ms (bound {r['bound_dkv'][0]:.3f} ms, "
+            f"{r['bound_dkv'][1]}), dQ {r['dq_ms']:.3f} ms (bound {r['bound_dq'][0]:.3f} ms, "
+            f"{r['bound_dq'][1]}); the backward {r['dkv_ms'] + r['dq_ms']:.3f} ms vs plain "
+            f"{r['plain_ms']:.3f} ms vs SDPA's backward with mask {r['library_ms']:.3f} ms, "
+            f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) (CUDA events, median of 10)")
+        del q, k, v, qkv, do, o, lse, di, ql, kl, vl, lib_out
+    return out
+
+
+def train_batch(n_queries: int, rng, padded: bool) -> tuple:
+    """A collated aligner batch, the collator's tuple of numpy arrays:
+    ``n_queries`` queries of TRAIN_Q_LEN tokens and DOCS_PER_QUERY docs each
+    of TRAIN_D_LEN (query i's positive first), ids from the hashing
+    tokenizer's range after [CLS]; ``padded``: rows of random lengths,
+    right-padded with 0, else every token real (as the benchmark's)."""
+    def rows(n, width):
+        lengths = rng.randint(width // 4, width + 1, n) if padded else np.full(n, width)
+        mask = (np.arange(width)[None] < lengths[:, None]).astype(np.int32)
+        ids = rng.randint(1000, HashTokenizer.vocab, (n, width)).astype(np.int32)
+        ids[:, 0] = HashTokenizer.cls_id
+        return {"input_ids": ids * mask, "attention_mask": mask}
+
+    index = np.arange(n_queries, dtype=np.int32)
+    return (rows(n_queries, TRAIN_Q_LEN), rows(n_queries * DOCS_PER_QUERY, TRAIN_D_LEN),
+            index * DOCS_PER_QUERY, index)
+
+
+def grad_gap(got, want, names):
+    """The largest ||g - w|| / ||w|| over the tensors, and its tensor's name
+    (a tensor whose reference is zero must be zero)."""
+    worst = (0.0, "")
+    for g, w, name in zip(got, want, names):
+        diff, norm = float(torch.linalg.vector_norm(g - w)), float(torch.linalg.vector_norm(w))
+        gap = diff / norm if norm > 0 else (0.0 if diff == 0 else math.inf)
+        worst = max(worst, (gap, name))
+    return worst
+
+
+def grad_cosine(got, want, names):
+    """The smallest cosine between two tensors' gradients, and its name
+    (tensors that are zero in both are skipped)."""
+    worst = (1.0, "")
+    for g, w, name in zip(got, want, names):
+        ng, nw = float(torch.linalg.vector_norm(g)), float(torch.linalg.vector_norm(w))
+        if ng == nw == 0:
+            continue
+        cos = float(torch.sum(g.double() * w.double())) / (ng * nw) if ng * nw > 0 else 0.0
+        worst = min(worst, (cos, name))
+    return worst
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` inside,
+    the previous setting restored after."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def check_train_grads(model, dev) -> dict:
+    """(b) One training step's loss and every parameter's gradient through
+    the K3 kernels against the same step through the plain K3 forward and
+    backward (``flash_attention_reference`` in the encoder, on the card):
+    f32 and bf16 compute, two-call and packed, on GRAD_QUERIES padded
+    queries and their docs; and the f32 gradients of the remat modes none,
+    full and dots against each other."""
+    from kirag_tpu_torch.kernels import (flash_attention_reference, launch_counts,
+                                         reset_launch_counts)
+    from kirag_tpu_torch.models import bert
+    from kirag_tpu_torch.training import in_batch_contrastive_loss
+
+    q_args, d_args, pos, _ = train_batch(GRAD_QUERIES, np.random.RandomState(SEED + 11), True)
+    batch = {"query_args": {k: torch.from_numpy(v).long().to(dev) for k, v in q_args.items()},
+             "doc_args": {k: torch.from_numpy(v).long().to(dev) for k, v in d_args.items()},
+             "positive_doc_indices": torch.from_numpy(pos).long().to(dev)}
+    names, params = zip(*model.named_parameters())
+
+    def step(dtype, remat=False, packed=False, plain=False):
+        kernel_fn = bert.flash_attention
+        if plain:
+            bert.flash_attention = flash_attention_reference
+        reset_launch_counts()
+        try:
+            loss, _ = in_batch_contrastive_loss(model, batch, "e5", 0.01, dtype, remat=remat,
+                                                packed=packed)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        finally:
+            bert.flash_attention = kernel_fn
+        counts = [launch_counts()[k] for k in K3_NAMES]
+        if (max(counts) != 0) if plain else (min(counts) == 0):
+            raise AssertionError(f"gradient check ({dtype}, remat {remat}, packed {packed}, "
+                                 f"plain {plain}): K3 launches {counts}")
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        return float(loss.detach()), grads
+
+    out = {}
+    with deterministic_algorithms():
+        for packed in (False, True):
+            label = "packed" if packed else "two-call"
+            ref_loss, ref = step(torch.float32, packed=packed, plain=True)
+            loss, got = step(torch.float32, packed=packed)
+            gap = grad_gap(got, ref, names)
+            if not (gap[0] <= GRAD_TOL_F32 and abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)):
+                raise AssertionError(f"f32 {label} step: loss {loss} vs plain {ref_loss}; "
+                                     f"gradient {gap[1]} off by {gap[0]} > {GRAD_TOL_F32} of "
+                                     "its norm")
+            out[("f32", label)] = gap[0]
+            log(f"  f32 {label} step: loss {loss:.6f} through the K3 kernels, {ref_loss:.6f} "
+                f"through the plain K3; worst gradient {gap[1]} within {gap[0]:.3g} of its norm "
+                f"(tolerance {GRAD_TOL_F32})")
+            del ref
+            for remat in (True, "dots"):
+                _, again = step(torch.float32, remat=remat, packed=packed)
+                gap = grad_gap(again, got, names)
+                if not gap[0] <= REMAT_TOL:
+                    raise AssertionError(f"f32 {label} step: remat {remat} gradient {gap[1]} off "
+                                         f"by {gap[0]} > {REMAT_TOL} of its norm")
+                out[("remat", label, remat)] = gap[0]
+                log(f"  f32 {label} step, remat {remat} vs none: worst gradient {gap[1]} within "
+                    f"{gap[0]:.3g} of its norm (tolerance {REMAT_TOL})")
+            del got, again
+            ref_loss, ref = step(torch.bfloat16, packed=packed, plain=True)
+            loss, got = step(torch.bfloat16, packed=packed)
+            cos = grad_cosine(got, ref, names)
+            if not cos[0] >= GRAD_COS_BF16:
+                raise AssertionError(f"bf16 {label} step: gradient {cos[1]} at cosine {cos[0]} < "
+                                     f"{GRAD_COS_BF16} to the plain K3's")
+            out[("bf16", label)] = cos[0]
+            log(f"  bf16 {label} step: loss {loss:.6f} through the K3 kernels, {ref_loss:.6f} "
+                f"through the plain K3; smallest gradient cosine {cos[0]:.6f} ({cos[1]}; "
+                f"tolerance {GRAD_COS_BF16})")
+            del ref, got
+    return out
+
+
+def write_aligner_folder(folder: Path, rng) -> None:
+    """A hotpotqa-format data folder for the Aligner CLI, made from ``rng``:
+    ``train_aligner.json`` and ``dev_aligner.json`` with 2-hop supporting
+    triples and 14 hard-negative triples (two under each of 7 titles) per
+    question, and ``is_comparison_map.pkl`` marking every fourth question a
+    comparison (whose hops may come in any order). Questions of 100-200
+    words put every query batch in the 128- or 256-token bucket (through
+    K3); triples of 30-45 object words put the docs in the 64-token one."""
+    import pickle
+
+    words = np.array(WORDS)
+
+    def phrase(lo, hi):
+        return " ".join(words[rng.randint(0, len(words), rng.randint(lo, hi + 1))])
+
+    def triple(title):
+        return {"title": title, "text": f"<{title}; {phrase(1, 3)}; {phrase(30, 45)}>"}
+
+    def example(i):
+        negatives = {}
+        for _ in range(CLI_NEG_TITLES):
+            title = phrase(2, 4).title()
+            negatives[title] = [triple(title), triple(title)]
+        return {"id": f"q{i}", "question": phrase(100, 200) + " ?", "answers": [phrase(1, 3)],
+                "supporting_triples": [triple(phrase(2, 4).title()) for _ in range(2)],
+                "hard_negative_triples": negatives}
+
+    folder.mkdir(parents=True)
+    for name, rows in (("train_aligner.json", range(CLI_TRAIN)),
+                       ("dev_aligner.json", range(CLI_TRAIN, CLI_TRAIN + CLI_DEV))):
+        (folder / name).write_text(json.dumps([example(i) for i in rows]))
+    with open(folder / "is_comparison_map.pkl", "wb") as f:
+        pickle.dump({f"q{i}": i % 4 == 0 for i in range(CLI_TRAIN + CLI_DEV)}, f)
+
+
+def train_cli(work: Path, model_dir: Path, dev, power) -> dict:
+    """(c) kirag_tpu_torch.cli.train_aligner.main at its defaults (bf16, remat
+    dots, accumulation 2, batch 8 x 2 positives x 10 negatives, 256/64
+    tokens) but one epoch, over a seeded hotpotqa folder, phase 6's E5-large
+    npz and the hashing tokenizer. Checks the checkpoints, metrics.jsonl,
+    the saved encoder read back by load_encoder, finite losses and each K3
+    kernel's launches against the count the batches' buckets call for."""
+    from kirag_tpu_torch.cli import train_aligner
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.models import load_encoder
+    from kirag_tpu_torch.training import aligner
+
+    folder = work / "aligner_data" / "hotpotqa"
+    write_aligner_folder(folder, np.random.RandomState(SEED + 20))
+    seen = {"train": [], "docs": [], "eval": [], "losses": [], "step_s": []}
+    step_fn, score_fn = aligner.AlignerTrainer.training_step, aligner.AlignerTrainer._score_batch
+
+    def step(self, collated):  # records each micro batch's buckets, loss and host time
+        seen["trainer"] = self
+        seen["train"].append(collated[0]["input_ids"].shape[1])
+        seen["docs"].append(collated[1]["input_ids"].shape[1])
+        t0 = time.perf_counter()
+        stats = step_fn(self, collated)
+        seen["step_s"].append(time.perf_counter() - t0)
+        seen["losses"].append(stats["loss"])
+        return stats
+
+    def score(self, model, batch):  # records each eval batch's query bucket
+        seen["eval"].append(batch["query_args"]["input_ids"].shape[1])
+        return score_fn(self, model, batch)
+
+    save_dir = work / "aligner"
+    argv = ["--retriever_model_name_or_path", str(model_dir), "--data_folders", str(folder),
+            "--num_train_epochs", "1", "--save_dir", str(save_dir), "--name", "run"]
+    aligner.AlignerTrainer.training_step, aligner.AlignerTrainer._score_batch = step, score
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        result = train_aligner.main(argv, tokenizer=HashTokenizer())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        aligner.AlignerTrainer.training_step, aligner.AlignerTrainer._score_batch = (step_fn,
+                                                                                     score_fn)
+    counts = launch_counts()
+
+    trainer = seen.pop("trainer")
+    layers = trainer.model.config.num_hidden_layers
+    n_steps = len(seen["train"])
+    # a query batch in a bucket of a multiple of 128 tokens runs K3 in each
+    # layer: in training once forward (twice under remat, which recomputes
+    # it), once each backward kernel; in evaluation once forward
+    k3_train = sum(t % 128 == 0 for t in seen["train"])
+    k3_eval = sum(t % 128 == 0 for t in seen["eval"])
+    passes = 1 if trainer.remat is False else 2
+    want = {"flash_attention": layers * (passes * k3_train + k3_eval),
+            "flash_attention_bwd_dkv": layers * k3_train,
+            "flash_attention_bwd_dq": layers * k3_train}
+    run = save_dir / "run"
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    latest, best = sorted(os.listdir(run / "latest")), sorted(os.listdir(run / "best"))
+    if not (n_steps == CLI_TRAIN // 8 and result["steps"] == n_steps
+            and k3_train == n_steps and k3_eval == len(seen["eval"]) > 0
+            and set(seen["docs"]) == {TRAIN_D_LEN}):
+        raise AssertionError(f"train_aligner: {result['steps']} steps, query buckets "
+                             f"{seen['train']}, doc buckets {seen['docs']}, eval buckets "
+                             f"{seen['eval']}")
+    if not all(math.isfinite(x) for x in seen["losses"]):
+        raise AssertionError(f"train_aligner: losses {seen['losses']}")
+    if not (latest == [str(n_steps)] and best == [str(n_steps)]
+            and (run / "latest" / str(n_steps) / "state.pt").exists()
+            and any("eval_metric" in r for r in records)
+            and trainer.optimizer.count == n_steps // trainer.optimizer.accumulation_steps):
+        raise AssertionError(f"train_aligner: checkpoints latest {latest}, best {best}, "
+                             f"metrics {records}, {trainer.optimizer.count} updates")
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"train_aligner: K3 launches {counts}, expected {want}")
+    loaded = load_encoder(result["encoder_dir"], device=dev).model.state_dict()
+    trained = trainer.model.state_dict()
+    if loaded.keys() != trained.keys() or not all(torch.equal(loaded[k], trained[k])
+                                                  for k in trained):
+        raise AssertionError("the saved encoder, read back by load_encoder, differs from "
+                             "the trained weights")
+    metric = [r["eval_metric"] for r in records if "eval_metric" in r][-1]
+    ckpt_gb = sum(f.stat().st_size for f in (run / "latest").rglob("*") if f.is_file()) / 1e9
+    log(f"  train_aligner --num_train_epochs 1: {n_steps} micro steps "
+        f"({trainer.optimizer.count} updates, remat {trainer.remat}), query buckets "
+        f"{seen['train']}, doc buckets {sorted(set(seen['docs']))}; losses "
+        + ", ".join(f"{x:.4f}" for x in seen["losses"])
+        + f"; dev MRR {metric:.4f} over {len(seen['eval'])} eval batches; latest and best "
+        f"checkpoints at step {n_steps} ({ckpt_gb:.2f} GB each), metrics.jsonl, encoder npz "
+        f"read back equal; K3 launches {[counts[k] for k in K3_NAMES]} = expected")
+    log(f"  [{power}] train_aligner: {wall:.2f} s in all, micro steps "
+        f"{statistics.median(seen['step_s']) * 1e3:.1f} ms (median, host clock to the loss "
+        f"on the host), first {seen['step_s'][0] * 1e3:.1f} ms")
+    del trainer, trained, loaded
+    return {"launches": counts, "wall": wall, "losses": seen["losses"],
+            "step_ms": statistics.median(seen["step_s"]) * 1e3}
+
+
+def step_flops(config) -> float:
+    """Model FLOPs of one training step at the timing geometry, as
+    benchmarks/bench_train.py counts them: the matmul parameters P = L (4 h^2
+    + 2 h i) at 6 P per token (2 P forward, 4 P backward), and attention's
+    Q K^T and P V at 4 T h per token and layer forward, 3 times that with the
+    backward; recomputation under remat is not counted, and embeddings are
+    lookups."""
+    h, n_layers, inter = (config.hidden_size, config.num_hidden_layers,
+                          config.intermediate_size)
+    q_tok = TRAIN_QUERIES * TRAIN_Q_LEN
+    d_tok = TRAIN_QUERIES * DOCS_PER_QUERY * TRAIN_D_LEN
+    matmul = 6 * n_layers * (4 * h * h + 2 * h * inter) * (q_tok + d_tok)
+    attention = 3 * 4 * h * n_layers * (TRAIN_Q_LEN * q_tok + TRAIN_D_LEN * d_tok)
+    return float(matmul + attention)
+
+
+def profile_train_step(trainer, batch, label, step_ms, power) -> dict:
+    """Device time of one training step by kernel (torch.profiler): K3's
+    forward and backward, the GEMMs, the rest, and the largest kernels; and
+    the card's idle share of an unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.training_step(batch)
+        torch.cuda.synchronize()
+    split, by_name = kernel_times(prof, [
+        ("K3 forward", ("flash_bf16_kernel", "flash_f32_kernel")),
+        ("K3 backward", ("dkv_bf16_kernel", "dkv_f32_kernel", "dq_bf16_kernel",
+                         "dq_f32_kernel"))])
+    busy = sum(split.values()) / 1e3  # ms
+    if busy <= 0:
+        log("  profiler: no device time for the training step (not measured)")
+        return {"busy_ms": None}
+    idle = 1 - busy / step_ms
+    log(f"  [{power}] one training step ({label}), device time by kernel (torch.profiler): "
+        f"{busy:.2f} ms busy of an unprofiled {step_ms:.2f} ms step: idle {100 * idle:.1f}%; "
+        + ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / 1e3 / busy:.1f}%)"
+                    for k, v in split.items()))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("    largest: " + "; ".join(f"{n[:60]} {v / 1e3:.2f} ms" for n, v in top))
+    return {"busy_ms": busy, "idle": idle, "split_ms": {k: v / 1e3 for k, v in split.items()}}
+
+
+def train_timing(work: Path, model, power) -> dict:
+    """(d) AlignerTrainer.training_step at benchmarks/bench_train.py's
+    geometry and optimizer (lr 2e-5 warming up over 1,000 of 10,000
+    updates), bf16 compute over f32 master weights, two-call and packed
+    (docs 4 to a 256-token row through K3), each remat mode: 20 steps on
+    one batch from the same weights, whose loss must fall; ms per step, peak
+    memory, model-FLOPs per second against 989 TFLOP/s; then one profiled
+    step."""
+    from kirag_tpu_torch.training import AlignerTrainer, TrainerConfig
+
+    batch = train_batch(TRAIN_QUERIES, np.random.RandomState(SEED + 12), padded=False)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    flops = step_flops(model.config)
+    out = {}
+    for packed in (False, True):
+        for remat in (False, True, "dots"):
+            label = f"{'packed' if packed else 'two-call'}, remat {remat}"
+            model.load_state_dict(init)
+            trainer = AlignerTrainer(
+                model, TrainerConfig(max_steps=10_000, save_dir=str(work / "timing")), [batch],
+                compute_dtype=torch.bfloat16, remat=remat, packed=packed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, secs = [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                losses.append(trainer.training_step(batch)["loss"])  # ends on the host
+                secs.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+                raise AssertionError(f"{label}: the loss did not fall: {losses}")
+            step_ms = statistics.median(secs[1:]) * 1e3
+            r = {"step_ms": step_ms, "peak_gb": peak / 1e9, "losses": losses,
+                 "tflops": flops / step_ms / 1e9, "mfu": flops / (step_ms / 1e3) / BF16_FLOP_S}
+            if not packed:
+                r["profile"] = profile_train_step(trainer, batch, label, step_ms, power)
+            out[(packed, remat)] = r
+            log(f"  [{power}] {label}: {step_ms:.1f} ms per step (median of steps 2-"
+                f"{TRAIN_STEPS}, host clock to the loss on the host), peak memory "
+                f"{r['peak_gb']:.2f} GB; {r['tflops']:.1f} TFLOP/s of model FLOPs "
+                f"({flops / 1e12:.2f} TFLOP a step), {100 * r['mfu']:.1f}% of 989 TFLOP/s; "
+                f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps")
+            del trainer
+            torch.cuda.empty_cache()
+    model.load_state_dict(init)
+    return out
+
+
+def aligner_training(work: Path, built: dict, dev, gen, power) -> dict:
+    """Phase 10, the Aligner's contrastive training at E5-large width: (a)
+    K3's backward kernels against their plain version, (b) a training step's
+    gradients through the kernels against the plain K3 and across the remat
+    modes, (c) the train_aligner CLI end to end, (d) step times."""
+    from kirag_tpu_torch.models import load_encoder
+
+    flash_bwd = check_flash_bwd(dev, gen, power)
+    model = load_encoder(str(built["model_dir"]), "e5", device=dev).model  # f32 weights
+    grads = check_train_grads(model, dev)
+    cli = train_cli(work, built["model_dir"], dev, power)
+    timing = train_timing(work, model, power)
+    del model
+    torch.cuda.empty_cache()
+    return {"flash_bwd": flash_bwd, "grads": grads, "cli": cli, "timing": timing,
+            "launches": cli["launches"]}
 
 
 def main() -> int:
@@ -1478,15 +1978,21 @@ def main() -> int:
         log("phase 9: KiRAG through kirag_tpu_torch.cli.retrieve (the phase 6 index, the "
             "phase 8 LLM)")
         kirag = kirag_cli(work, built, decoded, power)
+        del decoded["params"]
+        torch.cuda.empty_cache()
+
+        log("phase 10: Aligner training (E5-large geometry, f32 weights, bf16 compute)")
+        trained = aligner_training(work, built, dev, gen, power)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # K1/K2 times at Q=32 on the float32 index; K3's at T=512 in bf16, the
     # index build's largest bucket; K6's at gate_proj, NF4, 4 rows (a decode
-    # step's largest per-layer projection at the Generator's batch). Launches:
-    # every main-path run (phases 4, 6, 8 and 9), not the comparisons.
+    # step's largest per-layer projection at the Generator's batch); K3's
+    # backward kernels' at the aligner's bf16 query batch. Launches: every
+    # main-path run (phases 4, 6, 8, 9 and 10's CLI run), not the comparisons.
     paths = [s["launches"] for s in served.values()] + [built["launches"]] + [
-        r["launches"] for r in kirag.values()]
+        r["launches"] for r in kirag.values()] + [trained["launches"]]
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     launches["int4_matmul"] += decoded["launches"]
     headline = timed["float32 index"][32]
@@ -1524,6 +2030,23 @@ def main() -> int:
                     "at": "NF4 gate_proj [2048, 14336] packed, 4 bf16 rows, cold L2; "
                           "library_ms: torch.matmul with the dequantized bf16 kernel (the "
                           "bf16 model's product, 4x the weight bytes)"})
+    bwd, bwd_f32 = trained["flash_bwd"][torch.bfloat16], trained["flash_bwd"][torch.float32]
+    flash_py = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    for key, kernel, line in (("dkv", "flash_attention_bwd_dkv", 796),
+                              ("dq", "flash_attention_bwd_dq", 1146)):
+        kernels.append({"name": kernel, "route": "cuda",
+                        "source": "kirag_tpu_torch/csrc/flash_attention_bwd.cu",
+                        "replaces": f"{flash_py}:{line}",
+                        "launches": launches[kernel], "max_abs_err": bwd[f"err_{key}"],
+                        "max_abs_err_f32": bwd_f32[f"err_{key}"], "ms": bwd[f"{key}_ms"],
+                        "plain_ms": bwd["plain_ms"], "bound_ms": bwd[f"bound_{key}"][0],
+                        "bound_by": bwd[f"bound_{key}"][1], "library_ms": bwd["library_ms"],
+                        "at": f"bf16 {list(BWD_SHAPE)} (the aligner's query batch), mixed "
+                              "padded, unpadded, all-padding and packed segment rows; the "
+                              "backward of K3, reached from kirag_tpu/models/bert.py:179; "
+                              "plain_ms and library_ms: the whole backward (dq, dk, dv), "
+                              "the plain version and scaled_dot_product_attention's "
+                              "backward with the same-segment mask"})
     log(power)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

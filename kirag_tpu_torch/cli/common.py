@@ -43,7 +43,7 @@ def check_single_device(args) -> None:
     if args.mesh_model != 1 or args.mesh_data not in (None, 1):
         raise NotImplementedError(
             f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model}: a device mesh "
-            "is not ported yet (ROADMAP.md §A: multi-GPU index)")
+            "is not ported yet (ROADMAP.md §A 16: multi-GPU search and training)")
 
 
 def build_tokenizer(args):

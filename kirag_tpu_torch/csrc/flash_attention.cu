@@ -41,62 +41,23 @@
 //   and the output can be written as [B, T, H, 64] for the next projection.
 // - Shared memory is static and below 48 KB (19 KB bf16, 33 KB f32), so no
 //   opt-in is needed.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+// - For training, each row's m + log(l) is written to lse (the reference
+//   keeps l and m); the backward kernels (flash_attention_bwd.cu) recompute
+//   the probabilities from it. At inference lse is null and nothing changes.
+#include "flash_attention.cuh"
 
 namespace {
 
-constexpr int HD = 64;        // head dim
-constexpr int BQ = 64;        // queries per block
-constexpr int BK = 64;        // keys per staged tile
-constexpr int SK = HD + 8;    // bf16 row stride of the K and V^T tiles (bank spread)
-constexpr int BF16_THREADS = 128;
+using namespace kirag_flash;
+
 constexpr int F32_THREADS = BQ;
 
-struct Strides {  // element strides of [B, H, T, 64] with d contiguous
-  long long b, h, t;
-};
-
-template <typename T>  // two neighbouring bf16 values as one 32-bit word
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the lower 16 bits
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float row_max4(float x) {  // over the 4 lanes of a row
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float row_sum4(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4):
-//   A 16x16: a0 = A[g][2c..2c+1], a1 = A[g+8][2c..], a2 = A[g][2c+8..], a3 = A[g+8][2c+8..]
-//   B 16x8:  b0 = B[2c..2c+1][g], b1 = B[2c+8..2c+9][g]
-//   C 16x8:  c0, c1 = C[g][2c..2c+1], c2, c3 = C[g+8][2c..2c+1]
+// Fragment layouts: flash_attention.cuh.
 __global__ void __launch_bounds__(BF16_THREADS)
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                      __nv_bfloat16* __restrict__ out, int t_len, float sm_scale, Strides sq,
-                      Strides sk, Strides sv, Strides so) {
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int t_len,
+                      float sm_scale, Strides sq, Strides sk, Strides sv, Strides so) {
   __shared__ __align__(16) uint16_t k_s[BK * SK];   // bf16 bits, [key][d]
   __shared__ __align__(16) uint16_t vt_s[HD * SK];  // bf16 bits, [d][key]
   __shared__ int kseg_s[BK];
@@ -219,6 +180,11 @@ __global__ void __launch_bounds__(BF16_THREADS)
     *reinterpret_cast<uint32_t*>(ob + r0 * so.t + col) = pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
     *reinterpret_cast<uint32_t*>(ob + r1 * so.t + col) = pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
+  if (lse != nullptr && c == 0) {  // the backward's residual: m + log(l) per row
+    float* lb = lse + (static_cast<long long>(b) * gridDim.y + h) * t_len;
+    lb[r0] = m0 + logf(sum0);
+    lb[r1] = m1 + logf(sum1);
+  }
 }
 
 constexpr int SUB = 16;  // keys per online-softmax step of the f32 kernel
@@ -226,8 +192,8 @@ constexpr int SUB = 16;  // keys per online-softmax step of the f32 kernel
 __global__ void __launch_bounds__(F32_THREADS)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ seg,
-                     float* __restrict__ out, int t_len, float sm_scale, Strides sq, Strides sk,
-                     Strides sv, Strides so) {
+                     float* __restrict__ out, float* __restrict__ lse, int t_len,
+                     float sm_scale, Strides sq, Strides sk, Strides sv, Strides so) {
   __shared__ __align__(16) float4 k_s[BK * HD / 4];  // [key][d / 4]
   __shared__ __align__(16) float4 v_s[BK * HD / 4];
   __shared__ int kseg_s[BK];
@@ -313,10 +279,7 @@ __global__ void __launch_bounds__(F32_THREADS)
     op[i] = make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv,
                         acc[4 * i + 3] * inv);
   }
-}
-
-Strides strides_at(const long long* s, int which) {
-  return Strides{s[3 * which], s[3 * which + 1], s[3 * which + 2]};
+  if (lse != nullptr) lse[(static_cast<long long>(b) * gridDim.y + h) * t_len + r] = m + logf(l);
 }
 
 }  // namespace
@@ -325,10 +288,12 @@ Strides strides_at(const long long* s, int which) {
 // addressed through its element strides (strides[3 * i .. 3 * i + 2] = batch,
 // head and token strides of q, k, v, out in turn; d contiguous, rows 16-byte
 // aligned); seg int32 [batch, t_len] contiguous; t_len a multiple of 64.
-// Returns the launch's cudaError_t.
+// lse, f32 [batch, heads, t_len] contiguous, receives each row's m + log(l)
+// (the log of its softmax denominator, in units of sm_scale * q . k) for the
+// backward kernels; null at inference. Returns the launch's cudaError_t.
 extern "C" int kirag_flash_attention(const void* q, const void* k, const void* v,
-                                     const int* seg, void* out, int is_bf16, int batch,
-                                     int heads, int t_len, float sm_scale,
+                                     const int* seg, void* out, float* lse, int is_bf16,
+                                     int batch, int heads, int t_len, float sm_scale,
                                      const long long* strides, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(t_len / BQ, heads, batch);
@@ -337,13 +302,13 @@ extern "C" int kirag_flash_attention(const void* q, const void* k, const void* v
   if (is_bf16) {
     flash_bf16_kernel<<<grid, BF16_THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(out), t_len,
-        sm_scale, sq, sk, sv, so);
+        static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(out), lse,
+        t_len, sm_scale, sq, sk, sv, so);
   } else {
     flash_f32_kernel<<<grid, F32_THREADS, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), seg, static_cast<float*>(out), t_len, sm_scale, sq, sk,
-        sv, so);
+        static_cast<const float*>(v), seg, static_cast<float*>(out), lse, t_len, sm_scale,
+        sq, sk, sv, so);
   }
   return cudaGetLastError();
 }

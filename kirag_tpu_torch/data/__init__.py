@@ -15,6 +15,12 @@ from kirag_tpu_torch.data.corpus import (
     Wikipedia,
     load_psg_data,
 )
+from kirag_tpu_torch.data.datasets import (
+    KGChainRetrieverDataset,
+    KGChainRetrieverSeqSampleDataset,
+    RetrieverDataset,
+    convert_triples_to_sentences,
+)
 
 __all__ = [
     "COLLATOR_MAP",
@@ -30,4 +36,8 @@ __all__ = [
     "WikiMultiHopQA",
     "Wikipedia",
     "load_psg_data",
+    "KGChainRetrieverDataset",
+    "KGChainRetrieverSeqSampleDataset",
+    "RetrieverDataset",
+    "convert_triples_to_sentences",
 ]

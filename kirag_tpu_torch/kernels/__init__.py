@@ -1,6 +1,14 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions."""
 
-from kirag_tpu_torch.kernels.attention import flash_attention, flash_attention_plain
+from kirag_tpu_torch.kernels.attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    flash_attention_reference,
+)
 from kirag_tpu_torch.kernels.build import build, load_library
 from kirag_tpu_torch.kernels.common import launch_counts, reset_launch_counts
 from kirag_tpu_torch.kernels.exact import (
@@ -15,7 +23,12 @@ __all__ = [
     "build",
     "load_library",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_plain",
     "flash_attention_plain",
+    "flash_attention_reference",
     "gather_groups",
     "gather_groups_plain",
     "int4_matmul",

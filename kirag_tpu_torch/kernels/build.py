@@ -106,9 +106,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         ptr, ptr, i32, ptr, ptr, i32, i32, i32, i64, ptr]
     lib.kirag_gather_groups.restype = i32
     lib.kirag_flash_attention.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,  # q, k, v, seg, out, bf16, b, h, t
-        ctypes.c_float, ctypes.POINTER(i64), ptr]     # sm_scale, strides[12], stream
+        ptr, ptr, ptr, ptr, ptr, ptr,             # q, k, v, seg, out, lse (or null)
+        i32, i32, i32, i32,                       # bf16, b, h, t
+        ctypes.c_float, ctypes.POINTER(i64), ptr]  # sm_scale, strides[12], stream
     lib.kirag_flash_attention.restype = i32
+    lib.kirag_flash_attention_bwd_dkv.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, seg, lse, di, dout, dk, dv
+        i32, i32, i32, i32,                           # bf16, b, h, t
+        ctypes.c_float, ctypes.POINTER(i64), ptr]     # sm_scale, strides[21], stream
+    lib.kirag_flash_attention_bwd_dkv.restype = i32
+    lib.kirag_flash_attention_bwd_dq.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, seg, lse, di, dout, dq
+        i32, i32, i32, i32,
+        ctypes.c_float, ctypes.POINTER(i64), ptr]
+    lib.kirag_flash_attention_bwd_dq.restype = i32
     lib.kirag_int4_matmul.argtypes = [
         ptr, i32, ptr, ptr, ptr, ptr, ptr,  # x, bf16, packed, scales, codebook, out, partial
         i32, i32, i32, i32, ptr]            # rows, half, out_dim, n_split, stream

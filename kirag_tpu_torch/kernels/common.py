@@ -14,6 +14,7 @@ import torch
 
 _counts_lock = threading.Lock()
 _launches: Dict[str, int] = {"stream_capture": 0, "gather_groups": 0, "flash_attention": 0,
+                             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
                              "int4_matmul": 0}
 
 

@@ -1,0 +1,199 @@
+"""K3's gradient: the flash attention ``torch.autograd.Function`` and its two
+backward kernels' plain version, held against the JAX package.
+
+JAX's Pallas TPU flash attention is a ``jax.custom_vjp`` whose backward runs
+two more kernels (dK/dV and dQ); under ``pltpu.force_tpu_interpret_mode()``
+``jax.grad`` runs them interpreted here (a few seconds a call, so few calls).
+Same numpy inputs through both, f32, atol = rtol = 1e-5 (sums of a few
+hundred unit-scale f32 products taken in different orders). On the CPU the
+port's wrappers run their plain versions; the kernels against the plain
+version are held on the card by ``tests/test_torch_kernels.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as jax_fa
+
+from kirag_tpu.models.bert import BertConfig as JaxBertConfig
+from kirag_tpu.models.bert import _flash_attention as jax_flash_layer
+from kirag_tpu_torch.kernels import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    flash_attention_reference,
+    launch_counts,
+    reset_launch_counts,
+)
+from kirag_tpu_torch.models import BertConfig, BertModel, bert_encode
+from kirag_tpu_torch.models import bert as port_bert
+
+from tests.test_torch_flash import CFG, layer_params, port_model, segments
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+SCALE = 0.125
+
+
+def jax_block_sizes(t):
+    """The forward and backward blocks ``kirag_tpu.models.bert`` passes."""
+    return jax_fa.BlockSizes(
+        block_q=t, block_k_major=t, block_k=t, block_b=1, block_q_major_dkv=t,
+        block_k_major_dkv=t, block_k_dkv=t, block_q_dkv=t, block_k_major_dq=t,
+        block_k_dq=t, block_q_dq=t)
+
+
+@pytest.mark.parametrize("t,kind", [(128, "padded"), (256, "packed"), (128, "fully_padded")])
+def test_backward_matches_jax_pallas_kernels(rng, t, kind):
+    """dq, dk, dv of sum(out * w): jax.grad through the Pallas dK/dV and dQ
+    kernels against the port's Function (CPU: plain forward returning lse,
+    plain backward) and against flash_attention_bwd_plain called directly."""
+    q, k, v, w = (rng.randn(2, 2, t, 64).astype(np.float32) for _ in range(4))
+    seg = segments(kind, t)
+
+    def loss(q, k, v):
+        out = jax_fa.flash_attention(
+            q, k, v, segment_ids=jax_fa.SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg)),
+            sm_scale=SCALE, block_sizes=jax_block_sizes(t))
+        return jnp.sum(out * w)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tseg, tw = torch.from_numpy(seg), torch.from_numpy(w)
+    reset_launch_counts()
+    out = flash_attention(tq, tk, tv, tseg, SCALE)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    got = torch.autograd.grad(torch.sum(out * tw), (tq, tk, tv))
+    assert sum(launch_counts().values()) == 0  # CPU tensors: the plain versions
+    for g, ref in zip(got, want):
+        assert np.isfinite(g.numpy()).all()
+        np.testing.assert_allclose(g.numpy(), ref, **TOL)
+
+    with torch.no_grad():
+        o, lse = flash_attention_plain(tq, tk, tv, tseg, SCALE, return_lse=True)
+        direct = flash_attention_bwd_plain(tq, tk, tv, tseg, o, lse, tw, SCALE)
+    for g, d in zip(got, direct):
+        np.testing.assert_array_equal(g.numpy(), d.numpy())
+
+
+def test_lse_is_the_log_of_the_reference_softmax_sums(rng):
+    """lse = m + log(l) of JAX's saved residuals, pad rows included (they
+    attend among pads and are finite)."""
+    t = 128
+    q, k, v = (rng.randn(2, 2, t, 64).astype(np.float32) for _ in range(3))
+    seg = segments("fully_padded", t)
+    with pltpu.force_tpu_interpret_mode():
+        _, l, m = jax_fa._flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+            jax_fa.SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg)), True, False, SCALE,
+            jax_block_sizes(t), False)
+    want = np.asarray(m) + np.log(np.asarray(l))
+    _, lse = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v, seg)), SCALE,
+                                   return_lse=True)
+    assert np.isfinite(lse.numpy()).all()
+    np.testing.assert_allclose(lse.numpy(), want, **TOL)
+
+
+def test_attention_layer_gradients_match_jax(rng):
+    """jax.grad of kirag_tpu.models.bert._flash_attention (the Pallas kernels
+    interpreted) against the port's Attention layer through the Function:
+    dx and every parameter of the layer."""
+    t = 128
+    params = layer_params(seed=5)
+    att = params["layers"][0]["attention"]
+    x = rng.randn(2, t, CFG["hidden_size"]).astype(np.float32)
+    w = rng.randn(2, t, CFG["hidden_size"]).astype(np.float32)
+    seg = segments("packed", t)
+
+    def loss(x, p):
+        return jnp.sum(jax_flash_layer(x, jnp.asarray(seg), p, JaxBertConfig(**CFG)) * w)
+
+    with pltpu.force_tpu_interpret_mode():
+        dx, dp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
+                                                jax.tree.map(jnp.asarray, att))
+    layer = port_model(params).layers[0].attention
+    tx = torch.from_numpy(x).requires_grad_()
+    out = layer(tx, None, torch.from_numpy(seg), "flash")
+    torch.sum(out * torch.from_numpy(w)).backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(dx), **TOL)
+    h = CFG["hidden_size"]
+    for j, name in enumerate(("query", "key", "value")):  # rows of the fused qkv
+        np.testing.assert_allclose(layer.qkv.weight.grad[j * h:(j + 1) * h].numpy().T,
+                                   np.asarray(dp[name]["kernel"]), **TOL)
+        np.testing.assert_allclose(layer.qkv.bias.grad[j * h:(j + 1) * h].numpy(),
+                                   np.asarray(dp[name]["bias"]), **TOL)
+    np.testing.assert_allclose(layer.output.weight.grad.numpy().T,
+                               np.asarray(dp["output"]["kernel"]), **TOL)
+    np.testing.assert_allclose(layer.output.bias.grad.numpy(),
+                               np.asarray(dp["output"]["bias"]), **TOL)
+
+
+def test_flash_path_gradients_equal_autograd_of_the_plain_forward(rng, monkeypatch):
+    """The lost-gradient repair: with the encoder forced onto the flash path,
+    a loss's gradients go through the Function (the kernels on the card, the
+    plain backward here) and equal autograd through the plain forward. The
+    forward used to be a bare kernel call, whose output had no grad_fn on the
+    card, so attention carried no gradient there."""
+    monkeypatch.setattr(port_bert, "_resolve_attention_impl", lambda *args: "flash")
+    cfg = BertConfig(**CFG)
+    mask = segments("padded", 128)
+    ids = torch.from_numpy(np.where(mask > 0, rng.randint(1, CFG["vocab_size"], mask.shape), 0))
+    mask = torch.from_numpy(mask).long()
+
+    def grads():
+        torch.manual_seed(0)
+        model = BertModel(cfg)
+        hidden = bert_encode(model, ids, mask)
+        torch.sum(hidden * torch.linspace(-1, 1, CFG["hidden_size"])).backward()
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    through_function = grads()
+    monkeypatch.setattr(port_bert, "flash_attention", flash_attention_plain)
+    through_autograd = grads()
+    assert through_function.keys() == through_autograd.keys()
+    assert "layers.0.attention.qkv.weight" in through_function
+    for name, g in through_autograd.items():
+        np.testing.assert_allclose(through_function[name].numpy(), g.numpy(), **TOL,
+                                   err_msg=name)
+
+
+def test_reference_function_runs_the_plain_formulas(rng):
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 64, 64).astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    seg = torch.ones(1, 64, dtype=torch.int32)
+    a = torch.autograd.grad(flash_attention(q, k, v, seg, SCALE).sum(), (q, k, v))
+    b = torch.autograd.grad(flash_attention_reference(q, k, v, seg, SCALE).sum(), (q, k, v))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_backward_wrappers_check_their_operands():
+    q = torch.zeros(1, 2, 128, 64)
+    seg = torch.ones(1, 128, dtype=torch.int32)
+    lse = di = torch.zeros(1, 2, 128)
+    with pytest.raises(ValueError, match="dout must match q"):
+        flash_attention_bwd(q, q, q, seg, q, lse, q[..., :32], SCALE)
+    with pytest.raises(ValueError, match="dout must match q"):
+        flash_attention_bwd_dq(q, q, q, seg, lse, di, q.double(), SCALE)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        flash_attention_bwd(q, q, q, seg, q, lse[:, :1], q, SCALE)
+    with pytest.raises(ValueError, match="di must be float32"):
+        flash_attention_bwd_dkv(q, q, q, seg, lse, di.double(), q, SCALE)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention_bwd_dkv(q.half(), q.half(), q.half(), seg, lse, di, q.half(), SCALE)
+    with pytest.raises(ValueError, match="segment_ids"):
+        flash_attention_bwd_dq(q, q, q, seg[:, :64], lse, di, q, SCALE)
+    with pytest.raises(ValueError, match="different devices"):
+        flash_attention_bwd_dkv(q, q, q, seg, lse, di.to("meta"), q, SCALE)
+    meta = q.to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_bwd_dq(meta, meta, meta, seg.to("meta"), lse.to("meta"),
+                               di.to("meta"), meta, SCALE)

@@ -1,6 +1,7 @@
 """The CUDA kernels' wrappers: device dispatch, launch counts, and (on a GPU)
 each kernel against its plain version: K1 and K2 of the exact search, K3
-the encoder's flash attention, K6 the LLM's 4-bit weight matmul.
+the encoder's flash attention and its two backward kernels, K6 the LLM's
+4-bit weight matmul.
 
 This file imports neither JAX nor ``kirag_tpu``, so the GPU machine, which
 has neither, runs it alone:
@@ -18,6 +19,7 @@ import torch
 
 from kirag_tpu_torch.kernels import (
     flash_attention,
+    flash_attention_bwd_plain,
     flash_attention_plain,
     gather_groups,
     gather_groups_plain,
@@ -53,6 +55,7 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
     exact_topk_mips(q, c, 5, chunk_size=512, on_miss="flag")
     assert launch_counts() == {"stream_capture": 0, "gather_groups": 0, "flash_attention": 0,
+                               "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
                                "int4_matmul": 0}
 
 
@@ -96,7 +99,8 @@ def test_kernels_bitwise_equal_plain_on_integer_data(cuda_device, dtype):
         gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, k)[1], dim=-1).values
         assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
         assert launch_counts() == {"stream_capture": 1, "gather_groups": 1,
-                                  "flash_attention": 0, "int4_matmul": 0}
+                                  "flash_attention": 0, "flash_attention_bwd_dkv": 0,
+                                  "flash_attention_bwd_dq": 0, "int4_matmul": 0}
 
 
 @pytest.mark.cuda
@@ -144,6 +148,44 @@ def test_flash_attention_matches_plain(cuda_device, dtype, t):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     else:
         assert float((got.float() - want.float()).abs().max()) <= bf16_ulps(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [128, 256])
+def test_flash_attention_backward_matches_plain(cuda_device, dtype, t):
+    """dq, dk, dv through the forward and the two backward kernels against
+    the plain backward on the plain forward's residuals: f32 within 1e-4 of
+    each tensor's largest magnitude (f32 sums in other orders), bf16 within
+    2^-6 of it (P and dS rounded to bf16 in both, exponentials and sums in
+    other orders)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    b, h = 4, 4
+    seg = torch.ones(b, t, dtype=torch.int32, device=cuda_device)
+    seg[0, t - 50:] = 0
+    seg[1] = 0
+    seg[2] = torch.repeat_interleave(torch.tensor([1, 2, 3, 0], device=cuda_device),
+                                     torch.tensor([30, 70, t - 110, 10], device=cuda_device))
+    qkv = torch.randn(b, t, 3 * h * 64, generator=g, device=cuda_device).to(dtype)
+    q, k, v = (x.view(b, t, h, 64).transpose(1, 2).requires_grad_()
+               for x in qkv.split(h * 64, -1))
+    w = torch.randn(b, h, t, 64, generator=g, device=cuda_device).to(dtype)
+    reset_launch_counts()
+    out = flash_attention(q, k, v, seg, 0.125)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), w)
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd_dkv"],
+            counts["flash_attention_bwd_dq"]) == (1, 1, 1)
+    with torch.no_grad():
+        o, lse = flash_attention_plain(q, k, v, seg, 0.125, return_lse=True)
+        want = flash_attention_bwd_plain(q, k, v, seg, o, lse, w, 0.125)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and torch.isfinite(x).all(), name
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= tol * float(y.float().abs().max()), (name, err)
 
 
 def int4_abs_sum(x, packed, scales, codebook=None):
