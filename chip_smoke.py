@@ -34,7 +34,15 @@ weights at E5-large and Llama-3-8B-Instruct width:
   kernels against the plain K3 and across the remat modes; then
   ``kirag_tpu_torch.cli.train_aligner`` at its defaults for one epoch over a
   seeded hotpotqa-format folder, from phase 6's E5-large npz to a saved
-  encoder; and step times at the JAX package's training-benchmark geometry.
+  encoder; and step times at the JAX package's training-benchmark geometry;
+- the compressed index (phase 11): K1 and K2 with K4's int8 and int4
+  scoring held against their plain versions (bitwise on integer data); the
+  server of phase 4 over the same 1,000,000 rows as int8 and int4 indexes
+  quantized on the card; ``build_index --compression`` over phase 6's shards
+  and the reloaded index; and the DPR corpus's 21,015,324 x 1024 rows made
+  and quantized on the card, int4 then int8, searched at Q = 8, 32, 256 with
+  K1/K2 timed, self-hits checked and recall@10/@100 against the exact
+  float32 top-100.
 
 Every phase raises on failure. The last lines of standard output are the
 card's name and power limit, one JSON object with each kernel's launches,
@@ -45,6 +53,7 @@ error, times and bound, and the result line ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -318,8 +327,15 @@ def make_requests(n_requests: int, n_texts: int):
     return requests
 
 
-def serve(label, encoder, collator, index, texts, text_rows, power) -> dict:
-    """Drive RetrievalEngine over ``index``: N_REQUESTS requests from 4
+def kernel_names(compression: str):
+    """The launch counts of K1 and K2 for an index of this compression."""
+    suffix = "" if compression == "none" else f"_{compression}"
+    return f"stream_capture{suffix}", f"gather_groups{suffix}"
+
+
+def serve(label, encoder, collator, index, texts, text_rows, power,
+          n_requests: int = N_REQUESTS) -> dict:
+    """Drive RetrievalEngine over ``index``: ``n_requests`` requests from 4
     threads, then one request at a time of 1, 8 and 32 texts. Checks the
     self-hits, the kernels' launch counts, and every served batch (its
     capture flag and its result) against the same search through the plain
@@ -333,7 +349,7 @@ def serve(label, encoder, collator, index, texts, text_rows, power) -> dict:
     retriever = DenseRetriever(encoder, collator, indexer=recorder, batch_size=32)
     engine = RetrievalEngine(retriever, max_batch=32, max_wait_ms=5.0, topk_buckets=(10, K))
     recorder.calls.clear()  # warmup searches are not part of the run
-    requests = make_requests(N_REQUESTS, len(texts))
+    requests = make_requests(n_requests, len(texts))
     results, latencies, errors = {}, {}, []
 
     def worker(mine):
@@ -364,7 +380,8 @@ def serve(label, encoder, collator, index, texts, text_rows, power) -> dict:
         results[len(requests) - 1] = engine.search(texts[:n], topk=K)
     counts = launch_counts()
     engine.close()
-    if not (counts["stream_capture"] > 0 and counts["gather_groups"] > 0):
+    names = kernel_names(index.compression)
+    if not all(counts[k] > 0 for k in names):
         raise AssertionError(f"{label}: a kernel of the path was not launched: {counts}")
 
     margins = []
@@ -376,22 +393,23 @@ def serve(label, encoder, collator, index, texts, text_rows, power) -> dict:
                                      f"not its own row {want}")
             margins.append(row[0]["score"] - row[1]["score"])
 
-    corpus = index._device_corpus
+    corpus, scales = index._device_corpus, index._device_scales
     by_rows, from_capture = {}, []
     for q, top_docs, out, redispatched in recorder.calls:
         q_pad = np.zeros((max(8, 1 << (len(q) - 1).bit_length()), q.shape[1]), np.float32)
         q_pad[:len(q)] = q
-        qt = torch.from_numpy(q_pad).to(device=corpus.device, dtype=corpus.dtype)
+        qt = torch.from_numpy(q_pad).to(device=corpus.device, dtype=index.device_dtype)
         what = f"{label} served batch of {len(q)}"
         ref_vals, ref_idx, ref_ok = exact_topk_mips(
             qt, corpus, top_docs, chunk_size=CHUNK, valid_rows=index._device_rows,
-            on_miss="flag", plain=True)
+            on_miss="flag", plain=True, scales=scales)
         if bool(ref_ok) == redispatched:
             raise AssertionError(f"{what}: capture flag {not redispatched} with the kernels, "
                                  f"{bool(ref_ok)} with the plain versions")
         if redispatched:
             ref_vals, ref_idx = exact_topk_mips(qt, corpus, top_docs, chunk_size=CHUNK,
-                                                valid_rows=index._device_rows, plain=True)
+                                                valid_rows=index._device_rows, plain=True,
+                                                scales=scales)
         else:
             from_capture.append(len(q))
         vals = torch.tensor(np.stack([s for _, s in out]))
@@ -401,13 +419,13 @@ def serve(label, encoder, collator, index, texts, text_rows, power) -> dict:
     if not from_capture:
         raise AssertionError(f"{label}: no search was answered from the capture")
 
-    lat = np.array([latencies[r] for r in range(N_REQUESTS)]) * 1e3
-    stats = {"rps": N_REQUESTS / wall,
-             "texts_per_s": sum(len(requests[r]) for r in range(N_REQUESTS)) / wall,
+    lat = np.array([latencies[r] for r in range(n_requests)]) * 1e3
+    stats = {"rps": n_requests / wall,
+             "texts_per_s": sum(len(requests[r]) for r in range(n_requests)) / wall,
              "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
              "launches": counts}
     n_redispatched = len(recorder.calls) - len(from_capture)
-    log(f"  {label}: {N_REQUESTS} requests from 4 threads in {n_threaded} batches, then "
+    log(f"  {label}: {n_requests} requests from 4 threads in {n_threaded} batches, then "
         f"requests of 1, 8 and 32 texts alone: all self-hits at top-1 (smallest margin "
         f"{min(margins):.4f}); {len(recorder.calls)} searches by padded rows "
         f"{dict(sorted(by_rows.items()))}, {n_redispatched} re-dispatched, "
@@ -415,7 +433,7 @@ def serve(label, encoder, collator, index, texts, text_rows, power) -> dict:
         f"launches {counts}; every served batch's flag and result match the plain search")
     log(f"  [{power}] {label} engine: {stats['rps']:.2f} requests/s "
         f"({stats['texts_per_s']:.2f} texts/s), latency p50 {stats['p50_ms']:.2f} ms, "
-        f"p95 {stats['p95_ms']:.2f} ms ({N_REQUESTS} requests, host clock, 4 threads)")
+        f"p95 {stats['p95_ms']:.2f} ms ({n_requests} requests, host clock, 4 threads)")
     return stats
 
 
@@ -428,33 +446,33 @@ def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> di
     from kirag_tpu_torch.ops import hier_topk
     from kirag_tpu_torch.ops.exact import _capture_budget
 
-    corpus, valid = index._device_corpus, index._device_rows
+    corpus, scales, valid = index._device_corpus, index._device_scales, index._device_rows
+    quant = index.compression
+    k1, k2 = kernel_names(quant)
     b = _capture_budget(K, len(corpus) // CHUNK, CHUNK // 128)
     times = {}
     for n_q in query_counts:
         what = f"{label} Q={n_q}"
-        q = unit_rows(n_q, gen, corpus.device).to(corpus.dtype)
-        got = stream_capture(q, corpus, valid, CHUNK, b)
-        k1_err, swapped = capture_error(got, stream_capture_plain(q, corpus, valid, CHUNK, b),
-                                        what)
+        q = unit_rows(n_q, gen, corpus.device).to(index.device_dtype)
+        got = stream_capture(q, corpus, valid, CHUNK, b, scales, quant)
+        k1_err, swapped = capture_error(
+            got, stream_capture_plain(q, corpus, valid, CHUNK, b, scales, quant), what)
         gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, K)[1], dim=-1).values
-        cand = gather_groups(q, corpus, gsel)
-        k2_err = gather_error(cand, gather_groups_plain(q, corpus, gsel), what)
-        # K1 reads the whole corpus and does 2 * Q * N * D f32 fma flops; K2 the
-        # selected groups' rows (each distinct group once), 2 * Q * k * 128 * D
-        k1_bound = bound(nbytes(q, corpus, *got), 2 * n_q * len(corpus) * DIM, F32_FLOP_S)
-        groups = int(torch.unique(gsel).numel())
-        k2_bound = bound(groups * 128 * DIM * corpus.element_size() + nbytes(q, gsel, cand),
-                         2 * gsel.numel() * 128 * DIM, F32_FLOP_S)
+        cand = gather_groups(q, corpus, gsel, scales, quant)
+        k2_err = gather_error(cand, gather_groups_plain(q, corpus, gsel, scales, quant), what)
+        k1_bound = search_bound(q, corpus, scales, quant, got)
+        k2_bound = gather_bound(q, corpus, scales, quant, gsel, cand)
         del got, cand
-        err["stream_capture"] = max(err["stream_capture"], k1_err)
-        err["gather_groups"] = max(err["gather_groups"], k2_err)
+        err[k1] = max(err.get(k1, 0.0), k1_err)
+        err[k2] = max(err.get(k2, 0.0), k2_err)
         t = {
-            "stream_capture": cuda_ms(lambda: stream_capture(q, corpus, valid, CHUNK, b)),
+            "stream_capture": cuda_ms(
+                lambda: stream_capture(q, corpus, valid, CHUNK, b, scales, quant)),
             "stream_capture_plain": cuda_ms(
-                lambda: stream_capture_plain(q, corpus, valid, CHUNK, b)),
-            "gather_groups": cuda_ms(lambda: gather_groups(q, corpus, gsel)),
-            "gather_groups_plain": cuda_ms(lambda: gather_groups_plain(q, corpus, gsel)),
+                lambda: stream_capture_plain(q, corpus, valid, CHUNK, b, scales, quant)),
+            "gather_groups": cuda_ms(lambda: gather_groups(q, corpus, gsel, scales, quant)),
+            "gather_groups_plain": cuda_ms(
+                lambda: gather_groups_plain(q, corpus, gsel, scales, quant)),
             "stream_capture_bound": k1_bound, "gather_groups_bound": k2_bound,
         }
         times[n_q] = t
@@ -464,9 +482,35 @@ def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> di
             f"{CHUNK // 128} groups per chunk: K1 {t['stream_capture']:.3f} ms vs plain "
             f"{t['stream_capture_plain']:.3f} ms (bound {k1_bound[0]:.3f} ms, {k1_bound[1]}); "
             f"K2 {t['gather_groups']:.3f} ms vs plain {t['gather_groups_plain']:.3f} ms "
-            f"(bound {k2_bound[0]:.3f} ms, {k2_bound[1]}, {groups} distinct groups) "
-            "(CUDA events, median of 10)")
+            f"(bound {k2_bound[0]:.3f} ms, {k2_bound[1]}, "
+            f"{int(torch.unique(gsel).numel())} distinct groups) (CUDA events, median of 10)")
     return times
+
+
+def search_bound(q, corpus, scales, quant: str, outs):
+    """K1's bound: the corpus (and its scales) and the queries read once,
+    the outputs written once; 2 * Q * N * D operations, on the CUDA cores'
+    f32 rate for a float corpus and at the bf16 tensor-core rate for a
+    quantized one (its codes and levels are exact in bf16, as on the
+    reference's matrix unit)."""
+    n_q, d = q.shape
+    ops_s = F32_FLOP_S if quant == "none" else BF16_FLOP_S
+    extra = () if scales is None else (scales,)
+    return bound(nbytes(q, corpus, *extra, *outs), 2 * n_q * len(corpus) * d, ops_s)
+
+
+def gather_bound(q, corpus, scales, quant: str, gsel, cand):
+    """K2's bound: the selected groups' rows (each distinct group once) and
+    their scales, the queries and group ids read, the scores written;
+    2 * Q * k * 128 * D operations (rates as in :func:`search_bound`)."""
+    n_q, d = q.shape
+    groups = int(torch.unique(gsel).numel())
+    row_bytes = corpus.shape[1] * corpus.element_size()
+    if scales is not None:
+        row_bytes += scales[0].numel() * scales.element_size()
+    ops_s = F32_FLOP_S if quant == "none" else BF16_FLOP_S
+    return bound(groups * 128 * row_bytes + nbytes(q, gsel, cand),
+                 2 * gsel.numel() * 128 * d, ops_s)
 
 
 # ----------------------------------------------------------------- phase 6
@@ -835,7 +879,7 @@ def index_build(work: Path, dev, gen, config, power, err) -> dict:
     del f32
     profile_encoder(encoder, batches, power)
     return {"launches": counts, "flash": flash, "tsv": tsv, "model_dir": model_dir,
-            "index_dir": index_dir}
+            "index_dir": index_dir, "shard_dir": shard_dir, "stored": stored, "ids": ids}
 
 
 # ----------------------------------------------------------------- phase 7
@@ -957,8 +1001,6 @@ def check_load_llama(work: Path, dev, config, power) -> dict:
     """load_llama reads a seeded full-width, 2-layer HF checkpoint (bf16
     safetensors) written here, quantizes it to NF4 on the card, and gives
     the bytes of quantizing the same tensors directly; 8 tokens through K6."""
-    import dataclasses
-
     from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
     from kirag_tpu_torch.models.llm import _quantize_kernel_nf4, greedy_decode, load_llama
 
@@ -1057,8 +1099,6 @@ def llm_decode(work: Path, dev, power) -> dict:
     prompts through TorchLlamaBackend with K6, held against the same run
     with K6's plain version, start + resume against greedy, K6 launches per
     step, prefill and decode times, and load_llama at full width."""
-    import dataclasses
-
     from kirag_tpu_torch.kernels import int4_matmul_plain, launch_counts, reset_launch_counts
     from kirag_tpu_torch.models import llm
 
@@ -1197,10 +1237,13 @@ def llm_decode(work: Path, dev, power) -> dict:
 
 # ----------------------------------------------------------------- phase 9
 
-# questions per run, cut from 4 and 2 to keep the smoke inside half its time
-# limit: each question's 10 passages cost 3 KG batches of 512 decode steps
+# questions per run, cut from 4 and 2, and the LLM's depth, cut from 32
+# layers to 8 (phase 8 runs all 32), to keep the smoke inside half its time
+# limit: each question's 10 passages cost 3 KG batches of 512 decode steps,
+# and a decode step's time is the host's, layer by layer
 KIRAG_QUESTIONS = 1   # run A, the reference-shaped sequential loop
 KIRAG_CACHED = 1      # run B, over a seeded KG cache
+KIRAG_LAYERS = 8
 
 
 class ByteLevelTokenizer:
@@ -1295,8 +1338,9 @@ class TimedRetriever:
 
 def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
     """Phase 9, KiRAG through kirag_tpu_torch.cli.retrieve.main: phase 6's
-    DPR TSV, index and E5 npz (as retriever and Aligner), phase 8's NF4
-    Llama handed in, questions of tests/fixtures_realtext.py. Run A: the
+    DPR TSV, index and E5 npz (as retriever and Aligner), the first
+    KIRAG_LAYERS layers of phase 8's NF4 Llama handed in, questions of
+    tests/fixtures_realtext.py. Run A: the
     reference-shaped sequential loop, the KG cache starting empty. Run B:
     the same CLI over a KG cache of run A's documents seeded with one triple
     each from the passage's own words (the random LLM extracts none), so the
@@ -1314,6 +1358,8 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
     with open(Path(built["index_dir"]) / "index_meta.pkl", "rb") as f:
         index_ids = set(pickle.load(f))
     cache = work / "kg_cache.pkl"
+    llm = ({**decoded["params"], "layers": decoded["params"]["layers"][:KIRAG_LAYERS]},
+           dataclasses.replace(decoded["config"], num_hidden_layers=KIRAG_LAYERS))
     setup = retrieve_cli.setup_kirag_model
     runs = {}
     for run, n_q in (("A", KIRAG_QUESTIONS), ("B", KIRAG_CACHED)):
@@ -1347,7 +1393,7 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
             path = retrieve_cli.main(argv, tokenizer=HashTokenizer(),
                                      llm_tokenizer=ByteLevelTokenizer(),
                                      aligner_tokenizer=HashTokenizer(),
-                                     llm=(decoded["params"], decoded["config"]))
+                                     llm=llm)
             wall = time.perf_counter() - t0
         finally:
             retrieve_cli.setup_kirag_model = setup
@@ -1872,6 +1918,373 @@ def aligner_training(work: Path, built: dict, dev, gen, power) -> dict:
             "launches": cli["launches"]}
 
 
+# ---------------------------------------------------------------- phase 11
+
+# the compressed index at the deployment it exists for: the DPR Wikipedia
+# corpus (psgs_w100, 21,015,324 passages) at E5-large's 1024 dims, which is
+# 86 GB in float32 and 11.4 GB (int4) or 21.6 GB (int8) compressed
+QUANTS = ("int8", "int4")
+DPR_ROWS = 21_015_324
+GEN_BLOCK = CHECK_ROWS        # rows made (and quantized) at a time
+DPR_QUERIES = (8, 32, 256)
+DPR_SELF = 32                 # queries that are stored rows (self-hits); the rest lie near one
+DPR_REPS = {8: 10, 32: 5, 256: 3}
+CAPTURE_OUTPUTS = ("gmax", "capture", "gids", "capmax", "resid")
+
+
+def quantized_corpus(quant: str, n: int, gen, dev, integer: bool):
+    """``(codes, scales)`` of n rows: integer data (random codes, power-of-two
+    scales, so every score is exact in any summation order), or seeded unit
+    rows quantized on the card."""
+    from kirag_tpu_torch.ops import quantize_rows_int4_torch, quantize_rows_int8_torch
+
+    if not integer:
+        quantize = quantize_rows_int8_torch if quant == "int8" else quantize_rows_int4_torch
+        return quantize(unit_rows(n, gen, dev))
+    if quant == "int8":
+        codes = torch.randint(-127, 128, (n, DIM), generator=gen, device=dev).to(torch.int8)
+        shape = (n,)
+    else:
+        codes = torch.randint(0, 256, (n, DIM // 2), generator=gen, device=dev).to(torch.uint8)
+        shape = (n, DIM // 128)
+    scales = torch.exp2(torch.randint(-9, -2, shape, generator=gen, device=dev).float())
+    return codes, scales
+
+
+def check_quantized_kernels(dev, gen, err) -> None:
+    """Phase 11 (a): K1 and K2 with K4's int8 and int4 scoring against their
+    plain versions at phase 3's geometry, Q = 8, 16, 32. On integer data
+    (small-integer queries, exact in bf16) every output of K1, K2 and the
+    search is bitwise the plain version's, and K1's captured groups bitwise
+    K2's re-scores of them; on random unit rows quantized on the card,
+    within ATOL, ids equal but at near-ties (largest errors into ``err``)."""
+    from kirag_tpu_torch.kernels import (gather_groups, gather_groups_plain, stream_capture,
+                                         stream_capture_plain)
+    from kirag_tpu_torch.ops import exact_topk_mips, hier_topk
+    from kirag_tpu_torch.ops.exact import _capture_budget
+
+    n, valid = CHECK_ROWS, CHECK_ROWS - 1000
+    b = _capture_budget(K, n // CHUNK, CHUNK // 128)
+    for quant in QUANTS:
+        k1, k2 = kernel_names(quant)
+        for data in ("integer", "random"):
+            c, s = quantized_corpus(quant, n, gen, dev, data == "integer")
+            for n_q in (8, 16, 32):
+                what = f"{data} {quant} Q={n_q}"
+                if data == "integer":
+                    q = torch.randint(-2, 3, (n_q, DIM), generator=gen, device=dev).float()
+                else:
+                    q = unit_rows(n_q, gen, dev)
+                got = stream_capture(q, c, valid, CHUNK, b, s, quant)
+                want = stream_capture_plain(q, c, valid, CHUNK, b, s, quant)
+                gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, K)[1], dim=-1).values
+                cand = gather_groups(q, c, gsel, s, quant)
+                cand_plain = gather_groups_plain(q, c, gsel, s, quant)
+                res = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=valid,
+                                      on_miss="flag", scales=s)
+                ref = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=valid,
+                                      on_miss="flag", plain=True, scales=s)
+                torch.cuda.synchronize()
+                if data == "integer":
+                    for name, x, y in zip(CAPTURE_OUTPUTS, got, want):
+                        if not torch.equal(x, y):
+                            raise AssertionError(f"{what}: K1 {name} differs from plain")
+                    if not torch.equal(cand, cand_plain):
+                        raise AssertionError(f"{what}: K2 differs from plain")
+                    captured = got[2].permute(2, 0, 1).reshape(n_q, -1)      # [Q, C * b]
+                    rescored = gather_groups(q, c, captured, s, quant)
+                    if not torch.equal(rescored.view(n_q, -1, b, 128).transpose(0, 1),
+                                       got[1].view(-1, n_q, b, 128)):
+                        raise AssertionError(f"{what}: K1's captures differ from K2's "
+                                             "re-scores of the same groups")
+                    for x, y in zip(res, ref):
+                        if not torch.equal(x, y):
+                            raise AssertionError(f"{what}: exact search differs from plain")
+                    log(f"  {what}: K1 5/5 outputs and K2 bitwise equal to plain, K1's "
+                        f"{captured.numel()} captured groups bitwise equal to K2's re-scores; "
+                        f"search bitwise equal, ok={bool(res[2])}")
+                    continue
+                k1_err, swapped = capture_error(got, want, what)
+                k2_err = gather_error(cand, cand_plain, what)
+                check_topk_close(res[0], res[1], ref[0], ref[1], f"{what} search")
+                err[k1] = max(err.get(k1, 0.0), k1_err)
+                err[k2] = max(err.get(k2, 0.0), k2_err)
+                log(f"  {what}: K1 max abs err {k1_err:.3g} ({swapped} gids differ at "
+                    f"near-ties), K2 max abs err {k2_err:.3g}, search ok="
+                    f"{bool(res[2])}/{bool(ref[2])}")
+            del c, s
+
+
+def serve_compressed(dev, encoder, collator, host_rows, texts, text_rows, gen, power, err):
+    """Phase 11 (b): the retrieval server over phase 4's 1,000,000 host rows
+    as int8 and int4 indexes, quantized on the card by ``to_device``; then K1
+    and K2 against their plain versions on each index, and their times."""
+    from kirag_tpu_torch.index import TorchIndexer
+
+    served = {}
+    for quant in QUANTS:
+        label = f"{quant} index"
+        index = TorchIndexer(DIM, device=dev, compression=quant, pallas_chunk_size=CHUNK)
+        index.index_data(list(range(len(host_rows))), host_rows)
+        t0 = time.perf_counter()
+        index.to_device()
+        torch.cuda.synchronize()
+        log(f"  {label}: {len(host_rows)} rows quantized on the card by to_device in "
+            f"{time.perf_counter() - t0:.2f} s (host clock, copies included): "
+            f"{nbytes(index._device_corpus, index._device_scales) / 1e9:.3f} GB on the card")
+        served[label] = serve(label, encoder, collator, index, texts, text_rows, power)
+        index_kernels(label, index, gen, power, err)
+        del index
+        torch.cuda.empty_cache()
+    return served
+
+
+def quantized_cli(work: Path, built: dict, dev) -> dict:
+    """Phase 11 (c): ``build_index --compression int4`` (and int8) over phase
+    6's shards. ``TorchIndexer.deserialize_from`` reads the compression back
+    from the config and quantizes the shards on the card, bitwise as the
+    numpy quantizer does; 64 stored rows are searched, the result held
+    against the plain search over the same codes, and the self-hits counted
+    (the seeded encoder's passages lie within cosine 0.999 of each other,
+    closer than int4's score noise, so a row need not win over its
+    neighbours)."""
+    from kirag_tpu_torch.cli import build_index
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.ops import exact_topk_mips, quantize_rows_int4, quantize_rows_int8
+
+    stored, ids = built["stored"], built["ids"]
+    row_of = {pid: i for i, pid in enumerate(ids)}
+    rows = np.sort(np.random.RandomState(SEED + 11).choice(len(ids), 64, replace=False))
+    out = {}
+    for quant in ("int4", "int8"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        index_dir = build_index.main(["--embeddings_dir", built["shard_dir"], "--embedding_size",
+                                      str(DIM), "--compression", quant, "--save_dir",
+                                      str(work / f"index_{quant}")], device=dev)
+        cfg = json.loads((Path(index_dir) / "index_config.json").read_text())
+        index = TorchIndexer(DIM, device=dev)
+        index.deserialize_from(index_dir)
+        found = index.search_knn(stored[rows], top_docs=10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        codes, scales, n = index._device_corpus, index._device_scales, len(stored)
+        want = (quantize_rows_int8 if quant == "int8" else quantize_rows_int4)(stored)
+        if not (cfg["compression"] == index.compression == quant
+                and np.array_equal(codes[:n].cpu().numpy(), want[0])
+                and np.array_equal(scales[:n].cpu().numpy(), want[1])
+                and counts[kernel_names(quant)[0]] > 0):
+            raise AssertionError(f"{quant}: config {cfg['compression']}, index "
+                                 f"{index.compression}, codes or scales unlike numpy's, or "
+                                 f"launches {counts}")
+        ref_vals, ref_idx = exact_topk_mips(
+            torch.from_numpy(stored[rows]).to(dev), codes, 10, chunk_size=index.pallas_chunk_size,
+            valid_rows=n, plain=True, scales=scales)
+        check_topk_close(torch.tensor(np.stack([s for _, s in found])),
+                         torch.tensor([[row_of[i] for i in db_ids] for db_ids, _ in found]),
+                         ref_vals, ref_idx, f"{quant} built index")
+        top1 = sum(db_ids[0] == ids[r] for r, (db_ids, _) in zip(rows, found))
+        top10 = sum(ids[r] in db_ids for r, (db_ids, _) in zip(rows, found))
+        log(f"  build_index --compression {quant} -> config compression {cfg['compression']!r}; "
+            f"reloaded as {tuple(codes.shape)} {codes.dtype} + scales {tuple(scales.shape)}, "
+            f"bitwise the numpy quantizer's; 64 stored rows searched: the plain search's "
+            f"result; {top1}/64 found themselves at top-1, {top10}/64 in the top 10; "
+            f"{wall:.2f} s; launches { {k: v for k, v in counts.items() if v} }")
+        out[quant] = {"launches": counts, "top1": top1, "top10": top10}
+        del index, codes, scales
+    return out
+
+
+def dpr_block(i: int, n: int, dev) -> torch.Tensor:
+    """Block i of the seeded DPR-scale corpus: n unit rows from a generator
+    seeded by the block's number, so that any block can be made again."""
+    return unit_rows(n, torch.Generator(device=dev).manual_seed(SEED + 1000 + i), dev)
+
+
+def dpr_corpus(quant: str, dev, sample: torch.Tensor, on_block=None):
+    """The DPR-scale corpus made and quantized block by block on the card
+    (its first block held bitwise against the numpy quantizer), padded to
+    the chunk grid with zero codes and zero scales as the indexer pads.
+    Returns ``(codes, scales, rows at sample)``; ``on_block(start, rows)``
+    sees each float32 block."""
+    from kirag_tpu_torch.ops import (quantize_rows_int4, quantize_rows_int4_torch,
+                                     quantize_rows_int8, quantize_rows_int8_torch)
+
+    n_pad = -(-DPR_ROWS // CHUNK) * CHUNK
+    if quant == "int8":
+        quantize, quantize_np = quantize_rows_int8_torch, quantize_rows_int8
+        codes = torch.zeros((n_pad, DIM), dtype=torch.int8, device=dev)
+        scales = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    else:
+        quantize, quantize_np = quantize_rows_int4_torch, quantize_rows_int4
+        codes = torch.zeros((n_pad, DIM // 2), dtype=torch.uint8, device=dev)
+        scales = torch.zeros((n_pad, DIM // 128), dtype=torch.float32, device=dev)
+    picked = torch.empty((len(sample), DIM), device=dev)
+    for i, start in enumerate(range(0, DPR_ROWS, GEN_BLOCK)):
+        rows = dpr_block(i, min(GEN_BLOCK, DPR_ROWS - start), dev)
+        block = slice(start, start + len(rows))
+        codes[block], scales[block] = quantize(rows)
+        if i == 0:
+            want = quantize_np(rows.cpu().numpy())
+            if not (np.array_equal(codes[block].cpu().numpy(), want[0])
+                    and np.array_equal(scales[block].cpu().numpy(), want[1])):
+                raise AssertionError(f"{quant}: the card's quantizer differs from numpy's on "
+                                     "the first block")
+        inside = (sample >= start) & (sample < start + len(rows))
+        picked[inside] = rows[sample[inside] - start]
+        if on_block is not None:
+            on_block(start, rows)
+    return codes, scales, picked
+
+
+def dpr_search(quant: str, codes, scales, queries, sample, power, err) -> dict:
+    """Phase 11 (d) for one corpus: the search the indexer runs (flag mode,
+    re-dispatched on a False flag) at Q = 8, 32, 256, the self-hits of the
+    stored rows, the results of a query the same at every Q; K1 and K2
+    timed at each Q, their plain versions at Q = 8, where the search is also
+    held against the plain search."""
+    from kirag_tpu_torch.kernels import (gather_groups, gather_groups_plain, launch_counts,
+                                         reset_launch_counts, stream_capture,
+                                         stream_capture_plain)
+    from kirag_tpu_torch.ops import exact_topk_mips, hier_topk
+    from kirag_tpu_torch.ops.exact import _capture_budget
+
+    k1, k2 = kernel_names(quant)
+    b = _capture_budget(K, len(codes) // CHUNK, CHUNK // 128)
+    search = dict(chunk_size=CHUNK, valid_rows=DPR_ROWS, scales=scales)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, redispatched = {}, 0
+    for n_q in DPR_QUERIES:
+        vals, idx, ok = exact_topk_mips(queries[:n_q], codes, K, on_miss="flag", **search)
+        if not bool(ok):
+            redispatched += 1
+            vals, idx = exact_topk_mips(queries[:n_q], codes, K, **search)
+        results[n_q] = (vals, idx)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    launches = launch_counts()
+    vals, idx = results[DPR_QUERIES[-1]]
+    if not torch.equal(idx[:DPR_SELF, 0], sample[:DPR_SELF]):
+        raise AssertionError(f"{quant}: a stored row did not find itself at top-1")
+    for n_q in DPR_QUERIES[:-1]:
+        if not (torch.equal(results[n_q][0], vals[:n_q])
+                and torch.equal(results[n_q][1], idx[:n_q])):
+            raise AssertionError(f"{quant}: Q={n_q} answers differ from the same queries' "
+                                 f"answers at Q={DPR_QUERIES[-1]}")
+    if not (torch.isfinite(vals).all() and launches[k1] > 0):
+        raise AssertionError(f"{quant}: non-finite scores or K1 not launched: {launches}")
+    log(f"  {quant} search (flag mode, as the indexer runs it), Q = {DPR_QUERIES}: "
+        f"{search_s:.2f} s in all (host clock), {redispatched} re-dispatched; "
+        f"{DPR_SELF} stored rows found themselves at top-1 (self-score within "
+        f"{float((vals[:DPR_SELF, 0] - 1).abs().max()):.4f} of 1); each query's answer the "
+        f"same at every Q; launches {k1} {launches[k1]}, {k2} {launches[k2]}")
+    times = {}
+    for n_q in DPR_QUERIES:
+        q, reps, what = queries[:n_q], DPR_REPS[n_q], f"{quant} {DPR_ROWS} x {DIM} Q={n_q}"
+        got = stream_capture(q, codes, DPR_ROWS, CHUNK, b, scales, quant)
+        gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, K)[1], dim=-1).values
+        cand = gather_groups(q, codes, gsel, scales, quant)
+        t = {"k1_ms": cuda_ms(lambda: stream_capture(q, codes, DPR_ROWS, CHUNK, b, scales,
+                                                       quant), reps=reps),
+             "k2_ms": cuda_ms(lambda: gather_groups(q, codes, gsel, scales, quant), reps=reps),
+             "k1_bound": search_bound(q, codes, scales, quant, got),
+             "k2_bound": gather_bound(q, codes, scales, quant, gsel, cand)}
+        if n_q == DPR_QUERIES[0]:
+            k1_err, swapped = capture_error(
+                got, stream_capture_plain(q, codes, DPR_ROWS, CHUNK, b, scales, quant), what)
+            k2_err = gather_error(cand, gather_groups_plain(q, codes, gsel, scales, quant), what)
+            ref = exact_topk_mips(q, codes, K, plain=True, **search)
+            check_topk_close(results[n_q][0], results[n_q][1], ref[0], ref[1], f"{what} search")
+            err[k1], err[k2] = max(err.get(k1, 0.0), k1_err), max(err.get(k2, 0.0), k2_err)
+            t["k1_plain_ms"] = cuda_ms(lambda: stream_capture_plain(
+                q, codes, DPR_ROWS, CHUNK, b, scales, quant), reps=3)
+            t["k2_plain_ms"] = cuda_ms(
+                lambda: gather_groups_plain(q, codes, gsel, scales, quant), reps=3)
+            log(f"  {what}: K1 max abs err {k1_err:.3g} against plain ({swapped} gids differ "
+                f"at near-ties), K2 {k2_err:.3g}; the search matches the plain search")
+        del got, cand
+        times[n_q] = t
+        plain = (f" vs plain {t['k1_plain_ms']:.3f} ms" if "k1_plain_ms" in t else "")
+        plain2 = (f" vs plain {t['k2_plain_ms']:.3f} ms" if "k2_plain_ms" in t else "")
+        log(f"  [{power}] {what}, capture {b} of {CHUNK // 128} groups per chunk: K1 "
+            f"{t['k1_ms']:.3f} ms{plain} (bound {t['k1_bound'][0]:.3f} ms, "
+            f"{t['k1_bound'][1]}); K2 {t['k2_ms']:.3f} ms{plain2} (bound "
+            f"{t['k2_bound'][0]:.3f} ms, {t['k2_bound'][1]}) (CUDA events, median of {reps})")
+    return {"idx": idx.cpu().numpy(), "times": times, "launches": launches,
+            "search_s": search_s, "redispatched": redispatched}
+
+
+def recall(idx: np.ndarray, exact: np.ndarray, k: int) -> float:
+    """Mean over queries of the share of the exact top-k among the top-k."""
+    return float(np.mean([len(set(a[:k]) & set(b[:k])) / k for a, b in zip(idx, exact)]))
+
+
+def dpr_scale(dev, power, err) -> dict:
+    """Phase 11 (d): the DPR corpus's 21,015,324 x 1024 seeded unit rows,
+    quantized on the card block by block, int4 then int8 (each freed before
+    the next): the indexer's search at Q = 8, 32, 256, and recall@10/@100
+    against the exact float32 top-100, whose rows are made again from the
+    seed block by block on the card while the int8 corpus is built. Queries:
+    DPR_SELF stored rows, then stored rows with noise of their own norm
+    added (cosine about 0.7 to the row)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    n_queries = DPR_QUERIES[-1]
+    sample = torch.randperm(DPR_ROWS, generator=gen, device=dev)[:n_queries]
+    out = {}
+    t0 = time.perf_counter()
+    codes, scales, picked = dpr_corpus("int4", dev, sample)
+    torch.cuda.synchronize()
+    noise = torch.nn.functional.normalize(
+        torch.randn(n_queries, DIM, generator=gen, device=dev), dim=-1)
+    queries = torch.nn.functional.normalize(picked + noise, dim=-1)
+    queries[:DPR_SELF] = picked[:DPR_SELF]
+    log(f"  int4: {DPR_ROWS} rows made and quantized on the card in "
+        f"{time.perf_counter() - t0:.2f} s, first block bitwise equal to numpy's quantizer; "
+        f"{nbytes(codes, scales) / 1e9:.3f} GB (codes {nbytes(codes) / 1e9:.3f} + scales "
+        f"{nbytes(scales) / 1e9:.3f}), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    out["int4"] = dpr_search("int4", codes, scales, queries, sample, power, err)
+    out["int4"]["gb"] = nbytes(codes, scales) / 1e9
+    del codes, scales
+    torch.cuda.empty_cache()
+
+    top_vals = torch.full((n_queries, K), float("-inf"), device=dev)
+    top_idx = torch.zeros((n_queries, K), dtype=torch.int64, device=dev)
+
+    def exact_top(start, rows):  # the float32 top-K over the blocks seen so far
+        nonlocal top_vals, top_idx
+        vals, idx = torch.topk(queries @ rows.T, K, dim=-1)
+        both_vals = torch.cat([top_vals, vals], dim=-1)
+        both_idx = torch.cat([top_idx, idx + start], dim=-1)
+        top_vals, pos = torch.topk(both_vals, K, dim=-1)
+        top_idx = torch.gather(both_idx, 1, pos)
+
+    t0 = time.perf_counter()
+    codes, scales, again = dpr_corpus("int8", dev, sample, exact_top)
+    torch.cuda.synchronize()
+    if not torch.equal(again, picked):
+        raise AssertionError("the DPR-scale rows made again from the seed differ")
+    log(f"  int8: {DPR_ROWS} rows made again and quantized on the card, with the float32 "
+        f"top-{K} of the {n_queries} queries, in {time.perf_counter() - t0:.2f} s; "
+        f"{nbytes(codes, scales) / 1e9:.3f} GB (codes {nbytes(codes) / 1e9:.3f} + scales "
+        f"{nbytes(scales) / 1e9:.3f})")
+    out["int8"] = dpr_search("int8", codes, scales, queries, sample, power, err)
+    out["int8"]["gb"] = nbytes(codes, scales) / 1e9
+    del codes, scales
+    torch.cuda.empty_cache()
+    exact = top_idx.cpu().numpy()
+    if not np.array_equal(exact[:DPR_SELF, 0], sample[:DPR_SELF].cpu().numpy()):
+        raise AssertionError("float32: a stored row is not its own top-1")
+    for quant in ("int4", "int8"):
+        r = {k: recall(out[quant]["idx"], exact, k) for k in (10, K)}
+        out[quant]["recall"] = r
+        log(f"  {quant}: recall@10 {r[10]:.4f}, recall@{K} {r[K]:.4f} against the exact "
+            f"float32 top-{K} ({n_queries} queries; {DPR_SELF} stored rows, the rest near one)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this needs an NVIDIA GPU", file=sys.stderr)
@@ -1884,20 +2297,25 @@ def main() -> int:
     from kirag_tpu_torch.retrieval import DenseRetriever
 
     dev = require_cuda()
+    started = time.perf_counter()
+
+    def phase(title: str) -> None:
+        log(f"{title} [{time.perf_counter() - started:.1f} s into the run]")
+
     # float32 parity is claimed below: both TF32 switches off (matmul's is off
     # by default; the port runs no convolution, cuDNN's is set for the record)
     torch.backends.cudnn.allow_tf32 = False
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     power = nvidia_smi("name,power.limit")
-    log("phase 1: device")
-    log(f"  {name}, {torch.cuda.device_count()} device(s), driver "
+    phase("phase 1: device")
+    log(f"  {device_name}, {torch.cuda.device_count()} device(s), driver "
         f"{nvidia_smi('driver_version')}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}; {tf32_flags()}")
     log(power)
 
-    log("phase 2: build")
+    phase("phase 2: build")
     info = build()
     load_library()
     log(f"  nvcc -gencode arch=compute_90a,code=sm_90a: {info.seconds:.1f} s -> "
@@ -1907,10 +2325,10 @@ def main() -> int:
             log("  " + line.strip())
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    log(f"phase 3: kernels vs plain versions ({CHECK_ROWS} x {DIM}, chunk {CHUNK}, k={K})")
+    phase(f"phase 3: kernels vs plain versions ({CHECK_ROWS} x {DIM}, chunk {CHUNK}, k={K})")
     err = check_kernels(dev, gen)
 
-    log("phase 4: the retrieval server (E5-large geometry, bf16 compute, seeded weights)")
+    phase("phase 4: the retrieval server (E5-large geometry, bf16 compute, seeded weights)")
     config = BertConfig()
     model = BertModel(config, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
     encoder = Encoder(model, "e5", compute_dtype=torch.bfloat16)
@@ -1956,33 +2374,44 @@ def main() -> int:
         index.index_data(ids, host_rows)
         index.to_device()
         served[label] = serve(label, encoder, collator, index, texts, text_rows, power)
-        log(f"phase 5: kernels vs plain versions on the {label}, and their times")
+        phase(f"phase 5: kernels vs plain versions on the {label}, and their times")
         timed[label] = index_kernels(label, index, gen, power, err)
         del index
         torch.cuda.empty_cache()
 
     work = Path(tempfile.mkdtemp(prefix="kirag_smoke_"))
     try:
-        log("phase 6: the index build (E5-large geometry, bf16 compute, seeded weights)")
+        phase("phase 6: the index build (E5-large geometry, bf16 compute, seeded weights)")
         built = index_build(work, dev, gen, config, power, err)
-        del encoder, model
-        torch.cuda.empty_cache()
 
-        log("phase 7: K6 (int4 matmul) vs its plain version at the 8B model's projections")
+        phase("phase 7: K6 (int4 matmul) vs its plain version at the 8B model's projections")
         qmm = check_qmm(dev, gen, power)
         err["int4_matmul"] = max(r["err"] for r in qmm.values())
 
-        log("phase 8: the LLM at Llama-3-8B-Instruct geometry, NF4 weights, seeded")
+        phase("phase 8: the LLM at Llama-3-8B-Instruct geometry, NF4 weights, seeded")
         decoded = llm_decode(work, dev, power)
 
-        log("phase 9: KiRAG through kirag_tpu_torch.cli.retrieve (the phase 6 index, the "
+        phase("phase 9: KiRAG through kirag_tpu_torch.cli.retrieve (the phase 6 index, the "
             "phase 8 LLM)")
         kirag = kirag_cli(work, built, decoded, power)
         del decoded["params"]
         torch.cuda.empty_cache()
 
-        log("phase 10: Aligner training (E5-large geometry, f32 weights, bf16 compute)")
+        phase("phase 10: Aligner training (E5-large geometry, f32 weights, bf16 compute)")
         trained = aligner_training(work, built, dev, gen, power)
+
+        phase(f"phase 11 (a): K1/K2 with K4's int8/int4 scoring vs plain versions "
+            f"({CHECK_ROWS} x {DIM}, chunk {CHUNK}, k={K})")
+        check_quantized_kernels(dev, gen, err)
+        phase(f"phase 11 (b): the retrieval server over {N_ROWS} x {DIM} int8 and int4 indexes")
+        served_q = serve_compressed(dev, encoder, collator, host_rows, texts, text_rows, gen,
+                                    power, err)
+        del encoder, model, host_rows
+        torch.cuda.empty_cache()
+        phase("phase 11 (c): build_index --compression int4 and int8 over phase 6's shards")
+        cli_q = quantized_cli(work, built, dev)
+        phase(f"phase 11 (d): the DPR scale, {DPR_ROWS} x {DIM} on the card, int4 then int8")
+        dpr = dpr_scale(dev, power, err)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1992,9 +2421,14 @@ def main() -> int:
     # backward kernels' at the aligner's bf16 query batch. Launches: every
     # main-path run (phases 4, 6, 8, 9 and 10's CLI run), not the comparisons.
     paths = [s["launches"] for s in served.values()] + [built["launches"]] + [
-        r["launches"] for r in kirag.values()] + [trained["launches"]]
+        r["launches"] for r in kirag.values()] + [trained["launches"]] + [
+        s["launches"] for s in served_q.values()] + [
+        r["launches"] for r in (*cli_q.values(), *dpr.values())]
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     launches["int4_matmul"] += decoded["launches"]
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels that no main-path run launched: {idle}")
     headline = timed["float32 index"][32]
     sources = {"stream_capture": ("kirag_tpu_torch/csrc/stream_capture.cu",
                                   "kirag_tpu/ops/pallas_exact.py:467"),
@@ -2047,9 +2481,33 @@ def main() -> int:
                               "plain_ms and library_ms: the whole backward (dq, dk, dv), "
                               "the plain version and scaled_dot_product_attention's "
                               "backward with the same-segment mask"})
+    # K4 (int8/int4 scoring inside K1 and K2): times at the DPR scale, Q=8
+    # (where the plain versions were timed too), the other Qs beside them
+    for quant in QUANTS:
+        times = dpr[quant]["times"]
+        for key, kernel, line in (("k1", "stream_capture", 467), ("k2", "gather_groups", 785)):
+            variant = f"{kernel}_{quant}"
+            t = times[DPR_QUERIES[0]]
+            kernels.append({
+                "name": variant, "route": "cuda", "source": f"kirag_tpu_torch/csrc/{kernel}.cu",
+                "replaces": "kirag_tpu/ops/pallas_exact.py:224", "launches": launches[variant],
+                "max_abs_err": err[variant], "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
+                "bound_ms": t[f"{key}_bound"][0], "bound_by": t[f"{key}_bound"][1],
+                "library_ms": None,
+                "at": f"K4's {quant} scoring (_chunk_scores) inside "
+                      f"kirag_tpu/ops/pallas_exact.py:{line}; {quant} {DPR_ROWS} x {DIM} "
+                      f"(the DPR corpus, {dpr[quant]['gb']:.2f} GB), Q={DPR_QUERIES[0]}, chunk "
+                      f"{CHUNK}, k={K}; by_q: the other query counts",
+                "by_q": {str(n_q): {"ms": times[n_q][f"{key}_ms"],
+                                    "bound_ms": times[n_q][f"{key}_bound"][0],
+                                    "bound_by": times[n_q][f"{key}_bound"][1]}
+                         for n_q in DPR_QUERIES},
+                "recall_at_10": dpr[quant]["recall"][10],
+                "recall_at_100": dpr[quant]["recall"][K]})
+    phase("done")
     log(power)
     log(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -4,7 +4,8 @@
 Discovers ``corpus_embeddings_{start}_{end}.npz`` shards (sorted by start
 offset), feeds them into :class:`kirag_tpu_torch.index.TorchIndexer` and
 serializes the index (+ id map) in the reference's layout, which
-``TPUIndexer`` and ``TorchIndexer`` both read.
+``TPUIndexer`` and ``TorchIndexer`` both read; ``--compression int8|int4``
+is recorded in the config and the index is quantized when it is loaded.
 
 Usage:
   python -m kirag_tpu_torch.cli.build_index \\
@@ -63,8 +64,8 @@ def main(argv: Optional[Sequence[str]] = None, *, device=None) -> str:
     os.makedirs(args.save_dir, exist_ok=True)
     setup_logger(os.path.join(args.save_dir, "build_index.log"))
 
-    # --compression, --metric l2 and --shuffle_rows raise the indexer's
-    # not-ported errors
+    # --metric l2 and --shuffle_rows raise the indexer's not-ported errors;
+    # --compression is written into the index config (the shards stay f32)
     indexer = TorchIndexer(args.embedding_size, metric=args.metric,
                            compression=args.compression, shuffle_rows=args.shuffle_rows,
                            device=device)

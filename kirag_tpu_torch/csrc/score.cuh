@@ -16,6 +16,20 @@
 // each thread walks its tile row in column order, so the sequence of fma
 // operations for a (query, row) pair never depends on which kernel, block or
 // thread computes it. Equal inputs give bitwise-equal f32 scores everywhere.
+//
+// Quantized corpora (K4: the in-kernel dequant of the TPU kernels,
+// kirag_tpu/ops/pallas_exact.py::_chunk_scores) take queries that the wrapper
+// rounded to bf16 once, so every product of a query value and an int8 code or
+// an int4 level n - 7.5 is exact in f32 and only the sums round:
+//
+//   int8: the fma chain above over the codes, then s = s * row_scale;
+//   int4: one fma chain per 128-dim block b giving p_b, then in block order
+//         s = p_0 * scale_0;  s = s + p_b * scale_b  for b = 1 .. NB-1, each
+//         product and sum rounded on its own (the reference's
+//         `p = p * s; out = out + p`). Byte t of a packed row holds dim t
+//         (low nibble, block t / 128) and dim t + D/2 (high nibble, block
+//         t / 128 + NB/2): the low-plane partials fold as their block ends,
+//         the high-plane ones wait in NB/2 registers a query.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,15 +37,32 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace kirag {
 
 constexpr int LANES = 128;          // rows per group (the TPU kernels' lane width)
-constexpr int KD = 32;              // columns of one staged corpus tile
+constexpr int KD = 32;              // stored columns of one staged corpus tile
 constexpr int THREADS = 256;        // two halves of 128 threads, one row per thread
 constexpr int STAGES = 4;           // corpus tiles a block keeps in flight
+constexpr int INT4_BLOCK = 128;     // dims per int4 scale
 constexpr float FIN_MIN = -1e30f;   // finite mask value of the reference kernels
 
 __host__ __device__ constexpr int padded_depth(int d) { return (d + KD - 1) / KD * KD; }
+
+// Corpus formats: the stored element T and, for packed int4, NBH = D / 256,
+// the 128-byte blocks of a row, fixed at compile time so that the high-plane
+// partials stay in registers.
+template <typename T_, int NBH_ = 0>
+struct Fmt {
+  using T = T_;
+  static constexpr int NBH = NBH_;
+};
+using F32 = Fmt<float>;
+using BF16 = Fmt<__nv_bfloat16>;
+using I8 = Fmt<int8_t>;
+template <int NBH>
+using I4 = Fmt<uint8_t, NBH>;
 
 // Unpack one 16-byte vector of corpus values into f32.
 __device__ __forceinline__ void unpack(const uint4& raw, const float*, float* out) {
@@ -46,6 +77,27 @@ __device__ __forceinline__ void unpack(const uint4& raw, const __nv_bfloat16*, f
   for (int i = 0; i < 4; ++i) {  // little endian: the lower half is the earlier value
     out[2 * i] = __uint_as_float(w[i] << 16);
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+// Codes become f32 exactly by building a float in the mantissa and taking
+// its offset off: two full-rate integer and float operations, where a
+// conversion instruction runs at a quarter of the fma rate.
+//   int8 code c (its 8 bits in `byte`): 2^23 + (c + 128), minus 2^23 + 128;
+//   int4 code n: 2^22 + n (the mantissa's last bit is worth 0.5 at 2^22),
+//   minus 2^22 + 7.5, which is the level n - 7.5.
+__device__ __forceinline__ float int8_value(unsigned byte) {
+  return __uint_as_float(0x4B000000u | ((byte & 0xFFu) ^ 0x80u)) - 8388736.0f;
+}
+__device__ __forceinline__ float int4_level(unsigned n) {
+  return __uint_as_float(0x4A800000u | (n << 1)) - 4194311.5f;
+}
+
+__device__ __forceinline__ void unpack(const uint4& raw, const int8_t*, float* out) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) out[4 * i + b] = int8_value(w[i] >> (8 * b));
   }
 }
 
@@ -67,14 +119,15 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// Start copying corpus rows [row0, row0 + LANES) x columns [d0, d0 + KD) into
-// `tile`; the NT threads of the caller's group (index t) issue 16-byte copies,
-// neighbouring threads on neighbouring vectors of a row (coalesced). Needs
-// d % 8 == 0 and a 16-byte aligned corpus, so that a vector never straddles
-// the end of a row (the wrappers check both); vectors past d are zeros.
+// Start copying corpus rows [row0, row0 + LANES) x stored columns [c0, c0 + KD)
+// into `tile`; w is the stored width of a row. The NT threads of the caller's
+// group (index t) issue 16-byte copies, neighbouring threads on neighbouring
+// vectors of a row (coalesced). Needs w a multiple of one vector and a
+// 16-byte aligned corpus, so that a vector never straddles the end of a row
+// (the wrappers check both); vectors past w are zeros.
 template <typename T, int NT>
 __device__ __forceinline__ void issue_tile(T* tile, const T* __restrict__ corpus, int64_t row0,
-                                           int d, int d0, int t) {
+                                           int w, int c0, int t) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = KD / VEC;
   constexpr int PER = LANES * VPR / NT;
@@ -83,10 +136,40 @@ __device__ __forceinline__ void issue_tile(T* tile, const T* __restrict__ corpus
     const int i = t + m * NT;
     const int r = i / VPR;
     const int v = (i % VPR) * VEC;
-    const bool valid = d0 + v < d;
-    const T* src = valid ? corpus + (row0 + r) * static_cast<int64_t>(d) + d0 + v : corpus;
+    const bool valid = c0 + v < w;
+    const T* src = valid ? corpus + (row0 + r) * static_cast<int64_t>(w) + c0 + v : corpus;
     cp_async16(tile + r * tile_stride<T>() + v, src, valid);
   }
+}
+
+// The tile pipeline of score_group: tiles_begin starts the first NS - 1
+// copies; tiles_next(it) waits for tile `it`, starts the copy of tile
+// it + NS - 1 into the slot that tile it - 1 left, and returns this thread's
+// row of tile it. Both synchronise the block.
+template <typename T, int NT, int NS>
+__device__ __forceinline__ void tiles_begin(T* tiles, const T* __restrict__ corpus, int64_t row0,
+                                            int w, int n_tiles, int t, bool active) {
+  __syncthreads();  // the previous call may still be reading these tiles
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (active && s < n_tiles) {
+      issue_tile<T, NT>(tiles + s * tile_elems<T>(), corpus, row0, w, s * KD, t);
+    }
+    cp_async_commit();  // one group per tile slot, empty or not: the waits count them
+  }
+}
+template <typename T, int NT, int NS>
+__device__ __forceinline__ const T* tiles_next(T* tiles, const T* __restrict__ corpus,
+                                               int64_t row0, int w, int n_tiles, int it, int t,
+                                               int lane, bool active) {
+  cp_async_wait<NS - 2>();  // this thread's copies of tile `it` have landed
+  __syncthreads();          // everyone's have; tile it - 1 is no longer read
+  const int next = it + NS - 1;
+  if (active && next < n_tiles) {
+    issue_tile<T, NT>(tiles + (next % NS) * tile_elems<T>(), corpus, row0, w, next * KD, t);
+  }
+  cp_async_commit();
+  return tiles + (it % NS) * tile_elems<T>() + lane * tile_stride<T>();
 }
 
 // Advance NQ running scores by one staged tile: acc[j] takes the fma of
@@ -115,40 +198,127 @@ __device__ __forceinline__ void fma_tile(float (&acc)[NQ], const float* q, int q
   }
 }
 
-// THE scoring routine of every kernel. Scores the 128 rows [row0, row0 + 128)
-// against NQ query rows (q, q + q_stride, ...): on return acc[j] holds the
-// score of query j and row row0 + lane. The NT threads of the calling group
-// (index t within it) stream the rows through NS tiles at `tiles`, so that
-// NS - 1 tiles are being copied while one is multiplied. Every
-// thread of the block must call it the same number of times (it
-// synchronises the block); groups that have nothing to score pass
-// active = false.
-template <typename T, int NT, int NQ, int NS>
-__device__ __forceinline__ void score_group(float (&acc)[NQ], const T* __restrict__ corpus,
-                                            int64_t row0, int d, const float* q,
-                                            int q_stride, T* tiles, int t, int lane,
-                                            bool active) {
-  constexpr int TILE = tile_elems<T>();
-  const int n_tiles = padded_depth(d) / KD;
+// The packed-int4 form of fma_tile: byte c of the tile row holds the codes of
+// dim c0 + c (low nibble, into lo) and dim half + c0 + c (high nibble, into
+// hi), half = D / 2.
+template <int NQ>
+__device__ __forceinline__ void fma_tile_int4(float (&lo)[NQ], float (&hi)[NQ], const float* q,
+                                              int q_stride, int c0, int half,
+                                              const uint8_t* trow) {
 #pragma unroll
-  for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
-  __syncthreads();  // the previous call may still be reading these tiles
+  for (int c = 0; c < KD; c += 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(trow + c);
+    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float cl[16], ch[16];
 #pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (active && s < n_tiles) issue_tile<T, NT>(tiles + s * TILE, corpus, row0, d, s * KD, t);
-    cp_async_commit();  // one group per tile slot, empty or not: the waits count them
-  }
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<NS - 2>();  // this thread's copies of tile `it` have landed
-    __syncthreads();              // everyone's have; tile it - 1 is no longer read
-    const int next = it + NS - 1;
-    if (active && next < n_tiles) {
-      issue_tile<T, NT>(tiles + (next % NS) * TILE, corpus, row0, d, next * KD, t);
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        cl[4 * i + b] = int4_level((w[i] >> (8 * b)) & 15u);
+        ch[4 * i + b] = int4_level((w[i] >> (8 * b + 4)) & 15u);
+      }
     }
-    cp_async_commit();
-    if (active) {
-      fma_tile<NQ>(acc, q, q_stride, it * KD,
-                   tiles + (it % NS) * TILE + lane * tile_stride<T>());
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 16; e += 4) {
+        const float4 ql = *reinterpret_cast<const float4*>(q + j * q_stride + c0 + c + e);
+        lo[j] = __fmaf_rn(ql.x, cl[e], lo[j]);
+        lo[j] = __fmaf_rn(ql.y, cl[e + 1], lo[j]);
+        lo[j] = __fmaf_rn(ql.z, cl[e + 2], lo[j]);
+        lo[j] = __fmaf_rn(ql.w, cl[e + 3], lo[j]);
+        const float4 qh = *reinterpret_cast<const float4*>(q + j * q_stride + half + c0 + c + e);
+        hi[j] = __fmaf_rn(qh.x, ch[e], hi[j]);
+        hi[j] = __fmaf_rn(qh.y, ch[e + 1], hi[j]);
+        hi[j] = __fmaf_rn(qh.z, ch[e + 2], hi[j]);
+        hi[j] = __fmaf_rn(qh.w, ch[e + 3], hi[j]);
+      }
+    }
+  }
+}
+
+// score_group for packed int4 with NBH = D / 256 (see the header note).
+template <int NBH, int NT, int NQ, int NS>
+__device__ __forceinline__ void score_group_int4(float (&acc)[NQ],
+                                                 const uint8_t* __restrict__ corpus,
+                                                 const float* __restrict__ scales, int64_t row0,
+                                                 const float* q, int q_stride, uint8_t* tiles,
+                                                 int t, int lane, bool active) {
+  constexpr int NB = 2 * NBH;             // scales (128-dim blocks) of a row
+  constexpr int W = NBH * INT4_BLOCK;     // bytes of a row, D / 2
+  constexpr int TPB = INT4_BLOCK / KD;    // tiles of one block's bytes
+  float s[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) s[b] = active ? scales[(row0 + lane) * NB + b] : 0.f;
+  float lo[NQ], hi[NBH][NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    acc[j] = 0.f;
+    lo[j] = 0.f;
+#pragma unroll
+    for (int h = 0; h < NBH; ++h) hi[h][j] = 0.f;
+  }
+  tiles_begin<uint8_t, NT, NS>(tiles, corpus, row0, W, NBH * TPB, t, active);
+#pragma unroll
+  for (int h = 0; h < NBH; ++h) {  // unrolled: hi[h] and s[h] stay in registers
+#pragma unroll 1
+    for (int i = 0; i < TPB; ++i) {
+      const int it = h * TPB + i;
+      const uint8_t* trow =
+          tiles_next<uint8_t, NT, NS>(tiles, corpus, row0, W, NBH * TPB, it, t, lane, active);
+      if (active) fma_tile_int4<NQ>(lo, hi[h], q, q_stride, it * KD, W, trow);
+    }
+    if (active) {  // low block h is complete: fold it
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float p = __fmul_rn(lo[j], s[h]);
+        acc[j] = h == 0 ? p : __fadd_rn(acc[j], p);
+        lo[j] = 0.f;
+      }
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int h = 0; h < NBH; ++h) {
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(hi[h][j], s[NBH + h]));
+    }
+  }
+}
+
+// THE scoring routine of every kernel. Scores the 128 rows [row0, row0 + 128)
+// against NQ query rows (q, q + q_stride, ...) of depth d: on return acc[j]
+// holds the score of query j and row row0 + lane. `scales` is read for
+// quantized formats only (int8: [rows], int4: [rows][D / 128]). The NT
+// threads of the calling group (index t within it) stream the rows through NS
+// tiles at `tiles`, so that NS - 1 tiles are being copied while one is
+// multiplied. Every thread of the block must call it the same number of times
+// (it synchronises the block); groups that have nothing to score pass
+// active = false.
+template <typename F, int NT, int NQ, int NS>
+__device__ __forceinline__ void score_group(float (&acc)[NQ],
+                                            const typename F::T* __restrict__ corpus,
+                                            const float* __restrict__ scales, int64_t row0, int d,
+                                            const float* q, int q_stride, typename F::T* tiles,
+                                            int t, int lane, bool active) {
+  using T = typename F::T;
+  if constexpr (F::NBH > 0) {
+    score_group_int4<F::NBH, NT, NQ, NS>(acc, corpus, scales, row0, q, q_stride, tiles, t, lane,
+                                         active);
+  } else {
+    constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+    const float row_scale = kInt8 && active ? scales[row0 + lane] : 0.f;
+    const int n_tiles = padded_depth(d) / KD;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
+    tiles_begin<T, NT, NS>(tiles, corpus, row0, d, n_tiles, t, active);
+    for (int it = 0; it < n_tiles; ++it) {
+      const T* trow = tiles_next<T, NT, NS>(tiles, corpus, row0, d, n_tiles, it, t, lane, active);
+      if (active) fma_tile<NQ>(acc, q, q_stride, it * KD, trow);
+    }
+    if (kInt8 && active) {
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) acc[j] = __fmul_rn(acc[j], row_scale);
     }
   }
 }
@@ -161,6 +331,37 @@ __device__ __forceinline__ void stage_queries(float* q_s, const float* __restric
     const int j = i / d_pad;
     const int c = i % d_pad;
     q_s[i] = (q0 + j < n_q && c < d) ? q[static_cast<int64_t>(q0 + j) * d + c] : 0.f;
+  }
+}
+
+// Call fn(Fmt{}) with the format of `kind` (0 float32, 1 bfloat16, 2 int8,
+// 3 packed int4 of depth d = 256 * NBH, NBH = 1 .. 4); cudaErrorInvalidValue
+// for anything else.
+template <typename Fn>
+cudaError_t with_format(int kind, int d, Fn&& fn) {
+  switch (kind) {
+    case 0:
+      return fn(F32{});
+    case 1:
+      return fn(BF16{});
+    case 2:
+      return fn(I8{});
+    case 3:
+      if (d % 256 != 0) return cudaErrorInvalidValue;
+      switch (d / 256) {
+        case 1:
+          return fn(I4<1>{});
+        case 2:
+          return fn(I4<2>{});
+        case 3:
+          return fn(I4<3>{});
+        case 4:
+          return fn(I4<4>{});
+        default:
+          return cudaErrorInvalidValue;
+      }
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

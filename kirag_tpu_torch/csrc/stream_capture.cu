@@ -1,8 +1,10 @@
 // stream_capture: one corpus read with per-chunk top-B group capture.
 //
 // Replaces the TPU kernel kirag_tpu/ops/pallas_exact.py::_stream_kernel
-// (launched by _stream_body with select="capdom", no quantization). For each
-// corpus chunk and each query it emits, as that kernel does:
+// (launched by _stream_body with select="capdom") over a float32, bfloat16,
+// int8 or packed-int4 corpus; the quantized scoring (K4, `_chunk_scores`) is
+// score.cuh's. For each corpus chunk and each query it emits, as that kernel
+// does:
 //   gmax   [C, G, Q] f32  maximum of every 128-row group; rows >= valid_rows
 //                         count as FIN_MIN, and the maximum is clamped to FIN_MIN
 //   capture[C, Q, B*128]  the raw scores of the chunk's top-B groups
@@ -15,7 +17,9 @@
 // (Q x N x D fmas), fed from shared memory (one staged corpus value per fma
 // column, one 16-byte query read per four fmas); at 1M x 1024 that takes
 // longer than reading the corpus once from HBM (4 GB f32 at 3.35 TB/s,
-// about 1.2 ms). The corpus is read once per query tile.
+// about 1.2 ms). The corpus is read once per query tile. A quantized corpus
+// moves 4x (int8) or 8x (int4) fewer bytes for the same fmas, plus the
+// conversion of each code to f32, so it is bound by the CUDA cores even more.
 //
 // What the design does about it: one block per (query tile, chunk), query
 // tiles on the fast grid axis so the tiles of one chunk run together and share
@@ -41,13 +45,15 @@ __device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <typename T, int QPT>
+template <typename F, int QPT>
 __global__ void __launch_bounds__(THREADS)
-    stream_capture_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
+    stream_capture_kernel(const float* __restrict__ q, const typename F::T* __restrict__ corpus,
+                          const float* __restrict__ scales,
                           float* __restrict__ gmax, float* __restrict__ capture,
                           int* __restrict__ gids, float* __restrict__ capmax,
                           float* __restrict__ resid, int n_q, int d, int chunk_size,
                           int b, int64_t valid_rows) {
+  using T = typename F::T;
   constexpr int NQ = 2 * QPT;  // queries of this block
   extern __shared__ __align__(16) float smem[];
   const int d_pad = padded_depth(d);
@@ -76,8 +82,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int g = 0; g < g_count; ++g) {
     const int64_t row0 = chunk_row0 + static_cast<int64_t>(g) * LANES;
     float acc[QPT];
-    score_group<T, THREADS, QPT, STAGES>(acc, corpus, row0, d, q_s + half * d_pad, 2 * d_pad,
-                                         tiles, t, lane, true);
+    score_group<F, THREADS, QPT, STAGES>(acc, corpus, scales, row0, d, q_s + half * d_pad,
+                                         2 * d_pad, tiles, t, lane, true);
     const bool valid = row0 + lane < valid_rows;
 #pragma unroll
     for (int j = 0; j < QPT; ++j) {
@@ -155,8 +161,8 @@ __global__ void __launch_bounds__(THREADS)
     const int bi = active ? p % b : 0;
     const int64_t row0 = chunk_row0 + static_cast<int64_t>(sel_s[lq * b + bi]) * LANES;
     float acc[1];
-    score_group<T, LANES, 1, STAGES / 2>(acc, corpus, row0, d, q_s + lq * d_pad, 0, my_tiles,
-                                         lane, lane, active);
+    score_group<F, LANES, 1, STAGES / 2>(acc, corpus, scales, row0, d, q_s + lq * d_pad, 0,
+                                         my_tiles, lane, lane, active);
     if (active) {
       capture[(static_cast<int64_t>(chunk) * n_q + q0 + lq) * (static_cast<int64_t>(b) * LANES) +
               bi * LANES + lane] = acc[0];
@@ -164,17 +170,18 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int QPT>
-cudaError_t launch(const float* q, const void* corpus, float* gmax, float* capture,
-                   int* gids, float* capmax, float* resid, int n_q, int d,
+template <typename F, int QPT>
+cudaError_t launch(const float* q, const void* corpus, const float* scales, float* gmax,
+                   float* capture, int* gids, float* capmax, float* resid, int n_q, int d,
                    int num_chunks, int chunk_size, int b, int64_t valid_rows,
                    cudaStream_t stream) {
+  using T = typename F::T;
   constexpr int NQ = 2 * QPT;
   const int d_pad = padded_depth(d);
   const int g_count = chunk_size / LANES;
   const size_t smem = sizeof(float) * (NQ * d_pad + NQ * g_count + 8 * QPT) +
                       sizeof(T) * STAGES * tile_elems<T>() + sizeof(int) * NQ * b;
-  auto kernel = stream_capture_kernel<T, QPT>;
+  auto kernel = stream_capture_kernel<F, QPT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
@@ -182,47 +189,39 @@ cudaError_t launch(const float* q, const void* corpus, float* gmax, float* captu
     return err;
   }
   const dim3 grid((n_q + NQ - 1) / NQ, num_chunks);
-  kernel<<<grid, THREADS, smem, stream>>>(q, static_cast<const T*>(corpus), gmax, capture,
-                                          gids, capmax, resid, n_q, d, chunk_size, b,
+  kernel<<<grid, THREADS, smem, stream>>>(q, static_cast<const T*>(corpus), scales, gmax,
+                                          capture, gids, capmax, resid, n_q, d, chunk_size, b,
                                           valid_rows);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int qpt, const float* q, const void* corpus, float* gmax,
-                     float* capture, int* gids, float* capmax, float* resid, int n_q,
-                     int d, int num_chunks, int chunk_size, int b, int64_t valid_rows,
-                     cudaStream_t stream) {
-  switch (qpt) {
-    case 2:
-      return launch<T, 2>(q, corpus, gmax, capture, gids, capmax, resid, n_q, d,
-                          num_chunks, chunk_size, b, valid_rows, stream);
-    case 4:
-      return launch<T, 4>(q, corpus, gmax, capture, gids, capmax, resid, n_q, d,
-                          num_chunks, chunk_size, b, valid_rows, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// Queries f32 [n_q, d]; corpus [num_chunks * chunk_size, d] f32 (corpus_bf16 = 0)
-// or bf16 (1); outputs as in the header note. qpt in {2, 4} queries per
-// thread sets the query tile (2 * qpt queries per block). Returns the launch's
-// cudaError_t.
-extern "C" int kirag_stream_capture(const float* q, const void* corpus, int corpus_bf16,
-                                    float* gmax, float* capture, int* gids, float* capmax,
-                                    float* resid, int n_q, int d, int num_chunks,
+// Queries f32 [n_q, d]; corpus [num_chunks * chunk_size, *] in the format of
+// `kind` (0 float32 [., d], 1 bfloat16 [., d], 2 int8 [., d] with f32 row
+// scales [rows], 3 packed int4 [., d / 2] with f32 block scales
+// [rows, d / 128]; `scales` is null for 0 and 1); outputs as in the header
+// note. qpt in {2, 4} queries per thread sets the query tile (2 * qpt queries
+// per block). Returns the launch's cudaError_t.
+extern "C" int kirag_stream_capture(const float* q, const void* corpus, int kind,
+                                    const float* scales, float* gmax, float* capture, int* gids,
+                                    float* capmax, float* resid, int n_q, int d, int num_chunks,
                                     int chunk_size, int b, long long valid_rows, int qpt,
                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (corpus_bf16) {
-    return dispatch<__nv_bfloat16>(qpt, q, corpus, gmax, capture, gids, capmax, resid, n_q,
-                                   d, num_chunks, chunk_size, b, valid_rows, s);
-  }
-  return dispatch<float>(qpt, q, corpus, gmax, capture, gids, capmax, resid, n_q, d,
-                         num_chunks, chunk_size, b, valid_rows, s);
+  return with_format(kind, d, [&](auto fmt) {
+    using F = decltype(fmt);
+    switch (qpt) {
+      case 2:
+        return launch<F, 2>(q, corpus, scales, gmax, capture, gids, capmax, resid, n_q, d,
+                            num_chunks, chunk_size, b, valid_rows, s);
+      case 4:
+        return launch<F, 4>(q, corpus, scales, gmax, capture, gids, capmax, resid, n_q, d,
+                            num_chunks, chunk_size, b, valid_rows, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
 }
 
 extern "C" const char* kirag_error_string(int err) {

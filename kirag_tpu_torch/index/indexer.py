@@ -1,16 +1,19 @@
 """Device-resident exact inner-product index (port of
-:class:`kirag_tpu.index.indexer.TPUIndexer`, inner product, uncompressed,
-one device).
+:class:`kirag_tpu.index.indexer.TPUIndexer`, inner product, one device).
 
 The corpus matrix lives on ``device`` (default: the GPU; the CPU only when
 the caller passes ``device="cpu"``) in ``device_dtype`` (float32 or
-bfloat16), pre-padded to the search chunk grid. On a CUDA device
-``search_knn`` runs the exact stream-capture search
+bfloat16), or compressed (``compression="int8"``: int8 codes and a scale a
+row; ``"int4"``: packed 4-bit codes and a scale per 128-dim block),
+quantized block by block where it lies; pre-padded to the search chunk grid.
+On a CUDA device ``search_knn`` runs the exact stream-capture search
 (:func:`kirag_tpu_torch.ops.exact.exact_topk_mips`) in flag mode and
 re-dispatches the checked search when the capture's exactness flag is
-False; on the CPU it runs the plain scan (:func:`topk_mips`). The on-disk
-format (``serialize``/``deserialize_from``) is the reference's, so an index
-written by ``TPUIndexer`` loads here and back.
+False; on the CPU it runs the plain scan (:func:`topk_mips`, or
+:func:`topk_mips_int8`/:func:`topk_mips_int4`). The on-disk format
+(``serialize``/``deserialize_from``: f32 shards, the compression in the
+config) is the reference's, so an index written by ``TPUIndexer`` loads here
+and back.
 """
 
 from __future__ import annotations
@@ -27,6 +30,13 @@ import torch
 from kirag_tpu_torch.device import require_cuda
 from kirag_tpu_torch.ops.exact import exact_topk_mips
 from kirag_tpu_torch.ops.mips import topk_mips
+from kirag_tpu_torch.ops.quantized import (
+    INT4_BLOCK,
+    quantize_rows_int4_torch,
+    quantize_rows_int8_torch,
+    topk_mips_int4,
+    topk_mips_int8,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -42,6 +52,16 @@ def _next_pow2(n: int, floor: int = 8) -> int:
 
 def _not_ported(what: str, entry: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A: {entry})")
+
+
+def _check_compression(compression: str, vector_sz: int) -> None:
+    if compression == "pq":
+        raise _not_ported("compression='pq'", "PQ")
+    if compression not in ("none", "int8", "int4"):
+        raise KeyError(f"compression must be 'none', 'int8' or 'int4', got {compression}")
+    if compression == "int4" and vector_sz % 256 != 0:
+        raise ValueError("int4 compression needs vector_sz % 256 == 0 (plane packing), "
+                         f"got {vector_sz}")
 
 
 class TorchIndexer:
@@ -62,9 +82,10 @@ class TorchIndexer:
                  shuffle_rows: bool = False):
         if metric != "inner_product":
             raise _not_ported(f"metric={metric!r}", "l2 metric")
-        if compression != "none" or n_subquantizers:
-            raise _not_ported("index compression (int8, int4, pq)",
-                              "quantized exact search, K4")
+        if n_subquantizers:
+            raise _not_ported(f"product quantization (n_subquantizers={n_subquantizers})",
+                              "PQ")
+        _check_compression(compression, vector_sz)
         if mesh is not None:
             raise _not_ported("a sharded index over a device mesh", "multi-GPU index")
         if max_device_rows is not None:
@@ -94,6 +115,7 @@ class TorchIndexer:
         self._host_chunks: List[np.ndarray] = []
         self.index_id_to_db_id: np.ndarray = np.empty((0,), dtype=object)
         self._device_corpus: Optional[torch.Tensor] = None
+        self._device_scales: Optional[torch.Tensor] = None  # int8 [N], int4 [N, D/128]
         self._device_rows: int = 0
         # searches whose capture flag was False and that ran the checked search
         self.redispatches = 0
@@ -114,7 +136,7 @@ class TorchIndexer:
         self._host_chunks.append(embeddings)
         new_ids = np.asarray([str(i) for i in ids], dtype=object)
         self.index_id_to_db_id = np.concatenate([self.index_id_to_db_id, new_ids])
-        self._device_corpus = None
+        self._device_corpus = self._device_scales = None
         logger.info(f"Total data indexed {len(self.index_id_to_db_id)}")
 
     def _host_rows(self, start: int, end: int) -> np.ndarray:
@@ -141,43 +163,67 @@ class TorchIndexer:
         """Place the corpus on the device, zero-padded: to a multiple of 8
         rows, and for the kernel search of a corpus of at least one chunk to
         the chunk grid (the search would otherwise pad a copy per call). Pad
-        rows are masked through ``valid_rows``."""
+        rows are masked through ``valid_rows``. A compressed corpus is
+        quantized on the device, one host block at a time; its pad rows hold
+        zero codes and zero scales."""
         n = len(self)
         unit = 8
         if self.exact_impl != "plain" and n >= self.pallas_chunk_size:
             unit = self.pallas_chunk_size
         n_pad = max(-(-n // unit) * unit, unit)
-        mat = torch.zeros((n_pad, self.vector_sz), dtype=self.device_dtype,
-                          device=self.device)
+        d = self.vector_sz
+        scales = None
+        if self.compression == "int8":
+            mat = torch.zeros((n_pad, d), dtype=torch.int8, device=self.device)
+            scales = torch.zeros((n_pad,), dtype=torch.float32, device=self.device)
+        elif self.compression == "int4":
+            mat = torch.zeros((n_pad, d // 2), dtype=torch.uint8, device=self.device)
+            scales = torch.zeros((n_pad, d // INT4_BLOCK), dtype=torch.float32,
+                                 device=self.device)
+        else:
+            mat = torch.zeros((n_pad, d), dtype=self.device_dtype, device=self.device)
         for start in range(0, n, _HOST_BLOCK):
             rows = self._host_rows(start, min(start + _HOST_BLOCK, n))
             if not rows.flags.writeable:  # mmap'd shard: torch wants writable memory
                 rows = rows.copy()
-            mat[start:start + len(rows)] = torch.from_numpy(rows).to(
-                device=self.device, dtype=self.device_dtype)
+            block = slice(start, start + len(rows))
+            rows = torch.from_numpy(rows).to(self.device)
+            if self.compression == "int8":
+                mat[block], scales[block] = quantize_rows_int8_torch(rows)
+            elif self.compression == "int4":
+                mat[block], scales[block] = quantize_rows_int4_torch(rows)
+            else:
+                mat[block] = rows.to(self.device_dtype)
         self._device_corpus = mat
+        self._device_scales = scales
         self._device_rows = n
 
     # -- search ----------------------------------------------------------------
 
     def _run_mips(self, queries: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        corpus = self._device_corpus
+        corpus, scales = self._device_corpus, self._device_scales
         if not self._use_kernels():
-            return topk_mips(queries, corpus, k, chunk_size=min(self.chunk_size, len(corpus)),
-                             valid_rows=self._device_rows)
+            kw = dict(chunk_size=min(self.chunk_size, len(corpus)), valid_rows=self._device_rows)
+            if self.compression == "int8":
+                return topk_mips_int8(queries, corpus, scales, k, **kw)
+            if self.compression == "int4":
+                return topk_mips_int4(queries, corpus, scales, k, **kw)
+            return topk_mips(queries, corpus, k, **kw)
         # flag mode: the capture result and its exactness flag; a False flag
         # re-dispatches the checked search, which re-scores on a miss
         vals, idx, ok = exact_topk_mips(queries, corpus, k,
                                         chunk_size=self.pallas_chunk_size,
                                         valid_rows=self._device_rows,
-                                        select=self.pallas_select, on_miss="flag")
+                                        select=self.pallas_select, on_miss="flag",
+                                        scales=scales)
         if bool(ok):
             return vals, idx
         self.redispatches += 1
         logger.info("stream capture missed a selected group; re-dispatching "
                     "the checked exact search")
         return exact_topk_mips(queries, corpus, k, chunk_size=self.pallas_chunk_size,
-                               valid_rows=self._device_rows, select=self.pallas_select)
+                               valid_rows=self._device_rows, select=self.pallas_select,
+                               scales=scales)
 
     def search_knn(self, query_vectors: np.ndarray, top_docs: int,
                    index_batch_size: int = 1024, mode: str = "exact") -> List[Tuple[List[str], np.ndarray]]:
@@ -241,9 +287,9 @@ class TorchIndexer:
                                  f"indexer expects {self.vector_sz}")
             if cfg.get("metric", "inner_product") != "inner_product":
                 raise _not_ported(f"metric={cfg['metric']!r}", "l2 metric")
-            if cfg.get("compression", "none") != "none":
-                raise _not_ported(f"compression={cfg['compression']!r}",
-                                  "quantized exact search, K4")
+            compression = cfg.get("compression", self.compression)
+            _check_compression(compression, self.vector_sz)
+            self.compression = compression
             files = cfg.get("files")
         mode = "r" if mmap else None
         names = files or ["index.npy"]  # legacy monolithic layout
@@ -256,4 +302,4 @@ class TorchIndexer:
         if len(self.index_id_to_db_id) != n_rows:
             raise ValueError(f"id map holds {len(self.index_id_to_db_id)} ids for "
                              f"{n_rows} rows")
-        self._device_corpus = None
+        self._device_corpus = self._device_scales = None

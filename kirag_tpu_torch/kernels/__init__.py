@@ -14,6 +14,7 @@ from kirag_tpu_torch.kernels.common import launch_counts, reset_launch_counts
 from kirag_tpu_torch.kernels.exact import (
     gather_groups,
     gather_groups_plain,
+    quant_scores,
     stream_capture,
     stream_capture_plain,
 )
@@ -34,6 +35,7 @@ __all__ = [
     "int4_matmul",
     "int4_matmul_plain",
     "launch_counts",
+    "quant_scores",
     "reset_launch_counts",
     "stream_capture",
     "stream_capture_plain",

@@ -99,11 +99,11 @@ def build() -> BuildInfo:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.kirag_stream_capture.argtypes = [
-        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,  # q, corpus, bf16, 5 outputs
-        i32, i32, i32, i32, i32, i64, i32, ptr]  # n_q .. qpt, stream
+        ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr,  # q, corpus, kind, scales, 5 outputs
+        i32, i32, i32, i32, i32, i64, i32, ptr]       # n_q .. qpt, stream
     lib.kirag_stream_capture.restype = i32
     lib.kirag_gather_groups.argtypes = [
-        ptr, ptr, i32, ptr, ptr, i32, i32, i32, i64, ptr]
+        ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
     lib.kirag_gather_groups.restype = i32
     lib.kirag_flash_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,             # q, k, v, seg, out, lse (or null)

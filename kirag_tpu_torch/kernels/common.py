@@ -13,9 +13,11 @@ from typing import Dict
 import torch
 
 _counts_lock = threading.Lock()
-_launches: Dict[str, int] = {"stream_capture": 0, "gather_groups": 0, "flash_attention": 0,
-                             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-                             "int4_matmul": 0}
+_launches: Dict[str, int] = {"stream_capture": 0, "gather_groups": 0,
+                             "stream_capture_int8": 0, "gather_groups_int8": 0,
+                             "stream_capture_int4": 0, "gather_groups_int4": 0,
+                             "flash_attention": 0, "flash_attention_bwd_dkv": 0,
+                             "flash_attention_bwd_dq": 0, "int4_matmul": 0}
 
 
 def launch_counts() -> Dict[str, int]:

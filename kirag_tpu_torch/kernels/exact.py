@@ -5,12 +5,24 @@
 a wrapper launches its kernel or raises; on a CPU tensor it runs its plain
 PyTorch version, which computes the same function with f32 products and f32
 sums (a CUDA kernel cannot run on the CPU). Each launch adds one to the
-wrapper's count in :func:`~kirag_tpu_torch.kernels.common.launch_counts`.
+wrapper's count in :func:`~kirag_tpu_torch.kernels.common.launch_counts`,
+under ``stream_capture``/``gather_groups`` for a float corpus and with an
+``_int8``/``_int4`` suffix for a quantized one.
+
+Both kernels score a float32 or bfloat16 corpus, or a quantized one (K4, the
+in-kernel dequant of ``kirag_tpu.ops.pallas_exact._chunk_scores``), named by
+``quant``:
+
+- ``"int8"``: int8 codes [N, D] and f32 row scales [N];
+- ``"int4"``: packed uint8 [N, D/2] (byte j: dim j in the low nibble, dim
+  j + D/2 in the high one) and f32 block scales [N, D/128], level n - 7.5.
+
+:func:`quant_scores` states their arithmetic.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,30 +31,105 @@ from kirag_tpu_torch.kernels.common import count_launch, on_cpu, raise_on
 
 LANES = 128
 FIN_MIN = -1e30
+INT4_BLOCK = 128
+# the kernels' corpus formats (csrc/score.cuh's with_format)
+_KIND = {torch.float32: 0, torch.bfloat16: 1, "int8": 2, "int4": 3}
 
 
-def _check_corpus(corpus: torch.Tensor) -> None:
-    if corpus.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"corpus must be float32 or bfloat16, got {corpus.dtype}")
+def _corpus_dim(corpus: torch.Tensor, quant: str) -> int:
+    """The vector depth D of a corpus stored in ``quant``'s format."""
+    return 2 * corpus.shape[1] if quant == "int4" else corpus.shape[1]
+
+
+def check_corpus(corpus: torch.Tensor, scales: Optional[torch.Tensor], quant: str) -> None:
+    """Raise unless ``corpus`` and ``scales`` are a contiguous corpus in
+    ``quant``'s format."""
     if corpus.dim() != 2 or not corpus.is_contiguous():
         raise ValueError("corpus must be a contiguous [N, D] matrix")
+    if quant == "none":
+        if corpus.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"corpus must be float32 or bfloat16, got {corpus.dtype}")
+        if scales is not None:
+            raise ValueError("a float corpus takes no scales")
+        return
+    want = {"int8": (torch.int8, (corpus.shape[0],)),
+            "int4": (torch.uint8, (corpus.shape[0], 2 * corpus.shape[1] // INT4_BLOCK))}
+    if quant not in want:
+        raise ValueError(f"quant must be none|int8|int4, got {quant!r}")
+    dtype, shape = want[quant]
+    if corpus.dtype != dtype:
+        raise TypeError(f"a {quant} corpus is {dtype}, got {corpus.dtype}")
+    if quant == "int4" and (2 * corpus.shape[1]) % (2 * INT4_BLOCK):
+        raise ValueError(f"int4 corpora need D % 256 == 0, got D={2 * corpus.shape[1]}")
+    if scales is None or tuple(scales.shape) != shape or not scales.is_contiguous():
+        raise ValueError(f"a {quant} corpus of {corpus.shape[0]} rows needs contiguous "
+                         f"scales of shape {shape}, got "
+                         f"{None if scales is None else tuple(scales.shape)}")
+    if scales.dtype != torch.float32:
+        raise TypeError(f"scales must be float32, got {scales.dtype}")
 
 
-def _check_kernel_operands(corpus) -> None:
+def _check_kernel_operands(corpus, quant: str) -> None:
     """What the CUDA kernels take beyond the plain versions: 16-byte vector
-    reads of the corpus rows."""
-    if corpus.shape[1] % 8 or corpus.data_ptr() % 16:
-        raise ValueError(f"the CUDA kernels need D % 8 == 0 and a 16-byte aligned "
-                         f"corpus, got D={corpus.shape[1]}")
+    reads of the corpus rows, and int4 depths up to 1024."""
+    d = _corpus_dim(corpus, quant)
+    vec = 16 if quant == "int8" else 8
+    if d % vec or corpus.data_ptr() % 16:
+        raise ValueError(f"the CUDA kernels need D % {vec} == 0 and a 16-byte aligned "
+                         f"corpus, got D={d}")
+    if quant == "int4" and d > 1024:
+        raise ValueError(f"the int4 kernels take D = 256, 512, 768 or 1024, got D={d}")
+
+
+def _kernel_args(queries, corpus, scales, quant: str):
+    """The kernel's queries (f32; rounded to bf16 first for a quantized
+    corpus, as the reference does), format code and scales pointer."""
+    if quant == "none":
+        return queries.to(torch.float32).contiguous(), _KIND[corpus.dtype], None
+    q = queries.to(torch.bfloat16).to(torch.float32).contiguous()
+    return q, _KIND[quant], scales.data_ptr()
+
+
+def _launch_name(kernel: str, quant: str) -> str:
+    return kernel if quant == "none" else f"{kernel}_{quant}"
+
+
+def quant_scores(queries: torch.Tensor, corpus: torch.Tensor,
+                 scales: Optional[torch.Tensor], quant: str) -> torch.Tensor:
+    """f32 scores [Q, rows] of ``corpus`` rows stored in ``quant``'s format:
+    the plain statement of K4 (``pallas_exact._chunk_scores``).
+
+    "none": f32 products of the stored values, f32 sums. "int8": queries
+    rounded to bf16, their f32 dot product with the codes, times the row
+    scale. "int4": queries rounded to bf16; per 128-dim block b the f32 dot
+    product p_b with the levels n - 7.5, then ``out = p_0 * s_0``,
+    ``out = out + p_b * s_b`` in block order (the reference's rounding).
+    """
+    if quant == "none":
+        return queries.to(torch.float32) @ corpus.to(torch.float32).T
+    q = queries.to(torch.bfloat16).to(torch.float32)
+    if quant == "int8":
+        return (q @ corpus.to(torch.float32).T) * scales.to(torch.float32)[None, :]
+    n, half = corpus.shape
+    nb = 2 * half // INT4_BLOCK
+    levels = torch.cat([corpus & 15, corpus >> 4], dim=1).to(torch.float32) - 7.5
+    p = torch.bmm(q.view(-1, nb, INT4_BLOCK).transpose(0, 1),               # [NB, Q, 128]
+                  levels.view(n, nb, INT4_BLOCK).permute(1, 2, 0))          # [NB, 128, n]
+    p = p * scales.to(torch.float32).T[:, None, :]
+    out = p[0]
+    for b in range(1, nb):
+        out = out + p[b]
+    return out
 
 
 # ------------------------------------------------------------ stream_capture
 
 
-def _capture_geometry(queries, corpus, chunk_size: int, b: int):
-    _check_corpus(corpus)
-    if queries.dim() != 2 or queries.shape[1] != corpus.shape[1] or queries.shape[0] < 1:
-        raise ValueError(f"queries {tuple(queries.shape)} do not match corpus "
+def _capture_geometry(queries, corpus, scales, quant: str, chunk_size: int, b: int):
+    check_corpus(corpus, scales, quant)
+    if queries.dim() != 2 or queries.shape[1] != _corpus_dim(corpus, quant) or \
+            queries.shape[0] < 1:
+        raise ValueError(f"queries {tuple(queries.shape)} do not match a {quant} corpus "
                          f"{tuple(corpus.shape)}")
     n = corpus.shape[0]
     if chunk_size % LANES or chunk_size <= 0 or n % chunk_size or n == 0:
@@ -54,24 +141,31 @@ def _capture_geometry(queries, corpus, chunk_size: int, b: int):
     return n // chunk_size, groups_per_chunk
 
 
+def _tensors(*tensors):
+    return [t for t in tensors if t is not None]
+
+
 def stream_capture(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
-                   chunk_size: int, b: int) -> Tuple[torch.Tensor, ...]:
+                   chunk_size: int, b: int, scales: Optional[torch.Tensor] = None,
+                   quant: str = "none") -> Tuple[torch.Tensor, ...]:
     """Per-chunk group maxima and top-``b`` group capture (K1).
 
-    ``corpus`` [C * chunk_size, D] f32 or bf16, ``queries`` [Q, D]. Returns
-    ``(gmax [C, G, Q] f32, capture [C, Q, b * 128] f32, gids [C, b, Q] int32,
-    capmax [C, b, Q] f32, resid [C, 1, Q] f32)`` with G = chunk_size / 128:
-    the outputs of ``kirag_tpu.ops.pallas_exact._stream_kernel`` under
-    ``capdom``. Rows at or past ``valid_rows`` count as FIN_MIN in the maxima;
-    captured scores stay raw.
+    ``corpus`` [C * chunk_size, *] in ``quant``'s format (float32 or bfloat16
+    [., D] for "none"), ``queries`` [Q, D]. Returns ``(gmax [C, G, Q] f32,
+    capture [C, Q, b * 128] f32, gids [C, b, Q] int32, capmax [C, b, Q] f32,
+    resid [C, 1, Q] f32)`` with G = chunk_size / 128: the outputs of
+    ``kirag_tpu.ops.pallas_exact._stream_kernel`` under ``capdom``. Rows at
+    or past ``valid_rows`` count as FIN_MIN in the maxima; captured scores
+    stay raw.
     """
-    num_chunks, groups_per_chunk = _capture_geometry(queries, corpus, chunk_size, b)
-    if on_cpu(queries, corpus):
-        return stream_capture_plain(queries, corpus, valid_rows, chunk_size, b)
-    _check_kernel_operands(corpus)
+    num_chunks, groups_per_chunk = _capture_geometry(queries, corpus, scales, quant,
+                                                     chunk_size, b)
+    if on_cpu(queries, *_tensors(corpus, scales)):
+        return stream_capture_plain(queries, corpus, valid_rows, chunk_size, b, scales, quant)
+    _check_kernel_operands(corpus, quant)
     lib = load_library()
     n_q, d = queries.shape
-    q = queries.to(torch.float32).contiguous()
+    q, kind, scales_ptr = _kernel_args(queries, corpus, scales, quant)
     dev = corpus.device
     gmax = torch.empty((num_chunks, groups_per_chunk, n_q), dtype=torch.float32, device=dev)
     capture = torch.empty((num_chunks, n_q, b * LANES), dtype=torch.float32, device=dev)
@@ -84,25 +178,28 @@ def stream_capture(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
     qpt = 2 if n_q <= 8 else 4
     with torch.cuda.device(dev):
         err = lib.kirag_stream_capture(
-            q.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
+            q.data_ptr(), corpus.data_ptr(), kind, scales_ptr,
             gmax.data_ptr(), capture.data_ptr(), gids.data_ptr(), capmax.data_ptr(),
             resid.data_ptr(), n_q, d, num_chunks, chunk_size, b, int(valid_rows), qpt,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib, "stream_capture")
-    count_launch("stream_capture")
+    count_launch(_launch_name("stream_capture", quant))
     return gmax, capture, gids, capmax, resid
 
 
 def stream_capture_plain(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
-                         chunk_size: int, b: int) -> Tuple[torch.Tensor, ...]:
+                         chunk_size: int, b: int, scales: Optional[torch.Tensor] = None,
+                         quant: str = "none") -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of :func:`stream_capture`, same contract."""
-    num_chunks, groups_per_chunk = _capture_geometry(queries, corpus, chunk_size, b)
+    num_chunks, groups_per_chunk = _capture_geometry(queries, corpus, scales, quant,
+                                                     chunk_size, b)
     n_q = queries.shape[0]
     dev = corpus.device
-    q = queries.to(torch.float32)
     scores = torch.empty((num_chunks, n_q, chunk_size), dtype=torch.float32, device=dev)
     for c in range(num_chunks):
-        scores[c] = q @ corpus[c * chunk_size:(c + 1) * chunk_size].to(torch.float32).T
+        rows = slice(c * chunk_size, (c + 1) * chunk_size)
+        scores[c] = quant_scores(queries, corpus[rows],
+                                 None if scales is None else scales[rows], quant)
     rows = torch.arange(num_chunks * chunk_size, device=dev).view(num_chunks, 1, chunk_size)
     masked = torch.where(rows < valid_rows, scores, FIN_MIN)
     gmax = masked.view(num_chunks, n_q, groups_per_chunk, LANES).amax(-1).clamp_min(FIN_MIN)
@@ -126,12 +223,12 @@ def stream_capture_plain(queries: torch.Tensor, corpus: torch.Tensor, valid_rows
 # ------------------------------------------------------------- gather_groups
 
 
-def _check_gather(queries, corpus, gsel) -> None:
-    _check_corpus(corpus)
+def _check_gather(queries, corpus, gsel, scales, quant: str) -> None:
+    check_corpus(corpus, scales, quant)
     if corpus.shape[0] % LANES:
         raise ValueError(f"corpus rows {corpus.shape[0]} must be a multiple of {LANES}")
-    if queries.dim() != 2 or queries.shape[1] != corpus.shape[1]:
-        raise ValueError(f"queries {tuple(queries.shape)} do not match corpus "
+    if queries.dim() != 2 or queries.shape[1] != _corpus_dim(corpus, quant):
+        raise ValueError(f"queries {tuple(queries.shape)} do not match a {quant} corpus "
                          f"{tuple(corpus.shape)}")
     if gsel.dim() != 2 or gsel.shape[0] != queries.shape[0] or gsel.shape[1] < 1:
         raise ValueError(f"gsel {tuple(gsel.shape)} must be [Q, k] for "
@@ -140,43 +237,47 @@ def _check_gather(queries, corpus, gsel) -> None:
         raise TypeError(f"gsel must be int32 or int64, got {gsel.dtype}")
 
 
-def gather_groups(queries: torch.Tensor, corpus: torch.Tensor,
-                  gsel: torch.Tensor) -> torch.Tensor:
+def gather_groups(queries: torch.Tensor, corpus: torch.Tensor, gsel: torch.Tensor,
+                  scales: Optional[torch.Tensor] = None, quant: str = "none") -> torch.Tensor:
     """Scores of each query's selected 128-row groups (K2).
 
     ``gsel`` [Q, k] group ids -> ``cand`` [Q, k, 128] f32 with
-    ``cand[q, j, l] = queries[q] . corpus[gsel[q, j] * 128 + l]``; a group id
-    outside the corpus gives zeros (the reference's one-hot semantics).
+    ``cand[q, j, l]`` the score of query q and row ``gsel[q, j] * 128 + l``
+    (:func:`quant_scores`'s arithmetic); a group id outside the corpus gives
+    zeros (the reference's one-hot semantics).
     """
-    _check_gather(queries, corpus, gsel)
-    if on_cpu(queries, corpus, gsel):
-        return gather_groups_plain(queries, corpus, gsel)
-    _check_kernel_operands(corpus)
+    _check_gather(queries, corpus, gsel, scales, quant)
+    if on_cpu(queries, gsel, *_tensors(corpus, scales)):
+        return gather_groups_plain(queries, corpus, gsel, scales, quant)
+    _check_kernel_operands(corpus, quant)
     lib = load_library()
     n_q, d = queries.shape
     k = gsel.shape[1]
-    q = queries.to(torch.float32).contiguous()
+    q, kind, scales_ptr = _kernel_args(queries, corpus, scales, quant)
     g32 = gsel.to(torch.int32).contiguous()
     cand = torch.empty((n_q, k, LANES), dtype=torch.float32, device=corpus.device)
     with torch.cuda.device(corpus.device):
         err = lib.kirag_gather_groups(
-            q.data_ptr(), corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
-            g32.data_ptr(), cand.data_ptr(), n_q, d, k, corpus.shape[0],
+            q.data_ptr(), corpus.data_ptr(), kind, scales_ptr, g32.data_ptr(),
+            cand.data_ptr(), n_q, d, k, corpus.shape[0],
             torch.cuda.current_stream(corpus.device).cuda_stream)
     raise_on(err, lib, "gather_groups")
-    count_launch("gather_groups")
+    count_launch(_launch_name("gather_groups", quant))
     return cand
 
 
-def gather_groups_plain(queries: torch.Tensor, corpus: torch.Tensor,
-                        gsel: torch.Tensor) -> torch.Tensor:
+def gather_groups_plain(queries: torch.Tensor, corpus: torch.Tensor, gsel: torch.Tensor,
+                        scales: Optional[torch.Tensor] = None,
+                        quant: str = "none") -> torch.Tensor:
     """Plain PyTorch version of :func:`gather_groups`, same contract."""
-    _check_gather(queries, corpus, gsel)
+    _check_gather(queries, corpus, gsel, scales, quant)
     n_q, k = gsel.shape
     dev = corpus.device
     inside = (gsel >= 0) & (gsel < corpus.shape[0] // LANES)            # [Q, k]
     rows = gsel.long()[..., None] * LANES + torch.arange(LANES, device=dev)
     rows = torch.where(inside[..., None], rows, 0).reshape(n_q, k * LANES)
-    q = queries.to(torch.float32)
-    cand = torch.stack([corpus[rows[i]].to(torch.float32) @ q[i] for i in range(n_q)])
+    cand = torch.stack([
+        quant_scores(queries[i:i + 1], corpus[rows[i]],
+                     None if scales is None else scales[rows[i]], quant)[0]
+        for i in range(n_q)])
     return torch.where(inside[..., None], cand.view(n_q, k, LANES), 0.0)

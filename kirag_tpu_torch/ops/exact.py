@@ -9,11 +9,14 @@ search re-selects over all group maxima and re-scores the selected groups
 (:func:`~kirag_tpu_torch.kernels.gather_groups`, K2). The tail is plain
 PyTorch. Results follow FAISS's flat-index contract: values descending, ties
 to the lower row id, which rests on stable sorts (``torch.topk`` promises no
-tie order, so it is not used).
+tie order, so it is not used). An int8 or packed-int4 corpus with its
+``scales`` is scored by the kernels' quantized formats (K4,
+:func:`~kirag_tpu_torch.kernels.exact.quant_scores`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -21,8 +24,10 @@ import torch
 from kirag_tpu_torch.kernels.exact import (
     FIN_MIN,
     LANES,
+    check_corpus,
     gather_groups,
     gather_groups_plain,
+    quant_scores,
     stream_capture,
     stream_capture_plain,
 )
@@ -57,6 +62,19 @@ def hier_topk(x: torch.Tensor, k: int, block: int = 16
     cand_idx = (bsel[..., None] * block + lane).reshape(q, k * block)
     vals, pos = stable_topk(cand.reshape(q, k * block), k)
     return vals, torch.gather(cand_idx, 1, pos)
+
+
+def _quant_kind(scales: Optional[torch.Tensor], quant: Optional[str] = None) -> str:
+    """The corpus format from the operands (port of
+    ``pallas_exact._quant_kind``): no scales -> "none", 2-D block scales ->
+    "int4" (packed uint8), 1-D row scales -> "int8"."""
+    if quant == "pq4":
+        raise NotImplementedError("quant='pq4' is not ported yet (ROADMAP.md §A: PQ)")
+    if quant is not None:
+        return quant
+    if scales is None:
+        return "none"
+    return "int4" if scales.dim() == 2 else "int8"
 
 
 def _capture_budget(k_eff: int, num_chunks: int, groups_per_chunk: int) -> int:
@@ -116,7 +134,8 @@ def _capdom_tail(outs, queries, corpus, k_eff: int, n_valid: int, b: int,
 def exact_topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                     chunk_size: int = 4096, valid_rows: Optional[int] = None,
                     select: str = "capdom", impl: str = "stream",
-                    on_miss: str = "fallback", plain: bool = False
+                    on_miss: str = "fallback", plain: bool = False,
+                    scales: Optional[torch.Tensor] = None, quant: Optional[str] = None
                     ) -> Tuple[torch.Tensor, ...]:
     """Exact top-k inner-product search (port of
     ``kirag_tpu.ops.pallas_exact.exact_topk_mips``).
@@ -127,6 +146,10 @@ def exact_topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     always, and ``ok`` (a bool tensor) says whether it is exact; a caller
     that gets False re-runs with ``on_miss="fallback"``. Scores are f32
     products of the stored values with f32 sums.
+
+    ``scales`` makes the corpus quantized: [N] f32 row scales of an int8
+    corpus, or [N, D/128] f32 block scales of a packed-int4 uint8 corpus
+    [N, D/2] (``quant`` is inferred from them; "pq4" is not ported).
 
     ``plain=True`` runs the kernels' plain versions on any device: the
     reference the kernels are held to on the card. The chunk is not clamped
@@ -143,31 +166,38 @@ def exact_topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int,
             "selection variants K8/K9)")
     if on_miss not in ("fallback", "flag"):
         raise ValueError(f"on_miss must be fallback|flag, got {on_miss!r}")
-    capture_fn = stream_capture_plain if plain else stream_capture
-    gather_fn = gather_groups_plain if plain else gather_groups
+    quant = _quant_kind(scales, quant)
+    check_corpus(corpus, scales, quant)
     n = corpus.shape[0]
     n_valid = n if valid_rows is None else int(valid_rows)
     k_eff = min(k, n)
     chunk = max(LANES, chunk_size // LANES * LANES)
     chunk = min(chunk, -(-n // LANES) * LANES)
     n_pad = -(-n // chunk) * chunk
-    if n_pad != n:
+    if n_pad != n:  # scales pad with their rows
         corpus = torch.nn.functional.pad(corpus, (0, 0, 0, n_pad - n))
+        if scales is not None:
+            scales = torch.nn.functional.pad(scales, (0, 0) * (scales.dim() - 1)
+                                             + (0, n_pad - n))
+    capture_fn = stream_capture_plain if plain else stream_capture
+    gather_fn = functools.partial(gather_groups_plain if plain else gather_groups,
+                                  scales=scales, quant=quant)
     num_chunks = n_pad // chunk
     groups = n_pad // LANES
     ok = torch.ones((), dtype=torch.bool, device=corpus.device)
 
     if groups < 2 or k_eff >= groups:
         # tiny corpus: one dense product and a direct sort (the grouped
-        # exactness argument needs k < groups)
-        scores = queries.to(torch.float32) @ corpus.to(torch.float32).T
+        # exactness argument needs k < groups), in the kernels' arithmetic
+        # (the reference's _dense_scores)
+        scores = quant_scores(queries, corpus, scales, quant)
         col = torch.arange(n_pad, device=corpus.device)
         scores = torch.where(col < n_valid, scores, float("-inf"))
         vals, idx = stable_topk(scores, k_eff)
         idx = torch.where(torch.isfinite(vals), idx, 0)
     else:
         b = _capture_budget(k_eff, num_chunks, chunk // LANES)
-        outs = capture_fn(queries, corpus, n_valid, chunk, b)
+        outs = capture_fn(queries, corpus, n_valid, chunk, b, scales, quant)
         vals, idx, ok = _capdom_tail(outs, queries, corpus, k_eff, n_valid, b,
                                      on_miss, gather_fn)
     if k_eff < k:

@@ -10,7 +10,7 @@ in every merge and all selections are stable sorts.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -26,18 +26,24 @@ def topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     ``(values [Q, k] f32, indices [Q, k] int64)`` by descending score; slots
     beyond N hold -inf and row 0.
     """
-    n_q = queries.shape[0]
-    n = corpus.shape[0]
+    q = queries.to(corpus.dtype).to(torch.float32)
+    return scan_topk(lambda rows: q @ corpus[rows].to(torch.float32).T, queries.shape[0],
+                     corpus.shape[0], k, chunk_size, valid_rows, corpus.device)
+
+
+def scan_topk(score_rows: Callable[[slice], torch.Tensor], n_q: int, n: int, k: int,
+              chunk_size: int, valid_rows: Optional[int], device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked scan behind :func:`topk_mips` and the quantized scans:
+    ``score_rows(rows)`` gives the f32 scores [Q, len] of a slice of rows."""
     n_valid = n if valid_rows is None else int(valid_rows)
     k_eff = min(k, n)
     chunk_size = min(chunk_size, n)
-    dev = corpus.device
-    q = queries.to(corpus.dtype).to(torch.float32)
-    run_vals = torch.full((n_q, k_eff), float("-inf"), device=dev)
-    run_idx = torch.zeros((n_q, k_eff), dtype=torch.int64, device=dev)
+    run_vals = torch.full((n_q, k_eff), float("-inf"), device=device)
+    run_idx = torch.zeros((n_q, k_eff), dtype=torch.int64, device=device)
     for start in range(0, n, chunk_size):
-        rows = torch.arange(start, min(start + chunk_size, n), device=dev)
-        scores = q @ corpus[start:start + chunk_size].to(torch.float32).T
+        rows = torch.arange(start, min(start + chunk_size, n), device=device)
+        scores = score_rows(slice(start, start + chunk_size))
         scores = torch.where(rows < n_valid, scores, float("-inf"))
         new_vals, pos = stable_topk(scores, k_eff)
         vals, sel = stable_topk(torch.cat([run_vals, new_vals], dim=-1), k_eff)

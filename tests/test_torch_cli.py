@@ -230,7 +230,8 @@ def test_cli_refuses_what_is_not_ported(workspace):
     with pytest.raises(NotImplementedError, match="mesh"):
         compute_corpus_embeddings.main(embed_args(workspace, out, ["--mesh_model", "2"]),
                                        device="cpu")
-    for flag in (["--compression", "int8"], ["--metric", "l2"], ["--shuffle_rows"]):
+    for flag in (["--compression", "int8", "--metric", "l2"], ["--metric", "l2"],
+                 ["--shuffle_rows"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_index.main(["--embeddings_dir", out, "--save_dir", out, *flag],
                              device="cpu")

@@ -230,3 +230,6 @@ def test_unported_variants_raise(rng):
         exact_topk_mips(q, c, 4, select="merge")
     with pytest.raises(ValueError):
         exact_topk_mips(q, c, 4, on_miss="ignore")
+    codes = torch.zeros(512, 4, dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        exact_topk_mips(q, codes, 4, scales=torch.zeros(16, 8), quant="pq4")

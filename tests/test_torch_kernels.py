@@ -1,7 +1,7 @@
 """The CUDA kernels' wrappers: device dispatch, launch counts, and (on a GPU)
-each kernel against its plain version: K1 and K2 of the exact search, K3
-the encoder's flash attention and its two backward kernels, K6 the LLM's
-4-bit weight matmul.
+each kernel against its plain version: K1 and K2 of the exact search (with
+K4's int8 and packed-int4 scoring inside them), K3 the encoder's flash
+attention and its two backward kernels, K6 the LLM's 4-bit weight matmul.
 
 This file imports neither JAX nor ``kirag_tpu``, so the GPU machine, which
 has neither, runs it alone:
@@ -54,9 +54,11 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
         assert torch.equal(x, y)
     assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
     exact_topk_mips(q, c, 5, chunk_size=512, on_miss="flag")
-    assert launch_counts() == {"stream_capture": 0, "gather_groups": 0, "flash_attention": 0,
-                               "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-                               "int4_matmul": 0}
+    assert set(launch_counts()) == {
+        "stream_capture", "gather_groups", "stream_capture_int8", "gather_groups_int8",
+        "stream_capture_int4", "gather_groups_int4", "flash_attention",
+        "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "int4_matmul"}
+    assert not any(launch_counts().values())
 
 
 def test_wrappers_check_their_operands():
@@ -98,21 +100,100 @@ def test_kernels_bitwise_equal_plain_on_integer_data(cuda_device, dtype):
             assert torch.equal(x, y)
         gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, k)[1], dim=-1).values
         assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
-        assert launch_counts() == {"stream_capture": 1, "gather_groups": 1,
-                                  "flash_attention": 0, "flash_attention_bwd_dkv": 0,
-                                  "flash_attention_bwd_dq": 0, "int4_matmul": 0}
+        counts = launch_counts()
+        assert counts.pop("stream_capture") == 1 and counts.pop("gather_groups") == 1
+        assert not any(counts.values())
+
+
+def quantized_corpus(quant, n, d, g, device):
+    """Random codes and power-of-two scales (int8: a scale a row; int4:
+    packed nibbles and a scale per 128-dim block)."""
+    if quant == "int8":
+        codes = torch.randint(-127, 128, (n, d), generator=g, device=device).to(torch.int8)
+        shape = (n,)
+    else:
+        codes = torch.randint(0, 256, (n, d // 2), generator=g, device=device).to(torch.uint8)
+        shape = (n, d // 128)
+    scales = torch.exp2(torch.randint(-9, -2, shape, generator=g, device=device).float())
+    return codes, scales
 
 
 @pytest.mark.cuda
-def test_exact_search_on_the_card_matches_plain(cuda_device):
+@pytest.mark.parametrize("quant,d", [("int8", 208), ("int8", 1024), ("int4", 256),
+                                     ("int4", 768), ("int4", 1024)])
+def test_quantized_kernels_bitwise_equal_plain_on_integer_data(cuda_device, quant, d):
+    """Small-integer queries (exact in bf16) and power-of-two scales: every
+    score is exact in any summation order, so K1 and K2 equal their plain
+    versions bitwise, and K1's captured groups equal K2's re-scores of them."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n, chunk, k = 16384, 2048, 40
+    c, s = quantized_corpus(quant, n, d, g, cuda_device)
+    b = _capture_budget(k, n // chunk, chunk // 128)
+    for n_q in (3, 8, 32):
+        q = torch.randint(-2, 3, (n_q, d), generator=g, device=cuda_device).float()
+        reset_launch_counts()
+        got = stream_capture(q, c, n - 300, chunk, b, s, quant)
+        want = stream_capture_plain(q, c, n - 300, chunk, b, s, quant)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, k)[1], dim=-1).values
+        assert torch.equal(gather_groups(q, c, gsel, s, quant),
+                           gather_groups_plain(q, c, gsel, s, quant))
+        captured = got[2].permute(2, 0, 1).reshape(n_q, -1)            # [Q, C * b]
+        rescored = gather_groups(q, c, captured, s, quant)
+        assert torch.equal(rescored.view(n_q, -1, b, 128).transpose(0, 1),
+                           got[1].view(-1, n_q, b, 128))
+        counts = launch_counts()
+        assert counts[f"stream_capture_{quant}"] == 1
+        assert counts[f"gather_groups_{quant}"] == 2
+        assert counts["stream_capture"] == counts["gather_groups"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_kernels_match_plain_on_random_data(cuda_device, quant):
+    """Unit rows quantized on the card and unit queries: f32 sums of 1024
+    exact products in two orders, within 1e-5."""
+    from kirag_tpu_torch.ops.quantized import quantize_rows_int4_torch, quantize_rows_int8_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    rows = torch.nn.functional.normalize(
+        torch.randn(16384, 1024, generator=g, device=cuda_device), dim=-1)
+    quantize = quantize_rows_int8_torch if quant == "int8" else quantize_rows_int4_torch
+    c, s = quantize(rows)
+    q = rows[torch.arange(0, 16384, 1001, device=cuda_device)]     # 17 stored rows
+    b = _capture_budget(50, 8, 16)
+    got = stream_capture(q, c, 16000, 2048, b, s, quant)
+    want = stream_capture_plain(q, c, 16000, 2048, b, s, quant)
+    for i in (0, 3, 4):  # gmax, capmax, resid (-inf where every group is captured)
+        torch.testing.assert_close(got[i], want[i], atol=1e-5, rtol=0)
+    # captured scores where both peeled the same group (a near-tie may swap two)
+    same = (got[2] == want[2]).permute(0, 2, 1).repeat_interleave(128, dim=2)
+    assert float((got[1] - want[1]).abs()[same].max()) <= 1e-5
+    gsel = torch.sort(hier_topk(got[0].reshape(-1, len(q)).T, 50)[1], dim=-1).values
+    diff = gather_groups(q, c, gsel, s, quant) - gather_groups_plain(q, c, gsel, s, quant)
+    assert float(diff.abs().max()) <= 1e-5
+    vals, idx, ok = exact_topk_mips(q, c, 10, chunk_size=2048, on_miss="flag", scales=s)
+    assert bool(ok) and torch.equal(idx[:, 0], torch.arange(0, 16384, 1001, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_exact_search_on_the_card_matches_plain(cuda_device, quant):
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    c = torch.randint(-3, 4, (20000, 64), generator=g, device=cuda_device).float()
-    q = torch.zeros(8, 64, device=cuda_device)
-    q[:3] = torch.randint(-3, 4, (3, 64), generator=g, device=cuda_device).float()
+    if quant == "none":
+        c = torch.randint(-3, 4, (20000, 64), generator=g, device=cuda_device).float()
+        s, d = None, 64
+    else:
+        d = 256
+        c, s = quantized_corpus(quant, 20000, d, g, cuda_device)
+    q = torch.zeros(8, d, device=cuda_device)
+    q[:3] = torch.randint(-3, 4, (3, d), generator=g, device=cuda_device).float()
     for on_miss in ("flag", "fallback"):  # zero rows: the flag fails, K2 runs
-        got = exact_topk_mips(q, c, 30, chunk_size=2048, valid_rows=19000, on_miss=on_miss)
+        got = exact_topk_mips(q, c, 30, chunk_size=2048, valid_rows=19000, on_miss=on_miss,
+                              scales=s)
         want = exact_topk_mips(q, c, 30, chunk_size=2048, valid_rows=19000,
-                               on_miss=on_miss, plain=True)
+                               on_miss=on_miss, plain=True, scales=s)
         for x, y in zip(got, want):
             assert torch.equal(x, y)
 

@@ -118,7 +118,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndexer(8, metric="l2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchIndexer(8, compression="int8")
+        TorchIndexer(8, n_subquantizers=8)  # product quantization
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchIndexer(8, compression="pq")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndexer(8, pallas_select="hier")
     index = TorchIndexer(8, device="cpu")
