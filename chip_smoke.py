@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``kirag_tpu_torch/csrc`` with nvcc (one
 process per source, in parallel), holds each against its plain PyTorch
-version on the card, then drives three paths of the system with seeded random
+version on the card, then drives the paths of the system with seeded random
 weights at E5-large and Llama-3-8B-Instruct width:
 
 - the retrieval server (phases 4-5): ``RetrievalEngine`` -> ``DenseRetriever``
@@ -42,7 +42,18 @@ weights at E5-large and Llama-3-8B-Instruct width:
   and the reloaded index; and the DPR corpus's 21,015,324 x 1024 rows made
   and quantized on the card, int4 then int8, searched at Q = 8, 32, 256 with
   K1/K2 timed, self-hits checked and recall@10/@100 against the exact
-  float32 top-100.
+  float32 top-100;
+- the approximate search and the l2 metric (phases 12-13): K5, the group
+  top-W kernel, held against its plain version in four formats and at W =
+  1, 2, 8, 128 (bitwise on integer data, and at W = 1 bitwise K1's group
+  maxima), with K1/K2 at the int4 depths 1280 and 2048; the server of phase
+  4 with ``search_mode="approx"`` over the same rows shuffled
+  (``shuffle_rows``) as float32 and int4 indexes at W = 1 and 2, recall
+  against the exact search over the same index; ``build_index
+  --shuffle_rows``, ``cli/retrieve --search_mode approx`` (run C, beside
+  phase 9 while its LLM is on the card) and ``cli/retrieval_eval``; K5 over
+  the DPR-scale codes of phase 11 (d); and phase 4's rows as l2 indexes in
+  float32, int8 and int4 (depth 1280), served exactly and approximately.
 
 Every phase raises on failure. The last lines of standard output are the
 card's name and power limit, one JSON object with each kernel's launches,
@@ -114,9 +125,10 @@ def nvidia_smi(query: str) -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def unit_rows(n: int, gen: torch.Generator, device) -> torch.Tensor:
-    return torch.nn.functional.normalize(torch.randn(n, DIM, generator=gen, device=device),
-                                         dim=-1)
+def unit_rows(n: int, gen: torch.Generator, device, d: int = 0) -> torch.Tensor:
+    """n seeded unit rows of depth d (default DIM)."""
+    return torch.nn.functional.normalize(
+        torch.randn(n, d or DIM, generator=gen, device=device), dim=-1)
 
 
 def cuda_ms(fn, reps: int = 10, flush=None) -> float:
@@ -333,20 +345,55 @@ def kernel_names(compression: str):
     return f"stream_capture{suffix}", f"gather_groups{suffix}"
 
 
+def k5_name(quant: str) -> str:
+    """The launch count of K5 for a corpus of this format."""
+    return "group_max" if quant == "none" else f"group_max_{quant}"
+
+
+def plain_search(index, q_pad: np.ndarray, top_docs: int, mode: str):
+    """The indexer's search of a padded query batch through the kernels'
+    plain versions over the same device layout: ``(vals, idx, ok)``, vals
+    as ``search_knn`` reports them (squared distances for l2), ok the exact
+    capture's flag (None for approx)."""
+    from kirag_tpu_torch.ops import approx_topk_mips, exact_topk_mips
+
+    corpus, scales = index._device_corpus, index._device_scales
+    qt = torch.from_numpy(q_pad).to(device=corpus.device, dtype=index.device_dtype)
+    qs = index._search_queries(qt)
+    ok = None
+    if mode == "approx":
+        vals, idx = approx_topk_mips(qs, corpus, top_docs, valid_rows=index._device_rows,
+                                     scales=scales, winners_per_group=index.approx_winners,
+                                     plain=True)
+    else:
+        vals, idx, ok = exact_topk_mips(qs, corpus, top_docs, chunk_size=CHUNK,
+                                        valid_rows=index._device_rows, on_miss="flag",
+                                        plain=True, scales=scales)
+        if not bool(ok):
+            vals, idx = exact_topk_mips(qs, corpus, top_docs, chunk_size=CHUNK,
+                                        valid_rows=index._device_rows, plain=True,
+                                        scales=scales)
+    if index.metric == "l2":
+        vals = (qt.float() ** 2).sum(dim=1, keepdim=True) - 2.0 * vals
+    return vals, idx, ok
+
+
 def serve(label, encoder, collator, index, texts, text_rows, power,
-          n_requests: int = N_REQUESTS) -> dict:
+          n_requests: int = N_REQUESTS, mode: str = "exact", self_tol=None) -> dict:
     """Drive RetrievalEngine over ``index``: ``n_requests`` requests from 4
     threads, then one request at a time of 1, 8 and 32 texts. Checks the
     self-hits, the kernels' launch counts, and every served batch (its
     capture flag and its result) against the same search through the plain
-    versions."""
+    versions. ``mode`` is the retriever's ``search_mode`` (the engine keeps
+    ``mode=None``); for an l2 index each text's own row must lie within
+    ``self_tol`` (squared distance)."""
     from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from kirag_tpu_torch.ops import exact_topk_mips
     from kirag_tpu_torch.retrieval import DenseRetriever
     from kirag_tpu_torch.serving import RetrievalEngine
 
     recorder = RecordingIndex(index)
-    retriever = DenseRetriever(encoder, collator, indexer=recorder, batch_size=32)
+    retriever = DenseRetriever(encoder, collator, indexer=recorder, batch_size=32,
+                               search_mode=mode)
     engine = RetrievalEngine(retriever, max_batch=32, max_wait_ms=5.0, topk_buckets=(10, K))
     recorder.calls.clear()  # warmup searches are not part of the run
     requests = make_requests(n_requests, len(texts))
@@ -380,57 +427,70 @@ def serve(label, encoder, collator, index, texts, text_rows, power,
         results[len(requests) - 1] = engine.search(texts[:n], topk=K)
     counts = launch_counts()
     engine.close()
-    names = kernel_names(index.compression)
+    quant = index.compression
+    # K2 runs when a search re-dispatches: padded batches do on an inner-product
+    # index (their zero rows fail the flag), not on an l2 one (the norm column
+    # gives a zero row real scores)
+    names = (k5_name(quant),) if mode == "approx" else kernel_names(quant)[:1]
     if not all(counts[k] > 0 for k in names):
         raise AssertionError(f"{label}: a kernel of the path was not launched: {counts}")
 
-    margins = []
+    margins, self_dist = [], 0.0
     for r, request in enumerate(requests):
         for j, row in zip(request, results[r]):
             want = str(text_rows[j])
             if row[0]["id"] != want or len(row) != K:
                 raise AssertionError(f"{label}: text {j} top-1 is {row[0]['id']}, "
                                      f"not its own row {want}")
-            margins.append(row[0]["score"] - row[1]["score"])
+            margins.append(abs(row[0]["score"] - row[1]["score"]))
+            if index.metric == "l2":
+                self_dist = max(self_dist, abs(row[0]["score"]))
+    if index.metric == "l2" and not self_dist <= self_tol:
+        raise AssertionError(f"{label}: a text lies {self_dist} from its own row "
+                             f"(limit {self_tol})")
 
-    corpus, scales = index._device_corpus, index._device_scales
+    # the engine's batches searched again through the plain versions; the
+    # stored ids are row numbers (shuffled layouts map them back to rows)
+    row_of = {str(db_id): i for i, db_id in enumerate(index.index_id_to_db_id)}
     by_rows, from_capture = {}, []
     for q, top_docs, out, redispatched in recorder.calls:
         q_pad = np.zeros((max(8, 1 << (len(q) - 1).bit_length()), q.shape[1]), np.float32)
         q_pad[:len(q)] = q
-        qt = torch.from_numpy(q_pad).to(device=corpus.device, dtype=index.device_dtype)
         what = f"{label} served batch of {len(q)}"
-        ref_vals, ref_idx, ref_ok = exact_topk_mips(
-            qt, corpus, top_docs, chunk_size=CHUNK, valid_rows=index._device_rows,
-            on_miss="flag", plain=True, scales=scales)
-        if bool(ref_ok) == redispatched:
-            raise AssertionError(f"{what}: capture flag {not redispatched} with the kernels, "
-                                 f"{bool(ref_ok)} with the plain versions")
-        if redispatched:
-            ref_vals, ref_idx = exact_topk_mips(qt, corpus, top_docs, chunk_size=CHUNK,
-                                                valid_rows=index._device_rows, plain=True,
-                                                scales=scales)
-        else:
-            from_capture.append(len(q))
+        ref_vals, ref_idx, ref_ok = plain_search(index, q_pad, top_docs, mode)
+        if ref_ok is not None:
+            if bool(ref_ok) == redispatched:
+                raise AssertionError(f"{what}: capture flag {not redispatched} with the "
+                                     f"kernels, {bool(ref_ok)} with the plain versions")
+            if not redispatched:
+                from_capture.append(len(q))
         vals = torch.tensor(np.stack([s for _, s in out]))
-        idx = torch.tensor([[int(i) for i in ids] for ids, _ in out])
+        idx = torch.tensor([[row_of[i] for i in ids] for ids, _ in out])
         check_topk_close(vals, idx, ref_vals[:len(q)], ref_idx[:len(q)], what)
         by_rows[len(q_pad)] = by_rows.get(len(q_pad), 0) + 1
-    if not from_capture:
+    if mode == "exact" and not from_capture:
         raise AssertionError(f"{label}: no search was answered from the capture")
+    redispatched = len(recorder.calls) - len(from_capture)
+    if mode == "exact" and (redispatched > 0) != (counts[kernel_names(quant)[1]] > 0):
+        raise AssertionError(f"{label}: {redispatched} searches re-dispatched, launches {counts}")
 
     lat = np.array([latencies[r] for r in range(n_requests)]) * 1e3
     stats = {"rps": n_requests / wall,
              "texts_per_s": sum(len(requests[r]) for r in range(n_requests)) / wall,
              "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
              "launches": counts}
-    n_redispatched = len(recorder.calls) - len(from_capture)
+    if mode == "exact":
+        searched = (f"{redispatched} re-dispatched, {len(from_capture)} answered from the "
+                    f"capture (real rows {from_capture}); ")
+    else:
+        searched = f"approximate, {index.approx_winners} winners a group; "
+    l2 = f", largest distance to its own row {self_dist:.3g}" if index.metric == "l2" else ""
     log(f"  {label}: {n_requests} requests from 4 threads in {n_threaded} batches, then "
         f"requests of 1, 8 and 32 texts alone: all self-hits at top-1 (smallest margin "
-        f"{min(margins):.4f}); {len(recorder.calls)} searches by padded rows "
-        f"{dict(sorted(by_rows.items()))}, {n_redispatched} re-dispatched, "
-        f"{len(from_capture)} answered from the capture (real rows {from_capture}); "
-        f"launches {counts}; every served batch's flag and result match the plain search")
+        f"{min(margins):.4f}{l2}); {len(recorder.calls)} searches by padded rows "
+        f"{dict(sorted(by_rows.items()))}, {searched}"
+        f"launches { {k: v for k, v in counts.items() if v} }; every served batch's "
+        "result matches the plain search")
     log(f"  [{power}] {label} engine: {stats['rps']:.2f} requests/s "
         f"({stats['texts_per_s']:.2f} texts/s), latency p50 {stats['p50_ms']:.2f} ms, "
         f"p95 {stats['p95_ms']:.2f} ms ({n_requests} requests, host clock, 4 threads)")
@@ -1415,7 +1475,7 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
             f"every ctxs id in the index; {n_triples} chain steps parsed; launches {counts}")
         log(f"  [{power}] run {run}: {wall:.2f} s, {3600 * n_q / wall:.2f} questions/hour; "
             + ", ".join(f"{k} {v:.2f} s ({100 * v / wall:.1f}%)" for k, v in stages.items()))
-        runs[run] = {"wall": wall, "stages": stages, "launches": counts}
+        runs[run] = {"wall": wall, "stages": stages, "launches": counts, "path": path}
         if run == "A":  # seed the cache: one triple per cached passage, its own words
             with open(cache, "rb") as f:
                 cached = pickle.load(f)
@@ -1932,21 +1992,22 @@ DPR_REPS = {8: 10, 32: 5, 256: 3}
 CAPTURE_OUTPUTS = ("gmax", "capture", "gids", "capmax", "resid")
 
 
-def quantized_corpus(quant: str, n: int, gen, dev, integer: bool):
-    """``(codes, scales)`` of n rows: integer data (random codes, power-of-two
-    scales, so every score is exact in any summation order), or seeded unit
-    rows quantized on the card."""
+def quantized_corpus(quant: str, n: int, gen, dev, integer: bool, d: int = 0):
+    """``(codes, scales)`` of n rows of depth d (default DIM): integer data
+    (random codes, power-of-two scales, so every score is exact in any
+    summation order), or seeded unit rows quantized on the card."""
     from kirag_tpu_torch.ops import quantize_rows_int4_torch, quantize_rows_int8_torch
 
+    d = d or DIM
     if not integer:
         quantize = quantize_rows_int8_torch if quant == "int8" else quantize_rows_int4_torch
-        return quantize(unit_rows(n, gen, dev))
+        return quantize(unit_rows(n, gen, dev, d))
     if quant == "int8":
-        codes = torch.randint(-127, 128, (n, DIM), generator=gen, device=dev).to(torch.int8)
+        codes = torch.randint(-127, 128, (n, d), generator=gen, device=dev).to(torch.int8)
         shape = (n,)
     else:
-        codes = torch.randint(0, 256, (n, DIM // 2), generator=gen, device=dev).to(torch.uint8)
-        shape = (n, DIM // 128)
+        codes = torch.randint(0, 256, (n, d // 2), generator=gen, device=dev).to(torch.uint8)
+        shape = (n, d // 128)
     scales = torch.exp2(torch.randint(-9, -2, shape, generator=gen, device=dev).float())
     return codes, scales
 
@@ -2217,11 +2278,6 @@ def dpr_search(quant: str, codes, scales, queries, sample, power, err) -> dict:
             "search_s": search_s, "redispatched": redispatched}
 
 
-def recall(idx: np.ndarray, exact: np.ndarray, k: int) -> float:
-    """Mean over queries of the share of the exact top-k among the top-k."""
-    return float(np.mean([len(set(a[:k]) & set(b[:k])) / k for a, b in zip(idx, exact)]))
-
-
 def dpr_scale(dev, power, err) -> dict:
     """Phase 11 (d): the DPR corpus's 21,015,324 x 1024 seeded unit rows,
     quantized on the card block by block, int4 then int8 (each freed before
@@ -2247,6 +2303,9 @@ def dpr_scale(dev, power, err) -> dict:
         f"{nbytes(scales) / 1e9:.3f}), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     out["int4"] = dpr_search("int4", codes, scales, queries, sample, power, err)
     out["int4"]["gb"] = nbytes(codes, scales) / 1e9
+    log("  phase 12 (d): the approximate search over the resident int4 codes")
+    out["int4"]["approx"] = dpr_approx("int4", codes, scales, queries, sample,
+                                       out["int4"]["idx"], power, err)
     del codes, scales
     torch.cuda.empty_cache()
 
@@ -2272,6 +2331,9 @@ def dpr_scale(dev, power, err) -> dict:
         f"{nbytes(scales) / 1e9:.3f})")
     out["int8"] = dpr_search("int8", codes, scales, queries, sample, power, err)
     out["int8"]["gb"] = nbytes(codes, scales) / 1e9
+    log("  phase 12 (d): the approximate search over the resident int8 codes")
+    out["int8"]["approx"] = dpr_approx("int8", codes, scales, queries, sample,
+                                       out["int8"]["idx"], power, err)
     del codes, scales
     torch.cuda.empty_cache()
     exact = top_idx.cpu().numpy()
@@ -2282,7 +2344,447 @@ def dpr_scale(dev, power, err) -> dict:
         out[quant]["recall"] = r
         log(f"  {quant}: recall@10 {r[10]:.4f}, recall@{K} {r[K]:.4f} against the exact "
             f"float32 top-{K} ({n_queries} queries; {DPR_SELF} stored rows, the rest near one)")
+        approx = out[quant]["approx"]
+        approx["recall_f32"] = {w: {k: recall(idx, exact, k) for k in (10, K)}
+                                for w, idx in approx["idx"].items()}
+        log(f"  {quant} approx: recall against the exact float32 top-{K}: " + "; ".join(
+            f"W={w} @10 {r[10]:.4f}, @{K} {r[K]:.4f}" for w, r in approx["recall_f32"].items()))
     return out
+
+
+# ---------------------------------------------------------------- phase 12
+
+# the approximate search (K5) at the main path's shapes: the query counts the
+# served batches are padded to, the winners a group that the tests use (128
+# is exact search), and the int4 depths that an l2 index (D + 256) and wider
+# encoders need, which the card took only up to 1024 before
+APPROX_QUERIES = (8, 16, 32)
+APPROX_WINNERS = (1, 2, 8, 128)
+INT4_DEPTHS = (1280, 2048)
+APPROX_REQUESTS = 200  # phase 12 (b)'s traffic per index and W, from 4 threads
+FORMATS = ("float32", "bfloat16", "int8", "int4")
+
+
+def k5_corpus(fmt: str, n: int, gen, dev, integer: bool):
+    """``(corpus, scales, quant)`` of n x DIM in one of K5's formats: integer
+    data (small integers, or codes with power-of-two scales) or seeded unit
+    rows (quantized on the card)."""
+    if fmt in QUANTS:
+        return (*quantized_corpus(fmt, n, gen, dev, integer), fmt)
+    dtype = torch.float32 if fmt == "float32" else torch.bfloat16
+    if integer:
+        return torch.randint(-3, 4, (n, DIM), generator=gen, device=dev).to(dtype), None, "none"
+    return unit_rows(n, gen, dev).to(dtype), None, "none"
+
+
+def k5_error(got, want, what: str):
+    """K5 against its plain version (``want`` peeled one winner further,
+    where W < 128): values within ATOL everywhere; lanes equal wherever the
+    peeled value stands more than ATOL from the winners before and after it
+    (a near-tie that two summation orders may swap). Returns the largest
+    difference and the count of swapped lanes."""
+    w = got[0].shape[1]
+    err = float((got[0] - want[0][:, :w]).abs().max())
+    if not err <= ATOL:
+        raise AssertionError(f"{what}: K5 differs from plain by {err} > {ATOL}")
+    nxt = want[0][:, 1:w + 1]
+    if nxt.shape[1] < w:
+        nxt = torch.cat([nxt, torch.full_like(want[0][:, :1], float("-inf"))], dim=1)
+    gap = want[0][:, :w] - nxt
+    clear = gap > ATOL
+    clear[:, 1:] &= gap[:, :-1] > ATOL
+    differ = got[1] != want[1][:, :w]
+    if bool((differ & clear).any()):
+        raise AssertionError(f"{what}: K5 peeled another lane than plain away from near-ties")
+    return err, int(differ.sum())
+
+
+def k5_bound(q, corpus, scales, quant: str, outs):
+    """K5's bound: the corpus (and its scales) and the queries read once,
+    gmax and gidx written once; 2 * Q * N * D operations at the rates of
+    :func:`search_bound` (f32 CUDA cores for a float corpus, bf16 for a
+    quantized one, as K1's row)."""
+    n_q, d = q.shape
+    ops_s = F32_FLOP_S if quant == "none" else BF16_FLOP_S
+    extra = () if scales is None else (scales,)
+    return bound(nbytes(q, corpus, *extra, *outs), 2 * n_q * len(corpus) * d, ops_s)
+
+
+def check_approx_kernels(dev, gen, err) -> dict:
+    """Phase 12 (a): K5 against its plain version at phase 3's CHECK_ROWS x
+    DIM, float32, bfloat16, int8 and int4, Q = 8, 16, 32, W = 1, 2, 8, 128.
+    Integer data: values and lanes bitwise, and at W = 1 the values bitwise
+    K1's group maxima over the same corpus and queries; random data: values
+    within ATOL, lanes equal but at near-ties (largest errors into ``err``).
+    Then the int4 depths 1280 and 2048: K1, K2, the exact search and K5
+    against their plain versions (bitwise on integer data), and K1 timed.
+    Returns those times."""
+    from kirag_tpu_torch.kernels import (gather_groups, gather_groups_plain, group_max,
+                                         group_max_plain, stream_capture, stream_capture_plain)
+    from kirag_tpu_torch.ops import exact_topk_mips, hier_topk
+    from kirag_tpu_torch.ops.exact import _capture_budget
+
+    n = CHECK_ROWS
+    for fmt in FORMATS:
+        for data in ("integer", "random"):
+            integer = data == "integer"
+            c, s, quant = k5_corpus(fmt, n, gen, dev, integer)
+            name = k5_name(quant)
+            for n_q in APPROX_QUERIES:
+                what = f"{data} {fmt} Q={n_q}"
+                if integer:
+                    q = torch.randint(-2, 3, (n_q, DIM), generator=gen, device=dev).float()
+                else:
+                    q = unit_rows(n_q, gen, dev)
+                if quant == "none":
+                    q = q.to(c.dtype)
+                k1_gmax = stream_capture(q, c, n, CHUNK, 1, s, quant)[0].reshape(-1, n_q).T
+                worst, swapped = 0.0, 0
+                for w in APPROX_WINNERS:
+                    got = group_max(q, c, w, s, quant)
+                    want = group_max_plain(q, c, min(w + 1, 128), s, quant)
+                    torch.cuda.synchronize()
+                    if integer:
+                        if not (torch.equal(got[0], want[0][:, :w])
+                                and torch.equal(got[1], want[1][:, :w])):
+                            raise AssertionError(f"{what} W={w}: K5 differs from plain")
+                    else:
+                        e, n_sw = k5_error(got, want, f"{what} W={w}")
+                        worst, swapped = max(worst, e), swapped + n_sw
+                    # one scoring routine: bitwise K1's maxima, whatever the data
+                    if w == 1 and not torch.equal(got[0][:, 0], k1_gmax):
+                        raise AssertionError(f"{what}: K5's W=1 values differ from K1's maxima")
+                    del got, want
+                if integer:
+                    log(f"  {what}: K5 values and lanes bitwise equal to plain at W = "
+                        f"{APPROX_WINNERS}; W=1 values bitwise K1's group maxima")
+                else:
+                    err[name] = max(err.get(name, 0.0), worst)
+                    log(f"  {what}: K5 max abs err {worst:.3g} against plain at W = "
+                        f"{APPROX_WINNERS} ({swapped} lanes differ at near-ties); W=1 values "
+                        "bitwise K1's group maxima")
+            del c, s
+
+    times = {}
+    b = _capture_budget(K, n // CHUNK, CHUNK // 128)
+    for d in INT4_DEPTHS:
+        for data in ("integer", "random"):
+            integer = data == "integer"
+            c, s = quantized_corpus("int4", n, gen, dev, integer, d)
+            for n_q in (8, 32):
+                what = f"{data} int4 D={d} Q={n_q}"
+                if integer:
+                    q = torch.randint(-2, 3, (n_q, d), generator=gen, device=dev).float()
+                else:
+                    q = unit_rows(n_q, gen, dev, d)
+                got = stream_capture(q, c, n - 1000, CHUNK, b, s, "int4")
+                want = stream_capture_plain(q, c, n - 1000, CHUNK, b, s, "int4")
+                gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, K)[1], dim=-1).values
+                cand = gather_groups(q, c, gsel, s, "int4")
+                cand_plain = gather_groups_plain(q, c, gsel, s, "int4")
+                res = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=n - 1000, scales=s)
+                ref = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=n - 1000, scales=s,
+                                      plain=True)
+                k5 = group_max(q, c, 2, s, "int4")
+                k5_plain = group_max_plain(q, c, 3, s, "int4")
+                torch.cuda.synchronize()
+                if integer:
+                    same = all(torch.equal(x, y) for x, y in zip(got, want)) and \
+                        torch.equal(cand, cand_plain) and \
+                        all(torch.equal(x, y) for x, y in zip(res, ref)) and \
+                        torch.equal(k5[0], k5_plain[0][:, :2]) and \
+                        torch.equal(k5[1], k5_plain[1][:, :2])
+                    if not same:
+                        raise AssertionError(f"{what}: K1, K2, the search or K5 differ from "
+                                             "plain")
+                    log(f"  {what}: K1 5/5 outputs, K2, the exact search and K5 (W=2) bitwise "
+                        "equal to plain")
+                else:
+                    k1_err, swapped = capture_error(got, want, what)
+                    k2_err = gather_error(cand, cand_plain, what)
+                    check_topk_close(res[0], res[1], ref[0], ref[1], f"{what} search")
+                    k5_err, _ = k5_error(k5, k5_plain, what)
+                    for key, e in (("stream_capture_int4", k1_err),
+                                   ("gather_groups_int4", k2_err), ("group_max_int4", k5_err)):
+                        err[key] = max(err.get(key, 0.0), e)
+                    times[(d, n_q)] = {
+                        "k1_ms": cuda_ms(lambda: stream_capture(q, c, n - 1000, CHUNK, b, s,
+                                                                "int4")),
+                        "k1_plain_ms": cuda_ms(lambda: stream_capture_plain(
+                            q, c, n - 1000, CHUNK, b, s, "int4"), reps=3),
+                        "k1_bound": search_bound(q, c, s, "int4", got)}
+                    t = times[(d, n_q)]
+                    log(f"  {what}: K1 max abs err {k1_err:.3g} ({swapped} gids differ at "
+                        f"near-ties), K2 {k2_err:.3g}, K5 {k5_err:.3g}; the search matches "
+                        f"the plain search; K1 {t['k1_ms']:.3f} ms vs plain "
+                        f"{t['k1_plain_ms']:.3f} ms (bound {t['k1_bound'][0]:.3f} ms, "
+                        f"{t['k1_bound'][1]}) (CUDA events, median of 10)")
+                del got, want, cand, cand_plain, k5, k5_plain
+            del c, s
+    return times
+
+
+def k5_times(label, index, gen, power, err, query_counts=APPROX_QUERIES,
+             winners=(1, 2), reps=10) -> dict:
+    """K5 against its plain version on a served index (its rows, its
+    format), then timed with CUDA events, median of ``reps`` (the plain
+    version's of 3), each beside its bound."""
+    from kirag_tpu_torch.kernels import group_max, group_max_plain
+
+    corpus, scales, quant = index._device_corpus, index._device_scales, index.compression
+    name = k5_name(quant)
+    times = {}
+    for n_q in query_counts:
+        q = index._search_queries(unit_rows(n_q, gen, corpus.device).to(index.device_dtype))
+        for w in winners:
+            what = f"{label} Q={n_q} W={w}"
+            got = group_max(q, corpus, w, scales, quant)
+            e, swapped = k5_error(got, group_max_plain(q, corpus, w + 1, scales, quant), what)
+            err[name] = max(err.get(name, 0.0), e)
+            t = {"ms": cuda_ms(lambda: group_max(q, corpus, w, scales, quant), reps=reps),
+                 "plain_ms": cuda_ms(lambda: group_max_plain(q, corpus, w, scales, quant),
+                                     reps=3),
+                 "bound": k5_bound(q, corpus, scales, quant, got)}
+            del got
+            times[(n_q, w)] = t
+            log(f"  [{power}] {what}, {len(corpus)} x {q.shape[1]}: K5 {t['ms']:.3f} ms vs "
+                f"plain {t['plain_ms']:.3f} ms (bound {t['bound'][0]:.3f} ms, {t['bound'][1]}); "
+                f"max abs err {e:.3g} ({swapped} lanes differ at near-ties) (CUDA events, "
+                f"median of {reps})")
+    return times
+
+
+def recall(idx: np.ndarray, exact: np.ndarray, k: int) -> float:
+    """Mean over queries of the share of the exact top-k among the top-k."""
+    return float(np.mean([len(set(a[:k]) & set(b[:k])) / k for a, b in zip(idx, exact)]))
+
+
+def hits_rows(results) -> np.ndarray:
+    """The ids of ``search_knn`` results as an int array [Q, k]."""
+    return np.array([[int(i) for i in ids] for ids, _ in results])
+
+
+def serve_approx(dev, encoder, collator, host_rows, texts, text_rows, text_emb, gen, power,
+                 err, exact_served) -> tuple:
+    """Phase 12 (b): the server with the retriever's ``search_mode="approx"``
+    over phase 4's 1,000,000 rows, as float32 and int4 indexes built with
+    ``shuffle_rows=True``, at W = 1 and 2 (APPROX_REQUESTS requests from 4
+    threads, then lone requests of 1, 8 and 32 texts); every served batch
+    held against the plain search; recall@10/@100 of the texts' searches
+    against the exact search over the same index; K5 timed on each index."""
+    from kirag_tpu_torch.index import TorchIndexer
+
+    served, timed, recalls = {}, {}, {}
+    perm = np.random.default_rng(SEED).permutation(len(host_rows))
+    for quant in ("none", "int4"):
+        fmt = "float32" if quant == "none" else "int4"
+        index = TorchIndexer(DIM, device=dev, compression=quant, pallas_chunk_size=CHUNK,
+                             shuffle_rows=True, shuffle_seed=SEED)
+        index.index_data(list(range(len(host_rows))), host_rows)
+        t0 = time.perf_counter()
+        index.to_device()
+        torch.cuda.synchronize()
+        if not np.array_equal(index.index_id_to_db_id.astype(np.int64), perm):
+            raise AssertionError(f"{fmt}: the shuffled layout is not default_rng's permutation")
+        log(f"  {fmt} index: {len(host_rows)} rows shuffled on the host "
+            f"(default_rng({SEED}).permutation, checked) and placed in "
+            f"{time.perf_counter() - t0:.2f} s (host clock)")
+        exact = hits_rows(index.search_knn(text_emb, K))
+        for w in (1, 2):
+            index.approx_winners = w
+            label = f"{fmt} shuffled index, approx W={w}"
+            stats = serve(label, encoder, collator, index, texts, text_rows, power,
+                          n_requests=APPROX_REQUESTS, mode="approx")
+            approx = hits_rows(index.search_knn(text_emb, K, mode="approx"))
+            r = {k: recall(approx, exact, k) for k in (10, K)}
+            base = exact_served[f"{fmt} index"]
+            log(f"  [{power}] {label}: recall@10 {r[10]:.4f}, recall@{K} {r[K]:.4f} against "
+                f"the exact search over the same index ({len(texts)} texts); "
+                f"{stats['rps']:.2f} requests/s, p50 {stats['p50_ms']:.2f} ms, p95 "
+                f"{stats['p95_ms']:.2f} ms, beside the exact {fmt} server's {base['rps']:.2f} "
+                f"requests/s, p50 {base['p50_ms']:.2f} ms, p95 {base['p95_ms']:.2f} ms")
+            stats["recall"] = r
+            served[label] = stats
+            recalls[(fmt, w)] = r
+        timed[fmt] = k5_times(f"{fmt} shuffled 1M", index, gen, power, err)
+        del index
+        torch.cuda.empty_cache()
+    return served, timed, recalls
+
+
+def approx_cli(work: Path, built: dict, decoded: dict, run_a: dict, dev, power) -> dict:
+    """Phase 12 (c), run beside phase 9 while its LLM is on the card:
+    ``build_index --shuffle_rows --shuffle_seed 3`` over phase 6's shards,
+    its layout checked against ``default_rng(3).permutation`` and reloaded;
+    ``cli/retrieve --search_mode approx --approx_winners 2`` for one
+    question over it with phase 9's LLM (run C); ``cli/retrieval_eval``
+    over run C's results: answer presence, and P/R/F1@10 against run A's
+    exact-search documents as qrels (what the approximate search lost)."""
+    import pickle
+
+    from kirag_tpu_torch.cli import build_index, retrieval_eval
+    from kirag_tpu_torch.cli import retrieve as retrieve_cli
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    index_dir = build_index.main(["--embeddings_dir", built["shard_dir"], "--embedding_size",
+                                  str(DIM), "--shuffle_rows", "--shuffle_seed", "3",
+                                  "--save_dir", str(work / "index_shuffled")], device=dev)
+    cfg = json.loads((Path(index_dir) / "index_config.json").read_text())
+    perm = np.random.default_rng(3).permutation(len(built["ids"]))
+    with open(Path(index_dir) / "index_meta.pkl", "rb") as f:
+        meta = pickle.load(f)
+    rows = np.concatenate([np.load(Path(index_dir) / name) for name in cfg["files"]])
+    if not (meta == [built["ids"][i] for i in perm]
+            and np.array_equal(rows, built["stored"][perm])):
+        raise AssertionError("build_index --shuffle_rows: the layout is not "
+                             "default_rng(3).permutation of the shards")
+    index = TorchIndexer(DIM, device=dev, approx_winners=2)
+    index.deserialize_from(index_dir)
+    picked = np.arange(0, len(meta), len(meta) // 64)[:64]
+    found = index.search_knn(rows[picked], top_docs=10, mode="approx")
+    top10 = sum(meta[r] in ids for r, (ids, _) in zip(picked, found))
+    log(f"  build_index --shuffle_rows --shuffle_seed 3: {len(meta)} rows and ids in "
+        f"default_rng(3).permutation's order, {len(cfg['files'])} shard(s); reloaded, 64 stored "
+        f"rows searched approximately (W=2): {top10}/64 in their own top 10")
+    del index
+    questions = json.loads((work / "questions.json").read_text())
+    llm = ({**decoded["params"], "layers": decoded["params"]["layers"][:KIRAG_LAYERS]},
+           dataclasses.replace(decoded["config"], num_hidden_layers=KIRAG_LAYERS))
+    argv = ["--dataset", "hotpotqa", "--query_file", str(work / "questions.json"),
+            "--num_queries", "1", "--corpus", "wikipedia", "--corpus_path", str(built["tsv"]),
+            "--index_folder", index_dir, "--embedding_size", str(DIM),
+            "--search_mode", "approx", "--approx_winners", "2",
+            "--retriever_model_name_or_path", str(built["model_dir"]), "--llm",
+            "Meta-Llama-3-8B-Instruct", "--llm_quant_bits", "4", "--aligner_model", "e5",
+            "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns", "2",
+            "--topk", "10", "--num_beams", "1", "--save_dir", str(work), "--name", "kirag_C",
+            "--save_file", "results.json"]
+    t0 = time.perf_counter()
+    path = retrieve_cli.main(argv, tokenizer=HashTokenizer(), llm_tokenizer=ByteLevelTokenizer(),
+                             aligner_tokenizer=HashTokenizer(), llm=llm)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    results = json.loads(Path(path).read_text())
+    if not (len(results) == 1 and results[0]["ctxs"] and "paths" in results[0]
+            and all(c["id"] in set(meta) for c in results[0]["ctxs"])
+            and counts["group_max"] > 0 and counts["int4_matmul"] > 0
+            and counts["flash_attention"] > 0):
+        raise AssertionError(f"run C: results lack ctxs or paths, hold ids outside the index, "
+                             f"or a kernel of the path was not launched: {counts}")
+    qrels = work / "qrels_run_a.tsv"
+    run_a_docs = json.loads(Path(run_a["path"]).read_text())
+    qrels.write_text("".join(f"{ex['id']}\t{c['id']}\t1\n" for ex in run_a_docs[:1]
+                             for c in ex["ctxs"][:10]))
+    vs_exact = retrieval_eval.main(["--dataset", "hotpotqa", "--save_file", path, "--qrels",
+                                    str(qrels), "--k", "10"])
+    presence = retrieval_eval.main(["--dataset", "nq", "--save_file", path, "--k", "10"])
+    log(f"  run C (approx, W=2, over the shuffled index): {wall:.2f} s, "
+        f"{len(results[0]['ctxs'])} ctxs, every id in the index; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"  cli/retrieval_eval of run C: against run A's exact documents as qrels {vs_exact}; "
+        f"answer presence {presence}")
+    return {"launches": counts, "wall": wall, "vs_exact": vs_exact, "presence": presence}
+
+
+def dpr_approx(quant: str, codes, scales, queries, sample, same_codes_idx, power, err) -> dict:
+    """Phase 12 (d) for one corpus, while its codes are resident: the
+    approximate search at Q = 8, 32, 256 and W = 1, 2 (the same answer for a
+    query at every Q), the stored rows' self-hits, recall@10/@100 against
+    the exact search over the same codes; K5 timed at each Q and W beside its
+    bound, its plain version at Q = 8, W = 1."""
+    from kirag_tpu_torch.kernels import group_max, group_max_plain, launch_counts
+    from kirag_tpu_torch.kernels import reset_launch_counts
+    from kirag_tpu_torch.ops import approx_topk_mips
+
+    name = k5_name(quant)
+    reset_launch_counts()
+    idx_by_w, recalls = {}, {}
+    t0 = time.perf_counter()
+    for w in (1, 2):
+        results = {n_q: approx_topk_mips(queries[:n_q], codes, K, valid_rows=DPR_ROWS,
+                                         scales=scales, winners_per_group=w)
+                   for n_q in DPR_QUERIES}
+        vals, idx = results[DPR_QUERIES[-1]]
+        for n_q in DPR_QUERIES[:-1]:
+            if not (torch.equal(results[n_q][0], vals[:n_q])
+                    and torch.equal(results[n_q][1], idx[:n_q])):
+                raise AssertionError(f"{quant} approx W={w}: Q={n_q} answers differ from Q="
+                                     f"{DPR_QUERIES[-1]}'s")
+        if not torch.equal(idx[:DPR_SELF, 0], sample[:DPR_SELF]):
+            raise AssertionError(f"{quant} approx W={w}: a stored row did not find itself")
+        idx_by_w[w] = idx.cpu().numpy()
+        recalls[w] = {k: recall(idx_by_w[w], same_codes_idx, k) for k in (10, K)}
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches[name] == 0:
+        raise AssertionError(f"{quant}: K5 was not launched: {launches}")
+    log(f"  {quant} approx search, W = 1, 2 at Q = {DPR_QUERIES}: {search_s:.2f} s in all "
+        f"(host clock); {DPR_SELF} stored rows found themselves; each query's answer the same "
+        f"at every Q; recall against the exact search over the same codes: "
+        + "; ".join(f"W={w} @10 {r[10]:.4f}, @{K} {r[K]:.4f}" for w, r in recalls.items()))
+    times = {}
+    for n_q in DPR_QUERIES:
+        q, reps = queries[:n_q], DPR_REPS[n_q]
+        for w in (1, 2):
+            what = f"{quant} {DPR_ROWS} x {DIM} Q={n_q} W={w}"
+            got = group_max(q, codes, w, scales, quant)
+            t = {"ms": cuda_ms(lambda: group_max(q, codes, w, scales, quant), reps=reps),
+                 "bound": k5_bound(q, codes, scales, quant, got)}
+            if n_q == DPR_QUERIES[0] and w == 1:
+                e, swapped = k5_error(got, group_max_plain(q, codes, 2, scales, quant), what)
+                err[name] = max(err.get(name, 0.0), e)
+                t["plain_ms"] = cuda_ms(lambda: group_max_plain(q, codes, 1, scales, quant),
+                                        reps=3)
+                log(f"  {what}: K5 max abs err {e:.3g} against plain ({swapped} lanes differ "
+                    "at near-ties)")
+            del got
+            times[(n_q, w)] = t
+            plain = f" vs plain {t['plain_ms']:.3f} ms" if "plain_ms" in t else ""
+            log(f"  [{power}] {what}: K5 {t['ms']:.3f} ms{plain} (bound {t['bound'][0]:.3f} ms, "
+                f"{t['bound'][1]}) (CUDA events, median of {reps})")
+    return {"idx": idx_by_w, "recall_same_codes": recalls, "times": times,
+            "launches": launches}
+
+
+# ---------------------------------------------------------------- phase 13
+
+# the squared distance between a text and its own stored row, at most: f32
+# sums in two orders (float32); the int8 codes' score noise (about 3e-4 for
+# unit rows), twice, with room; int4's (about 4e-3), twice, with room
+L2_SELF_TOL = {"none": 1e-4, "int8": 1e-2, "int4": 1e-1}
+L2_REQUESTS = 200  # phase 13's traffic per index and mode, from 4 threads
+
+
+def serve_l2(dev, encoder, collator, host_rows, texts, text_rows, power) -> dict:
+    """Phase 13: phase 4's 1,000,000 rows as l2 indexes in float32, int8
+    (alpha fitted) and int4 (depth D + 256 = 1280), each served exactly and
+    approximately (W = 2): every text at top-1 at a distance about 0, every
+    served batch against the plain search over the same layout."""
+    from kirag_tpu_torch.index import TorchIndexer
+
+    served = {}
+    for quant in ("none", "int8", "int4"):
+        fmt = "float32" if quant == "none" else quant
+        index = TorchIndexer(DIM, metric="l2", device=dev, compression=quant,
+                             pallas_chunk_size=CHUNK, approx_winners=2)
+        index.index_data(list(range(len(host_rows))), host_rows)
+        t0 = time.perf_counter()
+        index.to_device()
+        torch.cuda.synchronize()
+        log(f"  l2 {fmt} index: {len(host_rows)} rows augmented on the host and placed in "
+            f"{time.perf_counter() - t0:.2f} s (host clock): device depth "
+            f"{index._device_width()} (augmented {index._l2_aug_width()}), alpha "
+            f"{index._l2_alpha}, {nbytes(index._device_corpus) / 1e9:.3f} GB")
+        for mode in ("exact", "approx"):
+            label = f"l2 {fmt} index, {mode}"
+            served[label] = serve(label, encoder, collator, index, texts, text_rows, power,
+                                  n_requests=L2_REQUESTS, mode=mode, self_tol=L2_SELF_TOL[quant])
+        del index
+        torch.cuda.empty_cache()
+    return served
 
 
 def main() -> int:
@@ -2394,6 +2896,9 @@ def main() -> int:
         phase("phase 9: KiRAG through kirag_tpu_torch.cli.retrieve (the phase 6 index, the "
             "phase 8 LLM)")
         kirag = kirag_cli(work, built, decoded, power)
+        phase("phase 12 (c): build_index --shuffle_rows, then cli/retrieve --search_mode approx "
+              "(run C, beside phase 9 while its LLM is on the card) and cli/retrieval_eval")
+        approx_run = approx_cli(work, built, decoded, kirag["A"], dev, power)
         del decoded["params"]
         torch.cuda.empty_cache()
 
@@ -2406,11 +2911,23 @@ def main() -> int:
         phase(f"phase 11 (b): the retrieval server over {N_ROWS} x {DIM} int8 and int4 indexes")
         served_q = serve_compressed(dev, encoder, collator, host_rows, texts, text_rows, gen,
                                     power, err)
+        phase(f"phase 12 (a): K5 (group top-W) vs its plain version ({CHECK_ROWS} x {DIM}), "
+              f"and int4 at D = {INT4_DEPTHS}")
+        depth_times = check_approx_kernels(dev, gen, err)
+        phase(f"phase 12 (b): the retrieval server with search_mode='approx' over {N_ROWS} x "
+              f"{DIM} shuffled float32 and int4 indexes")
+        served_a, approx_timed, _ = serve_approx(dev, encoder, collator, host_rows, texts,
+                                                 text_rows, text_emb, gen, power, err,
+                                                 {**served, **served_q})
+        phase(f"phase 13: l2 indexes (float32, int8, int4) over {N_ROWS} x {DIM}, exact and "
+              "approximate serving")
+        served_l2 = serve_l2(dev, encoder, collator, host_rows, texts, text_rows, power)
         del encoder, model, host_rows
         torch.cuda.empty_cache()
         phase("phase 11 (c): build_index --compression int4 and int8 over phase 6's shards")
         cli_q = quantized_cli(work, built, dev)
-        phase(f"phase 11 (d): the DPR scale, {DPR_ROWS} x {DIM} on the card, int4 then int8")
+        phase(f"phase 11 (d) and 12 (d): the DPR scale, {DPR_ROWS} x {DIM} on the card, int4 "
+              "then int8, exact and approximate search")
         dpr = dpr_scale(dev, power, err)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2419,11 +2936,14 @@ def main() -> int:
     # index build's largest bucket; K6's at gate_proj, NF4, 4 rows (a decode
     # step's largest per-layer projection at the Generator's batch); K3's
     # backward kernels' at the aligner's bf16 query batch. Launches: every
-    # main-path run (phases 4, 6, 8, 9 and 10's CLI run), not the comparisons.
+    # main-path run (phases 4, 6, 8, 9, 10's CLI run, 11 b-d, 12 b-d and 13),
+    # not the comparisons.
     paths = [s["launches"] for s in served.values()] + [built["launches"]] + [
         r["launches"] for r in kirag.values()] + [trained["launches"]] + [
         s["launches"] for s in served_q.values()] + [
-        r["launches"] for r in (*cli_q.values(), *dpr.values())]
+        r["launches"] for r in (*cli_q.values(), *dpr.values())] + [
+        s["launches"] for s in (*served_a.values(), *served_l2.values())] + [
+        approx_run["launches"]] + [dpr[q]["approx"]["launches"] for q in QUANTS]
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     launches["int4_matmul"] += decoded["launches"]
     idle = [k for k, n in launches.items() if n == 0]
@@ -2504,6 +3024,32 @@ def main() -> int:
                          for n_q in DPR_QUERIES},
                 "recall_at_10": dpr[quant]["recall"][10],
                 "recall_at_100": dpr[quant]["recall"][K]})
+            if variant == "stream_capture_int4":  # the depths the card took since this slice
+                kernels[-1]["by_depth"] = {
+                    f"D={d} Q={n_q} ({CHECK_ROWS} rows)": {
+                        "ms": t["k1_ms"], "plain_ms": t["k1_plain_ms"],
+                        "bound_ms": t["k1_bound"][0], "bound_by": t["k1_bound"][1]}
+                    for (d, n_q), t in depth_times.items()}
+    # K5 (group top-W): the float kernel on phase 12 (b)'s shuffled float32
+    # index at Q=32, W=1; the int8 and int4 kernels at the DPR scale (phase
+    # 12 d), Q=8, W=1, where their plain versions were timed too
+    k5_rows = [("group_max", approx_timed["float32"], 32,
+                f"float32 shuffled index {N_ROWS} x {DIM} (1,015,808 rows with padding), Q=32, "
+                "W=1; by_q: Q and W"),
+               *((k5_name(quant), dpr[quant]["approx"]["times"], DPR_QUERIES[0],
+                  f"{quant} {DPR_ROWS} x {DIM} (the DPR corpus), Q={DPR_QUERIES[0]}, W=1; by_q: "
+                  "Q and W") for quant in QUANTS)]
+    for name, times, n_q, at in k5_rows:
+        t = times[(n_q, 1)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "kirag_tpu_torch/csrc/group_max.cu",
+            "replaces": "kirag_tpu/ops/pallas_mips.py:42", "launches": launches[name],
+            "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None,
+            "at": at + "; library_ms: no PyTorch call computes a grouped top-W",
+            "by_q": {f"Q={q} W={w}": {"ms": x["ms"], "bound_ms": x["bound"][0],
+                                      "bound_by": x["bound"][1]}
+                     for (q, w), x in times.items()}})
     phase("done")
     log(power)
     log(json.dumps({"kernels": kernels}))

@@ -4,8 +4,12 @@
 Discovers ``corpus_embeddings_{start}_{end}.npz`` shards (sorted by start
 offset), feeds them into :class:`kirag_tpu_torch.index.TorchIndexer` and
 serializes the index (+ id map) in the reference's layout, which
-``TPUIndexer`` and ``TorchIndexer`` both read; ``--compression int8|int4``
-is recorded in the config and the index is quantized when it is loaded.
+``TPUIndexer`` and ``TorchIndexer`` both read. ``--metric`` and
+``--compression int8|int4`` are recorded in the config (the shards stay raw
+f32; the index is augmented and quantized when it is loaded);
+``--shuffle_rows --shuffle_seed S`` writes the rows in a seeded permuted
+order, which the approximate search (``retrieve --search_mode approx``)
+wants for corpora whose similar passages sit together.
 
 Usage:
   python -m kirag_tpu_torch.cli.build_index \\
@@ -64,11 +68,9 @@ def main(argv: Optional[Sequence[str]] = None, *, device=None) -> str:
     os.makedirs(args.save_dir, exist_ok=True)
     setup_logger(os.path.join(args.save_dir, "build_index.log"))
 
-    # --metric l2 and --shuffle_rows raise the indexer's not-ported errors;
-    # --compression is written into the index config (the shards stay f32)
     indexer = TorchIndexer(args.embedding_size, metric=args.metric,
                            compression=args.compression, shuffle_rows=args.shuffle_rows,
-                           device=device)
+                           shuffle_seed=args.shuffle_seed, device=device)
     shard_files = discover_shards(args.embeddings_dir)
     if not shard_files:
         raise FileNotFoundError(f"no embedding shards under {args.embeddings_dir}")

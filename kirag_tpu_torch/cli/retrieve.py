@@ -56,9 +56,11 @@ def setup_parser(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--index_folder", type=str, required=True)
     parser.add_argument("--embedding_size", type=int, default=1024)
     parser.add_argument("--search_mode", type=str, default="exact", choices=["exact", "approx"],
-                        help="approx is not ported yet")
+                        help="approx = the group-sampled search (K5); composes with int8 "
+                             "and int4 indexes")
     parser.add_argument("--approx_winners", type=int, default=1,
-                        help="approx mode's candidates per 128-row group (not ported yet)")
+                        help="approx mode's candidates per 128-row group (1 = one winner a "
+                             "group, 2 removes the dominant same-group miss, 128 = exact)")
     parser.add_argument("--llm", type=str, required=True,
                         help="LOCAL path to a Llama-architecture chat model")
     parser.add_argument("--llm_tokenizer", type=str, default=None,
@@ -104,8 +106,6 @@ def _not_ported(what: str, entry: str) -> NotImplementedError:
 def check_ported(args) -> None:
     """Raise for the arguments of paths that the port does not have yet."""
     check_single_device(args)
-    if args.search_mode != "exact":
-        raise _not_ported(f"--search_mode {args.search_mode}", "approximate search, K5")
     if args.draft_llm:
         raise _not_ported("--draft_llm (speculative decoding)", "speculative decoding")
     if args.llm_kv_quant_bits is not None:
@@ -123,10 +123,12 @@ def setup_retriever_model(args, tokenizer=None, device=None):
     collator = build_collator(args, tokenizer)
     encoder = build_encoder(args, device=device)
     corpus = build_corpus(args)
-    indexer = TorchIndexer(args.embedding_size, metric="inner_product", device=device)
+    indexer = TorchIndexer(args.embedding_size, metric="inner_product", device=device,
+                           approx_winners=args.approx_winners)
     indexer.deserialize_from(args.index_folder)
     retriever = DenseRetriever(encoder, collator, indexer=indexer, corpus=corpus,
-                               batch_size=args.per_device_batch_size)
+                               batch_size=args.per_device_batch_size,
+                               search_mode=args.search_mode)
     return retriever, corpus
 
 

@@ -1,11 +1,12 @@
-// Shared corpus scoring for the exact-search kernels (stream_capture.cu and
-// gather_groups.cu).
+// Shared corpus scoring for the search kernels (stream_capture.cu,
+// gather_groups.cu and group_max.cu).
 //
-// Both kernels score (query, corpus row) pairs, and the exactness check of the
+// The kernels score (query, corpus row) pairs, and the exactness check of the
 // capture-domain selection compares values that come from different kernels:
 // the capture's group maxima and raw scores (stream_capture) and the fallback
-// gather's re-scored groups (gather_groups). So every score of every kernel is
-// computed by score_group() below, in ONE fixed order:
+// gather's re-scored groups (gather_groups); the approximate search
+// (group_max) promises the exact search's scores. So every score of every
+// kernel is computed by score_group() below, in ONE fixed order:
 //
 //     s = +0.0f;  for d = 0 .. D-1 ascending:  s = fma(q[d], c[d], s)
 //
@@ -335,8 +336,9 @@ __device__ __forceinline__ void stage_queries(float* q_s, const float* __restric
 }
 
 // Call fn(Fmt{}) with the format of `kind` (0 float32, 1 bfloat16, 2 int8,
-// 3 packed int4 of depth d = 256 * NBH, NBH = 1 .. 4); cudaErrorInvalidValue
-// for anything else.
+// 3 packed int4 of depth d = 256 * NBH, NBH = 1 .. 8, so D = 256 .. 2048);
+// cudaErrorInvalidValue for anything else. At NBH = 8 a thread keeps 8 x NQ
+// high-plane partials and 16 scales in registers (ptxas -v reports any spill).
 template <typename Fn>
 cudaError_t with_format(int kind, int d, Fn&& fn) {
   switch (kind) {
@@ -357,6 +359,14 @@ cudaError_t with_format(int kind, int d, Fn&& fn) {
           return fn(I4<3>{});
         case 4:
           return fn(I4<4>{});
+        case 5:
+          return fn(I4<5>{});
+        case 6:
+          return fn(I4<6>{});
+        case 7:
+          return fn(I4<7>{});
+        case 8:
+          return fn(I4<8>{});
         default:
           return cudaErrorInvalidValue;
       }

@@ -1,19 +1,33 @@
-"""Device-resident exact inner-product index (port of
-:class:`kirag_tpu.index.indexer.TPUIndexer`, inner product, one device).
+"""Device-resident flat index (port of
+:class:`kirag_tpu.index.indexer.TPUIndexer`, one device).
 
 The corpus matrix lives on ``device`` (default: the GPU; the CPU only when
 the caller passes ``device="cpu"``) in ``device_dtype`` (float32 or
 bfloat16), or compressed (``compression="int8"``: int8 codes and a scale a
 row; ``"int4"``: packed 4-bit codes and a scale per 128-dim block),
-quantized block by block where it lies; pre-padded to the search chunk grid.
-On a CUDA device ``search_knn`` runs the exact stream-capture search
-(:func:`kirag_tpu_torch.ops.exact.exact_topk_mips`) in flag mode and
-re-dispatches the checked search when the capture's exactness flag is
-False; on the CPU it runs the plain scan (:func:`topk_mips`, or
-:func:`topk_mips_int8`/:func:`topk_mips_int4`). The on-disk format
-(``serialize``/``deserialize_from``: f32 shards, the compression in the
-config) is the reference's, so an index written by ``TPUIndexer`` loads here
-and back.
+quantized block by block where it lies; pre-padded with zero rows to whole
+128-row groups, and to the search chunk grid for the kernel search.
+
+``search_knn(mode="exact")``: on a CUDA device the exact stream-capture
+search (:func:`kirag_tpu_torch.ops.exact.exact_topk_mips`) in flag mode,
+re-dispatching the checked search when the capture's exactness flag is
+False; on the CPU the plain scan (:func:`topk_mips`, or
+:func:`topk_mips_int8`/:func:`topk_mips_int4`). ``mode="approx"``: the
+group-sampled search (:func:`kirag_tpu_torch.ops.approx.approx_topk_mips`,
+``approx_winners`` candidates per 128-row group) on any device, its kernel
+on the card and its plain version on the CPU.
+
+Metrics: ``inner_product`` (scores descending, faiss.IndexFlatIP) and
+``l2`` (squared distances ascending, faiss.IndexFlatL2), served by the same
+search over a corpus augmented with a ``-0.5 * alpha * ||c||^2`` column and
+queries with a ``1 / alpha`` column (see :meth:`_l2_augment`).
+``shuffle_rows`` permutes the rows once with a seeded permutation before
+they are placed or written (the id map moves with them), which approximate
+search needs on corpora whose similar rows sit together.
+
+The on-disk format (``serialize``/``deserialize_from``: raw f32 shards, the
+metric and compression in the config) is the reference's, so an index
+written by ``TPUIndexer`` loads here and back.
 """
 
 from __future__ import annotations
@@ -28,6 +42,8 @@ import numpy as np
 import torch
 
 from kirag_tpu_torch.device import require_cuda
+from kirag_tpu_torch.kernels.exact import LANES, MAX_INT4_DIM
+from kirag_tpu_torch.ops.approx import approx_topk_mips
 from kirag_tpu_torch.ops.exact import exact_topk_mips
 from kirag_tpu_torch.ops.mips import topk_mips
 from kirag_tpu_torch.ops.quantized import (
@@ -41,6 +57,9 @@ from kirag_tpu_torch.ops.quantized import (
 logger = logging.getLogger(__name__)
 
 _HOST_BLOCK = 1 << 16  # rows per host->device copy
+_SHUFFLE_BLOCK = 1 << 20  # rows per block of the shuffled host layout (the reference's)
+_L2_WIDTH_UNIT = 16  # an l2 corpus's device width: the kernels' 16-byte row vectors
+SUPPORTED_METRICS = ("inner_product", "l2")
 
 
 def _next_pow2(n: int, floor: int = 8) -> int:
@@ -65,12 +84,14 @@ def _check_compression(compression: str, vector_sz: int) -> None:
 
 
 class TorchIndexer:
-    """Exact flat index over a device-resident embedding matrix.
+    """Flat index over a device-resident embedding matrix.
 
     ``exact_impl``: "kernel" runs the exact stream-capture search (CUDA
     kernels on a GPU, their plain versions on the CPU), "plain" the chunked
     scan of :func:`topk_mips`, "auto" the kernel search on CUDA and the scan
-    elsewhere (the reference's pallas/xla split).
+    elsewhere (the reference's pallas/xla split). ``approx_winners`` (1 to
+    128) is the approximate search's candidates per 128-row group: 1 samples
+    one winner a group, 2 removes the dominant same-group miss, 128 is exact.
     """
 
     def __init__(self, vector_sz: int, metric: str = "inner_product",
@@ -79,9 +100,9 @@ class TorchIndexer:
                  n_subquantizers: int = 0, mesh=None,
                  max_device_rows: Optional[int] = None, exact_impl: str = "auto",
                  pallas_chunk_size: int = 16384, pallas_select: str = "capdom",
-                 shuffle_rows: bool = False):
-        if metric != "inner_product":
-            raise _not_ported(f"metric={metric!r}", "l2 metric")
+                 shuffle_rows: bool = False, shuffle_seed: int = 0, approx_winners: int = 1):
+        if metric not in SUPPORTED_METRICS:
+            raise KeyError(f"metric must be one of {SUPPORTED_METRICS}, got {metric}")
         if n_subquantizers:
             raise _not_ported(f"product quantization (n_subquantizers={n_subquantizers})",
                               "PQ")
@@ -91,8 +112,6 @@ class TorchIndexer:
         if max_device_rows is not None:
             raise _not_ported("streaming corpora larger than device memory",
                               "streaming search")
-        if shuffle_rows:
-            raise _not_ported("shuffle_rows", "approximate search, K5")
         if pallas_select != "capdom":
             raise _not_ported(f"pallas_select={pallas_select!r}",
                               "selection variants, K8/K9")
@@ -100,9 +119,11 @@ class TorchIndexer:
             raise KeyError(f"exact_impl must be auto|kernel|plain, got {exact_impl}")
         if device_dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"device_dtype must be float32 or bfloat16, got {device_dtype}")
-        if pallas_chunk_size < 128 or pallas_chunk_size % 128 != 0:
+        if pallas_chunk_size < LANES or pallas_chunk_size % LANES != 0:
             raise ValueError("pallas_chunk_size must be a positive multiple of 128, "
                              f"got {pallas_chunk_size}")
+        if not 1 <= approx_winners <= LANES:
+            raise ValueError(f"approx_winners must be in [1, {LANES}], got {approx_winners}")
         self.vector_sz = vector_sz
         self.metric = metric
         self.device = require_cuda() if device is None else torch.device(device)
@@ -112,6 +133,14 @@ class TorchIndexer:
         self.exact_impl = exact_impl
         self.pallas_chunk_size = pallas_chunk_size
         self.pallas_select = pallas_select
+        self.shuffle_rows = shuffle_rows
+        self.shuffle_seed = shuffle_seed
+        self._shuffled = False
+        self.approx_winners = approx_winners
+        # l2: the power-of-two factor of the norm column (int8 only, see
+        # _fit_l2_alpha); exact in f32 and bf16, and so is its inverse
+        self._l2_alpha = 1.0
+        self._check_device_depth()
         self._host_chunks: List[np.ndarray] = []
         self.index_id_to_db_id: np.ndarray = np.empty((0,), dtype=object)
         self._device_corpus: Optional[torch.Tensor] = None
@@ -137,6 +166,7 @@ class TorchIndexer:
         new_ids = np.asarray([str(i) for i in ids], dtype=object)
         self.index_id_to_db_id = np.concatenate([self.index_id_to_db_id, new_ids])
         self._device_corpus = self._device_scales = None
+        self._shuffled = False  # appended rows join the next shuffle
         logger.info(f"Total data indexed {len(self.index_id_to_db_id)}")
 
     def _host_rows(self, start: int, end: int) -> np.ndarray:
@@ -154,24 +184,109 @@ class TorchIndexer:
             return np.zeros((0, self.vector_sz), dtype=np.float32)
         return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
 
+    def _host_take(self, indices: np.ndarray) -> np.ndarray:
+        """Rows at ``indices`` across the host chunk list (a bounded block
+        of them at a time, so no second copy of the corpus is made)."""
+        out = np.empty((len(indices), self.vector_sz), dtype=np.float32)
+        ofs = 0
+        for chunk in self._host_chunks:
+            m = (indices >= ofs) & (indices < ofs + len(chunk))
+            if m.any():
+                out[m] = np.asarray(chunk[indices[m] - ofs], dtype=np.float32)
+            ofs += len(chunk)
+        return out
+
+    def _maybe_shuffle(self) -> None:
+        """Apply the ``shuffle_rows`` permutation
+        (``np.random.default_rng(shuffle_seed).permutation``) once per corpus
+        state, on the host, block by block; the id map moves with the rows,
+        so the returned ids are unchanged and only the order among exactly
+        equal scores follows the new layout."""
+        if not self.shuffle_rows or self._shuffled or len(self) == 0:
+            return
+        n = len(self)
+        perm = np.random.default_rng(self.shuffle_seed).permutation(n)
+        self._host_chunks = [self._host_take(perm[start:start + _SHUFFLE_BLOCK])
+                             for start in range(0, n, _SHUFFLE_BLOCK)]
+        self.index_id_to_db_id = self.index_id_to_db_id[perm]
+        self._shuffled = True
+
+    def _l2_aug_width(self) -> int:
+        """Depth of the augmented corpus for metric="l2": one norm column,
+        or 256 for int4 (packing needs D % 256 == 0; the norm opens its own
+        128-dim scale block, where it quantizes without loss)."""
+        if self.metric != "l2":
+            return self.vector_sz
+        return self.vector_sz + (256 if self.compression == "int4" else 1)
+
+    def _device_width(self) -> int:
+        """Depth of the corpus on the device: the augmented width, padded
+        with zero columns to the kernels' row vectors for l2 (fma(0, 0, s)
+        is s, and zeros change no row's absmax, so no score moves)."""
+        d = self._l2_aug_width()
+        if self.metric == "l2" and self.compression != "int4":
+            d = -(-d // _L2_WIDTH_UNIT) * _L2_WIDTH_UNIT
+        return d
+
+    def _check_device_depth(self) -> None:
+        """The card's int4 kernels take depths up to MAX_INT4_DIM: raise here
+        rather than at the first search."""
+        if (self.device.type == "cuda" and self.compression == "int4"
+                and self._l2_aug_width() > MAX_INT4_DIM):
+            raise ValueError(f"an int4 index of depth {self._l2_aug_width()} (vector_sz "
+                             f"{self.vector_sz}, metric {self.metric}) exceeds the CUDA "
+                             f"kernels' {MAX_INT4_DIM}")
+
+    def _l2_augment(self, rows: np.ndarray) -> np.ndarray:
+        """Append the ``alpha * -0.5 * ||c||^2`` column (and int4's 255 zero
+        columns): argmin ||q - c||^2 is argmax q.c - 0.5 ||c||^2, so the
+        inner-product search serves l2 with a constant query column
+        ``1 / alpha``. numpy, as the reference computes it."""
+        nc = -0.5 * np.sum(rows.astype(np.float32) ** 2, axis=1, dtype=np.float32)[:, None]
+        cols = [np.asarray(rows, dtype=np.float32), np.float32(self._l2_alpha) * nc]
+        if self.compression == "int4":
+            cols.append(np.zeros((len(rows), 255), dtype=np.float32))
+        return np.concatenate(cols, axis=1)
+
+    def _fit_l2_alpha(self) -> None:
+        """int8 + l2: the power of two that brings the norm column to the
+        typical row absmax, so that the row's one int8 scale keeps resolving
+        the data columns (the reference's rule, in numpy, so alpha is
+        bitwise its)."""
+        if self.metric != "l2" or self.compression != "int8":
+            self._l2_alpha = 1.0
+            return
+        sample = self._host_rows(0, min(len(self), 4096))
+        m_el = float(np.median(np.abs(sample).max(axis=1)))
+        m_nc = float(np.median(0.5 * np.sum(sample ** 2, axis=1)))
+        if m_el <= 0 or m_nc <= 0:
+            self._l2_alpha = 1.0
+            return
+        self._l2_alpha = float(2.0 ** round(np.log2(m_el / m_nc)))
+
     def _use_kernels(self) -> bool:
         if self.exact_impl == "auto":
             return self.device.type == "cuda"
         return self.exact_impl == "kernel"
 
     def to_device(self) -> None:
-        """Place the corpus on the device, zero-padded: to a multiple of 8
-        rows, and for the kernel search of a corpus of at least one chunk to
-        the chunk grid (the search would otherwise pad a copy per call). Pad
-        rows are masked through ``valid_rows``. A compressed corpus is
-        quantized on the device, one host block at a time; its pad rows hold
-        zero codes and zero scales."""
+        """Place the corpus on the device (shuffled first under
+        ``shuffle_rows``), zero-padded: to whole 128-row groups (the
+        approximate search's unit), and for the kernel search of a corpus
+        of at least one chunk to the chunk grid (either search would
+        otherwise pad a copy per call). Pad rows are masked through
+        ``valid_rows``. A compressed corpus is quantized on the device, one
+        host block at a time; its pad rows hold zero codes and zero scales.
+        An l2 corpus is augmented on the host (:meth:`_l2_augment`) block by
+        block on the way."""
+        self._maybe_shuffle()
+        self._fit_l2_alpha()
         n = len(self)
-        unit = 8
+        unit = LANES
         if self.exact_impl != "plain" and n >= self.pallas_chunk_size:
             unit = self.pallas_chunk_size
         n_pad = max(-(-n // unit) * unit, unit)
-        d = self.vector_sz
+        d = self._device_width()
         scales = None
         if self.compression == "int8":
             mat = torch.zeros((n_pad, d), dtype=torch.int8, device=self.device)
@@ -184,24 +299,42 @@ class TorchIndexer:
             mat = torch.zeros((n_pad, d), dtype=self.device_dtype, device=self.device)
         for start in range(0, n, _HOST_BLOCK):
             rows = self._host_rows(start, min(start + _HOST_BLOCK, n))
+            if self.metric == "l2":
+                rows = self._l2_augment(rows)
             if not rows.flags.writeable:  # mmap'd shard: torch wants writable memory
                 rows = rows.copy()
             block = slice(start, start + len(rows))
+            cols = slice(0, rows.shape[1])  # l2: the zero columns past it stay zero
             rows = torch.from_numpy(rows).to(self.device)
             if self.compression == "int8":
-                mat[block], scales[block] = quantize_rows_int8_torch(rows)
+                mat[block, cols], scales[block] = quantize_rows_int8_torch(rows)
             elif self.compression == "int4":
                 mat[block], scales[block] = quantize_rows_int4_torch(rows)
             else:
-                mat[block] = rows.to(self.device_dtype)
+                mat[block, cols] = rows.to(self.device_dtype)
         self._device_corpus = mat
         self._device_scales = scales
         self._device_rows = n
 
     # -- search ----------------------------------------------------------------
 
-    def _run_mips(self, queries: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _search_queries(self, queries: torch.Tensor) -> torch.Tensor:
+        """The queries the corpus is searched with: for l2 the constant
+        ``1 / alpha`` column, then zeros up to the device width."""
+        if self.metric != "l2":
+            return queries
+        q = torch.zeros((len(queries), self._device_width()), dtype=queries.dtype,
+                        device=queries.device)
+        q[:, :self.vector_sz] = queries
+        q[:, self.vector_sz] = 1.0 / self._l2_alpha
+        return q
+
+    def _run_mips(self, queries: torch.Tensor, k: int,
+                  mode: str = "exact") -> Tuple[torch.Tensor, torch.Tensor]:
         corpus, scales = self._device_corpus, self._device_scales
+        if mode == "approx":
+            return approx_topk_mips(queries, corpus, k, valid_rows=self._device_rows,
+                                    scales=scales, winners_per_group=self.approx_winners)
         if not self._use_kernels():
             kw = dict(chunk_size=min(self.chunk_size, len(corpus)), valid_rows=self._device_rows)
             if self.compression == "int8":
@@ -227,10 +360,12 @@ class TorchIndexer:
 
     def search_knn(self, query_vectors: np.ndarray, top_docs: int,
                    index_batch_size: int = 1024, mode: str = "exact") -> List[Tuple[List[str], np.ndarray]]:
-        """Per-query ``([db_id, ...], scores)``, best first. Query batches are
+        """Per-query ``([db_id, ...], scores)``, best first: inner products
+        descending, or for l2 squared distances ascending. ``mode``: "exact"
+        or "approx" (the group-sampled search). Query batches are
         zero-padded to power-of-two row counts, as in the reference."""
-        if mode != "exact":
-            raise _not_ported(f"mode={mode!r}", "approximate search, K5")
+        if mode not in ("exact", "approx"):
+            raise ValueError(f"mode must be exact|approx, got {mode!r}")
         if len(self) == 0:
             raise RuntimeError("search_knn on an empty index; call index_data first")
         if self._device_corpus is None:
@@ -248,7 +383,9 @@ class TorchIndexer:
                 q = np.pad(q, ((0, q_pad - len(q)), (0, 0)))
             qt = torch.from_numpy(np.ascontiguousarray(q)).to(device=self.device,
                                                               dtype=self.device_dtype)
-            vals, idx = self._run_mips(qt, k)
+            vals, idx = self._run_mips(self._search_queries(qt), k, mode)
+            if self.metric == "l2":  # ||q||^2 - 2 (q.c - 0.5 ||c||^2)
+                vals = (qt.to(torch.float32) ** 2).sum(dim=1, keepdim=True) - 2.0 * vals
             vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
             for row in range(min(index_batch_size, n_q - start)):
                 db_ids = [str(self.index_id_to_db_id[i]) for i in idx[row]]
@@ -258,8 +395,10 @@ class TorchIndexer:
     # -- persistence -----------------------------------------------------------
 
     def serialize(self, dir_path: str, rows_per_file: int = 1_000_000) -> None:
-        """Write ``index_{start}_{end}.npy`` shard files, the id map and the
+        """Write ``index_{start}_{end}.npy`` shard files of the raw f32 rows
+        (in the shuffled order under ``shuffle_rows``), the id map and the
         config, in the reference's layout."""
+        self._maybe_shuffle()
         os.makedirs(dir_path, exist_ok=True)
         n = len(self)
         files = []
@@ -285,11 +424,13 @@ class TorchIndexer:
             if cfg["vector_sz"] != self.vector_sz:
                 raise ValueError(f"index built with dim {cfg['vector_sz']}, "
                                  f"indexer expects {self.vector_sz}")
-            if cfg.get("metric", "inner_product") != "inner_product":
-                raise _not_ported(f"metric={cfg['metric']!r}", "l2 metric")
+            metric = cfg.get("metric", self.metric)
+            if metric not in SUPPORTED_METRICS:
+                raise KeyError(f"metric must be one of {SUPPORTED_METRICS}, got {metric}")
             compression = cfg.get("compression", self.compression)
             _check_compression(compression, self.vector_sz)
-            self.compression = compression
+            self.metric, self.compression = metric, compression
+            self._check_device_depth()
             files = cfg.get("files")
         mode = "r" if mmap else None
         names = files or ["index.npy"]  # legacy monolithic layout

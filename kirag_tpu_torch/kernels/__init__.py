@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions."""
 
+from kirag_tpu_torch.kernels.approx import group_max, group_max_plain
 from kirag_tpu_torch.kernels.attention import (
     flash_attention,
     flash_attention_bwd,
@@ -32,6 +33,8 @@ __all__ = [
     "flash_attention_reference",
     "gather_groups",
     "gather_groups_plain",
+    "group_max",
+    "group_max_plain",
     "int4_matmul",
     "int4_matmul_plain",
     "launch_counts",

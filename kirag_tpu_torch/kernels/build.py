@@ -105,6 +105,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kirag_gather_groups.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
     lib.kirag_gather_groups.restype = i32
+    lib.kirag_group_max.argtypes = [
+        ptr, ptr, i32, ptr, ptr, ptr,  # q, corpus, kind, scales, gmax, gidx
+        i32, i32, i64, i32, i32, ptr]  # n_q, d, n_rows, winners, qpt, stream
+    lib.kirag_group_max.restype = i32
     lib.kirag_flash_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,             # q, k, v, seg, out, lse (or null)
         i32, i32, i32, i32,                       # bf16, b, h, t

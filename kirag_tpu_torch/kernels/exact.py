@@ -69,16 +69,20 @@ def check_corpus(corpus: torch.Tensor, scales: Optional[torch.Tensor], quant: st
         raise TypeError(f"scales must be float32, got {scales.dtype}")
 
 
+MAX_INT4_DIM = 2048  # csrc/score.cuh's with_format: int4 D = 256 * NBH, NBH = 1 .. 8
+
+
 def _check_kernel_operands(corpus, quant: str) -> None:
     """What the CUDA kernels take beyond the plain versions: 16-byte vector
-    reads of the corpus rows, and int4 depths up to 1024."""
+    reads of the corpus rows, and int4 depths up to MAX_INT4_DIM."""
     d = _corpus_dim(corpus, quant)
     vec = 16 if quant == "int8" else 8
     if d % vec or corpus.data_ptr() % 16:
         raise ValueError(f"the CUDA kernels need D % {vec} == 0 and a 16-byte aligned "
                          f"corpus, got D={d}")
-    if quant == "int4" and d > 1024:
-        raise ValueError(f"the int4 kernels take D = 256, 512, 768 or 1024, got D={d}")
+    if quant == "int4" and d > MAX_INT4_DIM:
+        raise ValueError(f"the int4 kernels take D = 256 .. {MAX_INT4_DIM} in steps of "
+                         f"256, got D={d}")
 
 
 def _kernel_args(queries, corpus, scales, quant: str):

@@ -1,3 +1,4 @@
+from kirag_tpu_torch.ops.approx import approx_topk_mips, grouped_max_scores
 from kirag_tpu_torch.ops.exact import exact_topk_mips, hier_topk, stable_topk
 from kirag_tpu_torch.ops.mips import topk_mips
 from kirag_tpu_torch.ops.pooling import cls_pool, l2_normalize, masked_mean_pool
@@ -12,9 +13,11 @@ from kirag_tpu_torch.ops.quantized import (
 )
 
 __all__ = [
+    "approx_topk_mips",
     "cls_pool",
     "dequantize_rows_int4",
     "exact_topk_mips",
+    "grouped_max_scores",
     "hier_topk",
     "l2_normalize",
     "masked_mean_pool",

@@ -1,8 +1,9 @@
 """DenseRetriever: encoder + collator + device index + corpus facade (port of
 :class:`kirag_tpu.retrieval.dense.DenseRetriever`).
 
-Retrieval is encode -> exact search on the index's device -> id join with the
-corpus. Texts are embedded ``batch_size`` at a time, each batch zero-padded
+Retrieval is encode -> search on the index's device (exact, or the
+group-sampled approximate search under ``search_mode="approx"``) -> id join
+with the corpus. Texts are embedded ``batch_size`` at a time, each batch zero-padded
 to a power-of-two row count as in the reference.
 """
 
@@ -27,12 +28,15 @@ def _pad_rows(arrays: Dict[str, np.ndarray], target: int) -> Dict[str, np.ndarra
 
 class DenseRetriever:
     def __init__(self, encoder, collator, indexer=None, corpus=None,
-                 batch_size: int = 32):
+                 batch_size: int = 32, search_mode: str = "exact"):
+        if search_mode not in ("exact", "approx"):
+            raise ValueError(f"search_mode must be exact|approx, got {search_mode!r}")
         self.encoder = encoder
         self.collator = collator
         self.indexer = indexer
         self.corpus = corpus
         self.batch_size = batch_size
+        self.search_mode = search_mode
 
     # -- embedding ------------------------------------------------------------
 
@@ -94,13 +98,13 @@ class DenseRetriever:
 
     def batch_retrieve(self, queries: List[str], topk: int, mode: Optional[str] = None,
                        **kwargs) -> List[List[dict]]:
-        """``mode``: the index's search mode ("exact", the default; "approx"
-        is not ported yet)."""
+        """``mode``: the index's search mode, "exact" or "approx" (None: the
+        retriever's ``search_mode``)."""
         if self.indexer is None:
             raise ValueError("must provide an indexer")
         embeddings = self.calculate_query_embeddings(queries, **kwargs)
         knn_results = self.indexer.search_knn(embeddings, top_docs=topk,
-                                              mode=mode or "exact")
+                                              mode=mode or self.search_mode)
         retrieval_results = []
         for db_ids, scores in knn_results:
             one = []

@@ -38,7 +38,8 @@ class RetrievalEngine:
           max_batch: micro-batch cap (queries coalesced per corpus sweep).
           max_wait_ms: how long the batcher waits to fill a batch.
           warmup: run one search per top-k bucket at startup.
-          mode: search mode passed to the retriever (None: its own).
+          mode: search mode passed to the retriever, "exact" or "approx"
+            (None: the retriever's own ``search_mode``).
         """
         self.retriever = retriever
         self.mode = mode

@@ -230,11 +230,49 @@ def test_cli_refuses_what_is_not_ported(workspace):
     with pytest.raises(NotImplementedError, match="mesh"):
         compute_corpus_embeddings.main(embed_args(workspace, out, ["--mesh_model", "2"]),
                                        device="cpu")
-    for flag in (["--compression", "int8", "--metric", "l2"], ["--metric", "l2"],
-                 ["--shuffle_rows"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_index.main(["--embeddings_dir", out, "--save_dir", out, *flag],
-                             device="cpu")
+
+
+@pytest.mark.parametrize("flags", [["--shuffle_rows", "--shuffle_seed", "3"],
+                                   ["--metric", "l2", "--compression", "int8"],
+                                   ["--metric", "l2", "--compression", "int4", "--shuffle_rows"]])
+def test_build_index_shuffle_and_l2_match_jax(tmp_path, monkeypatch, flags):
+    """Both packages' build_index over the same shards write the same files
+    (the shuffled layout byte for byte, the metric and compression in the
+    config), and each reloaded index searches like the other, exact and
+    approximate."""
+    rng = np.random.RandomState(2)
+    rows = rng.randn(1200, 256).astype(np.float32)
+    rows *= (rng.uniform(0.5, 2.0, (1200, 1)) / np.linalg.norm(rows, axis=1,
+                                                              keepdims=True)).astype(np.float32)
+    ids = [f"p{i}" for i in range(1200)]
+    shards = tmp_path / "shards"
+    shards.mkdir()
+    for start, end in ((0, 700), (700, 1200)):
+        np.savez(shards / f"corpus_embeddings_{start}_{end}.npz", embeddings=rows[start:end],
+                 passage_ids=np.asarray(ids[start:end], dtype=object))
+    argv = ["--embeddings_dir", str(shards), "--embedding_size", "256", *flags, "--save_dir"]
+    port_dir = build_index.main(argv + [str(tmp_path / "port")], device="cpu")
+    jax_dir = str(tmp_path / "jax")
+    run_jax_cli(jax_build_index, argv + [jax_dir], monkeypatch)
+    names = sorted(f for f in os.listdir(port_dir) if not f.endswith(".log"))
+    assert names == sorted(f for f in os.listdir(jax_dir) if not f.endswith(".log"))
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+    if "--shuffle_rows" in flags:
+        seed = int(flags[flags.index("--shuffle_seed") + 1]) if "--shuffle_seed" in flags else 0
+        perm = np.random.default_rng(seed).permutation(1200)
+        np.testing.assert_array_equal(np.load(tmp_path / "port" / names[0]), rows[perm])
+    port, ref = TorchIndexer(256, device="cpu"), TPUIndexer(256)
+    port.deserialize_from(port_dir)
+    ref.deserialize_from(jax_dir)
+    queries = rows[[5, 999]]
+    for mode in ("exact", "approx"):
+        got, want = port.search_knn(queries, 5, mode=mode), ref.search_knn(queries, 5, mode=mode)
+        for (g_ids, g_scores), (w_ids, w_scores) in zip(got, want):
+            assert g_ids == w_ids
+            # scores or squared distances up to about 8: f32 sums of 256
+            # products in two orders
+            np.testing.assert_allclose(g_scores, w_scores, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("fused_qkv", [True, False])

@@ -1,7 +1,8 @@
 """The CUDA kernels' wrappers: device dispatch, launch counts, and (on a GPU)
 each kernel against its plain version: K1 and K2 of the exact search (with
-K4's int8 and packed-int4 scoring inside them), K3 the encoder's flash
-attention and its two backward kernels, K6 the LLM's 4-bit weight matmul.
+K4's int8 and packed-int4 scoring inside them), K5 the approximate search's
+group top-W, K3 the encoder's flash attention and its two backward kernels,
+K6 the LLM's 4-bit weight matmul.
 
 This file imports neither JAX nor ``kirag_tpu``, so the GPU machine, which
 has neither, runs it alone:
@@ -23,6 +24,8 @@ from kirag_tpu_torch.kernels import (
     flash_attention_plain,
     gather_groups,
     gather_groups_plain,
+    group_max,
+    group_max_plain,
     int4_matmul,
     int4_matmul_plain,
     launch_counts,
@@ -41,6 +44,8 @@ def test_wrappers_reject_devices_without_kernels():
         stream_capture(q, c, 256, 128, 1)
     with pytest.raises(ValueError, match="no kernel"):
         gather_groups(q, c, torch.zeros(2, 1, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        group_max(q, c, 2)
 
 
 def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
@@ -54,10 +59,13 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
         assert torch.equal(x, y)
     assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
     exact_topk_mips(q, c, 5, chunk_size=512, on_miss="flag")
+    for x, y in zip(group_max(q, c, 3), group_max_plain(q, c, 3)):
+        assert torch.equal(x, y)
     assert set(launch_counts()) == {
         "stream_capture", "gather_groups", "stream_capture_int8", "gather_groups_int8",
-        "stream_capture_int4", "gather_groups_int4", "flash_attention",
-        "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "int4_matmul"}
+        "stream_capture_int4", "gather_groups_int4", "group_max", "group_max_int8",
+        "group_max_int4", "flash_attention", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq", "int4_matmul"}
     assert not any(launch_counts().values())
 
 
@@ -72,6 +80,23 @@ def test_wrappers_check_their_operands():
                       torch.zeros(2, 1, dtype=torch.int64))
     with pytest.raises(ValueError, match="gsel"):
         gather_groups(q, torch.zeros(256, 16), torch.zeros(3, 1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        group_max(q, torch.zeros(200, 16))
+    with pytest.raises(ValueError, match="winners"):
+        group_max(q, torch.zeros(256, 16), 129)
+
+
+def test_group_max_plain_peels_ties_to_the_lowest_lane():
+    """Scores 5, 5, 3 at lanes 7, 2, 9 of one group, everything else 0: the
+    peel gives 5 (lane 2), 5 (lane 7), 3 (lane 9), then 0 at lane 0."""
+    c = torch.zeros(256, 8)
+    c[[7, 2], 0], c[9, 0], c[130, 0] = 5.0, 3.0, -1.0
+    q = torch.zeros(1, 8)
+    q[0, 0] = 1.0
+    gmax, gidx = group_max_plain(q, c, 4)
+    assert gmax[0, :, 0].tolist() == [5.0, 5.0, 3.0, 0.0]
+    assert gidx[0, :, 0].tolist() == [2, 7, 9, 0]
+    assert gmax[0, :, 1].tolist() == [0.0] * 4 and gidx[0, :, 1].tolist() == [0, 1, 3, 4]
 
 
 # ------------------------------------------------------------ on the card
@@ -120,7 +145,8 @@ def quantized_corpus(quant, n, d, g, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant,d", [("int8", 208), ("int8", 1024), ("int4", 256),
-                                     ("int4", 768), ("int4", 1024)])
+                                     ("int4", 768), ("int4", 1024), ("int4", 1280),
+                                     ("int4", 2048)])
 def test_quantized_kernels_bitwise_equal_plain_on_integer_data(cuda_device, quant, d):
     """Small-integer queries (exact in bf16) and power-of-two scales: every
     score is exact in any summation order, so K1 and K2 equal their plain
@@ -196,6 +222,69 @@ def test_exact_search_on_the_card_matches_plain(cuda_device, quant):
                                on_miss=on_miss, plain=True, scales=s)
         for x, y in zip(got, want):
             assert torch.equal(x, y)
+
+
+def k5_corpus(fmt, n, d, g, device):
+    """Integer data of one K5 format: small-integer float32/bfloat16 rows,
+    or random codes with power-of-two scales."""
+    if fmt in ("int8", "int4"):
+        return (*quantized_corpus(fmt, n, d, g, device), fmt)
+    c = torch.randint(-3, 4, (n, d), generator=g, device=device)
+    return c.to(torch.float32 if fmt == "float32" else torch.bfloat16), None, "none"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,d", [("float32", 200), ("bfloat16", 1040), ("int8", 208),
+                                   ("int8", 1040), ("int4", 256), ("int4", 1280),
+                                   ("int4", 2048)])
+def test_group_max_bitwise_equal_plain_on_integer_data(cuda_device, fmt, d):
+    """K5 on integer data (every score exact in any order, many ties): its
+    values and lanes equal the plain version's bitwise at every W, and at
+    W = 1 its values are K1's group maxima."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    n = 8192
+    c, s, quant = k5_corpus(fmt, n, d, g, cuda_device)
+    for n_q in (3, 8, 32):
+        q = torch.randint(-2, 3, (n_q, d), generator=g, device=cuda_device).float()
+        if quant == "none":
+            q = q.to(c.dtype)
+        k1_gmax = stream_capture(q, c, n, 2048, 1, s, quant)[0]           # [C, G, Q]
+        for w in (1, 2, 8, 128):
+            reset_launch_counts()
+            got = group_max(q, c, w, s, quant)
+            assert launch_counts()["group_max" if quant == "none" else f"group_max_{quant}"] == 1
+            want = group_max_plain(q, c, w, s, quant)
+            torch.cuda.synchronize()
+            assert got[0].shape == (n_q, w, n // 128) and got[1].dtype == torch.int32
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (n_q, w)
+            if w == 1:
+                assert torch.equal(got[0][:, 0], k1_gmax.reshape(-1, n_q).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_group_max_matches_plain_on_random_data(cuda_device, quant):
+    """Unit rows (quantized on the card) and unit queries: values within
+    1e-5 (f32 sums of 1024 products in two orders); lanes equal wherever the
+    peeled value stands more than that from the group's other scores."""
+    from kirag_tpu_torch.ops.quantized import quantize_rows_int4_torch, quantize_rows_int8_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    rows = torch.nn.functional.normalize(
+        torch.randn(16384, 1024, generator=g, device=cuda_device), dim=-1)
+    c, s = rows, None
+    if quant != "none":
+        c, s = (quantize_rows_int8_torch if quant == "int8" else quantize_rows_int4_torch)(rows)
+    q = torch.nn.functional.normalize(torch.randn(16, 1024, generator=g, device=cuda_device),
+                                      dim=-1)
+    got = group_max(q, c, 8, s, quant)
+    want = group_max_plain(q, c, 9, s, quant)       # the 9th: the last winner's rival
+    torch.cuda.synchronize()
+    assert float((got[0] - want[0][:, :8]).abs().max()) <= 1e-5
+    gap = want[0][:, :-1] - want[0][:, 1:]                              # [Q, 8, G]
+    clear = gap > 1e-5
+    clear[:, 1:] &= gap[:, :-1] > 1e-5
+    assert torch.equal(got[1][clear], want[1][:, :8][clear])
 
 
 def bf16_ulps(x: torch.Tensor, n: int = 2) -> float:

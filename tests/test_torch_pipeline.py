@@ -90,6 +90,40 @@ def test_metrics_and_hash_match_jax():
         assert hash_object(obj) == jax_hash_object(obj)
 
 
+MIXED_SCRIPT = [
+    "Café Müller, São Paulo — 1984!", "Москва́ — столица России (ru).", "東京は日本の首都です。",
+    "नमस्ते दुनिया १२३", "مرحبا بالعالم ٣", "emoji 👩\u200d💻 tab\tzero\u200bwidth",
+    "Ⅻ ⓐⒶ x²+y₂ ½", "İstanbul ǅ ß ﬁne", "Ελληνικά: Ἀθῆναι",
+]
+
+
+def test_has_answer_and_regex_match_match_jax():
+    """The port's tokenizer (unicodedata categories and the standard ``re``)
+    against the reference's (the ``regex`` package) on mixed-script text."""
+    from kirag_tpu.evaluation import metrics as jax_metrics
+    from kirag_tpu_torch.evaluation import has_answer
+    from kirag_tpu_torch.evaluation import metrics
+
+    for text in MIXED_SCRIPT:
+        assert metrics._tokenize_words(metrics._nfd(text)) == \
+            jax_metrics._tokenize_words(jax_metrics._nfd(text))
+    cases = [(["sao paulo"], MIXED_SCRIPT[0]), (["Москва"], MIXED_SCRIPT[1]),
+             (["столица россии"], MIXED_SCRIPT[1]), (["１２３", "१२३"], MIXED_SCRIPT[3]),
+             (["istanbul"], MIXED_SCRIPT[7]), (["Αθηναι"], MIXED_SCRIPT[8]),
+             (["dunya"], MIXED_SCRIPT[3]), (["", "x"], "y x z"), (["1984"], MIXED_SCRIPT[0])]
+    for answers, text in cases:
+        assert has_answer(answers, text) == jax_metrics.has_answer(answers, text), answers
+    patterns = [r"s[aã]o\s+paulo", r"^москва", r"\d{4}", r"(unclosed", r"ΑΘΗΝΑΙ|Ἀθῆναι"]
+    for pattern in patterns:
+        for text in MIXED_SCRIPT:
+            assert metrics.regex_match(text, pattern) == jax_metrics.regex_match(text, pattern)
+            assert has_answer([pattern], text, "regex") == \
+                jax_metrics.has_answer([pattern], text, "regex")
+    # the documented difference: a property class compiles only in `regex`
+    assert jax_metrics.regex_match("abc", r"\p{L}+") and not metrics.regex_match("abc",
+                                                                                r"\p{L}+")
+
+
 def test_generator_over_stub_matches_jax(tmp_path):
     tok = make_tokenizer(tmp_path)
     rules = [("alpha", "w1 is the city . question : w2"), ("beta", "< w3 ; of ; w4 > and more")]
@@ -244,20 +278,21 @@ def cli_workspace(tmp_path_factory):
             "corpus_path": corpus_path, "index": os.path.join(out, "index")}
 
 
-@pytest.mark.parametrize("concurrent,cached", [(1, False), (2, True)])
-def test_retrieve_cli_matches_jax(cli_workspace, monkeypatch, concurrent, cached):
+def run_retrieve_clis(ws, monkeypatch, concurrent=1, cached=False, extra=()):
+    """Both packages' ``cli/retrieve.py`` on the workspace; returns their
+    results files' paths and contents."""
     from kirag_tpu.cli import retrieve as jax_retrieve
     from kirag_tpu_torch.cli import retrieve
 
-    ws = cli_workspace
-    results = {}
+    paths, results = {}, {}
+    tag = "_".join([str(concurrent), *extra]).replace("--", "")
     for name in ("jax", "port"):
-        extra = []
+        argv_extra = list(extra)
         if cached:
-            cache = str(ws["root"] / f"kg_{name}_{concurrent}.pkl")
+            cache = str(ws["root"] / f"kg_{name}_{tag}.pkl")
             with open(ws["root"] / "kg.pkl", "rb") as src, open(cache, "wb") as dst:
                 dst.write(src.read())
-            extra = ["--cached_kg_triples_file", cache]
+            argv_extra += ["--cached_kg_triples_file", cache]
         argv = ["--dataset", "2wikimultihopqa", "--query_file", str(ws["root"] / "queries.json"),
                 "--corpus", "2wikimultihopqa", "--corpus_path", ws["corpus_path"],
                 "--index_folder", ws["index"], "--embedding_size", "32",
@@ -265,16 +300,57 @@ def test_retrieve_cli_matches_jax(cli_workspace, monkeypatch, concurrent, cached
                 "--llm", ws["llm_dir"], "--aligner_model_name_or_path", ws["enc_dir"],
                 "--num_turns", "2", "--topk", "3", "--num_candidate_triples", "5",
                 "--concurrent_questions", str(concurrent), "--save_dir",
-                str(ws["root"] / name), "--name", "kirag", "--save_file", "results.json",
-                *extra]
+                str(ws["root"] / f"{name}_{tag}"), "--name", "kirag", "--save_file",
+                "results.json", *argv_extra]
         if name == "jax":
             monkeypatch.setattr(sys, "argv", ["prog"] + argv)
             jax_retrieve.main()
-            path = str(ws["root"] / name / "kirag" / "results.json")
+            paths[name] = str(ws["root"] / f"{name}_{tag}" / "kirag" / "results.json")
         else:
-            path = retrieve.main(argv, device="cpu")
-        with open(path) as f:
+            paths[name] = retrieve.main(argv, device="cpu")
+        with open(paths[name]) as f:
             results[name] = json.load(f)
+    return paths, results
+
+
+def test_retrieve_cli_approx_and_retrieval_eval_match_jax(cli_workspace, monkeypatch):
+    """``--search_mode approx --approx_winners 2``: the KiRAG results of both
+    packages agree, and both packages' ``cli/retrieval_eval`` read the
+    port's results file alike (qrels and answer presence)."""
+    from kirag_tpu.cli import retrieval_eval as jax_eval
+    from kirag_tpu_torch.cli import retrieval_eval
+
+    ws = cli_workspace
+    # one device for JAX too: its 8-device test mesh would shard the 20-row
+    # index into shards smaller than a 128-row group
+    paths, results = run_retrieve_clis(ws, monkeypatch,
+                                       extra=("--search_mode", "approx", "--approx_winners", "2",
+                                              "--mesh_data", "1"))
+    got, want = results["port"], results["jax"]
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g["paths"] == w["paths"] and len(g["ctxs"]) > 0
+        assert [c["id"] for c in g["ctxs"]] == [c["id"] for c in w["ctxs"]]
+        np.testing.assert_allclose([c["score"] for c in g["ctxs"]],
+                                   [c["score"] for c in w["ctxs"]], rtol=1e-5, atol=1e-5)
+    qrels = ws["root"] / "qrels.tsv"
+    qrels.write_text("q0\tdoc3\t1\nq0\tdoc5\t1\nq1\tdoc7\t1\nq1\tdoc9\t0\n")
+    assert retrieval_eval.load_qrels(str(qrels)) == jax_eval.load_qrels(str(qrels))
+    for argv in (["--dataset", "2wikimultihopqa", "--qrels", str(qrels), "--k", "3"],
+                 ["--dataset", "nq", "--k", "2"], ["--dataset", "nq", "--k", "10"]):
+        metrics = retrieval_eval.main(["--save_file", paths["port"], *argv])
+        monkeypatch.setattr(sys, "argv", ["prog", "--save_file", paths["port"], *argv])
+        jax_eval.main()
+        want_metrics = (jax_eval.evaluate_with_qrels(got, jax_eval.load_qrels(str(qrels)), 3)
+                        if "--qrels" in argv else
+                        jax_eval.evaluate_answer_presence(got, int(argv[-1])))
+        assert metrics == want_metrics
+    assert retrieval_eval.evaluate_answer_presence(got, 10)["Recall@10"] > 0
+
+
+@pytest.mark.parametrize("concurrent,cached", [(1, False), (2, True)])
+def test_retrieve_cli_matches_jax(cli_workspace, monkeypatch, concurrent, cached):
+    _, results = run_retrieve_clis(cli_workspace, monkeypatch, concurrent, cached)
     got, want = results["port"], results["jax"]
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
@@ -297,9 +373,8 @@ def test_retrieve_cli_refuses_what_is_not_ported(cli_workspace):
             "--retriever_model_name_or_path", ws["enc_dir"], "--llm", ws["llm_dir"],
             "--aligner_model_name_or_path", ws["enc_dir"], "--save_dir",
             str(ws["root"] / "refused"), "--save_file", "r.json"]
-    for flag in (["--search_mode", "approx"], ["--draft_llm", ws["llm_dir"]],
-                 ["--llm_kv_quant_bits", "8"], ["--llm_prefix_cache_groups", "4"],
-                 ["--mesh_model", "2"]):
+    for flag in (["--draft_llm", ws["llm_dir"]], ["--llm_kv_quant_bits", "8"],
+                 ["--llm_prefix_cache_groups", "4"], ["--mesh_model", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             retrieve.main(base + flag, device="cpu")
     if not torch.cuda.is_available():  # without device="cpu" the CLI runs on the card

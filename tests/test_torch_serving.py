@@ -1,12 +1,17 @@
 """The port's index, retriever and engine held against the JAX package.
 
-``TorchIndexer`` reads and writes ``TPUIndexer``'s on-disk format, its
-search re-dispatches the checked exact search when the capture flag is False,
-and the whole slice (RetrievalEngine -> DenseRetriever -> Encoder ->
-TorchIndexer -> exact search, the kernels' plain versions on the CPU) returns
-the doc ids the JAX package returns for the same texts and parameters.
+``TorchIndexer`` reads and writes ``TPUIndexer``'s on-disk format (shuffled
+layouts and l2 configs included), its search re-dispatches the checked exact
+search when the capture flag is False, its approximate and l2 searches give
+``TPUIndexer``'s results, and the whole slice (RetrievalEngine ->
+DenseRetriever -> Encoder -> TorchIndexer -> exact or approximate search, the
+kernels' plain versions on the CPU) returns the doc ids the JAX package
+returns for the same texts and parameters.
 """
 
+import json
+import os
+import pickle
 import threading
 
 import jax
@@ -95,7 +100,7 @@ def test_to_device_pads_to_the_chunk_grid(rng):
     plain = TorchIndexer(8, device="cpu", exact_impl="plain", pallas_chunk_size=2048)
     plain.index_data(list(range(5000)), rows)
     plain.to_device()
-    assert plain._device_corpus.shape == (5000, 8)
+    assert plain._device_corpus.shape == (5120, 8)  # whole 128-row groups (approx search)
 
 
 def test_bf16_index_matches_reference(rng):
@@ -116,17 +121,153 @@ def test_bf16_index_matches_reference(rng):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchIndexer(8, metric="l2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndexer(8, n_subquantizers=8)  # product quantization
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndexer(8, compression="pq")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndexer(8, pallas_select="hier")
+
+
+def test_indexer_checks_its_options():
+    with pytest.raises(KeyError, match="metric"):
+        TorchIndexer(8, metric="cosine", device="cpu")
+    for winners in (0, 129):
+        with pytest.raises(ValueError, match="approx_winners"):
+            TorchIndexer(8, approx_winners=winners, device="cpu")
     index = TorchIndexer(8, device="cpu")
     index.index_data(["a"], np.ones((1, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index.search_knn(np.ones((1, 8), np.float32), 1, mode="approx")
+    with pytest.raises(ValueError, match="mode"):
+        index.search_knn(np.ones((1, 8), np.float32), 1, mode="fast")
+    # the card's int4 kernels take depths up to 2048: refused when built, not
+    # at the first search (the CPU's plain versions take any depth)
+    with pytest.raises(ValueError, match="2048"):
+        TorchIndexer(2304, compression="int4", device="cuda")
+    with pytest.raises(ValueError, match="2048"):
+        TorchIndexer(2048, metric="l2", compression="int4", device="cuda")
+    TorchIndexer(1792, metric="l2", compression="int4", device="cuda")
+    assert TorchIndexer(2304, compression="int4", device="cpu").compression == "int4"
+
+
+def assert_same_hits(got, want, atol):
+    """Ranked hits: scores within ``atol``, ids equal except where the
+    reference holds another score within ``atol`` (a near-tie that two
+    summation orders may swap)."""
+    for (g_ids, g_scores), (w_ids, w_scores) in zip(got, want):
+        np.testing.assert_allclose(g_scores, w_scores, atol=atol, rtol=0)
+        for slot, (g, w) in enumerate(zip(g_ids, w_ids)):
+            if g != w:
+                gaps = np.abs(np.asarray(w_scores) - w_scores[slot])
+                gaps[slot] = np.inf
+                assert gaps.min() <= atol, (slot, g, w)
+
+
+@pytest.mark.parametrize("winners", [1, 2])
+def test_approx_search_knn_matches_tpu_indexer(rng, winners):
+    """Unit rows, f32 index: the group-sampled search of both packages (the
+    plain K5 here, JAX's interpret-mode kernel there) within 1e-5 (f32 sums
+    of 32 products in two orders), the same ids; each stored row finds
+    itself."""
+    rows = unit_rows(rng, 3000, 32)
+    queries = np.concatenate([rows[[4, 2999]], unit_rows(rng, 3, 32)])
+    ids = [f"d{i}" for i in range(3000)]
+    ref = TPUIndexer(32, approx_winners=winners)
+    port = TorchIndexer(32, device="cpu", approx_winners=winners)
+    for index in (ref, port):
+        index.index_data(ids, rows)
+    want = ref.search_knn(queries, 10, mode="approx")
+    got = port.search_knn(queries, 10, mode="approx")
+    assert_same_hits(got, want, 1e-5)
+    assert [got[0][0][0], got[1][0][0]] == ["d4", "d2999"]
+    assert port._device_corpus.shape == (3072, 32)  # whole 128-row groups
+    exact = port.search_knn(queries, 10)
+    assert [r[0][0] for r in exact] == [r[0][0] for r in got]
+
+
+def test_shuffled_layout_and_shards_match_tpu_indexer(rng, tmp_path):
+    """``shuffle_rows``: both packages write the rows and ids of
+    ``default_rng(3).permutation`` (appended rows join the shuffle), shard
+    for shard byte-equal, and search the shuffled index alike."""
+    rows = unit_rows(rng, 2500, 16)
+    ids = [f"d{i}" for i in range(2500)]
+    ref = TPUIndexer(16, shuffle_rows=True, shuffle_seed=3)
+    port = TorchIndexer(16, device="cpu", shuffle_rows=True, shuffle_seed=3)
+    for name, index in (("ref", ref), ("port", port)):
+        index.index_data(ids[:1000], rows[:1000])
+        index.index_data(ids[1000:], rows[1000:])
+        index.serialize(str(tmp_path / name), rows_per_file=1000)
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "ref"))
+    for name in names:
+        if name.endswith(".npy"):
+            assert (tmp_path / "port" / name).read_bytes() == \
+                (tmp_path / "ref" / name).read_bytes()
+    with open(tmp_path / "port" / "index_config.json") as f, \
+            open(tmp_path / "ref" / "index_config.json") as g:
+        assert json.load(f) == json.load(g)
+    perm = np.random.default_rng(3).permutation(2500)
+    with open(tmp_path / "port" / "index_meta.pkl", "rb") as f:
+        assert pickle.load(f) == [ids[i] for i in perm]
+    np.testing.assert_array_equal(np.load(tmp_path / "port" / names[0]), rows[perm[:1000]])
+    queries = rows[[17, 2222]]
+    for mode in ("exact", "approx"):
+        got, want = port.search_knn(queries, 5, mode=mode), ref.search_knn(queries, 5, mode=mode)
+        assert_same_hits(got, want, 1e-5)
+        assert [r[0][0] for r in got] == ["d17", "d2222"]
+
+
+def l2_pair(fmt, d, **kw):
+    import jax.numpy as jnp
+
+    jax_kw, port_kw = dict(kw), dict(kw, device="cpu")
+    if fmt == "bfloat16":
+        jax_kw["device_dtype"], port_kw["device_dtype"] = jnp.bfloat16, torch.bfloat16
+    elif fmt in ("int8", "int4"):
+        jax_kw["compression"] = port_kw["compression"] = fmt
+    return TPUIndexer(d, metric="l2", **jax_kw), TorchIndexer(d, metric="l2", **port_kw)
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("fmt", ["float32", "bfloat16", "int8", "int4"])
+def test_l2_index_matches_tpu_indexer(rng, fmt, mode):
+    """Rows of norms 0.5-2 (so int8 fits an alpha): squared distances within
+    1e-5 of their scale (f32 sums in two orders), ids equal but at
+    near-ties; the stored rows find themselves at distance about 0."""
+    d = 256 if fmt == "int4" else 32
+    rows = unit_rows(rng, 3000, d) * rng.uniform(0.5, 2.0, (3000, 1)).astype(np.float32)
+    queries = np.concatenate([rows[[7, 2100]], unit_rows(rng, 3, d)])
+    ref, port = l2_pair(fmt, d)
+    for index in (ref, port):
+        index.index_data([f"d{i}" for i in range(3000)], rows)
+    want = ref.search_knn(queries, 10, mode=mode)
+    got = port.search_knn(queries, 10, mode=mode)
+    scale = max(float(np.abs(w).max()) for _, w in want)
+    assert_same_hits(got, want, 1e-5 * scale)
+    assert port._l2_alpha == ref._l2_alpha
+    assert all(np.all(np.diff(s) >= 0) for _, s in got)  # distances ascending
+    if fmt != "int4":  # int4's score noise exceeds the gap to a stored row's neighbours
+        assert [got[0][0][0], got[1][0][0]] == ["d7", "d2100"]
+        assert abs(got[0][1][0]) < 0.05 * scale
+
+
+@pytest.mark.parametrize("direction", ["tpu_to_torch", "torch_to_tpu"])
+def test_l2_shuffled_int8_index_loads_across_packages(rng, tmp_path, direction):
+    rows = unit_rows(rng, 2000, 32) * rng.uniform(0.5, 2.0, (2000, 1)).astype(np.float32)
+    ids = [f"d{i}" for i in range(2000)]
+    kw = dict(metric="l2", compression="int8", shuffle_rows=True, shuffle_seed=5)
+    if direction == "tpu_to_torch":
+        writer, reader = TPUIndexer(32, **kw), TorchIndexer(32, device="cpu")
+    else:
+        writer, reader = TorchIndexer(32, device="cpu", **kw), TPUIndexer(32)
+    writer.index_data(ids, rows)
+    writer.serialize(str(tmp_path), rows_per_file=800)
+    reader.deserialize_from(str(tmp_path))
+    assert (reader.metric, reader.compression) == ("l2", "int8")
+    queries = rows[[3, 1500]]
+    for mode in ("exact", "approx"):
+        want, got = writer.search_knn(queries, 5, mode=mode), reader.search_knn(queries, 5,
+                                                                             mode=mode)
+        assert_same_hits(got, want, 1e-4)
+        assert [r[0][0] for r in got] == ["d3", "d1500"]
 
 
 def test_retriever_helpers_match_jax(tmp_path):
@@ -208,6 +349,30 @@ def test_engine_slice_matches_jax(tmp_path):
                 assert [d["id"] for d in p] == [d["id"] for d in r]
                 np.testing.assert_allclose([d["score"] for d in p], [d["score"] for d in r],
                                            atol=1e-5)
+    finally:
+        port_eng.close()
+        jax_eng.close()
+
+
+def test_engine_slice_approx_matches_jax(tmp_path):
+    """The slice under ``search_mode="approx"`` (the retriever's mode, which
+    the engine's ``mode=None`` defers to) with two winners a group."""
+    jax_ret, port_ret, texts = build_slice(tmp_path)
+    for ret in (jax_ret, port_ret):
+        ret.search_mode = "approx"
+        ret.indexer.approx_winners = 2
+    jax_eng = JaxRetrievalEngine(jax_ret, max_batch=16, max_wait_ms=20, topk_buckets=(5,))
+    port_eng = RetrievalEngine(port_ret, max_batch=16, max_wait_ms=20, topk_buckets=(5,))
+    try:
+        for i in (0, 4, 9):
+            got = port_eng.search(texts[i:i + 3], topk=5)
+            want = jax_eng.search(texts[i:i + 3], topk=5)
+            for j, (p, r) in enumerate(zip(got, want)):
+                assert p[0]["id"] == f"doc{i + j}"
+                assert [d["id"] for d in p] == [d["id"] for d in r]
+                np.testing.assert_allclose([d["score"] for d in p], [d["score"] for d in r],
+                                           atol=1e-5)
+        assert port_ret.indexer.redispatches == 0  # no exact search ran
     finally:
         port_eng.close()
         jax_eng.close()
