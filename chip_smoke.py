@@ -357,7 +357,8 @@ def plain_search(index, q_pad: np.ndarray, top_docs: int, mode: str):
     capture's flag (None for approx)."""
     from kirag_tpu_torch.ops import approx_topk_mips, exact_topk_mips
 
-    corpus, scales = index._device_corpus, index._device_scales
+    corpus, scales = index._group_view() if mode == "approx" else (index._device_corpus,
+                                                                   index._device_scales)
     qt = torch.from_numpy(q_pad).to(device=corpus.device, dtype=index.device_dtype)
     qs = index._search_queries(qt)
     ok = None
@@ -2531,7 +2532,7 @@ def k5_times(label, index, gen, power, err, query_counts=APPROX_QUERIES,
     version's of 3), each beside its bound."""
     from kirag_tpu_torch.kernels import group_max, group_max_plain
 
-    corpus, scales, quant = index._device_corpus, index._device_scales, index.compression
+    (corpus, scales), quant = index._group_view(), index.compression  # what the search reads
     name = k5_name(quant)
     times = {}
     for n_q in query_counts:
@@ -2627,7 +2628,6 @@ def approx_cli(work: Path, built: dict, decoded: dict, run_a: dict, dev, power) 
     from kirag_tpu_torch.index import TorchIndexer
     from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    reset_launch_counts()
     index_dir = build_index.main(["--embeddings_dir", built["shard_dir"], "--embedding_size",
                                   str(DIM), "--shuffle_rows", "--shuffle_seed", "3",
                                   "--save_dir", str(work / "index_shuffled")], device=dev)
@@ -2661,6 +2661,7 @@ def approx_cli(work: Path, built: dict, decoded: dict, run_a: dict, dev, power) 
             "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns", "2",
             "--topk", "10", "--num_beams", "1", "--save_dir", str(work), "--name", "kirag_C",
             "--save_file", "results.json"]
+    reset_launch_counts()  # run C's launches only, not the reload check's
     t0 = time.perf_counter()
     path = retrieve_cli.main(argv, tokenizer=HashTokenizer(), llm_tokenizer=ByteLevelTokenizer(),
                              aligner_tokenizer=HashTokenizer(), llm=llm)
@@ -2699,6 +2700,8 @@ def dpr_approx(quant: str, codes, scales, queries, sample, same_codes_idx, power
     from kirag_tpu_torch.ops import approx_topk_mips
 
     name = k5_name(quant)
+    groups = -(-DPR_ROWS // 128) * 128  # the groups that hold rows, as the indexer's view
+    codes, scales = codes[:groups], scales[:groups]
     reset_launch_counts()
     idx_by_w, recalls = {}, {}
     t0 = time.perf_counter()

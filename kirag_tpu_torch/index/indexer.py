@@ -329,12 +329,22 @@ class TorchIndexer:
         q[:, self.vector_sz] = 1.0 / self._l2_alpha
         return q
 
+    def _group_view(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The device corpus and its scales cut to the 128-row groups that
+        hold indexed rows: views, no copy. The approximate search reads
+        these, not the padding of the chunk grid, which would give only
+        masked candidates."""
+        n = max(-(-self._device_rows // LANES), 1) * LANES
+        scales = self._device_scales
+        return self._device_corpus[:n], None if scales is None else scales[:n]
+
     def _run_mips(self, queries: torch.Tensor, k: int,
                   mode: str = "exact") -> Tuple[torch.Tensor, torch.Tensor]:
-        corpus, scales = self._device_corpus, self._device_scales
         if mode == "approx":
+            corpus, scales = self._group_view()
             return approx_topk_mips(queries, corpus, k, valid_rows=self._device_rows,
                                     scales=scales, winners_per_group=self.approx_winners)
+        corpus, scales = self._device_corpus, self._device_scales
         if not self._use_kernels():
             kw = dict(chunk_size=min(self.chunk_size, len(corpus)), valid_rows=self._device_rows)
             if self.compression == "int8":

@@ -10,7 +10,8 @@ correlated with similarity (an article's passages in consecutive rows) lowers
 recall: shuffle the rows upstream (``TorchIndexer(shuffle_rows=True)``).
 
 The reference pads the corpus to its 2048-row chunk inside each call; here
-the corpus needs whole 128-row groups only (the indexer pads to them once).
+the corpus needs whole 128-row groups only (the indexer pads to them once,
+and a CUDA corpus off that grid is refused rather than copied per call).
 Groups made of padding give -inf candidates that report row 0, so the result
 is the same either way. ``sharded_approx_topk_mips`` is not ported
 (ROADMAP.md §A: multi-GPU index).
@@ -54,14 +55,18 @@ def approx_topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     to -inf after the peel, as in the reference: a zero pad row may take a
     winner slot of a partly filled last group from a real row that scores
     below 0. Slots without a finite value report row 0; ``row_offset``
-    shifts the other row ids. A corpus not on the 128-row grid is padded
-    with zero rows per call (the indexer pre-pads).
+    shifts the other row ids. A CPU corpus not on the 128-row grid is
+    padded with zero rows per call; a CUDA one raises, since the copy would
+    cost a corpus per search (the indexer pads once).
     """
     quant = _quant_kind(scales, quant)
     n = corpus.shape[0]
     n_valid = n if valid_rows is None else int(valid_rows)
     n_pad = max(-(-n // LANES) * LANES, LANES)
     if n_pad != n:  # scales pad with their rows
+        if corpus.is_cuda:
+            raise ValueError(f"approx_topk_mips: a CUDA corpus needs a positive multiple of "
+                             f"{LANES} rows, got {n}; pad it once (TorchIndexer.to_device)")
         corpus = torch.nn.functional.pad(corpus, (0, 0, 0, n_pad - n))
         if scales is not None:
             scales = torch.nn.functional.pad(scales, (0, 0) * (scales.dim() - 1)

@@ -142,3 +142,25 @@ def test_row_offset_shifts_the_ids(rng):
     vals, idx = approx_topk_mips(tq, tc, 4)  # 4 groups, 4 finite candidates
     vals_o, idx_o = approx_topk_mips(tq, tc, 4, row_offset=10_000)
     assert torch.equal(vals, vals_o) and torch.equal(idx_o, idx + 10_000)
+
+
+def test_indexer_approx_reads_only_the_groups_with_rows(rng):
+    """A corpus padded to the chunk grid (512 rows for 300 at chunk 256) is
+    searched through a view of its first 3 groups: no copy, and the same
+    answer as over the whole padded corpus, whose pad groups give only -inf
+    candidates at row 0 (k = 12 exceeds the 6 candidates of the view)."""
+    from kirag_tpu_torch.index import TorchIndexer
+
+    q, c, _ = integer_case(rng, "float32", 300, 64, n_q=3)
+    index = TorchIndexer(64, device="cpu", exact_impl="kernel", pallas_chunk_size=256,
+                         approx_winners=2)
+    index.index_data(list(range(300)), c)
+    index.to_device()
+    corpus, scales = index._group_view()
+    assert corpus.shape == (384, 64) and scales is None and index._device_corpus.shape[0] == 512
+    assert corpus.data_ptr() == index._device_corpus.data_ptr()
+    want = approx_topk_mips(torch.from_numpy(q), index._device_corpus, 12, valid_rows=300,
+                            winners_per_group=2)
+    got = index._run_mips(torch.from_numpy(q), 12, mode="approx")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0][:, 6:] == -np.inf).all() and (got[1][:, 6:] == 0).all()

@@ -287,6 +287,19 @@ def test_group_max_matches_plain_on_random_data(cuda_device, quant):
     assert torch.equal(got[1][clear], want[1][:, :8][clear])
 
 
+@pytest.mark.cuda
+def test_approx_search_refuses_an_off_grid_cuda_corpus(cuda_device):
+    """On the card the corpus must come on the 128-row grid: padding it
+    would copy the corpus on every search."""
+    from kirag_tpu_torch.ops.approx import approx_topk_mips
+
+    c = torch.ones((200, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        approx_topk_mips(torch.ones((2, 64), device=cuda_device), c, 4)
+    vals, idx = approx_topk_mips(torch.ones((2, 64), device=cuda_device), c[:128], 4)
+    assert idx[:, 0].tolist() == [0, 0] and vals[:, 1:].isinf().all()
+
+
 def bf16_ulps(x: torch.Tensor, n: int = 2) -> float:
     """n bf16 ulps at the largest magnitude of x (8 significant bits)."""
     return n * 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
