@@ -53,7 +53,17 @@ weights at E5-large and Llama-3-8B-Instruct width:
   --shuffle_rows``, ``cli/retrieve --search_mode approx`` (run C, beside
   phase 9 while its LLM is on the card) and ``cli/retrieval_eval``; K5 over
   the DPR-scale codes of phase 11 (d); and phase 4's rows as l2 indexes in
-  float32, int8 and int4 (depth 1280), served exactly and approximately.
+  float32, int8 and int4 (depth 1280), served exactly and approximately;
+- product quantization (phase 14): K1 and K2 with K4's pq4 scoring held
+  against their plain versions at m = 128, 256, 512 (bitwise on integer
+  data); k-means and the encoder on the card; the server of phase 4 over
+  the same rows as a PQ index (m = 256) trained and encoded on the card by
+  ``TorchIndexer(compression="pq")``, with ``mode="approx"`` serving the
+  exact results and a ``serialize`` -> ``deserialize_from`` round trip;
+  ``cli/retrieve --index_folder`` over phase 6's embeddings as a PQ index
+  (run D, beside phase 9); and the DPR corpus's 21,015,324 rows as a PQ
+  index (2.69 GB of codes), searched at Q = 8, 32, 256 with recall@10/@100
+  against the exact float32 top-100.
 
 Every phase raises on failure. The last lines of standard output are the
 card's name and power limit, one JSON object with each kernel's launches,
@@ -339,9 +349,16 @@ def make_requests(n_requests: int, n_texts: int):
     return requests
 
 
+def kernel_quant(compression: str) -> str:
+    """The kernels' corpus format of an index compression ("pq" is scored
+    as "pq4")."""
+    return "pq4" if compression == "pq" else compression
+
+
 def kernel_names(compression: str):
     """The launch counts of K1 and K2 for an index of this compression."""
-    suffix = "" if compression == "none" else f"_{compression}"
+    quant = kernel_quant(compression)
+    suffix = "" if quant == "none" else f"_{quant}"
     return f"stream_capture{suffix}", f"gather_groups{suffix}"
 
 
@@ -367,13 +384,11 @@ def plain_search(index, q_pad: np.ndarray, top_docs: int, mode: str):
                                      scales=scales, winners_per_group=index.approx_winners,
                                      plain=True)
     else:
-        vals, idx, ok = exact_topk_mips(qs, corpus, top_docs, chunk_size=CHUNK,
-                                        valid_rows=index._device_rows, on_miss="flag",
-                                        plain=True, scales=scales)
+        search = dict(chunk_size=CHUNK, valid_rows=index._device_rows, plain=True,
+                      scales=scales, quant=kernel_quant(index.compression))
+        vals, idx, ok = exact_topk_mips(qs, corpus, top_docs, on_miss="flag", **search)
         if not bool(ok):
-            vals, idx = exact_topk_mips(qs, corpus, top_docs, chunk_size=CHUNK,
-                                        valid_rows=index._device_rows, plain=True,
-                                        scales=scales)
+            vals, idx = exact_topk_mips(qs, corpus, top_docs, **search)
     if index.metric == "l2":
         vals = (qt.float() ** 2).sum(dim=1, keepdim=True) - 2.0 * vals
     return vals, idx, ok
@@ -508,7 +523,7 @@ def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> di
     from kirag_tpu_torch.ops.exact import _capture_budget
 
     corpus, scales, valid = index._device_corpus, index._device_scales, index._device_rows
-    quant = index.compression
+    quant = kernel_quant(index.compression)
     k1, k2 = kernel_names(quant)
     b = _capture_budget(K, len(corpus) // CHUNK, CHUNK // 128)
     times = {}
@@ -562,16 +577,19 @@ def search_bound(q, corpus, scales, quant: str, outs):
 
 def gather_bound(q, corpus, scales, quant: str, gsel, cand):
     """K2's bound: the selected groups' rows (each distinct group once) and
-    their scales, the queries and group ids read, the scores written;
-    2 * Q * k * 128 * D operations (rates as in :func:`search_bound`)."""
+    their scales (pq4: the one level table), the queries and group ids read,
+    the scores written; 2 * Q * k * 128 * D operations (rates as in
+    :func:`search_bound`)."""
     n_q, d = q.shape
     groups = int(torch.unique(gsel).numel())
     row_bytes = corpus.shape[1] * corpus.element_size()
-    if scales is not None:
+    shared = nbytes(q, gsel, cand)
+    if quant == "pq4":
+        shared += nbytes(scales)
+    elif scales is not None:
         row_bytes += scales[0].numel() * scales.element_size()
     ops_s = F32_FLOP_S if quant == "none" else BF16_FLOP_S
-    return bound(groups * 128 * row_bytes + nbytes(q, gsel, cand),
-                 2 * gsel.numel() * 128 * d, ops_s)
+    return bound(groups * 128 * row_bytes + shared, 2 * gsel.numel() * 128 * d, ops_s)
 
 
 # ----------------------------------------------------------------- phase 6
@@ -2215,7 +2233,7 @@ def dpr_search(quant: str, codes, scales, queries, sample, power, err) -> dict:
 
     k1, k2 = kernel_names(quant)
     b = _capture_budget(K, len(codes) // CHUNK, CHUNK // 128)
-    search = dict(chunk_size=CHUNK, valid_rows=DPR_ROWS, scales=scales)
+    search = dict(chunk_size=CHUNK, valid_rows=DPR_ROWS, scales=scales, quant=quant)
     reset_launch_counts()
     t0 = time.perf_counter()
     results, redispatched = {}, 0
@@ -2279,14 +2297,16 @@ def dpr_search(quant: str, codes, scales, queries, sample, power, err) -> dict:
             "search_s": search_s, "redispatched": redispatched}
 
 
-def dpr_scale(dev, power, err) -> dict:
+def dpr_scale(dev, power, err) -> tuple:
     """Phase 11 (d): the DPR corpus's 21,015,324 x 1024 seeded unit rows,
     quantized on the card block by block, int4 then int8 (each freed before
     the next): the indexer's search at Q = 8, 32, 256, and recall@10/@100
     against the exact float32 top-100, whose rows are made again from the
     seed block by block on the card while the int8 corpus is built. Queries:
     DPR_SELF stored rows, then stored rows with noise of their own norm
-    added (cosine about 0.7 to the row)."""
+    added (cosine about 0.7 to the row). Returns the results by format and
+    ``{"queries", "sample", "exact"}`` (the float32 top-100 ids) for phase
+    14 (d)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     n_queries = DPR_QUERIES[-1]
     sample = torch.randperm(DPR_ROWS, generator=gen, device=dev)[:n_queries]
@@ -2350,7 +2370,7 @@ def dpr_scale(dev, power, err) -> dict:
                                 for w, idx in approx["idx"].items()}
         log(f"  {quant} approx: recall against the exact float32 top-{K}: " + "; ".join(
             f"W={w} @10 {r[10]:.4f}, @{K} {r[K]:.4f}" for w, r in approx["recall_f32"].items()))
-    return out
+    return out, {"queries": queries, "sample": sample, "exact": exact}
 
 
 # ---------------------------------------------------------------- phase 12
@@ -2790,6 +2810,315 @@ def serve_l2(dev, encoder, collator, host_rows, texts, text_rows, power) -> dict
     return served
 
 
+# ---------------------------------------------------------------- phase 14
+
+# product quantization: the subquantizer counts that K1/K2 take at D = 1024
+# (D / m = 8, 4, 2; m = 256 is the default D / 4 and FAISS's PQ(128, 8),
+# m = 512 FAISS's PQ(256, 8)), the served index's m, and phase 14 (c)'s
+# traffic from 4 threads
+PQ_MS = (128, 256, 512)
+PQ_M = 256
+PQ_REQUESTS = 200
+PQ_REL = 1e-6   # random data: K1/K2 against plain, a share of the largest score
+
+
+def pq_corpus(m: int, n: int, gen, dev, integer: bool):
+    """Random 4-bit PQ codes [n, m/2] and a [16, DIM] level table: small
+    integers (exact in bf16: every score exact in any order), or normal
+    levels of a unit row's scale, rounded to bf16 as ``train_pq`` leaves
+    them."""
+    codes = torch.randint(0, 256, (n, m // 2), generator=gen, device=dev).to(torch.uint8)
+    if integer:
+        table = torch.randint(-3, 4, (16, DIM), generator=gen, device=dev).float()
+    else:
+        table = (torch.randn(16, DIM, generator=gen, device=dev) / math.sqrt(DIM)
+                 ).to(torch.bfloat16).float()
+    return codes, table
+
+
+def check_pq_kernels(dev, gen, err) -> None:
+    """Phase 14 (a): K1 and K2 with K4's pq4 scoring against their plain
+    versions at phase 3's geometry, m = 128, 256, 512, Q = 8, 16, 32. On
+    integer data every output of K1, K2 and the search is bitwise the plain
+    version's, and K1's captures bitwise K2's re-scores; on random levels
+    within PQ_REL of the largest score (the search within ATOL, ids equal
+    but at near-ties)."""
+    from kirag_tpu_torch.kernels import (gather_groups, gather_groups_plain, stream_capture,
+                                         stream_capture_plain)
+    from kirag_tpu_torch.ops import exact_topk_mips, hier_topk
+    from kirag_tpu_torch.ops.exact import _capture_budget
+
+    n, valid = CHECK_ROWS, CHECK_ROWS - 1000
+    b = _capture_budget(K, n // CHUNK, CHUNK // 128)
+    k1, k2 = kernel_names("pq")
+    search = dict(chunk_size=CHUNK, valid_rows=valid, on_miss="flag", quant="pq4")
+    for m in PQ_MS:
+        for data in ("integer", "random"):
+            c, table = pq_corpus(m, n, gen, dev, data == "integer")
+            for n_q in (8, 16, 32):
+                what = f"{data} pq4 m={m} Q={n_q}"
+                if data == "integer":
+                    q = torch.randint(-2, 3, (n_q, DIM), generator=gen, device=dev).float()
+                else:
+                    q = unit_rows(n_q, gen, dev)
+                got = stream_capture(q, c, valid, CHUNK, b, table, "pq4")
+                want = stream_capture_plain(q, c, valid, CHUNK, b, table, "pq4")
+                gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, K)[1], dim=-1).values
+                cand = gather_groups(q, c, gsel, table, "pq4")
+                cand_plain = gather_groups_plain(q, c, gsel, table, "pq4")
+                res = exact_topk_mips(q, c, K, scales=table, **search)
+                ref = exact_topk_mips(q, c, K, scales=table, plain=True, **search)
+                torch.cuda.synchronize()
+                if data == "integer":
+                    for name, x, y in zip(CAPTURE_OUTPUTS, got, want):
+                        if not torch.equal(x, y):
+                            raise AssertionError(f"{what}: K1 {name} differs from plain")
+                    if not torch.equal(cand, cand_plain):
+                        raise AssertionError(f"{what}: K2 differs from plain")
+                    captured = got[2].permute(2, 0, 1).reshape(n_q, -1)
+                    rescored = gather_groups(q, c, captured, table, "pq4")
+                    if not torch.equal(rescored.view(n_q, -1, b, 128).transpose(0, 1),
+                                       got[1].view(-1, n_q, b, 128)):
+                        raise AssertionError(f"{what}: K1's captures differ from K2's "
+                                             "re-scores of the same groups")
+                    for x, y in zip(res, ref):
+                        if not torch.equal(x, y):
+                            raise AssertionError(f"{what}: exact search differs from plain")
+                    log(f"  {what}: K1 5/5 outputs and K2 bitwise equal to plain, K1's "
+                        f"{captured.numel()} captured groups bitwise equal to K2's re-scores; "
+                        f"search bitwise equal, ok={bool(res[2])}")
+                    continue
+                scale = max(float(want[1].abs().max()), float(cand_plain.abs().max()))
+                same = (got[2] == want[2]).permute(0, 2, 1).repeat_interleave(128, dim=2)
+                k1_err = max(float((got[i] - want[i]).abs().max()) for i in (0, 3, 4))
+                k1_err = max(k1_err, float((got[1] - want[1]).abs()[same].max()))
+                k2_err = float((cand - cand_plain).abs().max())
+                if not max(k1_err, k2_err) <= PQ_REL * scale:
+                    raise AssertionError(f"{what}: K1 {k1_err}, K2 {k2_err} from plain, over "
+                                         f"{PQ_REL} of the largest score {scale}")
+                check_topk_close(res[0], res[1], ref[0], ref[1], f"{what} search")
+                err[k1], err[k2] = max(err.get(k1, 0.0), k1_err), max(err.get(k2, 0.0), k2_err)
+                log(f"  {what}: K1 max abs err {k1_err:.3g}, K2 {k2_err:.3g} (largest score "
+                    f"{scale:.3g}; {int((~same).sum()) // 128} captured groups differ at "
+                    f"near-ties), search ok={bool(res[2])}/{bool(ref[2])}")
+            del c, table
+
+
+def check_pq_training(dev, gen, power) -> None:
+    """Phase 14 (b): the card's k-means and encoder. PQ_M subspaces trained
+    on seeded unit rows (the indexer's sample size and iterations): every
+    chosen code's centroid score ``x.c - 0.5 ||c||^2`` within 1e-5 of the
+    row's best, scored again by products and sums (no matmul); codebooks
+    finite and bf16-representable. On integer rows and integer codebooks the
+    card's codes are the nearest centroids that numpy finds in integer
+    arithmetic (ties to the lower centroid), and ``decode_pq`` gives them."""
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.ops.pq import decode_pq, encode_pq, subspace_view, train_pq
+
+    n = TorchIndexer(DIM, device=dev, compression="pq").pq_train_rows
+    rows = unit_rows(n, gen, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codebooks = train_pq(rows, PQ_M, iters=25, seed=SEED)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes = encode_pq(rows, codebooks)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    if not (torch.isfinite(codebooks).all()
+            and torch.equal(codebooks, codebooks.to(torch.bfloat16).float())):
+        raise AssertionError("k-means: codebooks not finite or not bf16-representable")
+    code = torch.cat([codes & 15, codes >> 4], dim=1).long().T              # [m, n]
+    gap, sub = 0.0, subspace_view(rows, PQ_M)
+    for s0 in range(0, PQ_M, 16):
+        cb = codebooks[s0:s0 + 16]
+        scores = (sub[s0:s0 + 16, :, None, :] * cb[:, None]).sum(-1) \
+            - 0.5 * (cb * cb).sum(-1)[:, None, :]                            # [16, n, K]
+        chosen = torch.gather(scores, 2, code[s0:s0 + 16, :, None])[..., 0]
+        gap = max(gap, float((scores.amax(-1) - chosen).max()))
+    if not gap <= 1e-5:
+        raise AssertionError(f"k-means: a chosen centroid scores {gap} below the row's best")
+    ints = torch.randint(-3, 4, (16384, DIM), generator=gen, device=dev).float()
+    int_cb = torch.randint(-3, 4, (PQ_M, 16, DIM // PQ_M), generator=gen, device=dev).float()
+    got = encode_pq(ints, int_cb).cpu().numpy()
+    x = ints.cpu().numpy().astype(np.int64).reshape(len(ints), -1, PQ_M).transpose(2, 0, 1)
+    c = int_cb.cpu().numpy().astype(np.int64)
+    score = 2 * np.einsum("mnd,mkd->mnk", x, c) - (c * c).sum(-1)[:, None, :]
+    nearest = score.argmax(-1).astype(np.uint8)                                # [m, n]
+    want = (nearest[:PQ_M // 2] | (nearest[PQ_M // 2:] << 4)).T
+    recon = np.take_along_axis(c, nearest.astype(np.int64)[..., None], axis=1)  # [m, n, ds]
+    if not (np.array_equal(got, want) and np.array_equal(
+            decode_pq(got, c.astype(np.float32)),
+            recon.transpose(1, 2, 0).reshape(len(ints), DIM).astype(np.float32))):
+        raise AssertionError("encode_pq: the card's codes are not the nearest centroids")
+    log(f"  k-means on the card: {n} seeded unit rows x {DIM}, m={PQ_M} (ds={DIM // PQ_M}), 25 "
+        f"iterations in {train_s:.2f} s, encoded in {encode_s:.3f} s (host clock); every "
+        f"chosen centroid within {gap:.3g} of the row's best (products and sums, no matmul); "
+        f"codebooks finite and bf16-representable; {len(ints)} integer rows: the codes are the "
+        "nearest centroids in integer arithmetic, decode_pq gives them back")
+    log(f"  [{power}] k-means {train_s:.2f} s, encoding {n / encode_s:.0f} rows/s")
+
+
+def serve_pq(work: Path, dev, encoder, collator, host_rows, texts, text_rows, text_emb, gen,
+             power, err) -> dict:
+    """Phase 14 (c): the retrieval server over phase 4's 1,000,000 host rows
+    as a PQ index (``TorchIndexer(compression="pq", n_subquantizers=PQ_M)``:
+    codebooks trained on the card from the strided sample, the rows encoded
+    on the card block by block), PQ_REQUESTS requests from 4 threads and
+    lone ones, each served batch against the plain search over the same
+    codes; ``mode="approx"`` gives the exact results; K1 and K2 against
+    plain and timed; then ``serialize`` -> ``deserialize_from`` gives the
+    same codes and results without training again."""
+    import kirag_tpu_torch.index.indexer as indexer_module
+    from kirag_tpu_torch.index import TorchIndexer
+
+    label = "pq index"
+    index = TorchIndexer(DIM, device=dev, compression="pq", n_subquantizers=PQ_M,
+                         pallas_chunk_size=CHUNK)
+    index.index_data(list(range(len(host_rows))), host_rows)
+    t0 = time.perf_counter()
+    index.to_device()
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    codes, table = index._device_corpus, index._device_scales
+    log(f"  {label}: {len(host_rows)} rows, codebooks trained on the card from "
+        f"{min(len(host_rows), index.pq_train_rows)} strided rows and the rows encoded block "
+        f"by block by "
+        f"to_device in {place_s:.2f} s (host clock, copies included): codes "
+        f"{tuple(codes.shape)} {nbytes(codes) / 1e9:.3f} GB + level table {tuple(table.shape)}")
+    stats = serve(label, encoder, collator, index, texts, text_rows, power,
+                  n_requests=PQ_REQUESTS)
+    exact = index.search_knn(text_emb, K)
+    approx = index.search_knn(text_emb, K, mode="approx")
+    if not all(a[0] == e[0] and np.array_equal(a[1], e[1]) for a, e in zip(approx, exact)):
+        raise AssertionError(f"{label}: mode='approx' differs from the exact search")
+    timed = index_kernels(label, index, gen, power, err)
+
+    trained = []
+    train = indexer_module.train_pq
+    indexer_module.train_pq = lambda *a, **kw: trained.append(1) or train(*a, **kw)
+    try:
+        t0 = time.perf_counter()
+        index.serialize(str(work / "index_pq_1m"))
+        loaded = TorchIndexer(DIM, device=dev, pallas_chunk_size=CHUNK)
+        loaded.deserialize_from(str(work / "index_pq_1m"))
+        again = loaded.search_knn(text_emb, K)
+        round_s = time.perf_counter() - t0
+    finally:
+        indexer_module.train_pq = train
+    if not (loaded.compression == "pq" and loaded.pq_m == PQ_M and not trained
+            and np.array_equal(loaded._pq_codebooks, index._pq_codebooks)
+            and torch.equal(loaded._device_corpus, codes)
+            and all(a[0] == e[0] and np.array_equal(a[1], e[1]) for a, e in zip(again, exact))):
+        raise AssertionError(f"{label}: the reloaded index differs (compression "
+                             f"{loaded.compression}, m {loaded.pq_m}, trained {len(trained)})")
+    shutil.rmtree(work / "index_pq_1m", ignore_errors=True)
+    log(f"  {label}: mode='approx' serves the exact results; serialize -> deserialize_from in "
+        f"{round_s:.2f} s: the same codebooks (no training), codes and results for the "
+        f"{len(text_emb)} texts")
+    return {"served": stats, "timed": timed}
+
+
+def pq_cli(work: Path, built: dict, decoded: dict, dev, power) -> dict:
+    """Phase 14 (c), run D beside phase 9 while its LLM is on the card:
+    phase 6's embeddings as a PQ index (``TorchIndexer(compression="pq")``
+    -> ``serialize``; the CLI's ``build_index`` has no PQ choice, as in the
+    reference), then ``cli/retrieve --index_folder`` over it for one
+    question with phase 9's LLM."""
+    from kirag_tpu_torch.cli import retrieve as retrieve_cli
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    index = TorchIndexer(DIM, device=dev, compression="pq", n_subquantizers=PQ_M)
+    index.index_data(built["ids"], built["stored"])
+    index_dir = work / "index_pq"
+    index.serialize(str(index_dir))
+    cfg = json.loads((index_dir / "index_config.json").read_text())
+    if not (cfg["compression"] == "pq" and cfg["pq_m"] == PQ_M
+            and (index_dir / "pq_codebooks.npy").exists()):
+        raise AssertionError(f"PQ index: config {cfg}")
+    del index
+    llm = ({**decoded["params"], "layers": decoded["params"]["layers"][:KIRAG_LAYERS]},
+           dataclasses.replace(decoded["config"], num_hidden_layers=KIRAG_LAYERS))
+    argv = ["--dataset", "hotpotqa", "--query_file", str(work / "questions.json"),
+            "--num_queries", "1", "--corpus", "wikipedia", "--corpus_path", str(built["tsv"]),
+            "--index_folder", str(index_dir), "--embedding_size", str(DIM),
+            "--retriever_model_name_or_path", str(built["model_dir"]), "--llm",
+            "Meta-Llama-3-8B-Instruct", "--llm_quant_bits", "4", "--aligner_model", "e5",
+            "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns", "2",
+            "--topk", "10", "--num_beams", "1", "--save_dir", str(work), "--name", "kirag_D",
+            "--save_file", "results.json"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    path = retrieve_cli.main(argv, tokenizer=HashTokenizer(), llm_tokenizer=ByteLevelTokenizer(),
+                             aligner_tokenizer=HashTokenizer(), llm=llm)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    results = json.loads(Path(path).read_text())
+    ids = set(built["ids"])
+    if not (len(results) == 1 and results[0]["ctxs"] and "paths" in results[0]
+            and all(c["id"] in ids for c in results[0]["ctxs"])
+            and counts["stream_capture_pq4"] > 0 and counts["int4_matmul"] > 0
+            and counts["flash_attention"] > 0):
+        raise AssertionError(f"run D: results lack ctxs or paths, hold ids outside the index, "
+                             f"or a kernel of the path was not launched: {counts}")
+    log(f"  run D (cli/retrieve --index_folder over phase 6's embeddings as a PQ index, m="
+        f"{PQ_M}, {len(built['ids'])} rows): {wall:.2f} s, {len(results[0]['ctxs'])} ctxs, "
+        f"every id in the index; launches { {k: v for k, v in counts.items() if v} }")
+    log(f"  [{power}] run D: {wall:.2f} s")
+    return {"launches": counts, "wall": wall}
+
+
+def dpr_pq(dev, power, err, dpr: dict) -> dict:
+    """Phase 14 (d): the DPR corpus's 21,015,324 seeded unit rows (phase 11
+    (d)'s blocks) as a PQ index, m = PQ_M, built as the indexer builds it:
+    pass 1 makes every block and keeps the evenly strided training sample,
+    k-means on the card, pass 2 makes the blocks again and encodes them
+    into the codes; then phase 11 (d)'s search at Q = 8, 32, 256 with K1/K2
+    timed (plain at Q = 8) and recall@10/@100 against phase 11 (d)'s exact
+    float32 top-100 (no limit: seeded unit rows are PQ's hardest case)."""
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.ops.pq import encode_pq, pq_level_table, train_pq
+
+    n_train = TorchIndexer(DIM, device=dev, compression="pq").pq_train_rows
+    step = max(1, DPR_ROWS // n_train)
+    picks = torch.arange(0, DPR_ROWS, step, device=dev)[:n_train]
+    sample = torch.empty((n_train, DIM), device=dev)
+    t0 = time.perf_counter()
+    for i, start in enumerate(range(0, DPR_ROWS, GEN_BLOCK)):
+        rows = dpr_block(i, min(GEN_BLOCK, DPR_ROWS - start), dev)
+        inside = (picks >= start) & (picks < start + len(rows))
+        sample[inside] = rows[picks[inside] - start]
+    torch.cuda.synchronize()
+    pass1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codebooks = train_pq(sample, PQ_M, iters=25, seed=SEED)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    del sample
+    n_pad = -(-DPR_ROWS // CHUNK) * CHUNK
+    codes = torch.zeros((n_pad, PQ_M // 2), dtype=torch.uint8, device=dev)
+    t0 = time.perf_counter()
+    for i, start in enumerate(range(0, DPR_ROWS, GEN_BLOCK)):
+        rows = dpr_block(i, min(GEN_BLOCK, DPR_ROWS - start), dev)
+        codes[start:start + len(rows)] = encode_pq(rows, codebooks, batch=GEN_BLOCK)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    table = torch.from_numpy(pq_level_table(codebooks.cpu().numpy())).to(dev)
+    log(f"  pq4: pass 1 made {DPR_ROWS} rows and kept {n_train} strided ones in {pass1_s:.2f} s; "
+        f"k-means (m={PQ_M}, 25 iterations) {train_s:.2f} s; pass 2 made and encoded them in "
+        f"{encode_s:.2f} s (host clock); codes {nbytes(codes) / 1e9:.3f} GB + level table")
+    out = dpr_search("pq4", codes, table, dpr["queries"], dpr["sample"], power, err)
+    out["gb"] = nbytes(codes) / 1e9
+    del codes
+    torch.cuda.empty_cache()
+    out["recall"] = r = {k: recall(out["idx"], dpr["exact"], k) for k in (10, K)}
+    log(f"  pq4: recall@10 {r[10]:.4f}, recall@{K} {r[K]:.4f} against the exact float32 top-{K} "
+        f"({len(dpr['exact'])} queries; {DPR_SELF} stored rows, the rest near one)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this needs an NVIDIA GPU", file=sys.stderr)
@@ -2902,6 +3231,9 @@ def main() -> int:
         phase("phase 12 (c): build_index --shuffle_rows, then cli/retrieve --search_mode approx "
               "(run C, beside phase 9 while its LLM is on the card) and cli/retrieval_eval")
         approx_run = approx_cli(work, built, decoded, kirag["A"], dev, power)
+        phase("phase 14 (c), run D: cli/retrieve --index_folder over phase 6's embeddings as a "
+              "PQ index (beside phase 9 while its LLM is on the card)")
+        pq_run = pq_cli(work, built, decoded, dev, power)
         del decoded["params"]
         torch.cuda.empty_cache()
 
@@ -2925,13 +3257,25 @@ def main() -> int:
         phase(f"phase 13: l2 indexes (float32, int8, int4) over {N_ROWS} x {DIM}, exact and "
               "approximate serving")
         served_l2 = serve_l2(dev, encoder, collator, host_rows, texts, text_rows, power)
+        phase(f"phase 14 (a): K1/K2 with K4's pq4 scoring vs plain versions ({CHECK_ROWS} x "
+              f"{DIM}, m = {PQ_MS}, chunk {CHUNK}, k={K})")
+        check_pq_kernels(dev, gen, err)
+        phase("phase 14 (b): k-means and the PQ encoder on the card")
+        check_pq_training(dev, gen, power)
+        phase(f"phase 14 (c): the retrieval server over {N_ROWS} x {DIM} as a PQ index "
+              f"(m={PQ_M})")
+        served_pq = serve_pq(work, dev, encoder, collator, host_rows, texts, text_rows,
+                             text_emb, gen, power, err)
         del encoder, model, host_rows
         torch.cuda.empty_cache()
         phase("phase 11 (c): build_index --compression int4 and int8 over phase 6's shards")
         cli_q = quantized_cli(work, built, dev)
         phase(f"phase 11 (d) and 12 (d): the DPR scale, {DPR_ROWS} x {DIM} on the card, int4 "
               "then int8, exact and approximate search")
-        dpr = dpr_scale(dev, power, err)
+        dpr, dpr_ref = dpr_scale(dev, power, err)
+        phase(f"phase 14 (d): the DPR scale as a PQ index (m={PQ_M}), {DPR_ROWS} x {DIM} "
+              "encoded on the card")
+        dpr["pq4"] = dpr_pq(dev, power, err, dpr_ref)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2939,14 +3283,15 @@ def main() -> int:
     # index build's largest bucket; K6's at gate_proj, NF4, 4 rows (a decode
     # step's largest per-layer projection at the Generator's batch); K3's
     # backward kernels' at the aligner's bf16 query batch. Launches: every
-    # main-path run (phases 4, 6, 8, 9, 10's CLI run, 11 b-d, 12 b-d and 13),
-    # not the comparisons.
+    # main-path run (phases 4, 6, 8, 9, 10's CLI run, 11 b-d, 12 b-d, 13 and
+    # 14 c-d), not the comparisons.
     paths = [s["launches"] for s in served.values()] + [built["launches"]] + [
         r["launches"] for r in kirag.values()] + [trained["launches"]] + [
         s["launches"] for s in served_q.values()] + [
         r["launches"] for r in (*cli_q.values(), *dpr.values())] + [
         s["launches"] for s in (*served_a.values(), *served_l2.values())] + [
-        approx_run["launches"]] + [dpr[q]["approx"]["launches"] for q in QUANTS]
+        approx_run["launches"], served_pq["served"]["launches"], pq_run["launches"]] + [
+        dpr[q]["approx"]["launches"] for q in QUANTS]
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     launches["int4_matmul"] += decoded["launches"]
     idle = [k for k, n in launches.items() if n == 0]
@@ -3004,16 +3349,17 @@ def main() -> int:
                               "plain_ms and library_ms: the whole backward (dq, dk, dv), "
                               "the plain version and scaled_dot_product_attention's "
                               "backward with the same-segment mask"})
-    # K4 (int8/int4 scoring inside K1 and K2): times at the DPR scale, Q=8
+    # K4 (int8/int4/pq4 scoring inside K1 and K2): times at the DPR scale, Q=8
     # (where the plain versions were timed too), the other Qs beside them
-    for quant in QUANTS:
+    for quant in (*QUANTS, "pq4"):
         times = dpr[quant]["times"]
         for key, kernel, line in (("k1", "stream_capture", 467), ("k2", "gather_groups", 785)):
             variant = f"{kernel}_{quant}"
             t = times[DPR_QUERIES[0]]
             kernels.append({
                 "name": variant, "route": "cuda", "source": f"kirag_tpu_torch/csrc/{kernel}.cu",
-                "replaces": "kirag_tpu/ops/pallas_exact.py:224", "launches": launches[variant],
+                "replaces": "kirag_tpu/ops/pallas_exact.py:" + ("235" if quant == "pq4" else "224"),
+                "launches": launches[variant],
                 "max_abs_err": err[variant], "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
                 "bound_ms": t[f"{key}_bound"][0], "bound_by": t[f"{key}_bound"][1],
                 "library_ms": None,
@@ -3027,6 +3373,13 @@ def main() -> int:
                          for n_q in DPR_QUERIES},
                 "recall_at_10": dpr[quant]["recall"][10],
                 "recall_at_100": dpr[quant]["recall"][K]})
+            if quant == "pq4":  # the served 1M index, Q = 8, 16, 32
+                kernels[-1]["at"] += f"; by_q_1m: the served {N_ROWS}-row PQ index"
+                kernels[-1]["by_q_1m"] = {
+                    str(n_q): {"ms": t1[kernel], "plain_ms": t1[kernel + "_plain"],
+                               "bound_ms": t1[kernel + "_bound"][0],
+                               "bound_by": t1[kernel + "_bound"][1]}
+                    for n_q, t1 in served_pq["timed"].items()}
             if variant == "stream_capture_int4":  # the depths the card took since this slice
                 kernels[-1]["by_depth"] = {
                     f"D={d} Q={n_q} ({CHECK_ROWS} rows)": {

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel kirag_tpu/ops/pallas_exact.py::_gather_kernel
 // (launched by _twopass_gather, the exact fallback of the stream search), over
-// a float32, bfloat16, int8 or packed-int4 corpus (K4's scoring, score.cuh).
+// a float32, bfloat16, int8, packed-int4 or 4-bit PQ corpus (K4's scoring,
+// score.cuh).
 // For queries [Q, D] and sorted group ids gsel [Q, k] it writes
 // cand[q, j, l] = score(q, row gsel[q, j] * 128 + l). A group id outside the
 // corpus gives zeros, as the reference's one-hot accumulation does.
@@ -33,14 +34,16 @@ __global__ void __launch_bounds__(THREADS)
   using T = typename F::T;
   extern __shared__ __align__(16) float smem[];
   const int d_pad = padded_depth(d);
-  float* q_s = smem;                           // [d_pad]
-  T* tiles = reinterpret_cast<T*>(q_s + d_pad);  // [STAGES][LANES][stride]
+  float* q_s = smem;                                         // [d_pad]
+  char* table_s = reinterpret_cast<char*>(q_s + d_pad);      // pq4's level table
+  T* tiles = reinterpret_cast<T*>(table_s + table_bytes<F>(d));  // [STAGES][LANES][stride]
   const int t = threadIdx.x;
   const int half = t / LANES;
   const int lane = t % LANES;
   const int qi = blockIdx.y;
 
   stage_queries(q_s, q, qi, 1, n_q, d, d_pad);
+  const float* sc = stage_table<F>(table_s, scales, d);
   __syncthreads();
 
   T* my_tiles = tiles + half * (STAGES / 2) * tile_elems<T>();  // this half's pipeline
@@ -50,7 +53,7 @@ __global__ void __launch_bounds__(THREADS)
     const int64_t g = in_k ? gsel[static_cast<int64_t>(qi) * k + slot] : -1;
     const bool active = g >= 0 && g < n_groups;
     float acc[1];
-    score_group<F, LANES, 1, STAGES / 2>(acc, corpus, scales, g * LANES, d, q_s, 0, my_tiles,
+    score_group<F, LANES, 1, STAGES / 2>(acc, corpus, sc, g * LANES, d, q_s, 0, my_tiles,
                                          lane, lane, active);
     if (in_k) {
       cand[(static_cast<int64_t>(qi) * k + slot) * LANES + lane] = active ? acc[0] : 0.f;
@@ -62,7 +65,8 @@ template <typename F>
 cudaError_t launch(const float* q, const void* corpus, const float* scales, const int* gsel,
                    float* cand, int n_q, int d, int k, int64_t n_rows, cudaStream_t stream) {
   using T = typename F::T;
-  const size_t smem = sizeof(float) * padded_depth(d) + sizeof(T) * STAGES * tile_elems<T>();
+  const size_t smem = sizeof(float) * padded_depth(d) + table_bytes<F>(d) +
+                      sizeof(T) * STAGES * tile_elems<T>();
   auto kernel = gather_groups_kernel<F>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -160,7 +160,7 @@ extern "C" int kirag_group_max(const float* q, const void* corpus, int kind,
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_format(kind, d, [&](auto fmt) {
+  return with_format<false>(kind, d, [&](auto fmt) {  // no pq4: approx on PQ serves exact
     using F = decltype(fmt);
     switch (qpt) {
       case 2:

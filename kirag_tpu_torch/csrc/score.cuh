@@ -30,7 +30,16 @@
 //         `p = p * s; out = out + p`). Byte t of a packed row holds dim t
 //         (low nibble, block t / 128) and dim t + D/2 (high nibble, block
 //         t / 128 + NB/2): the low-plane partials fold as their block ends,
-//         the high-plane ones wait in NB/2 registers a query.
+//         the high-plane ones wait in NB/2 registers a query;
+//   pq4:  4-bit product-quantization codes, m / 2 bytes a row (byte t:
+//         subspace t in the low nibble, t + m / 2 in the high one; subspace
+//         s owns dims j * m + s, j < DS = D / m), decoded through the level
+//         table rounded to bf16 once. One fma chain per (component j,
+//         plane p) over the m / 2 dims [j * m + p * m / 2, +m / 2) in
+//         ascending order, then s = p_(0,lo);  s = s + p_(0,hi);
+//         s = s + p_(1,lo); ... (the reference's `out = out + p`). Walking a
+//         row's bytes in order advances all 2 * DS chains at once, so they
+//         stay in registers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,19 +60,49 @@ constexpr float FIN_MIN = -1e30f;   // finite mask value of the reference kernel
 
 __host__ __device__ constexpr int padded_depth(int d) { return (d + KD - 1) / KD * KD; }
 
-// Corpus formats: the stored element T and, for packed int4, NBH = D / 256,
-// the 128-byte blocks of a row, fixed at compile time so that the high-plane
-// partials stay in registers.
-template <typename T_, int NBH_ = 0>
+// Corpus formats: the stored element T; for packed int4, NBH = D / 256, the
+// 128-byte blocks of a row; for pq4, DS = D / m, the components of a
+// subspace. Both are fixed at compile time so that the partials stay in
+// registers.
+template <typename T_, int NBH_ = 0, int DS_ = 0>
 struct Fmt {
   using T = T_;
   static constexpr int NBH = NBH_;
+  static constexpr int DS = DS_;
 };
 using F32 = Fmt<float>;
 using BF16 = Fmt<__nv_bfloat16>;
 using I8 = Fmt<int8_t>;
 template <int NBH>
 using I4 = Fmt<uint8_t, NBH>;
+template <int DS>
+using PQ4 = Fmt<uint8_t, 0, DS>;
+
+// pq4's level table lives in shared memory as bf16 [m][16][DS]: entry
+// (s, code, j) = L[code, j * m + s], so one vector read gives a code's DS
+// component values, and the 32 rows of a warp reading subspace s hit one
+// 32 * DS-byte span. Other formats stage no table.
+template <typename F>
+__host__ __device__ constexpr int table_bytes(int d) {
+  return F::DS > 0 ? d * 16 * static_cast<int>(sizeof(__nv_bfloat16)) : 0;
+}
+
+// Copy the wrapper's bf16 [m][16][DS] table (`scales`, global memory) into
+// `table_s` (16-byte aligned shared memory) and return it, for pq4; return
+// `scales` unchanged for the other formats. The caller synchronises the
+// block before the first score_group.
+template <typename F>
+__device__ __forceinline__ const float* stage_table(void* table_s, const float* __restrict__ scales,
+                                                    int d) {
+  if constexpr (F::DS > 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(scales);
+    uint4* dst = static_cast<uint4*>(table_s);
+    for (int i = threadIdx.x; i < table_bytes<F>(d) / 16; i += blockDim.x) dst[i] = src[i];
+    return static_cast<const float*>(table_s);
+  } else {
+    return scales;
+  }
+}
 
 // Unpack one 16-byte vector of corpus values into f32.
 __device__ __forceinline__ void unpack(const uint4& raw, const float*, float* out) {
@@ -287,10 +326,123 @@ __device__ __forceinline__ void score_group_int4(float (&acc)[NQ],
   }
 }
 
+// DS bf16 levels at `p` (aligned to their size) as f32.
+template <int DS>
+__device__ __forceinline__ void load_levels(const __nv_bfloat16* p, float (&out)[DS]) {
+  if constexpr (DS == 1) {
+    out[0] = __uint_as_float(static_cast<unsigned>(*reinterpret_cast<const uint16_t*>(p)) << 16);
+  } else {
+    constexpr int WORDS = DS / 2;
+    unsigned w[WORDS];
+    if constexpr (DS == 2) {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    } else if constexpr (DS == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) {
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// The pq4 form of fma_tile: bytes c0 .. c0 + KD - 1 of this thread's row
+// (subspaces c0 + c and m2 + c0 + c, m2 = m / 2) advance part[j][p][.], the
+// chain of component j and plane p, by the dims j * m + p * m2 + c0 + c in
+// ascending order. Bytes at or past m2 (the zeros of a tile's tail) are not
+// codes and are skipped (m2 % 16 == 0).
+template <int DS, int NQ>
+__device__ __forceinline__ void fma_tile_pq4(float (&part)[DS][2][NQ], const float* q,
+                                             int q_stride, int c0, int m, int m2,
+                                             const __nv_bfloat16* table, const uint8_t* trow) {
+#pragma unroll
+  for (int c = 0; c < KD; c += 16) {
+    if (c0 + c >= m2) break;
+    const uint4 raw = *reinterpret_cast<const uint4*>(trow + c);
+    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // bytes c0 + c + 4i .. +3
+      const int s0 = c0 + c + 4 * i;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        float v[4][DS];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const unsigned code = (w[i] >> (8 * b + 4 * p)) & 15u;
+          load_levels<DS>(table + ((p * m2 + s0 + b) * 16 + code) * DS, v[b]);
+        }
+#pragma unroll
+        for (int jq = 0; jq < NQ; ++jq) {
+#pragma unroll
+          for (int j = 0; j < DS; ++j) {
+            const float4 qv =
+                *reinterpret_cast<const float4*>(q + jq * q_stride + j * m + p * m2 + s0);
+            float a = part[j][p][jq];
+            a = __fmaf_rn(qv.x, v[0][j], a);
+            a = __fmaf_rn(qv.y, v[1][j], a);
+            a = __fmaf_rn(qv.z, v[2][j], a);
+            a = __fmaf_rn(qv.w, v[3][j], a);
+            part[j][p][jq] = a;
+          }
+        }
+      }
+    }
+  }
+}
+
+// score_group for pq4 with DS = D / m (see the header note); `table` is the
+// staged level table (stage_table).
+template <int DS, int NT, int NQ, int NS>
+__device__ __forceinline__ void score_group_pq4(float (&acc)[NQ],
+                                                const uint8_t* __restrict__ corpus,
+                                                const float* table, int64_t row0, int d,
+                                                const float* q, int q_stride, uint8_t* tiles,
+                                                int t, int lane, bool active) {
+  const int m = d / DS;
+  const int m2 = m / 2;  // bytes of a row
+  const int n_tiles = (m2 + KD - 1) / KD;
+  const __nv_bfloat16* lv = reinterpret_cast<const __nv_bfloat16*>(table);
+  float part[DS][2][NQ];
+#pragma unroll
+  for (int j = 0; j < DS; ++j) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int jq = 0; jq < NQ; ++jq) part[j][p][jq] = 0.f;
+    }
+  }
+  tiles_begin<uint8_t, NT, NS>(tiles, corpus, row0, m2, n_tiles, t, active);
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint8_t* trow =
+        tiles_next<uint8_t, NT, NS>(tiles, corpus, row0, m2, n_tiles, it, t, lane, active);
+    if (active) fma_tile_pq4<DS, NQ>(part, q, q_stride, it * KD, m, m2, lv, trow);
+  }
+#pragma unroll
+  for (int jq = 0; jq < NQ; ++jq) {
+    float s = __fadd_rn(part[0][0][jq], part[0][1][jq]);
+#pragma unroll
+    for (int j = 1; j < DS; ++j) {
+      s = __fadd_rn(s, part[j][0][jq]);
+      s = __fadd_rn(s, part[j][1][jq]);
+    }
+    acc[jq] = s;
+  }
+}
+
 // THE scoring routine of every kernel. Scores the 128 rows [row0, row0 + 128)
 // against NQ query rows (q, q + q_stride, ...) of depth d: on return acc[j]
 // holds the score of query j and row row0 + lane. `scales` is read for
-// quantized formats only (int8: [rows], int4: [rows][D / 128]). The NT
+// quantized formats only (int8: [rows], int4: [rows][D / 128], pq4: the
+// level table that stage_table put in shared memory). The NT
 // threads of the calling group (index t within it) stream the rows through NS
 // tiles at `tiles`, so that NS - 1 tiles are being copied while one is
 // multiplied. Every thread of the block must call it the same number of times
@@ -306,6 +458,9 @@ __device__ __forceinline__ void score_group(float (&acc)[NQ],
   if constexpr (F::NBH > 0) {
     score_group_int4<F::NBH, NT, NQ, NS>(acc, corpus, scales, row0, q, q_stride, tiles, t, lane,
                                          active);
+  } else if constexpr (F::DS > 0) {
+    score_group_pq4<F::DS, NT, NQ, NS>(acc, corpus, scales, row0, d, q, q_stride, tiles, t,
+                                       lane, active);
   } else {
     constexpr bool kInt8 = std::is_same<T, int8_t>::value;
     const float row_scale = kInt8 && active ? scales[row0 + lane] : 0.f;
@@ -336,11 +491,28 @@ __device__ __forceinline__ void stage_queries(float* q_s, const float* __restric
 }
 
 // Call fn(Fmt{}) with the format of `kind` (0 float32, 1 bfloat16, 2 int8,
-// 3 packed int4 of depth d = 256 * NBH, NBH = 1 .. 8, so D = 256 .. 2048);
+// 3 packed int4 of depth d = 256 * NBH, NBH = 1 .. 8, so D = 256 .. 2048;
+// 4 + log2(DS) pq4 with DS = D / m in {1, 2, 4, 8}, when kPQ);
 // cudaErrorInvalidValue for anything else. At NBH = 8 a thread keeps 8 x NQ
-// high-plane partials and 16 scales in registers (ptxas -v reports any spill).
-template <typename Fn>
+// high-plane partials and 16 scales in registers, at DS = 8 pq4 keeps
+// 16 x NQ partials (ptxas -v reports any spill).
+template <bool kPQ = true, typename Fn>
 cudaError_t with_format(int kind, int d, Fn&& fn) {
+  if (kind >= 4 && kind <= 7) {
+    if constexpr (kPQ) {
+      switch (kind) {
+        case 4:
+          return fn(PQ4<1>{});
+        case 5:
+          return fn(PQ4<2>{});
+        case 6:
+          return fn(PQ4<4>{});
+        default:
+          return fn(PQ4<8>{});
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (kind) {
     case 0:
       return fn(F32{});

@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel kirag_tpu/ops/pallas_exact.py::_stream_kernel
 // (launched by _stream_body with select="capdom") over a float32, bfloat16,
-// int8 or packed-int4 corpus; the quantized scoring (K4, `_chunk_scores`) is
-// score.cuh's. For each corpus chunk and each query it emits, as that kernel
+// int8, packed-int4 or 4-bit PQ corpus; the quantized scoring (K4,
+// `_chunk_scores`) is score.cuh's. For each corpus chunk and each query it emits, as that kernel
 // does:
 //   gmax   [C, G, Q] f32  maximum of every 128-row group; rows >= valid_rows
 //                         count as FIN_MIN, and the maximum is clamped to FIN_MIN
@@ -18,8 +18,9 @@
 // column, one 16-byte query read per four fmas); at 1M x 1024 that takes
 // longer than reading the corpus once from HBM (4 GB f32 at 3.35 TB/s,
 // about 1.2 ms). The corpus is read once per query tile. A quantized corpus
-// moves 4x (int8) or 8x (int4) fewer bytes for the same fmas, plus the
-// conversion of each code to f32, so it is bound by the CUDA cores even more.
+// moves 4x (int8), 8x (int4) or 32x (pq4 at m = D / 4) fewer bytes for the
+// same fmas, plus the decode of each code (a conversion, or pq4's table
+// read), so it is bound by the CUDA cores even more.
 //
 // What the design does about it: one block per (query tile, chunk), query
 // tiles on the fast grid axis so the tiles of one chunk run together and share
@@ -59,7 +60,8 @@ __global__ void __launch_bounds__(THREADS)
   const int d_pad = padded_depth(d);
   const int g_count = chunk_size / LANES;
   float* q_s = smem;                                     // [NQ][d_pad]
-  T* tiles = reinterpret_cast<T*>(q_s + NQ * d_pad);     // [STAGES][LANES][stride]
+  char* table_s = reinterpret_cast<char*>(q_s + NQ * d_pad);  // pq4's level table
+  T* tiles = reinterpret_cast<T*>(table_s + table_bytes<F>(d));  // [STAGES][LANES][stride]
   float* gmax_s = reinterpret_cast<float*>(tiles + STAGES * tile_elems<T>());  // [NQ][g]
   float* red_s = gmax_s + NQ * g_count;                  // [8 warps][QPT]
   int* sel_s = reinterpret_cast<int*>(red_s + 8 * QPT);  // [NQ][b]
@@ -75,6 +77,7 @@ __global__ void __launch_bounds__(THREADS)
   const int64_t chunk_row0 = static_cast<int64_t>(chunk) * chunk_size;
 
   stage_queries(q_s, q, q0, NQ, n_q, d, d_pad);
+  const float* sc = stage_table<F>(table_s, scales, d);
   __syncthreads();
 
   // 1. group maxima. Half h scores block queries h, h + 2, ... against row
@@ -82,7 +85,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int g = 0; g < g_count; ++g) {
     const int64_t row0 = chunk_row0 + static_cast<int64_t>(g) * LANES;
     float acc[QPT];
-    score_group<F, THREADS, QPT, STAGES>(acc, corpus, scales, row0, d, q_s + half * d_pad,
+    score_group<F, THREADS, QPT, STAGES>(acc, corpus, sc, row0, d, q_s + half * d_pad,
                                          2 * d_pad, tiles, t, lane, true);
     const bool valid = row0 + lane < valid_rows;
 #pragma unroll
@@ -161,7 +164,7 @@ __global__ void __launch_bounds__(THREADS)
     const int bi = active ? p % b : 0;
     const int64_t row0 = chunk_row0 + static_cast<int64_t>(sel_s[lq * b + bi]) * LANES;
     float acc[1];
-    score_group<F, LANES, 1, STAGES / 2>(acc, corpus, scales, row0, d, q_s + lq * d_pad, 0,
+    score_group<F, LANES, 1, STAGES / 2>(acc, corpus, sc, row0, d, q_s + lq * d_pad, 0,
                                          my_tiles, lane, lane, active);
     if (active) {
       capture[(static_cast<int64_t>(chunk) * n_q + q0 + lq) * (static_cast<int64_t>(b) * LANES) +
@@ -180,7 +183,8 @@ cudaError_t launch(const float* q, const void* corpus, const float* scales, floa
   const int d_pad = padded_depth(d);
   const int g_count = chunk_size / LANES;
   const size_t smem = sizeof(float) * (NQ * d_pad + NQ * g_count + 8 * QPT) +
-                      sizeof(T) * STAGES * tile_elems<T>() + sizeof(int) * NQ * b;
+                      table_bytes<F>(d) + sizeof(T) * STAGES * tile_elems<T>() +
+                      sizeof(int) * NQ * b;
   auto kernel = stream_capture_kernel<F, QPT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -200,7 +204,9 @@ cudaError_t launch(const float* q, const void* corpus, const float* scales, floa
 // Queries f32 [n_q, d]; corpus [num_chunks * chunk_size, *] in the format of
 // `kind` (0 float32 [., d], 1 bfloat16 [., d], 2 int8 [., d] with f32 row
 // scales [rows], 3 packed int4 [., d / 2] with f32 block scales
-// [rows, d / 128]; `scales` is null for 0 and 1); outputs as in the header
+// [rows, d / 128], 4 + log2(d / m) 4-bit PQ codes [., m / 2] with the bf16
+// level table [m][16][d / m] (score.cuh); `scales` is null for 0 and 1);
+// outputs as in the header
 // note. qpt in {2, 4} queries per thread sets the query tile (2 * qpt queries
 // per block). Returns the launch's cudaError_t.
 extern "C" int kirag_stream_capture(const float* q, const void* corpus, int kind,

@@ -4,9 +4,14 @@
 The corpus matrix lives on ``device`` (default: the GPU; the CPU only when
 the caller passes ``device="cpu"``) in ``device_dtype`` (float32 or
 bfloat16), or compressed (``compression="int8"``: int8 codes and a scale a
-row; ``"int4"``: packed 4-bit codes and a scale per 128-dim block),
-quantized block by block where it lies; pre-padded with zero rows to whole
-128-row groups, and to the search chunk grid for the kernel search.
+row; ``"int4"``: packed 4-bit codes and a scale per 128-dim block; ``"pq"``:
+4-bit product-quantization codes, ``pq_m / 2`` bytes a row, scored through
+a [16, D] level table), quantized block by block where it lies; pre-padded
+with zero rows to whole 128-row groups, and to the search chunk grid for the
+kernel search. PQ codebooks are trained once, on the device, from an evenly
+strided sample of at most ``pq_train_rows`` rows (:mod:`kirag_tpu_torch.ops.pq`),
+and are kept across appends and written by ``serialize``; FAISS's
+``IndexPQ(n_subquantizers, n_bits)`` request maps onto them.
 
 ``search_knn(mode="exact")``: on a CUDA device the exact stream-capture
 search (:func:`kirag_tpu_torch.ops.exact.exact_topk_mips`) in flag mode,
@@ -15,7 +20,9 @@ False; on the CPU the plain scan (:func:`topk_mips`, or
 :func:`topk_mips_int8`/:func:`topk_mips_int4`). ``mode="approx"``: the
 group-sampled search (:func:`kirag_tpu_torch.ops.approx.approx_topk_mips`,
 ``approx_winners`` candidates per 128-row group) on any device, its kernel
-on the card and its plain version on the CPU.
+on the card and its plain version on the CPU. A PQ index is always searched
+by the exact search over its codes (the kernels on the card, their plain
+versions on the CPU), ``mode="approx"`` included, as in the reference.
 
 Metrics: ``inner_product`` (scores descending, faiss.IndexFlatIP) and
 ``l2`` (squared distances ascending, faiss.IndexFlatL2), served by the same
@@ -26,8 +33,8 @@ they are placed or written (the id map moves with them), which approximate
 search needs on corpora whose similar rows sit together.
 
 The on-disk format (``serialize``/``deserialize_from``: raw f32 shards, the
-metric and compression in the config) is the reference's, so an index
-written by ``TPUIndexer`` loads here and back.
+metric, compression and ``pq_m`` in the config, ``pq_codebooks.npy``) is the
+reference's, so an index written by ``TPUIndexer`` loads here and back.
 """
 
 from __future__ import annotations
@@ -42,10 +49,16 @@ import numpy as np
 import torch
 
 from kirag_tpu_torch.device import require_cuda
-from kirag_tpu_torch.kernels.exact import LANES, MAX_INT4_DIM
+from kirag_tpu_torch.kernels.exact import (
+    LANES,
+    MAX_INT4_DIM,
+    pq_kernel_geometry_error,
+    row_scales,
+)
 from kirag_tpu_torch.ops.approx import approx_topk_mips
 from kirag_tpu_torch.ops.exact import exact_topk_mips
 from kirag_tpu_torch.ops.mips import topk_mips
+from kirag_tpu_torch.ops.pq import encode_pq, pq_level_table, resolve_subquantizers, train_pq
 from kirag_tpu_torch.ops.quantized import (
     INT4_BLOCK,
     quantize_rows_int4_torch,
@@ -74,10 +87,8 @@ def _not_ported(what: str, entry: str) -> NotImplementedError:
 
 
 def _check_compression(compression: str, vector_sz: int) -> None:
-    if compression == "pq":
-        raise _not_ported("compression='pq'", "PQ")
-    if compression not in ("none", "int8", "int4"):
-        raise KeyError(f"compression must be 'none', 'int8' or 'int4', got {compression}")
+    if compression not in ("none", "int8", "int4", "pq"):
+        raise KeyError(f"compression must be 'none', 'int8', 'int4' or 'pq', got {compression}")
     if compression == "int4" and vector_sz % 256 != 0:
         raise ValueError("int4 compression needs vector_sz % 256 == 0 (plane packing), "
                          f"got {vector_sz}")
@@ -92,21 +103,39 @@ class TorchIndexer:
     elsewhere (the reference's pallas/xla split). ``approx_winners`` (1 to
     128) is the approximate search's candidates per 128-row group: 1 samples
     one winner a group, 2 removes the dominant same-group miss, 128 is exact.
+
+    ``n_subquantizers`` with ``compression="none"`` is FAISS's
+    ``IndexPQ(n_subquantizers, n_bits)`` request: it selects ``"pq"`` with
+    ``pq_m`` 4-bit subquantizers, twice as many when ``n_bits`` > 4 (equal
+    bytes a row). With ``compression="pq"`` it is ``pq_m`` itself (default
+    ``vector_sz / 4``). PQ serves the inner product only, from device memory.
     """
 
     def __init__(self, vector_sz: int, metric: str = "inner_product",
                  device=None, device_dtype: torch.dtype = torch.float32,
                  chunk_size: int = 262144, compression: str = "none",
-                 n_subquantizers: int = 0, mesh=None,
+                 n_subquantizers: int = 0, n_bits: int = 8, mesh=None,
                  max_device_rows: Optional[int] = None, exact_impl: str = "auto",
                  pallas_chunk_size: int = 16384, pallas_select: str = "capdom",
                  shuffle_rows: bool = False, shuffle_seed: int = 0, approx_winners: int = 1):
+        faiss_pq_request = n_subquantizers > 0 and compression == "none"
+        if faiss_pq_request:
+            compression = "pq"
+            logger.info(f"PQ({n_subquantizers}x{n_bits}b) requested -> codebook product "
+                        "quantization")
         if metric not in SUPPORTED_METRICS:
             raise KeyError(f"metric must be one of {SUPPORTED_METRICS}, got {metric}")
-        if n_subquantizers:
-            raise _not_ported(f"product quantization (n_subquantizers={n_subquantizers})",
-                              "PQ")
         _check_compression(compression, vector_sz)
+        self.pq_m = 0
+        if compression == "pq":
+            if metric != "inner_product":
+                raise ValueError("compression='pq' supports inner_product only (quantize the "
+                                 "l2 norm column via int4/int8 compression instead)")
+            if max_device_rows is not None:
+                raise ValueError("compression='pq' keeps the corpus on the device; streaming "
+                                 "mode does not compose with it")
+            self.pq_m = resolve_subquantizers(vector_sz, n_subquantizers or max(2, vector_sz // 4),
+                                              n_bits if faiss_pq_request else 4)
         if mesh is not None:
             raise _not_ported("a sharded index over a device mesh", "multi-GPU index")
         if max_device_rows is not None:
@@ -137,6 +166,11 @@ class TorchIndexer:
         self.shuffle_seed = shuffle_seed
         self._shuffled = False
         self.approx_winners = approx_winners
+        # pq: codebooks train once (the first to_device or serialize, or load
+        # with the index) and persist across appends; codes re-encode
+        self.pq_train_rows = 131072
+        self.pq_iters = 25
+        self._pq_codebooks: Optional[np.ndarray] = None
         # l2: the power-of-two factor of the norm column (int8 only, see
         # _fit_l2_alpha); exact in f32 and bf16, and so is its inverse
         self._l2_alpha = 1.0
@@ -144,7 +178,8 @@ class TorchIndexer:
         self._host_chunks: List[np.ndarray] = []
         self.index_id_to_db_id: np.ndarray = np.empty((0,), dtype=object)
         self._device_corpus: Optional[torch.Tensor] = None
-        self._device_scales: Optional[torch.Tensor] = None  # int8 [N], int4 [N, D/128]
+        # int8 [N], int4 [N, D/128], pq the level table [16, D]
+        self._device_scales: Optional[torch.Tensor] = None
         self._device_rows: int = 0
         # searches whose capture flag was False and that ran the checked search
         self.redispatches = 0
@@ -153,6 +188,10 @@ class TorchIndexer:
 
     def __len__(self) -> int:
         return len(self.index_id_to_db_id)
+
+    @property
+    def ntotal(self) -> int:
+        return len(self)
 
     def index_data(self, ids: Sequence, embeddings: np.ndarray) -> None:
         """Append rows; the device copy refreshes on the next search."""
@@ -229,13 +268,19 @@ class TorchIndexer:
         return d
 
     def _check_device_depth(self) -> None:
-        """The card's int4 kernels take depths up to MAX_INT4_DIM: raise here
+        """The card's int4 kernels take depths up to MAX_INT4_DIM, its pq4
+        kernels the geometries of :func:`pq_kernel_geometry_error`: raise here
         rather than at the first search."""
-        if (self.device.type == "cuda" and self.compression == "int4"
-                and self._l2_aug_width() > MAX_INT4_DIM):
+        if self.device.type != "cuda":
+            return
+        if self.compression == "int4" and self._l2_aug_width() > MAX_INT4_DIM:
             raise ValueError(f"an int4 index of depth {self._l2_aug_width()} (vector_sz "
                              f"{self.vector_sz}, metric {self.metric}) exceeds the CUDA "
                              f"kernels' {MAX_INT4_DIM}")
+        if self.compression == "pq":
+            why = pq_kernel_geometry_error(self.vector_sz, self.pq_m)
+            if why is not None:
+                raise ValueError(f"a pq index of {self.pq_m} subquantizers: {why}")
 
     def _l2_augment(self, rows: np.ndarray) -> np.ndarray:
         """Append the ``alpha * -0.5 * ||c||^2`` column (and int4's 255 zero
@@ -264,6 +309,18 @@ class TorchIndexer:
             return
         self._l2_alpha = float(2.0 ** round(np.log2(m_el / m_nc)))
 
+    def _train_pq(self, n: int) -> None:
+        """Train the PQ codebooks once, on the device, from an evenly strided
+        sample of the rows (a head sample of a corpus in article order would
+        be biased), seeded with ``shuffle_seed``."""
+        if self._pq_codebooks is not None:
+            return
+        n_train = min(n, self.pq_train_rows)
+        step = max(1, n // n_train)
+        sample = self._host_take(np.arange(0, n, step)[:n_train])
+        self._pq_codebooks = train_pq(torch.from_numpy(sample).to(self.device), self.pq_m,
+                                      iters=self.pq_iters, seed=self.shuffle_seed).cpu().numpy()
+
     def _use_kernels(self) -> bool:
         if self.exact_impl == "auto":
             return self.device.type == "cuda"
@@ -276,7 +333,9 @@ class TorchIndexer:
         of at least one chunk to the chunk grid (either search would
         otherwise pad a copy per call). Pad rows are masked through
         ``valid_rows``. A compressed corpus is quantized on the device, one
-        host block at a time; its pad rows hold zero codes and zero scales.
+        host block at a time; its pad rows hold zero codes and zero scales
+        (PQ: zero codes, which decode to centroid 0, and the one level table;
+        the codebooks are trained first if they are not there yet).
         An l2 corpus is augmented on the host (:meth:`_l2_augment`) block by
         block on the way."""
         self._maybe_shuffle()
@@ -295,6 +354,11 @@ class TorchIndexer:
             mat = torch.zeros((n_pad, d // 2), dtype=torch.uint8, device=self.device)
             scales = torch.zeros((n_pad, d // INT4_BLOCK), dtype=torch.float32,
                                  device=self.device)
+        elif self.compression == "pq":
+            self._train_pq(n)
+            codebooks = torch.from_numpy(self._pq_codebooks).to(self.device)
+            mat = torch.zeros((n_pad, self.pq_m // 2), dtype=torch.uint8, device=self.device)
+            scales = torch.from_numpy(pq_level_table(self._pq_codebooks)).to(self.device)
         else:
             mat = torch.zeros((n_pad, d), dtype=self.device_dtype, device=self.device)
         for start in range(0, n, _HOST_BLOCK):
@@ -310,6 +374,8 @@ class TorchIndexer:
                 mat[block, cols], scales[block] = quantize_rows_int8_torch(rows)
             elif self.compression == "int4":
                 mat[block], scales[block] = quantize_rows_int4_torch(rows)
+            elif self.compression == "pq":
+                mat[block] = encode_pq(rows, codebooks)
             else:
                 mat[block, cols] = rows.to(self.device_dtype)
         self._device_corpus = mat
@@ -333,13 +399,39 @@ class TorchIndexer:
         """The device corpus and its scales cut to the 128-row groups that
         hold indexed rows: views, no copy. The approximate search reads
         these, not the padding of the chunk grid, which would give only
-        masked candidates."""
+        masked candidates. PQ's level table belongs to every row."""
         n = max(-(-self._device_rows // LANES), 1) * LANES
-        scales = self._device_scales
-        return self._device_corpus[:n], None if scales is None else scales[:n]
+        return (self._device_corpus[:n],
+                row_scales(self._device_scales, slice(0, n), self._kernel_quant))
+
+    @property
+    def _kernel_quant(self) -> str:
+        """The kernels' name of this index's corpus format."""
+        return "pq4" if self.compression == "pq" else self.compression
+
+    def _kernel_search(self, queries: torch.Tensor, k: int, **kw):
+        """The exact stream-capture search in flag mode; a False flag
+        re-dispatches the checked search, which re-scores on a miss."""
+        search = dict(chunk_size=self.pallas_chunk_size, valid_rows=self._device_rows,
+                      select=self.pallas_select, scales=self._device_scales, **kw)
+        vals, idx, ok = exact_topk_mips(queries, self._device_corpus, k, on_miss="flag",
+                                        **search)
+        if bool(ok):
+            return vals, idx
+        self.redispatches += 1
+        logger.info("stream capture missed a selected group; re-dispatching "
+                    "the checked exact search")
+        return exact_topk_mips(queries, self._device_corpus, k, **search)
 
     def _run_mips(self, queries: torch.Tensor, k: int,
                   mode: str = "exact") -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.compression == "pq":
+            # the codes are scored by K4's pq4 format only, as in the
+            # reference, which serves mode="approx" with this exact search
+            if mode == "approx":
+                logger.info("mode='approx' on a pq index: serving the exact search over "
+                            "the codes")
+            return self._kernel_search(queries, k, quant=self._kernel_quant)
         if mode == "approx":
             corpus, scales = self._group_view()
             return approx_topk_mips(queries, corpus, k, valid_rows=self._device_rows,
@@ -352,28 +444,17 @@ class TorchIndexer:
             if self.compression == "int4":
                 return topk_mips_int4(queries, corpus, scales, k, **kw)
             return topk_mips(queries, corpus, k, **kw)
-        # flag mode: the capture result and its exactness flag; a False flag
-        # re-dispatches the checked search, which re-scores on a miss
-        vals, idx, ok = exact_topk_mips(queries, corpus, k,
-                                        chunk_size=self.pallas_chunk_size,
-                                        valid_rows=self._device_rows,
-                                        select=self.pallas_select, on_miss="flag",
-                                        scales=scales)
-        if bool(ok):
-            return vals, idx
-        self.redispatches += 1
-        logger.info("stream capture missed a selected group; re-dispatching "
-                    "the checked exact search")
-        return exact_topk_mips(queries, corpus, k, chunk_size=self.pallas_chunk_size,
-                               valid_rows=self._device_rows, select=self.pallas_select,
-                               scales=scales)
+        return self._kernel_search(queries, k)
 
     def search_knn(self, query_vectors: np.ndarray, top_docs: int,
-                   index_batch_size: int = 1024, mode: str = "exact") -> List[Tuple[List[str], np.ndarray]]:
+                   index_batch_size: int = 1024, verbose: bool = False,
+                   mode: str = "exact") -> List[Tuple[List[str], np.ndarray]]:
         """Per-query ``([db_id, ...], scores)``, best first: inner products
         descending, or for l2 squared distances ascending. ``mode``: "exact"
         or "approx" (the group-sampled search). Query batches are
-        zero-padded to power-of-two row counts, as in the reference."""
+        zero-padded to power-of-two row counts, as in the reference.
+        ``verbose`` is accepted for the reference's signature and changes
+        nothing, as there."""
         if mode not in ("exact", "approx"):
             raise ValueError(f"mode must be exact|approx, got {mode!r}")
         if len(self) == 0:
@@ -407,7 +488,9 @@ class TorchIndexer:
     def serialize(self, dir_path: str, rows_per_file: int = 1_000_000) -> None:
         """Write ``index_{start}_{end}.npy`` shard files of the raw f32 rows
         (in the shuffled order under ``shuffle_rows``), the id map and the
-        config, in the reference's layout."""
+        config, in the reference's layout; for PQ also the codebooks
+        (``pq_codebooks.npy``, trained first if need be), so that a reload
+        gives the same codes without training again."""
         self._maybe_shuffle()
         os.makedirs(dir_path, exist_ok=True)
         n = len(self)
@@ -419,10 +502,25 @@ class TorchIndexer:
             files.append(name)
         with open(os.path.join(dir_path, "index_meta.pkl"), "wb") as f:
             pickle.dump(list(self.index_id_to_db_id), f)
+        if self.compression == "pq":
+            self._train_pq(n)
+            np.save(os.path.join(dir_path, "pq_codebooks.npy"), self._pq_codebooks)
         with open(os.path.join(dir_path, "index_config.json"), "w") as f:
             json.dump({"vector_sz": self.vector_sz, "metric": self.metric,
-                       "compression": self.compression, "nrows": n, "pq_m": 0,
+                       "compression": self.compression, "nrows": n, "pq_m": self.pq_m,
                        "files": files}, f)
+
+    def _load_codebooks(self, dir_path: str) -> Optional[np.ndarray]:
+        """``pq_codebooks.npy`` of a PQ index ([pq_m, 16, D / pq_m] f32), or
+        None when the index has none (they are trained at the first use)."""
+        path = os.path.join(dir_path, "pq_codebooks.npy")
+        if not os.path.exists(path):
+            return None
+        codebooks = np.load(path)
+        want = (self.pq_m, 16, self.vector_sz // max(self.pq_m, 1))
+        if codebooks.shape != want:
+            raise ValueError(f"pq_codebooks.npy holds {codebooks.shape}, the config {want}")
+        return codebooks.astype(np.float32)
 
     def deserialize_from(self, dir_path: str, mmap: bool = True) -> None:
         """Load an index written by :meth:`serialize` or by ``TPUIndexer``."""
@@ -440,6 +538,9 @@ class TorchIndexer:
             compression = cfg.get("compression", self.compression)
             _check_compression(compression, self.vector_sz)
             self.metric, self.compression = metric, compression
+            if compression == "pq":
+                self.pq_m = cfg.get("pq_m", self.pq_m)
+                self._pq_codebooks = self._load_codebooks(dir_path)
             self._check_device_depth()
             files = cfg.get("files")
         mode = "r" if mmap else None

@@ -15,6 +15,7 @@ from kirag_tpu_torch.kernels.common import launch_counts, reset_launch_counts
 from kirag_tpu_torch.kernels.exact import (
     gather_groups,
     gather_groups_plain,
+    pq_kernel_geometry_error,
     quant_scores,
     stream_capture,
     stream_capture_plain,
@@ -38,6 +39,7 @@ __all__ = [
     "int4_matmul",
     "int4_matmul_plain",
     "launch_counts",
+    "pq_kernel_geometry_error",
     "quant_scores",
     "reset_launch_counts",
     "stream_capture",

@@ -28,6 +28,7 @@ from kirag_tpu_torch.kernels.exact import (
     _corpus_dim,
     _kernel_args,
     _launch_name,
+    _ptr,
     _tensors,
     check_corpus,
     quant_scores,
@@ -37,11 +38,13 @@ _PLAIN_ROWS = 1 << 16  # corpus rows the plain version scores at a time
 
 
 def _check_group_max(queries, corpus, winners: int, scales, quant: str) -> None:
+    if quant == "pq4":  # the reference serves approximate search on PQ as exact search
+        raise ValueError("K5 takes no pq4 corpus: search a PQ index exactly")
     check_corpus(corpus, scales, quant)
     n = corpus.shape[0]
     if n == 0 or n % LANES:
         raise ValueError(f"corpus rows {n} must be a positive multiple of {LANES}")
-    if queries.dim() != 2 or queries.shape[1] != _corpus_dim(corpus, quant) or \
+    if queries.dim() != 2 or queries.shape[1] != _corpus_dim(corpus, scales, quant) or \
             queries.shape[0] < 1:
         raise ValueError(f"queries {tuple(queries.shape)} do not match a {quant} corpus "
                          f"{tuple(corpus.shape)}")
@@ -63,10 +66,10 @@ def group_max(queries: torch.Tensor, corpus: torch.Tensor, winners: int = 1,
     _check_group_max(queries, corpus, winners, scales, quant)
     if on_cpu(queries, *_tensors(corpus, scales)):
         return group_max_plain(queries, corpus, winners, scales, quant)
-    _check_kernel_operands(corpus, quant)
+    _check_kernel_operands(corpus, scales, quant)
     lib = load_library()
     n_q, d = queries.shape
-    q, kind, scales_ptr = _kernel_args(queries, corpus, scales, quant)
+    q, kind, operand = _kernel_args(queries, corpus, scales, quant)
     dev = corpus.device
     groups = corpus.shape[0] // LANES
     gmax = torch.empty((n_q, winners, groups), dtype=torch.float32, device=dev)
@@ -74,7 +77,7 @@ def group_max(queries: torch.Tensor, corpus: torch.Tensor, winners: int = 1,
     qpt = 2 if n_q <= 8 else 4  # K1's query tiles (kernels/exact.py)
     with torch.cuda.device(dev):
         err = lib.kirag_group_max(
-            q.data_ptr(), corpus.data_ptr(), kind, scales_ptr, gmax.data_ptr(),
+            q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand), gmax.data_ptr(),
             gidx.data_ptr(), n_q, d, corpus.shape[0], winners, qpt,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib, "group_max")

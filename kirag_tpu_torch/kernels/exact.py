@@ -7,7 +7,7 @@ PyTorch version, which computes the same function with f32 products and f32
 sums (a CUDA kernel cannot run on the CPU). Each launch adds one to the
 wrapper's count in :func:`~kirag_tpu_torch.kernels.common.launch_counts`,
 under ``stream_capture``/``gather_groups`` for a float corpus and with an
-``_int8``/``_int4`` suffix for a quantized one.
+``_int8``/``_int4``/``_pq4`` suffix for a quantized one.
 
 Both kernels score a float32 or bfloat16 corpus, or a quantized one (K4, the
 in-kernel dequant of ``kirag_tpu.ops.pallas_exact._chunk_scores``), named by
@@ -15,7 +15,12 @@ in-kernel dequant of ``kirag_tpu.ops.pallas_exact._chunk_scores``), named by
 
 - ``"int8"``: int8 codes [N, D] and f32 row scales [N];
 - ``"int4"``: packed uint8 [N, D/2] (byte j: dim j in the low nibble, dim
-  j + D/2 in the high one) and f32 block scales [N, D/128], level n - 7.5.
+  j + D/2 in the high one) and f32 block scales [N, D/128], level n - 7.5;
+- ``"pq4"``: 4-bit product-quantization codes, packed uint8 [N, m/2] (byte
+  t: subspace t in the low nibble, t + m/2 in the high one), and the f32
+  level table [16, D] (:func:`kirag_tpu_torch.ops.pq.pq_level_table`) in the
+  ``scales`` slot. The table belongs to every row: it is not padded or
+  sliced with them.
 
 :func:`quant_scores` states their arithmetic.
 """
@@ -25,6 +30,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from kirag_tpu_torch.kernels.build import load_library
 from kirag_tpu_torch.kernels.common import count_launch, on_cpu, raise_on
@@ -32,13 +38,34 @@ from kirag_tpu_torch.kernels.common import count_launch, on_cpu, raise_on
 LANES = 128
 FIN_MIN = -1e30
 INT4_BLOCK = 128
-# the kernels' corpus formats (csrc/score.cuh's with_format)
-_KIND = {torch.float32: 0, torch.bfloat16: 1, "int8": 2, "int4": 3}
+PQ_LEVELS = 16
+# the kernels' corpus formats (csrc/score.cuh's with_format; pq4 adds
+# log2(D / m) to its kind)
+_KIND = {torch.float32: 0, torch.bfloat16: 1, "int8": 2, "int4": 3, "pq4": 4}
 
 
-def _corpus_dim(corpus: torch.Tensor, quant: str) -> int:
+def _corpus_dim(corpus: torch.Tensor, scales: Optional[torch.Tensor], quant: str) -> int:
     """The vector depth D of a corpus stored in ``quant``'s format."""
+    if quant == "pq4":
+        return scales.shape[1]
     return 2 * corpus.shape[1] if quant == "int4" else corpus.shape[1]
+
+
+def row_scales(scales: Optional[torch.Tensor], rows, quant: str) -> Optional[torch.Tensor]:
+    """The scales of the corpus rows ``rows``: the pq4 level table belongs
+    to every row and is returned whole."""
+    return scales if scales is None or quant == "pq4" else scales[rows]
+
+
+def pad_rows(corpus: torch.Tensor, scales: Optional[torch.Tensor], n_pad: int,
+             quant: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``corpus`` and its scales with zero rows appended up to ``n_pad``
+    rows (the pq4 level table stays whole, as in :func:`row_scales`)."""
+    extra = n_pad - corpus.shape[0]
+    corpus = torch.nn.functional.pad(corpus, (0, 0, 0, extra))
+    if scales is not None and quant != "pq4":
+        scales = torch.nn.functional.pad(scales, (0, 0) * (scales.dim() - 1) + (0, extra))
+    return corpus, scales
 
 
 def check_corpus(corpus: torch.Tensor, scales: Optional[torch.Tensor], quant: str) -> None:
@@ -52,10 +79,22 @@ def check_corpus(corpus: torch.Tensor, scales: Optional[torch.Tensor], quant: st
         if scales is not None:
             raise ValueError("a float corpus takes no scales")
         return
+    if quant == "pq4":
+        if corpus.dtype != torch.uint8:
+            raise TypeError(f"a pq4 corpus is torch.uint8 codes, got {corpus.dtype}")
+        m = 2 * corpus.shape[1]
+        if (scales is None or scales.dim() != 2 or scales.shape[0] != PQ_LEVELS
+                or scales.shape[1] % m or not scales.is_contiguous()):
+            raise ValueError(f"pq4 needs a contiguous [{PQ_LEVELS}, D] level table with "
+                             f"D % {m} == 0 for codes {tuple(corpus.shape)}, got "
+                             f"{None if scales is None else tuple(scales.shape)}")
+        if scales.dtype != torch.float32:
+            raise TypeError(f"the level table must be float32, got {scales.dtype}")
+        return
     want = {"int8": (torch.int8, (corpus.shape[0],)),
             "int4": (torch.uint8, (corpus.shape[0], 2 * corpus.shape[1] // INT4_BLOCK))}
     if quant not in want:
-        raise ValueError(f"quant must be none|int8|int4, got {quant!r}")
+        raise ValueError(f"quant must be none|int8|int4|pq4, got {quant!r}")
     dtype, shape = want[quant]
     if corpus.dtype != dtype:
         raise TypeError(f"a {quant} corpus is {dtype}, got {corpus.dtype}")
@@ -70,12 +109,30 @@ def check_corpus(corpus: torch.Tensor, scales: Optional[torch.Tensor], quant: st
 
 
 MAX_INT4_DIM = 2048  # csrc/score.cuh's with_format: int4 D = 256 * NBH, NBH = 1 .. 8
+MAX_PQ_DIM = 2048    # pq4: the table ([m][16][D/m] bf16, 32 bytes a dim) in shared memory
+PQ_DS = (1, 2, 4, 8)  # pq4's D / m that with_format instantiates
 
 
-def _check_kernel_operands(corpus, quant: str) -> None:
+def pq_kernel_geometry_error(d: int, m: int) -> Optional[str]:
+    """Why the CUDA kernels cannot score a pq4 corpus of depth d with m
+    subquantizers, or None when they can: D / m in PQ_DS, m / 2 a multiple of
+    16 (16-byte code reads), D at most MAX_PQ_DIM."""
+    if m < 2 or d % m or d // m not in PQ_DS or (m // 2) % 16 or d > MAX_PQ_DIM:
+        return (f"the pq4 kernels take D / m in {PQ_DS}, m / 2 % 16 == 0 and D <= "
+                f"{MAX_PQ_DIM}, got D={d}, m={m}")
+    return None
+
+
+def _check_kernel_operands(corpus, scales, quant: str) -> None:
     """What the CUDA kernels take beyond the plain versions: 16-byte vector
-    reads of the corpus rows, and int4 depths up to MAX_INT4_DIM."""
-    d = _corpus_dim(corpus, quant)
+    reads of the corpus rows, int4 depths up to MAX_INT4_DIM and pq4's
+    geometries."""
+    d = _corpus_dim(corpus, scales, quant)
+    if quant == "pq4":
+        why = pq_kernel_geometry_error(d, 2 * corpus.shape[1])
+        if why is not None or corpus.data_ptr() % 16:
+            raise ValueError(why or "the CUDA kernels need a 16-byte aligned corpus")
+        return
     vec = 16 if quant == "int8" else 8
     if d % vec or corpus.data_ptr() % 16:
         raise ValueError(f"the CUDA kernels need D % {vec} == 0 and a 16-byte aligned "
@@ -85,13 +142,39 @@ def _check_kernel_operands(corpus, quant: str) -> None:
                          f"256, got D={d}")
 
 
+# the pq4 kernels' copy of each level table, made at its first launch and
+# kept while the table lives and is not written
+_PQ_TABLES = WeakTensorKeyDictionary()
+
+
+def _pq_kernel_table(scales: torch.Tensor, m: int) -> torch.Tensor:
+    """The [16, D] level table rounded to bf16 and laid out [m][16][D/m]
+    (csrc/score.cuh's table_bytes), built once per table."""
+    hit = _PQ_TABLES.get(scales)
+    if hit is not None and hit[0] == scales._version:
+        return hit[1]
+    ds = scales.shape[1] // m
+    table = scales.to(torch.bfloat16).view(PQ_LEVELS, ds, m).permute(2, 0, 1).contiguous()
+    _PQ_TABLES[scales] = (scales._version, table)
+    return table
+
+
 def _kernel_args(queries, corpus, scales, quant: str):
     """The kernel's queries (f32; rounded to bf16 first for a quantized
-    corpus, as the reference does), format code and scales pointer."""
+    corpus, as the reference does), format code and scales (pq4: the
+    kernels' copy of the level table, :func:`_pq_kernel_table`)."""
     if quant == "none":
         return queries.to(torch.float32).contiguous(), _KIND[corpus.dtype], None
     q = queries.to(torch.bfloat16).to(torch.float32).contiguous()
-    return q, _KIND[quant], scales.data_ptr()
+    if quant == "pq4":
+        m = 2 * corpus.shape[1]
+        ds = scales.shape[1] // m
+        return q, _KIND[quant] + ds.bit_length() - 1, _pq_kernel_table(scales, m)
+    return q, _KIND[quant], scales
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_name(kernel: str, quant: str) -> str:
@@ -108,10 +191,28 @@ def quant_scores(queries: torch.Tensor, corpus: torch.Tensor,
     scale. "int4": queries rounded to bf16; per 128-dim block b the f32 dot
     product p_b with the levels n - 7.5, then ``out = p_0 * s_0``,
     ``out = out + p_b * s_b`` in block order (the reference's rounding).
+    "pq4": queries and the level table rounded to bf16; per component j and
+    nibble plane p the f32 dot product p_(j,p) of the query dims
+    ``[j*m + p*m/2, +m/2)`` with the codes' levels there, then
+    ``out = p_(0,lo)``, ``out = out + p_(0,hi)``, ``out = out + p_(1,lo)``, ...
     """
     if quant == "none":
         return queries.to(torch.float32) @ corpus.to(torch.float32).T
     q = queries.to(torch.bfloat16).to(torch.float32)
+    if quant == "pq4":
+        m2 = corpus.shape[1]
+        m = 2 * m2
+        levels = scales.to(torch.bfloat16).to(torch.float32)               # [16, D]
+        codes = corpus.long()
+        col = torch.arange(m2, device=corpus.device)
+        out = None
+        for j in range(levels.shape[1] // m):
+            for p, nib in ((0, codes & 15), (1, codes >> 4)):
+                off = j * m + p * m2
+                dec = levels[:, off:off + m2].T.reshape(-1)[col * PQ_LEVELS + nib]  # [n, m2]
+                part = q[:, off:off + m2] @ dec.T
+                out = part if out is None else out + part
+        return out
     if quant == "int8":
         return (q @ corpus.to(torch.float32).T) * scales.to(torch.float32)[None, :]
     n, half = corpus.shape
@@ -131,7 +232,7 @@ def quant_scores(queries: torch.Tensor, corpus: torch.Tensor,
 
 def _capture_geometry(queries, corpus, scales, quant: str, chunk_size: int, b: int):
     check_corpus(corpus, scales, quant)
-    if queries.dim() != 2 or queries.shape[1] != _corpus_dim(corpus, quant) or \
+    if queries.dim() != 2 or queries.shape[1] != _corpus_dim(corpus, scales, quant) or \
             queries.shape[0] < 1:
         raise ValueError(f"queries {tuple(queries.shape)} do not match a {quant} corpus "
                          f"{tuple(corpus.shape)}")
@@ -166,10 +267,10 @@ def stream_capture(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
                                                      chunk_size, b)
     if on_cpu(queries, *_tensors(corpus, scales)):
         return stream_capture_plain(queries, corpus, valid_rows, chunk_size, b, scales, quant)
-    _check_kernel_operands(corpus, quant)
+    _check_kernel_operands(corpus, scales, quant)
     lib = load_library()
     n_q, d = queries.shape
-    q, kind, scales_ptr = _kernel_args(queries, corpus, scales, quant)
+    q, kind, operand = _kernel_args(queries, corpus, scales, quant)
     dev = corpus.device
     gmax = torch.empty((num_chunks, groups_per_chunk, n_q), dtype=torch.float32, device=dev)
     capture = torch.empty((num_chunks, n_q, b * LANES), dtype=torch.float32, device=dev)
@@ -182,7 +283,7 @@ def stream_capture(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
     qpt = 2 if n_q <= 8 else 4
     with torch.cuda.device(dev):
         err = lib.kirag_stream_capture(
-            q.data_ptr(), corpus.data_ptr(), kind, scales_ptr,
+            q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand),
             gmax.data_ptr(), capture.data_ptr(), gids.data_ptr(), capmax.data_ptr(),
             resid.data_ptr(), n_q, d, num_chunks, chunk_size, b, int(valid_rows), qpt,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -202,8 +303,7 @@ def stream_capture_plain(queries: torch.Tensor, corpus: torch.Tensor, valid_rows
     scores = torch.empty((num_chunks, n_q, chunk_size), dtype=torch.float32, device=dev)
     for c in range(num_chunks):
         rows = slice(c * chunk_size, (c + 1) * chunk_size)
-        scores[c] = quant_scores(queries, corpus[rows],
-                                 None if scales is None else scales[rows], quant)
+        scores[c] = quant_scores(queries, corpus[rows], row_scales(scales, rows, quant), quant)
     rows = torch.arange(num_chunks * chunk_size, device=dev).view(num_chunks, 1, chunk_size)
     masked = torch.where(rows < valid_rows, scores, FIN_MIN)
     gmax = masked.view(num_chunks, n_q, groups_per_chunk, LANES).amax(-1).clamp_min(FIN_MIN)
@@ -231,7 +331,7 @@ def _check_gather(queries, corpus, gsel, scales, quant: str) -> None:
     check_corpus(corpus, scales, quant)
     if corpus.shape[0] % LANES:
         raise ValueError(f"corpus rows {corpus.shape[0]} must be a multiple of {LANES}")
-    if queries.dim() != 2 or queries.shape[1] != _corpus_dim(corpus, quant):
+    if queries.dim() != 2 or queries.shape[1] != _corpus_dim(corpus, scales, quant):
         raise ValueError(f"queries {tuple(queries.shape)} do not match a {quant} corpus "
                          f"{tuple(corpus.shape)}")
     if gsel.dim() != 2 or gsel.shape[0] != queries.shape[0] or gsel.shape[1] < 1:
@@ -253,16 +353,16 @@ def gather_groups(queries: torch.Tensor, corpus: torch.Tensor, gsel: torch.Tenso
     _check_gather(queries, corpus, gsel, scales, quant)
     if on_cpu(queries, gsel, *_tensors(corpus, scales)):
         return gather_groups_plain(queries, corpus, gsel, scales, quant)
-    _check_kernel_operands(corpus, quant)
+    _check_kernel_operands(corpus, scales, quant)
     lib = load_library()
     n_q, d = queries.shape
     k = gsel.shape[1]
-    q, kind, scales_ptr = _kernel_args(queries, corpus, scales, quant)
+    q, kind, operand = _kernel_args(queries, corpus, scales, quant)
     g32 = gsel.to(torch.int32).contiguous()
     cand = torch.empty((n_q, k, LANES), dtype=torch.float32, device=corpus.device)
     with torch.cuda.device(corpus.device):
         err = lib.kirag_gather_groups(
-            q.data_ptr(), corpus.data_ptr(), kind, scales_ptr, g32.data_ptr(),
+            q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand), g32.data_ptr(),
             cand.data_ptr(), n_q, d, k, corpus.shape[0],
             torch.cuda.current_stream(corpus.device).cuda_stream)
     raise_on(err, lib, "gather_groups")
@@ -281,7 +381,7 @@ def gather_groups_plain(queries: torch.Tensor, corpus: torch.Tensor, gsel: torch
     rows = gsel.long()[..., None] * LANES + torch.arange(LANES, device=dev)
     rows = torch.where(inside[..., None], rows, 0).reshape(n_q, k * LANES)
     cand = torch.stack([
-        quant_scores(queries[i:i + 1], corpus[rows[i]],
-                     None if scales is None else scales[rows[i]], quant)[0]
+        quant_scores(queries[i:i + 1], corpus[rows[i]], row_scales(scales, rows[i], quant),
+                     quant)[0]
         for i in range(n_q)])
     return torch.where(inside[..., None], cand.view(n_q, k, LANES), 0.0)

@@ -9,8 +9,8 @@ search re-selects over all group maxima and re-scores the selected groups
 (:func:`~kirag_tpu_torch.kernels.gather_groups`, K2). The tail is plain
 PyTorch. Results follow FAISS's flat-index contract: values descending, ties
 to the lower row id, which rests on stable sorts (``torch.topk`` promises no
-tie order, so it is not used). An int8 or packed-int4 corpus with its
-``scales`` is scored by the kernels' quantized formats (K4,
+tie order, so it is not used). An int8, packed-int4 or 4-bit PQ corpus with
+its ``scales`` is scored by the kernels' quantized formats (K4,
 :func:`~kirag_tpu_torch.kernels.exact.quant_scores`).
 """
 
@@ -27,6 +27,7 @@ from kirag_tpu_torch.kernels.exact import (
     check_corpus,
     gather_groups,
     gather_groups_plain,
+    pad_rows,
     quant_scores,
     stream_capture,
     stream_capture_plain,
@@ -67,9 +68,8 @@ def hier_topk(x: torch.Tensor, k: int, block: int = 16
 def _quant_kind(scales: Optional[torch.Tensor], quant: Optional[str] = None) -> str:
     """The corpus format from the operands (port of
     ``pallas_exact._quant_kind``): no scales -> "none", 2-D block scales ->
-    "int4" (packed uint8), 1-D row scales -> "int8"."""
-    if quant == "pq4":
-        raise NotImplementedError("quant='pq4' is not ported yet (ROADMAP.md §A: PQ)")
+    "int4" (packed uint8), 1-D row scales -> "int8". "pq4" must be named: its
+    [16, D] level table has the shape of a 16-row corpus's int4 scales."""
     if quant is not None:
         return quant
     if scales is None:
@@ -149,7 +149,8 @@ def exact_topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int,
 
     ``scales`` makes the corpus quantized: [N] f32 row scales of an int8
     corpus, or [N, D/128] f32 block scales of a packed-int4 uint8 corpus
-    [N, D/2] (``quant`` is inferred from them; "pq4" is not ported).
+    [N, D/2] (``quant`` is inferred from them), or with ``quant="pq4"`` the
+    [16, D] level table of 4-bit PQ codes [N, m/2].
 
     ``plain=True`` runs the kernels' plain versions on any device: the
     reference the kernels are held to on the card. The chunk is not clamped
@@ -174,11 +175,8 @@ def exact_topk_mips(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     chunk = max(LANES, chunk_size // LANES * LANES)
     chunk = min(chunk, -(-n // LANES) * LANES)
     n_pad = -(-n // chunk) * chunk
-    if n_pad != n:  # scales pad with their rows
-        corpus = torch.nn.functional.pad(corpus, (0, 0, 0, n_pad - n))
-        if scales is not None:
-            scales = torch.nn.functional.pad(scales, (0, 0) * (scales.dim() - 1)
-                                             + (0, n_pad - n))
+    if n_pad != n:
+        corpus, scales = pad_rows(corpus, scales, n_pad, quant)
     capture_fn = stream_capture_plain if plain else stream_capture
     gather_fn = functools.partial(gather_groups_plain if plain else gather_groups,
                                   scales=scales, quant=quant)

@@ -231,5 +231,8 @@ def test_unported_variants_raise(rng):
     with pytest.raises(ValueError):
         exact_topk_mips(q, c, 4, on_miss="ignore")
     codes = torch.zeros(512, 4, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        exact_topk_mips(q, codes, 4, scales=torch.zeros(16, 8), quant="pq4")
+    # pq4 is ported; its level table is checked against the codes
+    vals, idx = exact_topk_mips(q, codes, 4, scales=torch.zeros(16, 8), quant="pq4")
+    assert not vals.any() and idx.tolist() == [[0, 1, 2, 3]] * 2  # ties: lower rows
+    with pytest.raises(ValueError, match="level table"):
+        exact_topk_mips(q, codes, 4, scales=torch.zeros(16, 6), quant="pq4")

@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax():
             "kirag_tpu_torch.pipeline.kirag", "kirag_tpu_torch.cli.retrieve",
             "kirag_tpu_torch.training.trainer", "kirag_tpu_torch.training.aligner",
             "kirag_tpu_torch.training.loader", "kirag_tpu_torch.data.datasets",
-            "kirag_tpu_torch.utils.seeding", "kirag_tpu_torch.cli.train_aligner"} <= names
+            "kirag_tpu_torch.utils.seeding", "kirag_tpu_torch.cli.train_aligner",
+            "kirag_tpu_torch.ops.pq"} <= names
 
 
 def test_no_source_imports_jax():

@@ -1,6 +1,6 @@
 """The CUDA kernels' wrappers: device dispatch, launch counts, and (on a GPU)
 each kernel against its plain version: K1 and K2 of the exact search (with
-K4's int8 and packed-int4 scoring inside them), K5 the approximate search's
+K4's int8, packed-int4 and 4-bit PQ scoring inside them), K5 the approximate search's
 group top-W, K3 the encoder's flash attention and its two backward kernels,
 K6 the LLM's 4-bit weight matmul.
 
@@ -63,7 +63,8 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
         assert torch.equal(x, y)
     assert set(launch_counts()) == {
         "stream_capture", "gather_groups", "stream_capture_int8", "gather_groups_int8",
-        "stream_capture_int4", "gather_groups_int4", "group_max", "group_max_int8",
+        "stream_capture_int4", "gather_groups_int4", "stream_capture_pq4",
+        "gather_groups_pq4", "group_max", "group_max_int8",
         "group_max_int4", "flash_attention", "flash_attention_bwd_dkv",
         "flash_attention_bwd_dq", "int4_matmul"}
     assert not any(launch_counts().values())
@@ -222,6 +223,88 @@ def test_exact_search_on_the_card_matches_plain(cuda_device, quant):
                                on_miss=on_miss, plain=True, scales=s)
         for x, y in zip(got, want):
             assert torch.equal(x, y)
+
+
+def pq4_corpus(n, d, m, g, device, integer):
+    """Random 4-bit PQ codes [n, m/2] and a [16, d] level table: small
+    integers (exact in bf16, so every score is exact in any order), or
+    normal values of a unit row's scale."""
+    codes = torch.randint(0, 256, (n, m // 2), generator=g, device=device).to(torch.uint8)
+    if integer:
+        table = torch.randint(-3, 4, (16, d), generator=g, device=device).float()
+    else:
+        table = torch.randn(16, d, generator=g, device=device) / math.sqrt(d)
+    return codes, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", [(1024, 128), (1024, 256), (1024, 512), (512, 512),
+                                 (384, 96), (2048, 256), (2048, 1024)])
+def test_pq4_kernels_bitwise_equal_plain_on_integer_data(cuda_device, d, m):
+    """D / m = 1, 2, 4, 8 and m / 2 = 48-512 bytes a row: K1 and K2 with
+    pq4 scoring equal their plain versions bitwise, K1's captures equal K2's
+    re-scores, and the search equals the plain search."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    n, chunk, k = 16384, 2048, 40
+    c, table = pq4_corpus(n, d, m, g, cuda_device, integer=True)
+    b = _capture_budget(k, n // chunk, chunk // 128)
+    for n_q in (3, 8, 32):
+        q = torch.randint(-2, 3, (n_q, d), generator=g, device=cuda_device).float()
+        reset_launch_counts()
+        got = stream_capture(q, c, n - 300, chunk, b, table, "pq4")
+        want = stream_capture_plain(q, c, n - 300, chunk, b, table, "pq4")
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, k)[1], dim=-1).values
+        assert torch.equal(gather_groups(q, c, gsel, table, "pq4"),
+                           gather_groups_plain(q, c, gsel, table, "pq4"))
+        captured = got[2].permute(2, 0, 1).reshape(n_q, -1)
+        rescored = gather_groups(q, c, captured, table, "pq4")
+        assert torch.equal(rescored.view(n_q, -1, b, 128).transpose(0, 1),
+                           got[1].view(-1, n_q, b, 128))
+        counts = launch_counts()
+        assert counts["stream_capture_pq4"] == 1 and counts["gather_groups_pq4"] == 2
+        for x, y in zip(exact_topk_mips(q, c, k, chunk_size=chunk, valid_rows=n - 300,
+                                        on_miss="flag", scales=table, quant="pq4"),
+                        exact_topk_mips(q, c, k, chunk_size=chunk, valid_rows=n - 300,
+                                        on_miss="flag", scales=table, quant="pq4",
+                                        plain=True)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 256, 512])
+def test_pq4_kernels_match_plain_on_random_data(cuda_device, m):
+    """Normal levels and unit queries: f32 sums in two orders, within 1e-6
+    of the largest score."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    d = 1024
+    c, table = pq4_corpus(16384, d, m, g, cuda_device, integer=False)
+    q = torch.nn.functional.normalize(torch.randn(8, d, generator=g, device=cuda_device), dim=-1)
+    b = _capture_budget(50, 8, 16)
+    got = stream_capture(q, c, 16000, 2048, b, table, "pq4")
+    want = stream_capture_plain(q, c, 16000, 2048, b, table, "pq4")
+    scale = float(want[0].abs().max())
+    for i in (0, 3):
+        assert float((got[i] - want[i]).abs().max()) <= 1e-6 * scale
+    same = (got[2] == want[2]).permute(0, 2, 1).repeat_interleave(128, dim=2)
+    assert float((got[1] - want[1]).abs()[same].max()) <= 1e-6 * scale
+    gsel = torch.sort(hier_topk(got[0].reshape(-1, 8).T, 50)[1], dim=-1).values
+    diff = gather_groups(q, c, gsel, table, "pq4") - gather_groups_plain(q, c, gsel, table, "pq4")
+    assert float(diff.abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", [(64, 8), (1536, 96), (4096, 512)])
+def test_pq4_kernels_refuse_geometries_they_do_not_take(cuda_device, d, m):
+    """m / 2 % 16 != 0, D / m = 16, D > 2048: refused, not launched; and K5
+    takes no pq4 corpus (approximate search on PQ serves exact search)."""
+    q, table = torch.zeros(2, d, device=cuda_device), torch.zeros(16, d, device=cuda_device)
+    codes = torch.zeros(512, m // 2, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="pq4 kernels"):
+        stream_capture(q, codes, 512, 256, 1, table, "pq4")
+    with pytest.raises(ValueError, match="no pq4"):
+        group_max(q, codes, 1, table, "pq4")
 
 
 def k5_corpus(fmt, n, d, g, device):

@@ -121,11 +121,14 @@ def test_bf16_index_matches_reference(rng):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchIndexer(8, n_subquantizers=8)  # product quantization
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchIndexer(8, compression="pq")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndexer(8, pallas_select="hier")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchIndexer(8, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchIndexer(8, device="cpu", max_device_rows=64)
+    # product quantization is ported: both requests build a PQ index
+    assert TorchIndexer(8, device="cpu", n_subquantizers=8).compression == "pq"
+    assert TorchIndexer(8, device="cpu", compression="pq").pq_m == 2
 
 
 def test_indexer_checks_its_options():
