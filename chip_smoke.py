@@ -63,7 +63,17 @@ weights at E5-large and Llama-3-8B-Instruct width:
   ``cli/retrieve --index_folder`` over phase 6's embeddings as a PQ index
   (run D, beside phase 9); and the DPR corpus's 21,015,324 rows as a PQ
   index (2.69 GB of codes), searched at Q = 8, 32, 256 with recall@10/@100
-  against the exact float32 top-100.
+  against the exact float32 top-100;
+- the exact-search variants (phase 15): K7a (every score and the group
+  maxima, stored chunk-major, row-major or not at all), K7b and K8 (group
+  copies) and K9 (merge's running window) held against their plain
+  versions in five formats (K7a's maxima bitwise K1's); every
+  ``(impl, select)`` of ``exact_topk_mips`` over phase 4's 1,000,000 rows
+  as float32, bfloat16, int8, int4 and PQ indexes at Q = 8, 32, 256,
+  bitwise equal to stream/capdom; phase 4's server with
+  ``pallas_select="merge"`` and ``"hier"``; and ``impl="single"``,
+  ``"twopass"`` and ``select="merge"`` over the DPR corpus's int4 codes,
+  equal to the capdom search, with K7a, K7b, K8 and K9 timed.
 
 Every phase raises on failure. The last lines of standard output are the
 card's name and power limit, one JSON object with each kernel's launches,
@@ -124,6 +134,10 @@ QUEUE_CYCLES = 4_000_000
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+# the exact search the indexer served until the port had every variant, and
+# which phases 3-14 hold to its plain version: stream capture, capture-domain
+# selection (the reference's defaults are impl="auto", select="flat")
+CAPDOM = {"select": "capdom", "impl": "stream"}
 
 
 def log(*parts) -> None:
@@ -243,9 +257,9 @@ def check_kernels(dev, gen) -> dict:
                 gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, K)[1], dim=-1).values
                 cand, cand_plain = gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel)
                 res = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=valid,
-                                      on_miss="flag")
+                                      on_miss="flag", **CAPDOM)
                 ref = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=valid,
-                                      on_miss="flag", plain=True)
+                                      on_miss="flag", plain=True, **CAPDOM)
                 torch.cuda.synchronize()
                 if data == "integer":  # exact in any summation order: bitwise
                     for name, x, y in zip(("gmax", "capture", "gids", "capmax", "resid"),
@@ -278,10 +292,10 @@ def check_kernels(dev, gen) -> dict:
     q = torch.ones(3, DIM, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
         cd, qd = c.to(dtype), q.to(dtype)
-        _, _, ok = exact_topk_mips(qd, cd, K, chunk_size=CHUNK, on_miss="flag")
+        _, _, ok = exact_topk_mips(qd, cd, K, chunk_size=CHUNK, on_miss="flag", **CAPDOM)
         _, _, ok_plain = exact_topk_mips(qd, cd, K, chunk_size=CHUNK, on_miss="flag",
-                                         plain=True)
-        vals, idx = exact_topk_mips(qd, cd, K, chunk_size=CHUNK)
+                                         plain=True, **CAPDOM)
+        vals, idx = exact_topk_mips(qd, cd, K, chunk_size=CHUNK, **CAPDOM)
         ref_vals, ref_idx = topk_mips(qd, cd, K, chunk_size=CHUNK)
         if bool(ok) or bool(ok_plain):
             raise AssertionError("adversarial cluster: the capture flag should be False")
@@ -385,7 +399,8 @@ def plain_search(index, q_pad: np.ndarray, top_docs: int, mode: str):
                                      plain=True)
     else:
         search = dict(chunk_size=CHUNK, valid_rows=index._device_rows, plain=True,
-                      scales=scales, quant=kernel_quant(index.compression))
+                      scales=scales, quant=kernel_quant(index.compression),
+                      select=index.pallas_select)
         vals, idx, ok = exact_topk_mips(qs, corpus, top_docs, on_miss="flag", **search)
         if not bool(ok):
             vals, idx = exact_topk_mips(qs, corpus, top_docs, **search)
@@ -446,8 +461,12 @@ def serve(label, encoder, collator, index, texts, text_rows, power,
     quant = index.compression
     # K2 runs when a search re-dispatches: padded batches do on an inner-product
     # index (their zero rows fail the flag), not on an l2 one (the norm column
-    # gives a zero row real scores)
+    # gives a zero row real scores). select="merge" never re-dispatches: it runs
+    # K2 inside the search when its window check fails, and reports True
+    merge = mode == "exact" and index.pallas_select == "merge"
     names = (k5_name(quant),) if mode == "approx" else kernel_names(quant)[:1]
+    if merge:
+        names += ("window_merge",)
     if not all(counts[k] > 0 for k in names):
         raise AssertionError(f"{label}: a kernel of the path was not launched: {counts}")
 
@@ -487,15 +506,19 @@ def serve(label, encoder, collator, index, texts, text_rows, power,
     if mode == "exact" and not from_capture:
         raise AssertionError(f"{label}: no search was answered from the capture")
     redispatched = len(recorder.calls) - len(from_capture)
-    if mode == "exact" and (redispatched > 0) != (counts[kernel_names(quant)[1]] > 0):
+    if mode == "exact" and not merge and (
+            (redispatched > 0) != (counts[kernel_names(quant)[1]] > 0)):
         raise AssertionError(f"{label}: {redispatched} searches re-dispatched, launches {counts}")
 
     lat = np.array([latencies[r] for r in range(n_requests)]) * 1e3
     stats = {"rps": n_requests / wall,
              "texts_per_s": sum(len(requests[r]) for r in range(n_requests)) / wall,
              "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
-             "launches": counts}
-    if mode == "exact":
+             "launches": counts, "searches": len(recorder.calls), "redispatched": redispatched}
+    if merge:
+        searched = (f"none re-dispatched (merge), K2 ran inside "
+                    f"{counts[kernel_names(quant)[1]]} of them (window check failed); ")
+    elif mode == "exact":
         searched = (f"{redispatched} re-dispatched, {len(from_capture)} answered from the "
                     f"capture (real rows {from_capture}); ")
     else:
@@ -1317,12 +1340,12 @@ def llm_decode(work: Path, dev, power) -> dict:
 # ----------------------------------------------------------------- phase 9
 
 # questions per run, cut from 4 and 2, and the LLM's depth, cut from 32
-# layers to 8 (phase 8 runs all 32), to keep the smoke inside half its time
+# layers to 4 (phase 8 runs all 32), to keep the smoke near half its time
 # limit: each question's 10 passages cost 3 KG batches of 512 decode steps,
 # and a decode step's time is the host's, layer by layer
 KIRAG_QUESTIONS = 1   # run A, the reference-shaped sequential loop
 KIRAG_CACHED = 1      # run B, over a seeded KG cache
-KIRAG_LAYERS = 8
+KIRAG_LAYERS = 4
 
 
 class ByteLevelTokenizer:
@@ -2061,9 +2084,9 @@ def check_quantized_kernels(dev, gen, err) -> None:
                 cand = gather_groups(q, c, gsel, s, quant)
                 cand_plain = gather_groups_plain(q, c, gsel, s, quant)
                 res = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=valid,
-                                      on_miss="flag", scales=s)
+                                      on_miss="flag", scales=s, **CAPDOM)
                 ref = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=valid,
-                                      on_miss="flag", plain=True, scales=s)
+                                      on_miss="flag", plain=True, scales=s, **CAPDOM)
                 torch.cuda.synchronize()
                 if data == "integer":
                     for name, x, y in zip(CAPTURE_OUTPUTS, got, want):
@@ -2161,7 +2184,7 @@ def quantized_cli(work: Path, built: dict, dev) -> dict:
                                  f"launches {counts}")
         ref_vals, ref_idx = exact_topk_mips(
             torch.from_numpy(stored[rows]).to(dev), codes, 10, chunk_size=index.pallas_chunk_size,
-            valid_rows=n, plain=True, scales=scales)
+            valid_rows=n, plain=True, scales=scales, **CAPDOM)
         check_topk_close(torch.tensor(np.stack([s for _, s in found])),
                          torch.tensor([[row_of[i] for i in db_ids] for db_ids, _ in found]),
                          ref_vals, ref_idx, f"{quant} built index")
@@ -2233,7 +2256,7 @@ def dpr_search(quant: str, codes, scales, queries, sample, power, err) -> dict:
 
     k1, k2 = kernel_names(quant)
     b = _capture_budget(K, len(codes) // CHUNK, CHUNK // 128)
-    search = dict(chunk_size=CHUNK, valid_rows=DPR_ROWS, scales=scales, quant=quant)
+    search = dict(chunk_size=CHUNK, valid_rows=DPR_ROWS, scales=scales, quant=quant, **CAPDOM)
     reset_launch_counts()
     t0 = time.perf_counter()
     results, redispatched = {}, 0
@@ -2293,8 +2316,8 @@ def dpr_search(quant: str, codes, scales, queries, sample, power, err) -> dict:
             f"{t['k1_ms']:.3f} ms{plain} (bound {t['k1_bound'][0]:.3f} ms, "
             f"{t['k1_bound'][1]}); K2 {t['k2_ms']:.3f} ms{plain2} (bound "
             f"{t['k2_bound'][0]:.3f} ms, {t['k2_bound'][1]}) (CUDA events, median of {reps})")
-    return {"idx": idx.cpu().numpy(), "times": times, "launches": launches,
-            "search_s": search_s, "redispatched": redispatched}
+    return {"idx": idx.cpu().numpy(), "idx_t": idx.cpu(), "vals": vals, "times": times,
+            "launches": launches, "search_s": search_s, "redispatched": redispatched}
 
 
 def dpr_scale(dev, power, err) -> tuple:
@@ -2327,6 +2350,10 @@ def dpr_scale(dev, power, err) -> tuple:
     log("  phase 12 (d): the approximate search over the resident int4 codes")
     out["int4"]["approx"] = dpr_approx("int4", codes, scales, queries, sample,
                                        out["int4"]["idx"], power, err)
+    log("  phase 15 (d): the exact-search variants over the resident int4 codes")
+    t0 = time.perf_counter()
+    out["int4"]["variants"] = dpr_variants(codes, scales, queries, out["int4"], power)
+    out["int4"]["variants"]["seconds"] = time.perf_counter() - t0
     del codes, scales
     torch.cuda.empty_cache()
 
@@ -2503,9 +2530,10 @@ def check_approx_kernels(dev, gen, err) -> dict:
                 gsel = torch.sort(hier_topk(got[0].reshape(-1, n_q).T, K)[1], dim=-1).values
                 cand = gather_groups(q, c, gsel, s, "int4")
                 cand_plain = gather_groups_plain(q, c, gsel, s, "int4")
-                res = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=n - 1000, scales=s)
+                res = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=n - 1000, scales=s,
+                                      **CAPDOM)
                 ref = exact_topk_mips(q, c, K, chunk_size=CHUNK, valid_rows=n - 1000, scales=s,
-                                      plain=True)
+                                      plain=True, **CAPDOM)
                 k5 = group_max(q, c, 2, s, "int4")
                 k5_plain = group_max_plain(q, c, 3, s, "int4")
                 torch.cuda.synchronize()
@@ -2851,7 +2879,7 @@ def check_pq_kernels(dev, gen, err) -> None:
     n, valid = CHECK_ROWS, CHECK_ROWS - 1000
     b = _capture_budget(K, n // CHUNK, CHUNK // 128)
     k1, k2 = kernel_names("pq")
-    search = dict(chunk_size=CHUNK, valid_rows=valid, on_miss="flag", quant="pq4")
+    search = dict(chunk_size=CHUNK, valid_rows=valid, on_miss="flag", quant="pq4", **CAPDOM)
     for m in PQ_MS:
         for data in ("integer", "random"):
             c, table = pq_corpus(m, n, gen, dev, data == "integer")
@@ -3119,6 +3147,341 @@ def dpr_pq(dev, power, err, dpr: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+
+# the exact-search variants: every (impl, select) of the reference, capdom in
+# both assemblies (K8 under "pallas"); each must equal stream/capdom bitwise
+VARIANTS = (("stream", "flat", None), ("stream", "hier", None), ("stream", "capdom", "einsum"),
+            ("stream", "capdom", "pallas"), ("stream", "merge", None), ("single", "hier", None),
+            ("single_strided", "hier", None), ("twopass", "flat", None),
+            ("twopass", "hier", None))
+VARIANT_FORMATS = ("float32", "bfloat16", "int8", "int4", "pq4")
+VARIANT_QUERIES = (8, 32, 256)
+VARIANT_REQUESTS = 200  # phase 15 (c)'s traffic per selection, from 4 threads
+# phase 15 (d) at the DPR scale: impl="single" writes 4 * Q * 21M score bytes
+# (2.7 GB at Q = 32), so it and twopass run at Q = 8 and 32, merge at all three
+DPR_VARIANTS = (("single", "hier", (8, 32)), ("twopass", "hier", (8, 32)),
+                ("stream", "merge", DPR_QUERIES))
+K7_SOURCES = {  # name: (source, the TPU kernel it replaces)
+    "score_gmax": ("kirag_tpu_torch/csrc/score_gmax.cu", "kirag_tpu/ops/pallas_exact.py:359"),
+    "score_gather": ("kirag_tpu_torch/csrc/copy_groups.cu", "kirag_tpu/ops/pallas_exact.py:751"),
+    "cap_assemble": ("kirag_tpu_torch/csrc/copy_groups.cu", "kirag_tpu/ops/pallas_exact.py:701"),
+    "window_merge": ("kirag_tpu_torch/csrc/window_merge.cu", "kirag_tpu/ops/pallas_exact.py:532"),
+}
+
+
+@contextlib.contextmanager
+def capdom_assembly(mode):
+    """``KIRAG_CAPDOM_ASSEMBLY`` for the searches inside the block."""
+    from kirag_tpu_torch.ops import exact as ops_exact
+
+    old = ops_exact.CAPDOM_ASSEMBLY
+    ops_exact.CAPDOM_ASSEMBLY = mode or old
+    try:
+        yield
+    finally:
+        ops_exact.CAPDOM_ASSEMBLY = old
+
+
+def variant_name(impl: str, select: str, assembly) -> str:
+    return f"{impl}/{select}" + (f" ({assembly})" if assembly else "")
+
+
+def variant_corpus(fmt: str, n: int, gen, dev, integer: bool):
+    """``(corpus, scales, quant)`` of n rows in one of the five formats:
+    integer data (exact in any summation order) or seeded unit rows (a
+    quantized corpus: random codes and levels of a unit row's scale)."""
+    if fmt in ("float32", "bfloat16"):
+        dtype = getattr(torch, fmt)
+        if integer:
+            return torch.randint(-2, 3, (n, DIM), generator=gen, device=dev).to(dtype), None, "none"
+        return unit_rows(n, gen, dev).to(dtype), None, "none"
+    if fmt == "pq4":
+        return (*pq_corpus(PQ_M, n, gen, dev, integer), "pq4")
+    return (*quantized_corpus(fmt, n, gen, dev, integer), fmt)
+
+
+def copy_bound(idx, out):
+    """K7b's and K8's bound: the selected groups read once and written once,
+    and the indices read."""
+    return bound(2 * nbytes(out) + nbytes(idx), 0, 1.0)
+
+
+def merge_bound(k1_outs, merged):
+    """K9's bound: K1's keys, gids and residuals read, the window's payload
+    read from the capture and written, its keys, gids and lost written."""
+    _, _, gids, capmax, resid = k1_outs
+    win, wkey, wgid, lost = merged
+    return bound(nbytes(gids, capmax, resid, wkey, wgid, lost) + 2 * nbytes(win), 0, 1.0)
+
+
+def capdom_positions(k1_outs, k: int):
+    """capdom's selected capture positions [Q, k] (K8's input)."""
+    from kirag_tpu_torch.ops import stable_topk
+
+    capmax = k1_outs[3]
+    n_c, b, n_q = capmax.shape
+    return stable_topk(capmax.permute(2, 0, 1).reshape(n_q, n_c * b), k)[1]
+
+
+def check_variant_kernels(dev, gen, err) -> None:
+    """Phase 15 (a): K7a (three stores), K7b, K8 and K9 against their plain
+    versions at phase 3's geometry, five formats, Q = 8, 16, 32. K7a's
+    maxima are bitwise K1's on any data, its scores bitwise the plain
+    version's on integer data (within ATOL on unit rows) and, where K7b
+    copies the selected groups, bitwise K2's re-scores; K7b, K8 and K9 are
+    bitwise their plain versions (copies and selections)."""
+    from kirag_tpu_torch.kernels import (cap_assemble, cap_assemble_plain, gather_groups,
+                                         score_gather, score_gather_plain, score_gmax,
+                                         score_gmax_plain, stream_capture, window_merge,
+                                         window_merge_plain)
+    from kirag_tpu_torch.ops import hier_topk
+    from kirag_tpu_torch.ops.exact import _capture_budget, _merge_geometry
+
+    n, valid = CHECK_ROWS, CHECK_ROWS - 1000
+    num_chunks, g_per = n // CHUNK, CHUNK // 128
+    b = _capture_budget(K, num_chunks, g_per)
+    _, br, _ = _merge_geometry(K, num_chunks, g_per, 8)
+    for fmt in VARIANT_FORMATS:
+        for data in ("integer", "random"):
+            c, s, quant = variant_corpus(fmt, n, gen, dev, data == "integer")
+            name = "score_gmax" if quant == "none" else f"score_gmax_{quant}"
+            data_err = 0.0
+            for n_q in (8, 16, 32):
+                what = f"{data} {fmt} Q={n_q}"
+                if data == "integer":
+                    q = torch.randint(-2, 3, (n_q, DIM), generator=gen, device=dev).float()
+                else:
+                    q = unit_rows(n_q, gen, dev)
+                if fmt == "bfloat16":
+                    q = q.to(torch.bfloat16)
+                k1 = stream_capture(q, c, valid, CHUNK, b, s, quant)
+                k7a_err = 0.0
+                for store in ("chunk", "row", "none"):
+                    got = score_gmax(q, c, valid, CHUNK, store, s, quant)
+                    want = score_gmax_plain(q, c, valid, CHUNK, store, s, quant)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got[1], k1[0]):
+                        raise AssertionError(f"{what}: K7a ({store}) maxima differ from K1's")
+                    for x, y in zip(got, want):
+                        if x is None:
+                            continue
+                        e = float((x - y).abs().max())
+                        if (data == "integer" and e != 0.0) or not e <= ATOL:
+                            raise AssertionError(f"{what}: K7a ({store}) differs from plain by {e}")
+                        k7a_err = max(k7a_err, e)
+                    if store == "chunk":
+                        scores = got[0]
+                data_err = max(data_err, k7a_err)
+                err[name] = max(err.get(name, 0.0), k7a_err)
+                gsel = torch.sort(hier_topk(k1[0].reshape(-1, n_q).T, K)[1], dim=-1).values
+                cand = score_gather(scores, gsel)
+                if not (torch.equal(cand, score_gather_plain(scores, gsel))
+                        and torch.equal(cand, gather_groups(q, c, gsel, s, quant))):
+                    raise AssertionError(f"{what}: K7b differs from plain or from K2's re-scores")
+                cpos = capdom_positions(k1, K)
+                if not torch.equal(cap_assemble(cpos, k1[1], b),
+                                   cap_assemble_plain(cpos, k1[1], b)):
+                    raise AssertionError(f"{what}: K8 differs from plain")
+                total = n // 128
+                merged = window_merge(*k1[2:], k1[1], br, total)
+                for part, x, y in zip(("win", "wkey", "wgid", "lost"), merged,
+                                      window_merge_plain(*k1[2:], k1[1], br, total)):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"{what}: K9 {part} differs from plain")
+                del scores, k1, cand, merged
+            log(f"  {data} {fmt}, Q = 8/16/32: K7a (chunk-major, row-major, no store) maxima "
+                f"bitwise K1's, scores {'bitwise' if data == 'integer' else 'within ATOL of'} "
+                f"plain (largest error {data_err:.3g}); K7b bitwise plain and K2's re-scores; "
+                f"K8 bitwise plain; K9 (win, wkey, wgid, lost; br={br}, bc={b}) bitwise plain")
+            del c, s
+    for name in ("score_gather", "cap_assemble", "window_merge"):
+        err[name] = 0.0
+
+
+def variants_search(q, corpus, search: dict, what: str, variants=VARIANTS,
+                    query_counts=VARIANT_QUERIES) -> dict:
+    """Every variant at each Q against stream/capdom, bitwise, under
+    ``on_miss="fallback"``; returns the capdom results by Q."""
+    from kirag_tpu_torch.ops import exact_topk_mips
+
+    want = {}
+    for n_q in query_counts:
+        want[n_q] = exact_topk_mips(q[:n_q], corpus, K, **search, **CAPDOM)
+        for impl, select, assembly in variants:
+            with capdom_assembly(assembly):
+                got = exact_topk_mips(q[:n_q], corpus, K, impl=impl, select=select, **search)
+            if not (torch.equal(got[0], want[n_q][0]) and torch.equal(got[1], want[n_q][1])):
+                raise AssertionError(f"{what} Q={n_q}: {variant_name(impl, select, assembly)} "
+                                     "differs from stream/capdom")
+    return want
+
+
+def k7_times(q, corpus, scales, quant, valid, reps=10, plain_reps=10, library=False,
+             names=tuple(K7_SOURCES)) -> dict:
+    """The kernels ``names`` of K7a (chunk-major store), K7b, K8 and K9 timed
+    at one Q on one corpus, beside their bounds and (``plain_reps``) their
+    plain versions' times; K7b and K8 beside the one PyTorch call that makes
+    the same copy, K7a (``library``, float corpora) beside ``torch.matmul``
+    and ``amax``."""
+    from kirag_tpu_torch.kernels import (cap_assemble, cap_assemble_plain, score_gather,
+                                         score_gather_plain, score_gmax, score_gmax_plain,
+                                         stream_capture, window_merge, window_merge_plain)
+    from kirag_tpu_torch.ops import hier_topk
+    from kirag_tpu_torch.ops.exact import _capture_budget, _merge_geometry
+
+    n_q = len(q)
+    num_chunks, g_per = len(corpus) // CHUNK, CHUNK // 128
+    b = _capture_budget(K, num_chunks, g_per)
+    _, br, _ = _merge_geometry(K, num_chunks, g_per, n_q)
+    total = len(corpus) // 128
+    qrow = torch.arange(n_q, device=q.device)[:, None]
+    timed = {}  # name: (kernel call, plain call, library call or None, bound)
+    if "score_gmax" in names:
+        outs = score_gmax(q, corpus, valid, CHUNK, "chunk", scales, quant)
+        gsel = torch.sort(hier_topk(outs[1].reshape(-1, n_q).T, K)[1], dim=-1).values
+        cand = score_gather(outs[0], gsel)
+        src, rows7 = outs[0].view(-1, 128), ((gsel // g_per) * n_q + qrow) * g_per + gsel % g_per
+        timed["score_gmax"] = (
+            lambda: score_gmax(q, corpus, valid, CHUNK, "chunk", scales, quant),
+            lambda: score_gmax_plain(q, corpus, valid, CHUNK, "chunk", scales, quant),
+            (lambda: torch.matmul(q, corpus.T).view(n_q, -1, 128).amax(-1)) if library else None,
+            search_bound(q, corpus, scales, quant, outs))
+        timed["score_gather"] = (
+            lambda: score_gather(outs[0], gsel), lambda: score_gather_plain(outs[0], gsel),
+            lambda: src.index_select(0, rows7.reshape(-1)), copy_bound(gsel, cand))
+    k1 = stream_capture(q, corpus, valid, CHUNK, b, scales, quant)
+    cpos = capdom_positions(k1, K)
+    cap, rows8 = k1[1].view(-1, 128), ((cpos // b) * n_q + qrow) * b + cpos % b
+    timed["cap_assemble"] = (
+        lambda: cap_assemble(cpos, k1[1], b), lambda: cap_assemble_plain(cpos, k1[1], b),
+        lambda: cap.index_select(0, rows8.reshape(-1)),
+        copy_bound(cpos, cap_assemble(cpos, k1[1], b)))
+    timed["window_merge"] = (
+        lambda: window_merge(*k1[2:], k1[1], br, total),
+        lambda: window_merge_plain(*k1[2:], k1[1], br, total), None,
+        merge_bound(k1, window_merge(*k1[2:], k1[1], br, total)))
+    t = {"br": br, "bc": b}
+    for name in names:
+        kernel, plain, library_call, t[name + "_bound"] = timed[name]
+        t[name] = cuda_ms(kernel, reps=reps)
+        if plain_reps:
+            t[name + "_plain"] = cuda_ms(plain, reps=plain_reps)
+        if library_call is not None:
+            t[name + "_library"] = cuda_ms(library_call, reps=reps)
+    return t
+
+
+def log_k7_times(power, what: str, t: dict, reps: int) -> None:
+    def one(name):
+        plain = f" vs plain {t[name + '_plain']:.3f} ms" if name + "_plain" in t else ""
+        lib = f", library {t[name + '_library']:.3f} ms" if name + "_library" in t else ""
+        return (f"{name} {t[name]:.3f} ms{plain}{lib} (bound {t[name + '_bound'][0]:.4f} ms, "
+                f"{t[name + '_bound'][1]})")
+    log(f"  [{power}] {what}, k={K}, window br={t['br']} over bc={t['bc']}: "
+        + "; ".join(one(n) for n in K7_SOURCES if n in t) + f" (CUDA events, median of {reps})")
+
+
+def check_variants(dev, host_rows, gen, power) -> dict:
+    """Phase 15 (b): phase 4's 1,000,000 rows as float32, bfloat16, int8,
+    int4 and PQ (m = PQ_M) indexes; at Q = 8, 32, 256 every (impl, select)
+    through ``exact_topk_mips`` over the index's device rows equals
+    stream/capdom bitwise; then K7a/K7b/K8/K9 timed at Q = 32. Returns the
+    launches of the variant runs and the times by format."""
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    launches, times = {}, {}
+    q_all = unit_rows(VARIANT_QUERIES[-1], gen, dev)
+    for fmt in VARIANT_FORMATS:
+        kw = ({"device_dtype": getattr(torch, fmt)} if fmt in ("float32", "bfloat16") else
+              {"compression": "pq", "n_subquantizers": PQ_M} if fmt == "pq4" else
+              {"compression": fmt})
+        index = TorchIndexer(DIM, device=dev, pallas_chunk_size=CHUNK, **kw)
+        index.index_data(list(range(len(host_rows))), host_rows)
+        index.to_device()
+        corpus, scales, valid = index._device_corpus, index._device_scales, index._device_rows
+        quant = kernel_quant(index.compression)
+        q = q_all.to(index.device_dtype) if quant == "none" else q_all
+        search = dict(chunk_size=CHUNK, valid_rows=valid, scales=scales,
+                      quant=None if quant == "none" else quant)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        variants_search(q, corpus, search, f"{fmt} 1M")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        log(f"  {fmt} index ({len(corpus)} x {DIM} on the grid), Q = {VARIANT_QUERIES}: all "
+            f"{len(VARIANTS)} variants bitwise equal to stream/capdom in values and ids "
+            f"({wall:.2f} s, host clock); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if fmt != "bfloat16":
+            n_q = 32
+            times[fmt] = k7_times(q[:n_q], corpus, scales, quant, valid,
+                                  library=quant == "none")
+            log_k7_times(power, f"{fmt} 1M Q={n_q}", times[fmt], 10)
+        del index, corpus, scales
+        torch.cuda.empty_cache()
+    return {"launches": launches, "times": times}
+
+
+def serve_variants(dev, encoder, collator, host_rows, texts, text_rows, power) -> dict:
+    """Phase 15 (c): phase 4's server over the 1M float32 index with
+    ``pallas_select="merge"`` and with ``"hier"``: VARIANT_REQUESTS requests
+    from 4 threads each, self-hits, every served batch against the plain
+    search with the same selection."""
+    from kirag_tpu_torch.index import TorchIndexer
+
+    served = {}
+    for select in ("merge", "hier"):
+        label = f"float32 index, pallas_select={select}"
+        index = TorchIndexer(DIM, device=dev, pallas_chunk_size=CHUNK, pallas_select=select)
+        index.index_data(list(range(len(host_rows))), host_rows)
+        index.to_device()
+        served[select] = serve(label, encoder, collator, index, texts, text_rows, power,
+                               n_requests=VARIANT_REQUESTS)
+        del index
+        torch.cuda.empty_cache()
+    return served
+
+
+def dpr_variants(codes, scales, queries, capdom: dict, power) -> dict:
+    """Phase 15 (d) over phase 11 (d)'s resident int4 codes: impl="single"
+    and "twopass" at Q = 8, 32 and select="merge" at Q = 8, 32, 256, each
+    equal to the indexer's capdom search of the same queries (phase 11 d);
+    then K7a, K7b, K8 and K9 timed at each Q (K7a's plain version at Q = 8)."""
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.ops import exact_topk_mips
+
+    search = dict(chunk_size=CHUNK, valid_rows=DPR_ROWS, scales=scales, quant="int4")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for impl, select, query_counts in DPR_VARIANTS:
+        for n_q in query_counts:
+            vals, idx = exact_topk_mips(queries[:n_q], codes, K, impl=impl, select=select,
+                                        **search)
+            if not (torch.equal(vals, capdom["vals"][:n_q])
+                    and torch.equal(idx.cpu(), capdom["idx_t"][:n_q])):
+                raise AssertionError(f"int4 DPR Q={n_q}: {impl}/{select} differs from capdom")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"  int4 {DPR_ROWS} x {DIM}: " + ", ".join(
+        f"{impl}/{select} at Q = {qs}" for impl, select, qs in DPR_VARIANTS)
+        + f" bitwise equal to the capdom search ({wall:.2f} s, host clock); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    times = {}
+    for n_q in DPR_QUERIES:
+        reps = DPR_REPS[n_q]
+        # no score matrix at Q = 256 (21.5 GB): K8 and K9 alone there
+        names = tuple(K7_SOURCES) if n_q < DPR_QUERIES[-1] else ("cap_assemble", "window_merge")
+        times[n_q] = k7_times(queries[:n_q], codes, scales, "int4", DPR_ROWS, reps=reps,
+                              plain_reps=3 if n_q == DPR_QUERIES[0] else 0, names=names)
+        log_k7_times(power, f"int4 DPR {DPR_ROWS} x {DIM} Q={n_q}", times[n_q], reps)
+    return {"launches": launches, "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this needs an NVIDIA GPU", file=sys.stderr)
@@ -3266,6 +3629,16 @@ def main() -> int:
               f"(m={PQ_M})")
         served_pq = serve_pq(work, dev, encoder, collator, host_rows, texts, text_rows,
                              text_emb, gen, power, err)
+        t15 = time.perf_counter()
+        phase(f"phase 15 (a): K7a/K7b/K8/K9 vs plain versions ({CHECK_ROWS} x {DIM}, chunk "
+              f"{CHUNK}, k={K}, {len(VARIANT_FORMATS)} formats)")
+        check_variant_kernels(dev, gen, err)
+        phase(f"phase 15 (b): every (impl, select) over {N_ROWS} x {DIM} float32, bfloat16, "
+              "int8, int4 and PQ indexes")
+        variants = check_variants(dev, host_rows, gen, power)
+        phase("phase 15 (c): the retrieval server with pallas_select='merge' and 'hier'")
+        served_v = serve_variants(dev, encoder, collator, host_rows, texts, text_rows, power)
+        phase15_s = time.perf_counter() - t15
         del encoder, model, host_rows
         torch.cuda.empty_cache()
         phase("phase 11 (c): build_index --compression int4 and int8 over phase 6's shards")
@@ -3291,7 +3664,9 @@ def main() -> int:
         r["launches"] for r in (*cli_q.values(), *dpr.values())] + [
         s["launches"] for s in (*served_a.values(), *served_l2.values())] + [
         approx_run["launches"], served_pq["served"]["launches"], pq_run["launches"]] + [
-        dpr[q]["approx"]["launches"] for q in QUANTS]
+        dpr[q]["approx"]["launches"] for q in QUANTS] + [
+        variants["launches"], dpr["int4"]["variants"]["launches"]] + [
+        s["launches"] for s in served_v.values()]
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     launches["int4_matmul"] += decoded["launches"]
     idle = [k for k, n in launches.items() if n == 0]
@@ -3406,6 +3781,54 @@ def main() -> int:
             "by_q": {f"Q={q} W={w}": {"ms": x["ms"], "bound_ms": x["bound"][0],
                                       "bound_by": x["bound"][1]}
                      for (q, w), x in times.items()}})
+    # K7a/K7b/K8/K9 (phase 15): times at Q=32 on phase 15 (b)'s 1M indexes
+    # (float32; int8 and PQ for their K7a), K7a int4 at the DPR scale, Q=8;
+    # by_q / by_q_21m: the DPR scale's other query counts
+    t_1m, t_dpr = variants["times"], dpr["int4"]["variants"]["times"]
+    at_1m = f"{{}} index {N_ROWS} x {DIM} (1,015,808 rows on the grid), Q=32, chunk {CHUNK}, k={K}"
+    no_lib = {"score_gmax": "no PyTorch call scores {} codes against bf16 queries",
+              "window_merge": "no PyTorch call merges a running top-k window of groups"}
+    k7_rows = [("score_gmax", "score_gmax", t_1m["float32"], at_1m.format("float32")
+                + "; chunk-major store; library_ms: torch.matmul (TF32 off) and amax over "
+                "128-row groups, two calls"),
+               ("score_gmax_int8", "score_gmax", t_1m["int8"], at_1m.format("int8") + "; "
+                + no_lib["score_gmax"].format("int8")),
+               ("score_gmax_int4", "score_gmax", t_dpr[8], f"int4 {DPR_ROWS} x {DIM} (the DPR "
+                f"corpus), Q=8, chunk-major store; {no_lib['score_gmax'].format('int4')}; by_q: "
+                "Q=32"),
+               ("score_gmax_pq4", "score_gmax", t_1m["pq4"], at_1m.format(f"PQ (m={PQ_M})")
+                + "; " + no_lib["score_gmax"].format("PQ")),
+               ("score_gather", "score_gather", t_1m["float32"], at_1m.format("float32")
+                + "; library_ms: index_select of the groups' rows of the scores viewed "
+                "[rows, 128]; by_q_21m: the int4 DPR corpus"),
+               ("cap_assemble", "cap_assemble", t_1m["float32"], at_1m.format("float32")
+                + "; library_ms: index_select of the capture viewed [rows, 128]; by_q_21m: "
+                "the int4 DPR corpus"),
+               ("window_merge", "window_merge", t_1m["float32"], at_1m.format("float32")
+                + f"; K1's capture, br={t_1m['float32']['br']}; library_ms: "
+                + no_lib["window_merge"] + "; by_q_21m: the int4 DPR corpus")]
+    for name, kernel, t, at in k7_rows:
+        src, rep = K7_SOURCES[kernel]
+        row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "launches": launches[name], "max_abs_err": err[name], "ms": t[kernel],
+               "plain_ms": t[kernel + "_plain"], "bound_ms": t[kernel + "_bound"][0],
+               "bound_by": t[kernel + "_bound"][1], "library_ms": t.get(kernel + "_library"),
+               "at": at}
+        by_q = {str(n_q): {"ms": x[kernel], "bound_ms": x[kernel + "_bound"][0],
+                           "bound_by": x[kernel + "_bound"][1]}
+                for n_q, x in t_dpr.items() if kernel in x}
+        if name == "score_gmax_int4":
+            row["by_q"] = {q: v for q, v in by_q.items() if q != str(DPR_QUERIES[0])}
+        elif kernel != "score_gmax":
+            row["by_q_21m"] = by_q
+        kernels.append(row)
+    merge_s, hier_s = served_v["merge"], served_v["hier"]
+    log(f"  phase 15: {phase15_s + dpr['int4']['variants']['seconds']:.1f} s in all "
+        f"((a)-(c) {phase15_s:.1f} s, (d) {dpr['int4']['variants']['seconds']:.1f} s); servers "
+        f"merge {merge_s['rps']:.2f} / hier {hier_s['rps']:.2f} requests/s, K2 ran in "
+        f"{merge_s['launches']['gather_groups']} of merge's {merge_s['searches']} searches "
+        f"(in-search fallback) and hier re-dispatched {hier_s['redispatched']} of "
+        f"{hier_s['searches']}")
     phase("done")
     log(power)
     log(json.dumps({"kernels": kernels}))

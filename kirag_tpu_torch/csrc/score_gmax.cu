@@ -1,0 +1,141 @@
+// score_gmax: every score of a corpus chunk and its 128-row group maxima.
+//
+// Replaces the TPU kernel kirag_tpu/ops/pallas_exact.py::_score_gmax_kernel
+// (the fused scoring pass of impl="single", "single_strided" and "twopass"),
+// over a float32, bfloat16, int8, packed-int4 or 4-bit PQ corpus (K4's
+// scoring, score.cuh). For each corpus chunk and query it writes
+//   gmax   [C, G, Q] f32  the maximum of every 128-row group; rows >= valid_rows
+//                         count as FIN_MIN (not clamped: a -inf score stays -inf)
+//   scores the raw f32 scores, at scores[chunk * s_chunk + q * s_q + row in chunk]:
+//          chunk-major [C, Q, chunk] (impl="single"), row-major [Q, N]
+//          ("single_strided"), or not at all (scores == null, "twopass" pass A).
+// The maxima are masked, the scores are not (the tail masks rows by row id).
+//
+// What bounds it on the H100: the same Q x N x D fmas as K1
+// (stream_capture.cu) on the CUDA cores, plus the score write, 4 * Q * N
+// bytes (2.7 GB at 21M rows and Q = 32): at Q = 8 over an int4 corpus the
+// write is 0.67 GB against the codes' 10.8 GB, so the fmas still bound it.
+//
+// What the design does about it: K1's first step, unchanged: one block per
+// (query tile, chunk), the chunk's groups walked in order through score.cuh's
+// score_group (cp.async tiles in flight), each thread holding the scores of
+// one row for the block's queries; a warp's 32 rows are 32 consecutive
+// floats, so every score store is one coalesced 128-byte write. Because the
+// scores come from score_group, they are bitwise K1's and K2's for the same
+// rows, and the maxima bitwise K1's (before its clamp), so every impl of the
+// exact search selects the same groups and returns the same values.
+#include "score.cuh"
+
+using namespace kirag;
+
+namespace {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+template <typename F, int QPT>
+__global__ void __launch_bounds__(THREADS)
+    score_gmax_kernel(const float* __restrict__ q, const typename F::T* __restrict__ corpus,
+                      const float* __restrict__ scales, float* __restrict__ scores,
+                      float* __restrict__ gmax, int n_q, int d, int chunk_size,
+                      int64_t valid_rows, int64_t s_chunk, int64_t s_q) {
+  using T = typename F::T;
+  constexpr int NQ = 2 * QPT;  // queries of this block
+  extern __shared__ __align__(16) float smem[];
+  const int d_pad = padded_depth(d);
+  const int g_count = chunk_size / LANES;
+  float* q_s = smem;                                          // [NQ][d_pad]
+  char* table_s = reinterpret_cast<char*>(q_s + NQ * d_pad);  // pq4's level table
+  T* tiles = reinterpret_cast<T*>(table_s + table_bytes<F>(d));  // [STAGES][LANES][stride]
+  float* red_s = reinterpret_cast<float*>(tiles + STAGES * tile_elems<T>());  // [8][QPT]
+
+  const int t = threadIdx.x;
+  const int half = t / LANES;
+  const int lane = t % LANES;
+  const int warp = t / 32;
+  const int wl = t % 32;
+  const int q0 = blockIdx.x * NQ;
+  const int nq_here = min(NQ, n_q - q0);
+  const int chunk = blockIdx.y;
+  const int64_t chunk_row0 = static_cast<int64_t>(chunk) * chunk_size;
+
+  stage_queries(q_s, q, q0, NQ, n_q, d, d_pad);
+  const float* sc = stage_table<F>(table_s, scales, d);
+  __syncthreads();
+
+  // Half h scores block queries h, h + 2, ... against row `lane` of the
+  // group; warps 0-3 are half 0, warps 4-7 half 1 (K1's layout).
+  for (int g = 0; g < g_count; ++g) {
+    const int64_t row0 = chunk_row0 + static_cast<int64_t>(g) * LANES;
+    float acc[QPT];
+    score_group<F, THREADS, QPT, STAGES>(acc, corpus, sc, row0, d, q_s + half * d_pad,
+                                         2 * d_pad, tiles, t, lane, true);
+    const bool valid = row0 + lane < valid_rows;
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) {
+      const int lq = half + 2 * j;
+      if (scores != nullptr && lq < nq_here) {
+        scores[chunk * s_chunk + (q0 + lq) * s_q + g * LANES + lane] = acc[j];
+      }
+      float v = valid ? acc[j] : FIN_MIN;
+      for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
+      if (wl == 0) red_s[warp * QPT + j] = v;
+    }
+    __syncthreads();
+    if (t < nq_here) {  // block query t lives in half t % 2, slot t / 2
+      const int h = t % 2;
+      const int j = t / 2;
+      float m = red_s[(4 * h) * QPT + j];
+      for (int w = 1; w < 4; ++w) m = fmaxf(m, red_s[(4 * h + w) * QPT + j]);
+      gmax[(static_cast<int64_t>(chunk) * g_count + g) * n_q + q0 + t] = m;
+    }
+    // red_s is rewritten only after the next group's first __syncthreads
+  }
+}
+
+template <typename F, int QPT>
+cudaError_t launch(const float* q, const void* corpus, const float* scales, float* scores,
+                   float* gmax, int n_q, int d, int num_chunks, int chunk_size,
+                   int64_t valid_rows, int64_t s_chunk, int64_t s_q, cudaStream_t stream) {
+  using T = typename F::T;
+  constexpr int NQ = 2 * QPT;
+  const size_t smem = sizeof(float) * (NQ * padded_depth(d) + 8 * QPT) + table_bytes<F>(d) +
+                      sizeof(T) * STAGES * tile_elems<T>();
+  auto kernel = score_gmax_kernel<F, QPT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller raises on the returned code
+    return err;
+  }
+  const dim3 grid((n_q + NQ - 1) / NQ, num_chunks);
+  kernel<<<grid, THREADS, smem, stream>>>(q, static_cast<const T*>(corpus), scales, scores,
+                                          gmax, n_q, d, chunk_size, valid_rows, s_chunk, s_q);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Queries f32 [n_q, d]; corpus [num_chunks * chunk_size, *] in the format of
+// `kind` with its `scales` (as kirag_stream_capture's); scores null or f32
+// with the strides s_chunk, s_q (see the header note); gmax f32
+// [num_chunks, chunk_size / 128, n_q]. qpt in {2, 4} queries per thread sets
+// the query tile (2 * qpt queries per block). Returns the launch's cudaError_t.
+extern "C" int kirag_score_gmax(const float* q, const void* corpus, int kind,
+                                const float* scales, float* scores, float* gmax, int n_q, int d,
+                                int num_chunks, int chunk_size, long long valid_rows,
+                                long long s_chunk, long long s_q, int qpt, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_format(kind, d, [&](auto fmt) {
+    using F = decltype(fmt);
+    switch (qpt) {
+      case 2:
+        return launch<F, 2>(q, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
+                            valid_rows, s_chunk, s_q, s);
+      case 4:
+        return launch<F, 4>(q, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
+                            valid_rows, s_chunk, s_q, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
+}

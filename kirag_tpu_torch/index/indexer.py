@@ -97,10 +97,12 @@ def _check_compression(compression: str, vector_sz: int) -> None:
 class TorchIndexer:
     """Flat index over a device-resident embedding matrix.
 
-    ``exact_impl``: "kernel" runs the exact stream-capture search (CUDA
-    kernels on a GPU, their plain versions on the CPU), "plain" the chunked
-    scan of :func:`topk_mips`, "auto" the kernel search on CUDA and the scan
-    elsewhere (the reference's pallas/xla split). ``approx_winners`` (1 to
+    ``exact_impl``: "kernel" runs the exact kernel search (CUDA kernels on a
+    GPU, their plain versions on the CPU), "plain" the chunked scan of
+    :func:`topk_mips`, "auto" the kernel search on CUDA and the scan
+    elsewhere (the reference's pallas/xla split). ``pallas_select`` is the
+    kernel search's selection ("hier", "flat", "capdom" or "merge",
+    :func:`~kirag_tpu_torch.ops.exact.exact_topk_mips`). ``approx_winners`` (1 to
     128) is the approximate search's candidates per 128-row group: 1 samples
     one winner a group, 2 removes the dominant same-group miss, 128 is exact.
 
@@ -141,9 +143,8 @@ class TorchIndexer:
         if max_device_rows is not None:
             raise _not_ported("streaming corpora larger than device memory",
                               "streaming search")
-        if pallas_select != "capdom":
-            raise _not_ported(f"pallas_select={pallas_select!r}",
-                              "selection variants, K8/K9")
+        if pallas_select not in ("hier", "flat", "capdom", "merge"):
+            raise KeyError(f"pallas_select must be hier|flat|capdom|merge, got {pallas_select}")
         if exact_impl not in ("auto", "kernel", "plain"):
             raise KeyError(f"exact_impl must be auto|kernel|plain, got {exact_impl}")
         if device_dtype not in (torch.float32, torch.bfloat16):
@@ -410,8 +411,9 @@ class TorchIndexer:
         return "pq4" if self.compression == "pq" else self.compression
 
     def _kernel_search(self, queries: torch.Tensor, k: int, **kw):
-        """The exact stream-capture search in flag mode; a False flag
-        re-dispatches the checked search, which re-scores on a miss."""
+        """The exact kernel search (``impl="auto"``, ``select=pallas_select``)
+        in flag mode; a False flag re-dispatches the checked search, which
+        re-scores on a miss."""
         search = dict(chunk_size=self.pallas_chunk_size, valid_rows=self._device_rows,
                       select=self.pallas_select, scales=self._device_scales, **kw)
         vals, idx, ok = exact_topk_mips(queries, self._device_corpus, k, on_miss="flag",

@@ -105,6 +105,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kirag_gather_groups.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i64, ptr]
     lib.kirag_gather_groups.restype = i32
+    lib.kirag_score_gmax.argtypes = [
+        ptr, ptr, i32, ptr, ptr, ptr,      # q, corpus, kind, scales, scores (or null), gmax
+        i32, i32, i32, i32, i64, i64, i64,  # n_q, d, num_chunks, chunk_size, valid, strides
+        i32, ptr]                          # qpt, stream
+    lib.kirag_score_gmax.restype = i32
+    for name in ("kirag_score_gather", "kirag_cap_assemble"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]  # src, idx, out, C, Q, k, per
+        fn.restype = i32
+    lib.kirag_window_merge.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # gids, capmax, resid, capture, 4 outputs
+        i32, i32, i32, i32, i32, ptr]            # n_c, bc, n_q, br, total_groups, stream
+    lib.kirag_window_merge.restype = i32
     lib.kirag_group_max.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr,  # q, corpus, kind, scales, gmax, gidx
         i32, i32, i64, i32, i32, ptr]  # n_q, d, n_rows, winners, qpt, stream

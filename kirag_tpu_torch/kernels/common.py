@@ -17,6 +17,9 @@ _launches: Dict[str, int] = {"stream_capture": 0, "gather_groups": 0,
                              "stream_capture_int8": 0, "gather_groups_int8": 0,
                              "stream_capture_int4": 0, "gather_groups_int4": 0,
                              "stream_capture_pq4": 0, "gather_groups_pq4": 0,
+                             "score_gmax": 0, "score_gmax_int8": 0,
+                             "score_gmax_int4": 0, "score_gmax_pq4": 0,
+                             "score_gather": 0, "cap_assemble": 0, "window_merge": 0,
                              "group_max": 0, "group_max_int8": 0, "group_max_int4": 0,
                              "flash_attention": 0, "flash_attention_bwd_dkv": 0,
                              "flash_attention_bwd_dq": 0, "int4_matmul": 0}

@@ -1,17 +1,28 @@
 """Wrappers of the exact-search kernels, each beside its plain version.
 
-``stream_capture`` (K1, ``csrc/stream_capture.cu``) and ``gather_groups``
-(K2, ``csrc/gather_groups.cu``) take tensors on one device. On a CUDA tensor
-a wrapper launches its kernel or raises; on a CPU tensor it runs its plain
-PyTorch version, which computes the same function with f32 products and f32
-sums (a CUDA kernel cannot run on the CPU). Each launch adds one to the
-wrapper's count in :func:`~kirag_tpu_torch.kernels.common.launch_counts`,
-under ``stream_capture``/``gather_groups`` for a float corpus and with an
-``_int8``/``_int4``/``_pq4`` suffix for a quantized one.
+- ``stream_capture`` (K1, ``csrc/stream_capture.cu``): group maxima and each
+  chunk's top-B group capture, one corpus read;
+- ``gather_groups`` (K2, ``csrc/gather_groups.cu``): re-scores selected
+  groups;
+- ``score_gmax`` (K7a, ``csrc/score_gmax.cu``): every score and the group
+  maxima, the scores written chunk-major, row-major or not at all;
+- ``score_gather`` (K7b) and ``cap_assemble`` (K8), both
+  ``csrc/copy_groups.cu``: copy selected 128-score groups out of K7a's
+  scores or K1's capture;
+- ``window_merge`` (K9, ``csrc/window_merge.cu``): the running top-``br``
+  group window of ``select="merge"`` over K1's per-chunk capture.
 
-Both kernels score a float32 or bfloat16 corpus, or a quantized one (K4, the
-in-kernel dequant of ``kirag_tpu.ops.pallas_exact._chunk_scores``), named by
-``quant``:
+The wrappers take tensors on one device. On a CUDA tensor a wrapper launches
+its kernel or raises; on a CPU tensor it runs its plain PyTorch version,
+which computes the same function with f32 products and f32 sums (a CUDA
+kernel cannot run on the CPU). Each launch adds one to the wrapper's count in
+:func:`~kirag_tpu_torch.kernels.common.launch_counts`, under the kernel's
+name, with an ``_int8``/``_int4``/``_pq4`` suffix for the kernels that score
+a quantized corpus (K1, K2, K7a).
+
+The scoring kernels take a float32 or bfloat16 corpus, or a quantized one
+(K4, the in-kernel dequant of ``kirag_tpu.ops.pallas_exact._chunk_scores``),
+named by ``quant``:
 
 - ``"int8"``: int8 codes [N, D] and f32 row scales [N];
 - ``"int4"``: packed uint8 [N, D/2] (byte j: dim j in the low nibble, dim
@@ -385,3 +396,307 @@ def gather_groups_plain(queries: torch.Tensor, corpus: torch.Tensor, gsel: torch
                      quant)[0]
         for i in range(n_q)])
     return torch.where(inside[..., None], cand.view(n_q, k, LANES), 0.0)
+
+
+# ---------------------------------------------------------------- score_gmax
+
+# score_gmax's store layouts: chunk-major [C, Q, chunk] (impl="single"),
+# row-major [Q, N] (impl="single_strided"), or none (impl="twopass")
+SCORE_STORES = ("chunk", "row", "none")
+
+
+def _score_geometry(queries, corpus, scales, quant: str, chunk_size: int, store: str):
+    if store not in SCORE_STORES:
+        raise ValueError(f"store must be one of {SCORE_STORES}, got {store!r}")
+    return _capture_geometry(queries, corpus, scales, quant, chunk_size, 1)
+
+
+def score_gmax(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
+               chunk_size: int, store: str = "chunk", scales: Optional[torch.Tensor] = None,
+               quant: str = "none") -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Every score and the 128-row group maxima (K7a).
+
+    ``corpus`` [C * chunk_size, *] in ``quant``'s format, ``queries`` [Q, D].
+    Returns ``(scores, gmax [C, G, Q] f32)``: the outputs of
+    ``kirag_tpu.ops.pallas_exact._score_gmax_kernel``. ``scores`` are raw f32
+    scores laid out by ``store``: "chunk" [C, Q, chunk_size], "row"
+    [Q, C * chunk_size], or None for "none". In the maxima, rows at or past
+    ``valid_rows`` count as FIN_MIN (not clamped: unlike K1's, a -inf score
+    stays -inf). The scores and maxima are bitwise K1's and K2's on the same
+    rows (one scoring routine, ``csrc/score.cuh``).
+    """
+    num_chunks, groups_per_chunk = _score_geometry(queries, corpus, scales, quant,
+                                                   chunk_size, store)
+    if on_cpu(queries, *_tensors(corpus, scales)):
+        return score_gmax_plain(queries, corpus, valid_rows, chunk_size, store, scales, quant)
+    _check_kernel_operands(corpus, scales, quant)
+    lib = load_library()
+    n_q, d = queries.shape
+    n = corpus.shape[0]
+    q, kind, operand = _kernel_args(queries, corpus, scales, quant)
+    dev = corpus.device
+    gmax = torch.empty((num_chunks, groups_per_chunk, n_q), dtype=torch.float32, device=dev)
+    scores, s_chunk, s_q = None, 0, 0
+    if store == "chunk":
+        scores = torch.empty((num_chunks, n_q, chunk_size), dtype=torch.float32, device=dev)
+        s_chunk, s_q = n_q * chunk_size, chunk_size
+    elif store == "row":
+        scores = torch.empty((n_q, n), dtype=torch.float32, device=dev)
+        s_chunk, s_q = chunk_size, n
+    qpt = 2 if n_q <= 8 else 4  # K1's query tiles
+    with torch.cuda.device(dev):
+        err = lib.kirag_score_gmax(
+            q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand), _ptr(scores),
+            gmax.data_ptr(), n_q, d, num_chunks, chunk_size, int(valid_rows), s_chunk, s_q,
+            qpt, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, lib, "score_gmax")
+    count_launch(_launch_name("score_gmax", quant))
+    return scores, gmax
+
+
+def score_gmax_plain(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
+                     chunk_size: int, store: str = "chunk",
+                     scales: Optional[torch.Tensor] = None,
+                     quant: str = "none") -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch version of :func:`score_gmax`, same contract."""
+    num_chunks, groups_per_chunk = _score_geometry(queries, corpus, scales, quant,
+                                                   chunk_size, store)
+    n_q = queries.shape[0]
+    dev = corpus.device
+    gmax = torch.empty((num_chunks, groups_per_chunk, n_q), dtype=torch.float32, device=dev)
+    chunks = []
+    for c in range(num_chunks):
+        rows = slice(c * chunk_size, (c + 1) * chunk_size)
+        s = quant_scores(queries, corpus[rows], row_scales(scales, rows, quant), quant)
+        row = torch.arange(rows.start, rows.stop, device=dev)
+        masked = torch.where(row < valid_rows, s, FIN_MIN)
+        gmax[c] = masked.view(n_q, groups_per_chunk, LANES).amax(-1).T
+        if store != "none":
+            chunks.append(s)
+    if store == "chunk":
+        return torch.stack(chunks), gmax
+    if store == "row":
+        return torch.cat(chunks, dim=1), gmax
+    return None, gmax
+
+
+# ------------------------------------------------ score_gather, cap_assemble
+
+
+def _check_copy(src: torch.Tensor, idx: torch.Tensor, per: int, what: str) -> None:
+    if src.dim() != 3 or src.dtype != torch.float32 or not src.is_contiguous():
+        raise ValueError(f"{what}: the source must be a contiguous f32 [C, Q, X * 128] "
+                         f"tensor, got {tuple(src.shape)} {src.dtype}")
+    if per < 1 or src.shape[2] != per * LANES:
+        raise ValueError(f"{what}: source rows of {src.shape[2]} scores are not {per} "
+                         f"groups of {LANES}")
+    if idx.dim() != 2 or idx.shape[0] != src.shape[1] or idx.shape[1] < 1:
+        raise ValueError(f"{what}: indices {tuple(idx.shape)} must be [Q, k] for "
+                         f"{src.shape[1]} queries")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{what}: indices must be int32 or int64, got {idx.dtype}")
+
+
+def _copy_groups(src: torch.Tensor, idx: torch.Tensor, per: int, name: str,
+                 entry: str) -> torch.Tensor:
+    """Launch csrc/copy_groups.cu: ``out[q, j] = src[idx // per, q, idx % per]``
+    as 128-score groups; zeros for an index outside [0, C * per)."""
+    lib = load_library()
+    n_q, k = idx.shape
+    i32 = idx.to(torch.int32).contiguous()
+    out = torch.empty((n_q, k, LANES), dtype=torch.float32, device=src.device)
+    with torch.cuda.device(src.device):
+        err = getattr(lib, entry)(src.data_ptr(), i32.data_ptr(), out.data_ptr(), src.shape[0],
+                                  n_q, k, per, torch.cuda.current_stream(src.device).cuda_stream)
+    raise_on(err, lib, name)
+    count_launch(name)
+    return out
+
+
+def _copy_groups_plain(src: torch.Tensor, idx: torch.Tensor, per: int) -> torch.Tensor:
+    n_c, n_q, _ = src.shape
+    idx = idx.long()
+    inside = (idx >= 0) & (idx < n_c * per)
+    safe = torch.where(inside, idx, 0)
+    qrow = torch.arange(n_q, device=src.device)[:, None]
+    out = src.view(n_c, n_q, per, LANES)[safe // per, qrow, safe % per]
+    return torch.where(inside[..., None], out, 0.0)
+
+
+def score_gather(scores: torch.Tensor, gsel: torch.Tensor) -> torch.Tensor:
+    """Each query's selected groups out of K7a's chunk-major scores (K7b).
+
+    ``scores`` [C, Q, chunk] f32, ``gsel`` [Q, k] group ids -> ``cand``
+    [Q, k, 128] f32 with ``cand[q, j] = scores[g // G, q, (g % G) * 128 :
+    + 128]`` for ``g = gsel[q, j]``, G = chunk / 128: a copy (bitwise), the
+    function of ``kirag_tpu.ops.pallas_exact._score_gather_kernel``; a group
+    id outside the corpus gives zeros, as its one-hot accumulation does.
+    """
+    per = scores.shape[2] // LANES if scores.dim() == 3 else 0
+    _check_copy(scores, gsel, per, "score_gather")
+    if on_cpu(scores, gsel):
+        return score_gather_plain(scores, gsel)
+    return _copy_groups(scores, gsel, per, "score_gather", "kirag_score_gather")
+
+
+def score_gather_plain(scores: torch.Tensor, gsel: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`score_gather`, same contract."""
+    per = scores.shape[2] // LANES if scores.dim() == 3 else 0
+    _check_copy(scores, gsel, per, "score_gather")
+    return _copy_groups_plain(scores, gsel, per)
+
+
+def cap_assemble(cpos: torch.Tensor, capture: torch.Tensor, b: int) -> torch.Tensor:
+    """The selected capture positions copied out of K1's capture (K8).
+
+    ``cpos`` [Q, k] positions in the flattened [C, b] capture order,
+    ``capture`` [C, Q, b * 128] f32 -> [Q, k, 128] f32 with row ``(q, j)``
+    the 128 scores of capture slot ``cpos % b`` of chunk ``cpos // b``: a
+    copy (bitwise), the function of
+    ``kirag_tpu.ops.pallas_exact._cap_assemble_kernel``.
+    """
+    _check_copy(capture, cpos, b, "cap_assemble")
+    if on_cpu(cpos, capture):
+        return cap_assemble_plain(cpos, capture, b)
+    return _copy_groups(capture, cpos, b, "cap_assemble", "kirag_cap_assemble")
+
+
+def cap_assemble_plain(cpos: torch.Tensor, capture: torch.Tensor, b: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cap_assemble`, same contract."""
+    _check_copy(capture, cpos, b, "cap_assemble")
+    return _copy_groups_plain(capture, cpos, b)
+
+
+# -------------------------------------------------------------- window_merge
+
+
+MAX_MERGE_SMEM = 200 * 1024  # csrc/window_merge.cu's MAX_SMEM: one query's window
+
+
+def _check_merge(gids, capmax, resid, capture, br: int, total_groups: int):
+    if capmax.dim() != 3 or capmax.dtype != torch.float32:
+        raise ValueError(f"capmax must be f32 [C, bc, Q], got {tuple(capmax.shape)}")
+    n_c, bc, n_q = capmax.shape
+    if (tuple(gids.shape) != (n_c, bc, n_q) or gids.dtype != torch.int32
+            or tuple(resid.shape) != (n_c, 1, n_q) or resid.dtype != torch.float32
+            or tuple(capture.shape) != (n_c, n_q, bc * LANES)
+            or capture.dtype != torch.float32):
+        raise ValueError("window_merge takes K1's gids [C, bc, Q] int32, capmax [C, bc, Q], "
+                         f"resid [C, 1, Q] and capture [C, Q, bc * 128] f32; got "
+                         f"{tuple(gids.shape)}, {tuple(capmax.shape)}, {tuple(resid.shape)}, "
+                         f"{tuple(capture.shape)}")
+    if not all(t.is_contiguous() for t in (gids, capmax, resid, capture)):
+        raise ValueError("window_merge's inputs must be contiguous")
+    if br < bc:
+        raise ValueError(f"window width {br} below the capture budget {bc}")
+    if total_groups < 1 or total_groups + br >= 2 ** 31:
+        raise ValueError(f"total_groups {total_groups} out of range")
+    return n_c, bc, n_q
+
+
+def window_merge(gids: torch.Tensor, capmax: torch.Tensor, resid: torch.Tensor,
+                 capture: torch.Tensor, br: int, total_groups: int
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The running top-``br`` group window of ``select="merge"`` (K9).
+
+    Takes K1's capdom outputs (``gids``, ``capmax`` [C, bc, Q], ``resid``
+    [C, 1, Q], ``capture`` [C, Q, bc * 128]), which are per chunk what
+    ``kirag_tpu.ops.pallas_exact._merge_kernel`` peels, and sweeps the
+    chunks in order as that kernel does: chunk 0 fills slots 0..bc-1 (the
+    rest empty: key -inf, gid -(slot + 1)); each later chunk peels the
+    window's bc worst slots (ascending key, ties to the lower slot), ranks
+    the 2 * bc union by (key desc, gid asc), and writes the j-th surviving
+    new group into the j-th ejected slot. Returns ``(win [Q, br, 128] f32,
+    wkey [Q, br] f32, wgid [Q, br] int32, lost [C, 1, Q] f32)``: the window
+    sorted by gid ascending, empty slots given the gid ``total_groups +
+    slot`` and zero scores, keys clamped to FIN_MIN; ``lost[c]`` the larger
+    of chunk c's residual and the best key the merge ejected (chunk 0: its
+    residual).
+    """
+    _check_merge(gids, capmax, resid, capture, br, total_groups)
+    if on_cpu(gids, capmax, resid, capture):
+        return window_merge_plain(gids, capmax, resid, capture, br, total_groups)
+    n_c, bc, n_q = capmax.shape
+    if 4 * (4 * br + 7 * bc) > MAX_MERGE_SMEM:
+        raise ValueError(f"the window of br={br} groups (capture budget {bc}) does not fit "
+                         f"the kernel's {MAX_MERGE_SMEM} bytes of shared memory")
+    lib = load_library()
+    dev = capmax.device
+    win = torch.empty((n_q, br, LANES), dtype=torch.float32, device=dev)
+    wkey = torch.empty((n_q, br), dtype=torch.float32, device=dev)
+    wgid = torch.empty((n_q, br), dtype=torch.int32, device=dev)
+    lost = torch.empty((n_c, 1, n_q), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kirag_window_merge(
+            gids.data_ptr(), capmax.data_ptr(), resid.data_ptr(), capture.data_ptr(),
+            win.data_ptr(), wkey.data_ptr(), wgid.data_ptr(), lost.data_ptr(),
+            n_c, bc, n_q, br, total_groups, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, lib, "window_merge")
+    count_launch("window_merge")
+    return win, wkey, wgid, lost
+
+
+def _peel_worst(x: torch.Tensor, b: int) -> torch.Tensor:
+    """``_worstb_ids``: the slots of the ``b`` smallest values of ``x``
+    [Q, S] by b masked-min extractions (ties to the lowest slot), in
+    extraction order."""
+    n_q, s = x.shape
+    x = x.clone()
+    col = torch.arange(s, device=x.device).expand(n_q, s)
+    picks = []
+    for _ in range(b):
+        m = x.amin(-1, keepdim=True)
+        pick = torch.where(x == m, col, s).amin(-1, keepdim=True)
+        picks.append(pick)
+        x.scatter_(1, pick, float("inf"))
+    return torch.cat(picks, dim=1)
+
+
+def window_merge_plain(gids: torch.Tensor, capmax: torch.Tensor, resid: torch.Tensor,
+                       capture: torch.Tensor, br: int, total_groups: int
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`window_merge`, same contract: the
+    reference kernel's steps, one chunk at a time, for all queries at once."""
+    n_c, bc, n_q = _check_merge(gids, capmax, resid, capture, br, total_groups)
+    dev = capmax.device
+    slot = torch.arange(br, device=dev).expand(n_q, br)
+    wkey = torch.full((n_q, br), float("-inf"), device=dev)
+    wgid = -(slot + 1)
+    wpos = torch.full((n_q, br), -1, dtype=torch.int64, device=dev)  # [C, bc] capture position
+    wkey[:, :bc] = capmax[0].T
+    wgid[:, :bc] = gids[0].T.long()
+    wpos[:, :bc] = torch.arange(bc, device=dev)
+    lost = torch.empty((n_c, 1, n_q), dtype=torch.float32, device=dev)
+    lost[0] = resid[0]
+    tri = torch.tril(torch.ones(bc, bc, dtype=torch.int64, device=dev))
+    for c in range(1, n_c):
+        bvals, ngid = capmax[c].T, gids[c].T.long()                  # [Q, bc]
+        npos = c * bc + torch.arange(bc, device=dev).expand(n_q, bc)
+        peel = _peel_worst(wkey, bc)                                 # [Q, bc]
+        v = torch.cat([torch.gather(wkey, 1, peel), bvals], dim=1)   # [Q, 2bc]
+        g = torch.cat([torch.gather(wgid, 1, peel), ngid], dim=1)
+        beats = (v[:, :, None] > v[:, None, :]) | (
+            (v[:, :, None] == v[:, None, :]) & (g[:, :, None] < g[:, None, :]))
+        survive = beats.sum(1) < bc                                  # the top bc of 2bc
+        ej_old, sv_new = ~survive[:, :bc], survive[:, bc:]
+        # the j-th ejected slot takes the j-th surviving new group
+        orde = (ej_old.long()[:, None, :] * tri).sum(-1)             # inclusive counts
+        ords = (sv_new.long()[:, None, :] * tri).sum(-1)
+        assign = ej_old[:, :, None] & sv_new[:, None, :] & (orde[:, :, None] == ords[:, None, :])
+        pick = assign.long().argmax(-1)                              # [Q, bc]
+        taken = assign.any(-1)
+        for arr, new in ((wkey, bvals), (wgid, ngid), (wpos, npos)):
+            arr.scatter_(1, peel, torch.where(taken, torch.gather(new, 1, pick),
+                                              torch.gather(arr, 1, peel)))
+        ej = torch.where(survive, float("-inf"), v).amax(-1)
+        lost[c, 0] = torch.maximum(resid[c, 0], ej)
+    keys = wkey.clamp_min(FIN_MIN)
+    sg = torch.where(wgid < 0, total_groups + slot, wgid)
+    order = torch.argsort(sg, dim=1)                                 # gids are unique
+    pos = torch.gather(wpos, 1, order)
+    safe = pos.clamp_min(0)
+    qrow = torch.arange(n_q, device=dev)[:, None]
+    win = capture.view(n_c, n_q, bc, LANES)[safe // bc, qrow, safe % bc]
+    win = torch.where((pos >= 0)[..., None], win, 0.0)
+    return (win, torch.gather(keys, 1, order), torch.gather(sg, 1, order).to(torch.int32),
+            lost)

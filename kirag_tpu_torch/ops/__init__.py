@@ -1,6 +1,6 @@
 from kirag_tpu_torch.ops.approx import approx_topk_mips, grouped_max_scores
-from kirag_tpu_torch.ops.exact import exact_topk_mips, hier_topk, stable_topk
-from kirag_tpu_torch.ops.mips import topk_mips
+from kirag_tpu_torch.ops.exact import exact_topk_mips, hier_topk, stable_topk, topk_lastdim
+from kirag_tpu_torch.ops.mips import topk_mips, topk_mips_onepass
 from kirag_tpu_torch.ops.pooling import cls_pool, l2_normalize, masked_mean_pool
 from kirag_tpu_torch.ops.pq import (
     decode_pq,
@@ -37,8 +37,10 @@ __all__ = [
     "quantize_rows_int8_torch",
     "resolve_subquantizers",
     "stable_topk",
+    "topk_lastdim",
     "topk_mips",
     "topk_mips_int4",
     "topk_mips_int8",
+    "topk_mips_onepass",
     "train_pq",
 ]

@@ -21,17 +21,19 @@ in float32 (never TF32: it would round the assignment scores and move their
 ties): assignment by the largest ``x.c - 0.5 ||c||^2``, ties to the lower
 centroid; an empty cluster keeps its centroid; the codebooks are snapped to
 bfloat16-representable values at the end, as the reference does. The 16
-initial rows are drawn from a CPU ``torch.Generator`` seeded with ``seed``;
-the reference draws them with ``jax.random.choice``, so the same sample and
-seed give other codebooks here than a fresh reference build (:func:`lloyd`
-takes the initial rows, so both can be started alike). Encoding assigns each
-row's subspace vectors the same way, block by block on the rows' device.
+initial rows are the reference's: ``jax.random.choice(jax.random.key(seed),
+N, (16,), replace=False)``, restated in numpy
+(:mod:`kirag_tpu_torch.utils.jax_random`), so the same sample and seed start
+both packages from the same rows. Encoding assigns each row's subspace
+vectors the same way, block by block on the rows' device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from kirag_tpu_torch.utils.jax_random import choice_without_replacement
 
 K = 16          # centroids per subspace (4-bit codes)
 NBITS = 4
@@ -68,9 +70,10 @@ def _assign(sub: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
 
 
 def init_rows(n: int, seed: int) -> torch.Tensor:
-    """The K distinct sample rows that start k-means: a CPU generator seeded
-    with ``seed``, so every device draws the same rows."""
-    return torch.randperm(n, generator=torch.Generator().manual_seed(seed))[:K]
+    """The K distinct sample rows that start k-means, as the reference draws
+    them (``jax.random.choice(jax.random.key(seed), n, (K,),
+    replace=False)``), on the CPU."""
+    return torch.from_numpy(choice_without_replacement(seed, n, K))
 
 
 def lloyd(sample: torch.Tensor, m: int, init: torch.Tensor, iters: int) -> torch.Tensor:

@@ -37,7 +37,8 @@ def run_both(q, c, k, chunk, on_miss, valid_rows=None):
                   valid_rows=valid_rows, interpret=True, impl="stream",
                   select="capdom", on_miss=on_miss)
     t = exact_topk_mips(torch.from_numpy(q), torch.from_numpy(c), k, chunk_size=chunk,
-                        valid_rows=valid_rows, on_miss=on_miss)
+                        valid_rows=valid_rows, select="capdom", impl="stream",
+                        on_miss=on_miss)
     return [np.asarray(x) for x in j], [x.numpy() for x in t]
 
 
@@ -222,12 +223,17 @@ def test_topk_mips_matches_jax_and_oracle(rng):
 
 
 def test_unported_variants_raise(rng):
+    # every impl and select of the reference is ported; unknown ones raise
+    # the reference's ValueError
     q = torch.zeros(2, 8)
     c = torch.zeros(512, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        exact_topk_mips(q, c, 4, impl="single")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        exact_topk_mips(q, c, 4, select="merge")
+    with pytest.raises(ValueError, match="impl"):
+        exact_topk_mips(q, c, 4, impl="bogus")
+    with pytest.raises(ValueError, match="select"):
+        exact_topk_mips(q, c, 4, select="heir")
+    for impl, select in (("single", "hier"), ("twopass", "flat"), ("stream", "merge")):
+        vals, idx = exact_topk_mips(q, c, 4, impl=impl, select=select)
+        assert not vals.any() and idx.tolist() == [[0, 1, 2, 3]] * 2
     with pytest.raises(ValueError):
         exact_topk_mips(q, c, 4, on_miss="ignore")
     codes = torch.zeros(512, 4, dtype=torch.uint8)

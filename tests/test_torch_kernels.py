@@ -1,8 +1,10 @@
 """The CUDA kernels' wrappers: device dispatch, launch counts, and (on a GPU)
 each kernel against its plain version: K1 and K2 of the exact search (with
-K4's int8, packed-int4 and 4-bit PQ scoring inside them), K5 the approximate search's
-group top-W, K3 the encoder's flash attention and its two backward kernels,
-K6 the LLM's 4-bit weight matmul.
+K4's int8, packed-int4 and 4-bit PQ scoring inside them), the exact-search
+variants' K7a (scores and group maxima), K7b and K8 (group copies) and K9
+(merge's window), K5 the approximate search's group top-W, K3 the encoder's
+flash attention and its two backward kernels, K6 the LLM's 4-bit weight
+matmul.
 
 This file imports neither JAX nor ``kirag_tpu``, so the GPU machine, which
 has neither, runs it alone:
@@ -19,6 +21,8 @@ import pytest
 import torch
 
 from kirag_tpu_torch.kernels import (
+    cap_assemble,
+    cap_assemble_plain,
     flash_attention,
     flash_attention_bwd_plain,
     flash_attention_plain,
@@ -30,8 +34,14 @@ from kirag_tpu_torch.kernels import (
     int4_matmul_plain,
     launch_counts,
     reset_launch_counts,
+    score_gather,
+    score_gather_plain,
+    score_gmax,
+    score_gmax_plain,
     stream_capture,
     stream_capture_plain,
+    window_merge,
+    window_merge_plain,
 )
 from kirag_tpu_torch.kernels.qmm import dequant_nibbles
 from kirag_tpu_torch.ops.exact import _capture_budget, exact_topk_mips, hier_topk
@@ -46,6 +56,18 @@ def test_wrappers_reject_devices_without_kernels():
         gather_groups(q, c, torch.zeros(2, 1, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         group_max(q, c, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        score_gmax(q, c, 256, 128, "chunk")
+    src = torch.zeros(2, 2, 256, device="meta")
+    idx = torch.zeros(2, 3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        score_gather(src, idx)
+    with pytest.raises(ValueError, match="no kernel"):
+        cap_assemble(idx, src, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        window_merge(torch.zeros(2, 2, 2, dtype=torch.int32, device="meta"),
+                     torch.zeros(2, 2, 2, device="meta"), torch.zeros(2, 1, 2, device="meta"),
+                     src, 8, 4)
 
 
 def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
@@ -58,13 +80,15 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
                     stream_capture_plain(q, c, 1000, 512, 2)):
         assert torch.equal(x, y)
     assert torch.equal(gather_groups(q, c, gsel), gather_groups_plain(q, c, gsel))
-    exact_topk_mips(q, c, 5, chunk_size=512, on_miss="flag")
+    exact_topk_mips(q, c, 5, chunk_size=512, on_miss="flag", select="capdom", impl="stream")
     for x, y in zip(group_max(q, c, 3), group_max_plain(q, c, 3)):
         assert torch.equal(x, y)
     assert set(launch_counts()) == {
         "stream_capture", "gather_groups", "stream_capture_int8", "gather_groups_int8",
         "stream_capture_int4", "gather_groups_int4", "stream_capture_pq4",
-        "gather_groups_pq4", "group_max", "group_max_int8",
+        "gather_groups_pq4", "score_gmax", "score_gmax_int8", "score_gmax_int4",
+        "score_gmax_pq4", "score_gather", "cap_assemble", "window_merge", "group_max",
+        "group_max_int8",
         "group_max_int4", "flash_attention", "flash_attention_bwd_dkv",
         "flash_attention_bwd_dq", "int4_matmul"}
     assert not any(launch_counts().values())
@@ -200,7 +224,8 @@ def test_quantized_kernels_match_plain_on_random_data(cuda_device, quant):
     gsel = torch.sort(hier_topk(got[0].reshape(-1, len(q)).T, 50)[1], dim=-1).values
     diff = gather_groups(q, c, gsel, s, quant) - gather_groups_plain(q, c, gsel, s, quant)
     assert float(diff.abs().max()) <= 1e-5
-    vals, idx, ok = exact_topk_mips(q, c, 10, chunk_size=2048, on_miss="flag", scales=s)
+    vals, idx, ok = exact_topk_mips(q, c, 10, chunk_size=2048, on_miss="flag", scales=s,
+                                    select="capdom", impl="stream")
     assert bool(ok) and torch.equal(idx[:, 0], torch.arange(0, 16384, 1001, device=cuda_device))
 
 
@@ -218,9 +243,10 @@ def test_exact_search_on_the_card_matches_plain(cuda_device, quant):
     q[:3] = torch.randint(-3, 4, (3, d), generator=g, device=cuda_device).float()
     for on_miss in ("flag", "fallback"):  # zero rows: the flag fails, K2 runs
         got = exact_topk_mips(q, c, 30, chunk_size=2048, valid_rows=19000, on_miss=on_miss,
-                              scales=s)
+                              scales=s, select="capdom", impl="stream")
         want = exact_topk_mips(q, c, 30, chunk_size=2048, valid_rows=19000,
-                               on_miss=on_miss, plain=True, scales=s)
+                               on_miss=on_miss, plain=True, scales=s, select="capdom",
+                               impl="stream")
         for x, y in zip(got, want):
             assert torch.equal(x, y)
 
@@ -264,11 +290,10 @@ def test_pq4_kernels_bitwise_equal_plain_on_integer_data(cuda_device, d, m):
                            got[1].view(-1, n_q, b, 128))
         counts = launch_counts()
         assert counts["stream_capture_pq4"] == 1 and counts["gather_groups_pq4"] == 2
-        for x, y in zip(exact_topk_mips(q, c, k, chunk_size=chunk, valid_rows=n - 300,
-                                        on_miss="flag", scales=table, quant="pq4"),
-                        exact_topk_mips(q, c, k, chunk_size=chunk, valid_rows=n - 300,
-                                        on_miss="flag", scales=table, quant="pq4",
-                                        plain=True)):
+        search = dict(chunk_size=chunk, valid_rows=n - 300, on_miss="flag", scales=table,
+                      quant="pq4", select="capdom", impl="stream")
+        for x, y in zip(exact_topk_mips(q, c, k, **search),
+                        exact_topk_mips(q, c, k, plain=True, **search)):
             assert torch.equal(x, y)
 
 
@@ -500,3 +525,125 @@ def test_int4_matmul_matches_plain(cuda_device, dtype, nf4, rows, half, out_dim)
     assert got.dtype == dtype and got.shape == (rows, out_dim)
     assert torch.isfinite(got).all()
     assert_int4_close(got, want, int4_abs_sum(x, packed, scales, cb))
+
+
+# ------------------------------------------- the exact-search variants' kernels
+
+
+def corpus_of(fmt, n, d, g, device):
+    """Integer-valued corpus rows in one of the five formats (every score is
+    exact in any summation order): (corpus, scales, quant)."""
+    if fmt in ("float32", "bfloat16"):
+        c = torch.randint(-2, 3, (n, d), generator=g, device=device)
+        return c.to(getattr(torch, fmt)), None, "none"
+    if fmt == "pq4":
+        c, table = pq4_corpus(n, d, d // 4, g, device, integer=True)
+        return c, table, "pq4"
+    c, s = quantized_corpus(fmt, n, d, g, device)
+    return c, s, fmt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["float32", "bfloat16", "int8", "int4", "pq4"])
+def test_score_gmax_bitwise_equal_plain_and_k1(cuda_device, fmt):
+    """K7a in its three stores: scores and maxima bitwise the plain
+    version's, the maxima bitwise K1's, and the scores of K1's captured
+    groups bitwise its capture (one scoring routine)."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    n, d, chunk = 16384, 256, 2048
+    c, s, quant = corpus_of(fmt, n, d, g, cuda_device)
+    for n_q in (3, 8, 32):
+        q = torch.randint(-2, 3, (n_q, d), generator=g, device=cuda_device).float()
+        if fmt == "bfloat16":
+            q = q.to(torch.bfloat16)
+        k1 = stream_capture(q, c, n - 300, chunk, 8, s, quant)
+        for store in ("chunk", "row", "none"):
+            reset_launch_counts()
+            got = score_gmax(q, c, n - 300, chunk, store, s, quant)
+            want = score_gmax_plain(q, c, n - 300, chunk, store, s, quant)
+            name = "score_gmax" if quant == "none" else f"score_gmax_{quant}"
+            assert launch_counts()[name] == 1
+            assert torch.equal(got[1], want[1]) and torch.equal(got[1], k1[0])
+            if store == "none":
+                assert got[0] is None
+                continue
+            assert torch.equal(got[0], want[0])
+            chunked = got[0] if store == "chunk" else got[0].view(n_q, -1, chunk).transpose(0, 1)
+            cap = score_gather(chunked.contiguous(), k1[2].permute(2, 0, 1).reshape(n_q, -1))
+            assert torch.equal(cap.view(n_q, -1, 8, 128).transpose(0, 1),
+                               k1[1].view(-1, n_q, 8, 128))
+
+
+@pytest.mark.cuda
+def test_copy_kernels_bitwise_equal_plain(cuda_device):
+    """K7b and K8: copies, zeros for an index outside the source."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    src = torch.randn(5, 7, 16 * 128, generator=g, device=cuda_device)
+    idx = torch.randint(-3, 5 * 16 + 3, (7, 33), generator=g, device=cuda_device)
+    reset_launch_counts()
+    assert torch.equal(score_gather(src, idx), score_gather_plain(src, idx))
+    assert torch.equal(cap_assemble(idx, src, 16), cap_assemble_plain(idx, src, 16))
+    counts = launch_counts()
+    assert counts["score_gather"] == 1 and counts["cap_assemble"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_c,b,br,n_q", [(8, 8, 104, 5), (8, 3, 8, 9), (2, 4, 16, 3),
+                                          (40, 8, 16, 33), (1, 16, 16, 4)])
+def test_window_merge_bitwise_equal_plain(cuda_device, n_c, b, br, n_q):
+    """K9 over K1's outputs on integer data (many tied keys) and on random
+    data: window, keys, gids and lost bitwise the plain version's."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    chunk = 2048
+    for integer in (True, False):
+        if integer:
+            c = torch.randint(-2, 3, (n_c * chunk, 64), generator=g, device=cuda_device).float()
+            q = torch.randint(-2, 3, (n_q, 64), generator=g, device=cuda_device).float()
+        else:
+            c = torch.randn(n_c * chunk, 64, generator=g, device=cuda_device)
+            q = torch.randn(n_q, 64, generator=g, device=cuda_device)
+        _, capture, gids, capmax, resid = stream_capture(q, c, n_c * chunk - 70, chunk, b)
+        total = n_c * chunk // 128
+        reset_launch_counts()
+        got = window_merge(gids, capmax, resid, capture, br, total)
+        assert launch_counts()["window_merge"] == 1
+        want = window_merge_plain(gids, capmax, resid, capture, br, total)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["float32", "int4", "pq4"])
+def test_every_variant_on_the_card_equals_capdom(cuda_device, fmt):
+    """Every (impl, select) through the kernels equals stream/capdom through
+    the kernels, bitwise, and its own plain run; a padded batch included
+    (its zero rows fail the capture checks, so the fallbacks run)."""
+    from kirag_tpu_torch.ops import exact as ops_exact
+
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    n, d = 20000, 256
+    c, s, quant = corpus_of(fmt, n, d, g, cuda_device)
+    quant = None if quant == "none" else quant
+    q = torch.zeros(8, d, device=cuda_device)
+    q[:5] = torch.randint(-3, 4, (5, d), generator=g, device=cuda_device).float()
+    search = dict(chunk_size=2048, valid_rows=19000, scales=s, quant=quant)
+    want = exact_topk_mips(q, c, 30, select="capdom", impl="stream", **search)
+    combos = [("stream", "flat"), ("stream", "hier"), ("stream", "merge"), ("single", "hier"),
+              ("single_strided", "hier"), ("twopass", "flat"), ("twopass", "hier")]
+    for impl, select in combos:
+        got = exact_topk_mips(q, c, 30, select=select, impl=impl, **search)
+        plain = exact_topk_mips(q, c, 30, select=select, impl=impl, plain=True, **search)
+        for x, y, z in zip(got, want, plain):
+            assert torch.equal(x, y) and torch.equal(x, z), (impl, select)
+    old = ops_exact.CAPDOM_ASSEMBLY
+    try:
+        ops_exact.CAPDOM_ASSEMBLY = "pallas"
+        reset_launch_counts()
+        got = exact_topk_mips(q, c, 30, select="capdom", impl="stream", on_miss="flag",
+                              **search)
+        assert launch_counts()["cap_assemble"] == 1
+    finally:
+        ops_exact.CAPDOM_ASSEMBLY = old
+    ref = exact_topk_mips(q, c, 30, select="capdom", impl="stream", on_miss="flag", **search)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)

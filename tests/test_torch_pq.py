@@ -15,10 +15,10 @@ Tolerances: integer-valued fixtures (small-integer queries and levels, exact
 in bf16) are exact in any summation order and compare bitwise, ids and tie
 order included; on random data the two packages sum the same exact f32
 products in other orders, within 1e-6 of the largest score (1e-5 absolute
-for unit rows). The port's k-means draws its initial rows from a torch
-generator, the reference from ``jax.random.choice``, so fresh builds of the
-two packages give other codebooks; an index loaded from disk uses the
-codebooks it was written with.
+for unit rows). The port's k-means draws its initial rows as the
+reference's ``jax.random.choice`` does (a numpy restatement of JAX's
+Threefry draws, held bitwise here), so both packages start from the same
+rows; an index loaded from disk uses the codebooks it was written with.
 """
 
 import jax
@@ -36,6 +36,7 @@ from kirag_tpu_torch.index import TorchIndexer
 from kirag_tpu_torch.kernels import gather_groups, quant_scores, stream_capture
 from kirag_tpu_torch.ops import pq as tpq
 from kirag_tpu_torch.ops.exact import exact_topk_mips
+from kirag_tpu_torch.utils import jax_random
 
 ATOL = 1e-5
 
@@ -120,6 +121,36 @@ def test_lloyd_from_the_references_initial_rows(rng):
         tpq.train_pq(sample, 12)
 
 
+@pytest.mark.parametrize("n,seed", [(16, 0), (100, 3), (1625, 1), (1626, 7), (2048, 3),
+                                    (131072, 0), (3_000_000, 12345)])
+def test_init_rows_are_jax_random_choice(n, seed):
+    """The numpy restatement of JAX's draw, bitwise, on both sides of the
+    population sizes where ``permutation`` takes a second sort round
+    (n > 1625) and a third (n > 2^21.3)."""
+    want = np.asarray(jax.random.choice(jax.random.key(seed), n, shape=(16,), replace=False))
+    assert tpq.init_rows(n, seed).tolist() == want.tolist()
+    k = jax.random.key(seed)
+    assert np.array_equal(np.asarray(jax.random.key_data(jax.random.split(k, 3))),
+                          jax_random.split(jax_random.key(seed), 3))
+    assert np.array_equal(np.asarray(jax.random.bits(k, (50,))),
+                          jax_random.random_bits32(jax_random.key(seed), 50))
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_train_pq_from_the_same_seed_gives_the_references_codebooks(rng, seed):
+    """Fresh builds of both packages from one sample and seed: the same
+    initial rows, so codebooks within one bf16 ulp (cluster means of well
+    separated clusters, each initial row in a cluster of its own)."""
+    init = jax_random.choice_without_replacement(seed, 2048, 16)
+    labels = rng.randint(0, 16, 2048)
+    labels[init] = np.arange(16)
+    centers = rng.randn(16, 64).astype(np.float32)
+    sample = (centers[labels] + 1e-3 * rng.randn(2048, 64)).astype(np.float32)
+    want = jpq.train_pq(sample, 16, iters=10, seed=seed)
+    got = tpq.train_pq(sample, 16, iters=10, seed=seed).numpy()
+    assert np.all(np.abs(got - want) <= bf16_ulp(want))
+
+
 # ------------------------------------------------------- K4's pq4 scoring
 
 
@@ -150,7 +181,7 @@ def run_both(q, codes, table, k, chunk, on_miss, valid_rows=None):
                   on_miss=on_miss, scales=jnp.asarray(table), quant="pq4")
     t = exact_topk_mips(torch.from_numpy(q), torch.from_numpy(codes), k, chunk_size=chunk,
                         valid_rows=valid_rows, on_miss=on_miss, scales=torch.from_numpy(table),
-                        quant="pq4", plain=True)
+                        quant="pq4", plain=True, select="capdom", impl="stream")
     return [np.asarray(x) for x in j], [x.numpy() for x in t]
 
 

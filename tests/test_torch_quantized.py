@@ -96,7 +96,8 @@ def run_both(q, codes, scales, k, chunk, on_miss, valid_rows=None):
                   valid_rows=valid_rows, interpret=True, impl="stream", select="capdom",
                   on_miss=on_miss, scales=jnp.asarray(scales))
     t = exact_topk_mips(torch.from_numpy(q), torch.from_numpy(codes), k, chunk_size=chunk,
-                        valid_rows=valid_rows, on_miss=on_miss, scales=torch.from_numpy(scales))
+                        valid_rows=valid_rows, on_miss=on_miss, scales=torch.from_numpy(scales),
+                        select="capdom", impl="stream")
     return [np.asarray(x) for x in j], [x.numpy() for x in t]
 
 
@@ -174,7 +175,7 @@ def test_tiny_corpus_path_matches_dense_scores(rng, quant):
     j = jax_exact(jnp.asarray(q), jnp.asarray(codes), 95, chunk_size=128, valid_rows=90,
                   interpret=True, impl="stream", select="capdom", scales=jnp.asarray(scales))
     t = exact_topk_mips(*map(torch.from_numpy, (q, codes)), 95, chunk_size=128, valid_rows=90,
-                        scales=torch.from_numpy(scales))
+                        scales=torch.from_numpy(scales), select="capdom", impl="stream")
     np.testing.assert_array_equal(t[1].numpy(), np.asarray(j[1]))
     np.testing.assert_allclose(t[0].numpy(), np.asarray(j[0]), atol=ATOL, rtol=0)
     assert np.isneginf(t[0][:, 90:]).all() and not t[1][:, 90:].any()

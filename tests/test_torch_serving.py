@@ -120,8 +120,14 @@ def test_bf16_index_matches_reference(rng):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchIndexer(8, pallas_select="hier")
+    # every selection of the reference is ported; an unknown one is refused
+    # as the reference refuses it
+    with pytest.raises(KeyError, match="pallas_select"):
+        TorchIndexer(8, device="cpu", pallas_select="heir")
+    with pytest.raises(KeyError, match="pallas_select"):
+        TPUIndexer(8, pallas_select="heir")
+    for select in ("hier", "flat", "capdom", "merge"):
+        assert TorchIndexer(8, device="cpu", pallas_select=select).pallas_select == select
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndexer(8, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
