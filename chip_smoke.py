@@ -1565,83 +1565,147 @@ CLI_TRAIN, CLI_DEV, CLI_NEG_TITLES = 64, 8, 7
 K3_NAMES = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 
 
-def check_flash_bwd(dev, gen, power) -> dict:
-    """(a) K3's two backward kernels against the plain backward at BWD_SHAPE
-    (q, k, v as views of one fused projection; flash_segments' rows), bf16
-    and f32: on the plain forward's residuals, and through the autograd
-    Function (the forward kernel's own lse). Then each kernel, the plain
-    backward and the backward of scaled_dot_product_attention with the
-    same-segment boolean mask (a yardstick only), timed with CUDA events,
-    median of 10."""
-    from kirag_tpu_torch.kernels import (flash_attention, flash_attention_bwd_dkv,
-                                         flash_attention_bwd_dq, flash_attention_bwd_plain,
-                                         flash_attention_plain)
+# (a)'s sequence lengths and segment layouts: flash_segments' mixed rows, and
+# every token real (the aligner's training batches, as bench_train's)
+BWD_TS = (128, 256, 512)
+BWD_LAYOUTS = ("segments", "all real")
 
-    b, h, t, d = BWD_SHAPE
+
+def bwd_segments(layout: str, b: int, t: int, dev) -> torch.Tensor:
+    """[b, t] segment ids: flash_segments' rows, every token real (one
+    segment), or ("packed docs") TRAIN_D_LEN-token documents packed
+    end to end, as the packed training step passes its docs."""
+    if layout == "segments":
+        return flash_segments(b, t, dev)
+    seg = torch.ones(b, t, dtype=torch.int32, device=dev)
+    if layout == "packed docs":
+        seg += torch.arange(t, device=dev, dtype=torch.int32) // TRAIN_D_LEN
+    return seg
+
+
+def tile_pairs_skipped(seg: torch.Tensor) -> float:
+    """The share of (query tile, key tile) pairs, over the batch, that the
+    bf16 backward kernels skip: those whose 64-row tiles' segment-id ranges
+    do not overlap."""
+    b, t = seg.shape
+    tiles = seg.view(b, t // 64, 64)
+    lo, hi = tiles.amin(-1), tiles.amax(-1)
+    meet = (lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :] <= hi[:, :, None])
+    return 1.0 - float(meet.float().mean())
+
+
+def bwd_inputs(shape, dtype, seg, gen, dev):
+    """q, k, v (views of one fused projection, as the encoder passes them),
+    dO, the plain forward's out and lse, and di = rowsum(out * dO)."""
+    from kirag_tpu_torch.kernels import flash_attention_plain
+
+    b, h, t, d = shape
+    qkv = torch.randn(b, t, 3 * h * d, generator=gen, device=dev).to(dtype)
+    q, k, v = (x.view(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, h, t, d, generator=gen, device=dev).to(dtype)
+    o, lse = flash_attention_plain(q, k, v, seg, 1.0 / math.sqrt(d), return_lse=True)
+    di = torch.sum(o.float() * do.float(), dim=-1)
+    return q, k, v, do, o, lse, di
+
+
+def bwd_kernel_ms(q, k, v, seg, lse, di, do) -> tuple:
+    """(dK/dV, dQ) kernel times, CUDA events, median of 10."""
+    from kirag_tpu_torch.kernels import flash_attention_bwd_dkv, flash_attention_bwd_dq
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return (cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, seg, lse, di, do, scale)),
+            cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, seg, lse, di, do, scale)))
+
+
+def check_flash_bwd(dev, gen, power) -> dict:
+    """(a) K3's two backward kernels against the plain backward, at
+    [32, 16, T, 64] for T in BWD_TS, on BWD_LAYOUTS' segment rows, bf16 and
+    f32 (q, k, v as views of one fused projection): on the plain forward's
+    residuals, and through the autograd Function (the forward kernel's own
+    lse); a second launch of each kernel on the same inputs must give the
+    same bits. Then each kernel, the plain backward and the backward of
+    scaled_dot_product_attention with the same-segment boolean mask (a
+    yardstick only), timed with CUDA events, median of 10. Keyed (dtype, T,
+    layout); out[dtype] is BWD_SHAPE on flash_segments' rows."""
+    from kirag_tpu_torch.kernels import (flash_attention, flash_attention_bwd_dkv,
+                                         flash_attention_bwd_dq, flash_attention_bwd_plain)
+
+    b, h, _, d = BWD_SHAPE
     scale = 1.0 / math.sqrt(d)
-    seg = flash_segments(b, t, dev)
-    mask = seg[:, None, :, None] == seg[:, None, None, :]
-    pairs = int(mask.sum())  # same-segment (query, key) pairs, over the batch
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        what = f"K3 backward {str(dtype)[6:]} {list(BWD_SHAPE)}"
-        qkv = torch.randn(b, t, 3 * h * d, generator=gen, device=dev).to(dtype)
-        q, k, v = (x.view(b, t, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
-        do = torch.randn(b, h, t, d, generator=gen, device=dev).to(dtype)
-        o, lse = flash_attention_plain(q, k, v, seg, scale, return_lse=True)
-        di = torch.sum(o.float() * do.float(), dim=-1)
-        want = flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, seg, lse, di, do, scale)
-        dq = flash_attention_bwd_dq(q, k, v, seg, lse, di, do, scale)
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        through = torch.autograd.grad(flash_attention(qg, kg, vg, seg, scale), (qg, kg, vg), do)
-        torch.cuda.synchronize()
-        errs = {}
-        for label, got in (("kernels", (dq, dk, dv)), ("Function", through)):
-            for name, x, y in zip(("dq", "dk", "dv"), got, want):
-                err = float((x.float() - y.float()).abs().max())
-                lim = BWD_TOL[dtype] * float(y.float().abs().max())
-                if not (x.dtype == dtype and torch.isfinite(x).all() and err <= lim):
-                    raise AssertionError(f"{what}: {label} {name} differs from plain by {err} "
-                                         f"> {lim}, or is not finite")
-                errs[(label, name)] = err
-        # each input read once, each output written once; 2 * 64 operations per
-        # product, same-segment pair and head: dK/dV recomputes S = Q K^T and
-        # takes dP = dO V^T, dV = P^T dO, dK = dS^T Q (8 * 64); dQ recomputes S
-        # and dP and takes dQ = dS K (6 * 64); the backward as a whole needs S,
-        # dP, dV, dK and dQ once each (10 * 64)
-        ops_s = BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S
-        r = {"err_dkv": max(errs[("kernels", "dk")], errs[("kernels", "dv")]),
-             "err_dq": errs[("kernels", "dq")],
-             "bound_dkv": bound(nbytes(q, k, v, do, lse, di, seg, dk, dv), 8 * d * h * pairs,
-                                ops_s),
-             "bound_dq": bound(nbytes(q, k, v, do, lse, di, seg, dq), 6 * d * h * pairs, ops_s),
-             "bound": bound(nbytes(q, k, v, o, do, lse, seg, dq, dk, dv), 10 * d * h * pairs,
-                            ops_s)}
-        del dq, dk, dv, through, want, qg, kg, vg
-        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-        lib_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
-                                                                   scale=scale)
-        r.update({
-            "dkv_ms": cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, seg, lse, di, do, scale)),
-            "dq_ms": cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, seg, lse, di, do, scale)),
-            "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, seg, o, lse, do,
-                                                                  scale)),
-            "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
-                                                              retain_graph=True))})
-        out[dtype] = r
-        log(f"  {what}: dq, dk, dv within {errs[('kernels', 'dq')]:.3g}, "
-            f"{errs[('kernels', 'dk')]:.3g}, {errs[('kernels', 'dv')]:.3g} of plain on the "
-            f"plain forward's residuals; through the Function (the forward kernel's lse) "
-            f"{errs[('Function', 'dq')]:.3g}, {errs[('Function', 'dk')]:.3g}, "
-            f"{errs[('Function', 'dv')]:.3g} (tolerance {BWD_TOL[dtype]:.3g} x each tensor's "
-            f"largest magnitude); same-segment pairs {pairs / (b * t * t):.3f} of all")
-        log(f"  [{power}] {what}: dK/dV {r['dkv_ms']:.3f} ms (bound {r['bound_dkv'][0]:.3f} ms, "
-            f"{r['bound_dkv'][1]}), dQ {r['dq_ms']:.3f} ms (bound {r['bound_dq'][0]:.3f} ms, "
-            f"{r['bound_dq'][1]}); the backward {r['dkv_ms'] + r['dq_ms']:.3f} ms vs plain "
-            f"{r['plain_ms']:.3f} ms vs SDPA's backward with mask {r['library_ms']:.3f} ms, "
-            f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) (CUDA events, median of 10)")
-        del q, k, v, qkv, do, o, lse, di, ql, kl, vl, lib_out
+        for t in BWD_TS:
+            for layout in BWD_LAYOUTS:
+                shape = [b, h, t, d]
+                what = f"K3 backward {str(dtype)[6:]} {shape} {layout}"
+                seg = bwd_segments(layout, b, t, dev)
+                mask = seg[:, None, :, None] == seg[:, None, None, :]
+                pairs = int(mask.sum())  # same-segment (query, key) pairs, over the batch
+                q, k, v, do, o, lse, di = bwd_inputs(shape, dtype, seg, gen, dev)
+                want = flash_attention_bwd_plain(q, k, v, seg, o, lse, do, scale)
+                dk, dv = flash_attention_bwd_dkv(q, k, v, seg, lse, di, do, scale)
+                dq = flash_attention_bwd_dq(q, k, v, seg, lse, di, do, scale)
+                dk2, dv2 = flash_attention_bwd_dkv(q, k, v, seg, lse, di, do, scale)
+                dq2 = flash_attention_bwd_dq(q, k, v, seg, lse, di, do, scale)
+                qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+                through = torch.autograd.grad(flash_attention(qg, kg, vg, seg, scale),
+                                              (qg, kg, vg), do)
+                torch.cuda.synchronize()
+                errs = {}
+                for label, got in (("kernels", (dq, dk, dv)), ("Function", through)):
+                    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                        err = float((x.float() - y.float()).abs().max())
+                        lim = BWD_TOL[dtype] * float(y.float().abs().max())
+                        if not (x.dtype == dtype and torch.isfinite(x).all() and err <= lim):
+                            raise AssertionError(f"{what}: {label} {name} differs from plain "
+                                                 f"by {err} > {lim}, or is not finite")
+                        errs[(label, name)] = err
+                for name, x, y in zip(("dq", "dk", "dv"), (dq, dk, dv), (dq2, dk2, dv2)):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"{what}: two launches on the same inputs give "
+                                             f"different {name}")
+                # each input read once, each output written once; 2 * 64 operations
+                # per product, same-segment pair and head: dK/dV recomputes S = Q K^T
+                # and takes dP = dO V^T, dV = P^T dO, dK = dS^T Q (8 * 64); dQ
+                # recomputes S and dP and takes dQ = dS K (6 * 64); the backward as a
+                # whole needs S, dP, dV, dK and dQ once each (10 * 64)
+                ops_s = BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S
+                r = {"err_dkv": max(errs[("kernels", "dk")], errs[("kernels", "dv")]),
+                     "err_dq": errs[("kernels", "dq")], "skipped": tile_pairs_skipped(seg),
+                     "bound_dkv": bound(nbytes(q, k, v, do, lse, di, seg, dk, dv),
+                                        8 * d * h * pairs, ops_s),
+                     "bound_dq": bound(nbytes(q, k, v, do, lse, di, seg, dq), 6 * d * h * pairs,
+                                       ops_s),
+                     "bound": bound(nbytes(q, k, v, o, do, lse, seg, dq, dk, dv),
+                                    10 * d * h * pairs, ops_s)}
+                del dq, dk, dv, dq2, dk2, dv2, through, want, qg, kg, vg
+                ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+                lib_out = torch.nn.functional.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=mask, scale=scale)
+                r["dkv_ms"], r["dq_ms"] = bwd_kernel_ms(q, k, v, seg, lse, di, do)
+                r.update({
+                    "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, seg, o, lse,
+                                                                          do, scale)),
+                    "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                        lib_out, (ql, kl, vl), do, retain_graph=True))})
+                out[(dtype, t, layout)] = r
+                log(f"  {what}: dq, dk, dv within {errs[('kernels', 'dq')]:.3g}, "
+                    f"{errs[('kernels', 'dk')]:.3g}, {errs[('kernels', 'dv')]:.3g} of plain on "
+                    f"the plain forward's residuals; through the Function (the forward "
+                    f"kernel's lse) {errs[('Function', 'dq')]:.3g}, "
+                    f"{errs[('Function', 'dk')]:.3g}, {errs[('Function', 'dv')]:.3g} "
+                    f"(tolerance {BWD_TOL[dtype]:.3g} x each tensor's largest magnitude); a "
+                    f"second launch bitwise equal; same-segment pairs "
+                    f"{pairs / (b * t * t):.3f} of all; tile pairs skipped "
+                    f"{r['skipped']:.3f} of all")
+                log(f"  [{power}] {what}: dK/dV {r['dkv_ms']:.4f} ms (bound "
+                    f"{r['bound_dkv'][0]:.4f} ms, {r['bound_dkv'][1]}), dQ {r['dq_ms']:.4f} ms "
+                    f"(bound {r['bound_dq'][0]:.4f} ms, {r['bound_dq'][1]}); the backward "
+                    f"{r['dkv_ms'] + r['dq_ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms vs "
+                    f"SDPA's backward with mask {r['library_ms']:.4f} ms, bound "
+                    f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) (CUDA events, median of 10)")
+                del q, k, v, do, o, lse, di, ql, kl, vl, lib_out, mask
+        out[dtype] = out[(dtype, BWD_SHAPE[2], "segments")]
     return out
 
 
@@ -1954,19 +2018,38 @@ def profile_train_step(trainer, batch, label, step_ms, power) -> dict:
     return {"busy_ms": busy, "idle": idle, "split_ms": {k: v / 1e3 for k, v in split.items()}}
 
 
-def train_timing(work: Path, model, power) -> dict:
+def train_timing(work: Path, model, power, query_bwd_ms: tuple) -> dict:
     """(d) AlignerTrainer.training_step at benchmarks/bench_train.py's
     geometry and optimizer (lr 2e-5 warming up over 1,000 of 10,000
     updates), bf16 compute over f32 master weights, two-call and packed
     (docs 4 to a 256-token row through K3), each remat mode: 20 steps on
     one batch from the same weights, whose loss must fall; ms per step, peak
-    memory, model-FLOPs per second against 989 TFLOP/s; then one profiled
-    step."""
+    memory, model-FLOPs per second against 989 TFLOP/s; K3's backward
+    kernels' device time a step, as their launches a step (counted) times
+    their CUDA-event times at the step's shape (``query_bwd_ms``: the
+    query batch's, from (a); the packed pass's taken here); then one
+    profiled step."""
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
     from kirag_tpu_torch.training import AlignerTrainer, TrainerConfig
 
     batch = train_batch(TRAIN_QUERIES, np.random.RandomState(SEED + 12), padded=False)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     flops = step_flops(model.config)
+    n_layers, heads = model.config.num_hidden_layers, model.config.num_attention_heads
+    dev = next(model.parameters()).device
+    # the packed step's one encoder pass: the query rows, then the docs,
+    # DOCS_PER_QUERY of TRAIN_D_LEN tokens to a row
+    n_docs = TRAIN_QUERIES * DOCS_PER_QUERY * TRAIN_D_LEN // TRAIN_Q_LEN
+    shape = [TRAIN_QUERIES + n_docs, heads, TRAIN_Q_LEN, 64]
+    seg = torch.cat([bwd_segments("all real", TRAIN_QUERIES, TRAIN_Q_LEN, dev),
+                     bwd_segments("packed docs", n_docs, TRAIN_Q_LEN, dev)])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    q, k, v, do, _, lse, di = bwd_inputs(shape, torch.bfloat16, seg, gen, dev)
+    packed_bwd_ms = bwd_kernel_ms(q, k, v, seg, lse, di, do)
+    del q, k, v, do, lse, di
+    log(f"  [{power}] K3 backward bf16 {shape}, the packed step's queries and docs (tile "
+        f"pairs skipped {tile_pairs_skipped(seg):.3f} of all): dK/dV {packed_bwd_ms[0]:.4f} "
+        f"ms, dQ {packed_bwd_ms[1]:.4f} ms (CUDA events, median of 10)")
     out = {}
     for packed in (False, True):
         for remat in (False, True, "dots"):
@@ -1977,17 +2060,28 @@ def train_timing(work: Path, model, power) -> dict:
                 compute_dtype=torch.bfloat16, remat=remat, packed=packed)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
             losses, secs = [], []
             for _ in range(TRAIN_STEPS):
                 t0 = time.perf_counter()
                 losses.append(trainer.training_step(batch)["loss"])  # ends on the host
                 secs.append(time.perf_counter() - t0)
             peak = torch.cuda.max_memory_allocated()
+            # each layer's backward launches both kernels once: on the query
+            # batch (two-call; its 64-token docs take the XLA-style path) or on
+            # the packed queries and docs
+            counts = launch_counts()
+            for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+                if counts[name] != n_layers * TRAIN_STEPS:
+                    raise AssertionError(f"{label}: {counts[name]} {name} launches in "
+                                         f"{TRAIN_STEPS} steps, expected {n_layers} a step")
+            bwd_ms = n_layers * sum(packed_bwd_ms if packed else query_bwd_ms)
             if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
                 raise AssertionError(f"{label}: the loss did not fall: {losses}")
             step_ms = statistics.median(secs[1:]) * 1e3
             r = {"step_ms": step_ms, "peak_gb": peak / 1e9, "losses": losses,
-                 "tflops": flops / step_ms / 1e9, "mfu": flops / (step_ms / 1e3) / BF16_FLOP_S}
+                 "tflops": flops / step_ms / 1e9, "mfu": flops / (step_ms / 1e3) / BF16_FLOP_S,
+                 "bwd_kernel_ms": bwd_ms}
             if not packed:
                 r["profile"] = profile_train_step(trainer, batch, label, step_ms, power)
             out[(packed, remat)] = r
@@ -1995,7 +2089,9 @@ def train_timing(work: Path, model, power) -> dict:
                 f"{TRAIN_STEPS}, host clock to the loss on the host), peak memory "
                 f"{r['peak_gb']:.2f} GB; {r['tflops']:.1f} TFLOP/s of model FLOPs "
                 f"({flops / 1e12:.2f} TFLOP a step), {100 * r['mfu']:.1f}% of 989 TFLOP/s; "
-                f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps")
+                f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps; K3's "
+                f"backward kernels {n_layers} launches each a step x their CUDA-event times = "
+                f"{bwd_ms:.2f} ms of the step ({100 * bwd_ms / step_ms:.1f}%)")
             del trainer
             torch.cuda.empty_cache()
     model.load_state_dict(init)
@@ -2013,7 +2109,8 @@ def aligner_training(work: Path, built: dict, dev, gen, power) -> dict:
     model = load_encoder(str(built["model_dir"]), "e5", device=dev).model  # f32 weights
     grads = check_train_grads(model, dev)
     cli = train_cli(work, built["model_dir"], dev, power)
-    timing = train_timing(work, model, power)
+    query = flash_bwd[(torch.bfloat16, TRAIN_Q_LEN, "all real")]
+    timing = train_timing(work, model, power, (query["dkv_ms"], query["dq_ms"]))
     del model
     torch.cuda.empty_cache()
     return {"flash_bwd": flash_bwd, "grads": grads, "cli": cli, "timing": timing,

@@ -1,6 +1,8 @@
 // What the flash attention kernels share (flash_attention.cu, the forward,
 // and flash_attention_bwd.cu, the two backward kernels): tile sizes, element
-// strides, and the mma.sync m16n8k16 bf16 helpers.
+// strides, and the mma.sync m16n8k16 bf16 fragment helpers (wgmma's
+// accumulator and register operand use the same fragments, a warp's 16 rows
+// at a time).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,42 +52,6 @@ __device__ __forceinline__ void c_to_a(uint32_t* a, const float* c_even, const f
   a[1] = pack_bf16(c_even[2], c_even[3]);
   a[2] = pack_bf16(c_odd[0], c_odd[1]);
   a[3] = pack_bf16(c_odd[2], c_odd[3]);
-}
-
-// A fragments of rows r0 and r0 + 8 of a [*, 64] bf16 matrix, one per
-// 16-column step.
-__device__ __forceinline__ void load_a_rows(uint32_t (*f)[4], const __nv_bfloat16* base,
-                                            long long row_stride, int r0, int c) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int col = ks * 16 + 2 * c;
-    f[ks][0] = ld32(base + r0 * row_stride + col);
-    f[ks][1] = ld32(base + (r0 + 8) * row_stride + col);
-    f[ks][2] = ld32(base + r0 * row_stride + col + 8);
-    f[ks][3] = ld32(base + (r0 + 8) * row_stride + col + 8);
-  }
-}
-
-// Stages a [64, 64] bf16 tile (rows row0.. of base) in shared memory,
-// row-major ([row][d], rows SK apart) and/or transposed ([d][row]); all
-// threads of the block take part.
-__device__ __forceinline__ void stage_tile(uint16_t* rows_s, uint16_t* cols_s,
-                                           const __nv_bfloat16* base, long long row_stride,
-                                           int row0, int tid, int n_threads) {
-  for (int i = tid; i < 64 * HD / 8; i += n_threads) {
-    if (rows_s != nullptr) {  // 16-byte vectors, neighbouring threads along a row
-      const int row = i / 8, d0 = (i % 8) * 8;
-      *reinterpret_cast<uint4*>(&rows_s[row * SK + d0]) =
-          *reinterpret_cast<const uint4*>(base + (row0 + row) * row_stride + d0);
-    }
-    if (cols_s != nullptr) {  // neighbouring threads on neighbouring rows of a column
-      const int row = i % 64, d0 = (i / 64) * 8;
-      const uint4 raw = *reinterpret_cast<const uint4*>(base + (row0 + row) * row_stride + d0);
-      const uint16_t* e = reinterpret_cast<const uint16_t*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cols_s[(d0 + j) * SK + row] = e[j];
-    }
-  }
 }
 
 __device__ __forceinline__ float row_max4(float x) {  // over the 4 lanes of a row

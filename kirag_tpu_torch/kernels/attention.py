@@ -222,12 +222,18 @@ def flash_attention_bwd(q, k, v, segment_ids, out, lse, do, sm_scale
     return flash_attention_bwd_dq(q, k, v, segment_ids, lse, di, do, sm_scale), dk, dv
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and starting on 16 bytes (the bf16 kernels copy
+    64-row slices of it in bulk)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _bwd_launch(name, q, k, v, segment_ids, lse, di, do, sm_scale, outs):
     _kernel_operands(q, {"q": q, "k": k, "v": v, "dout": do})
     b, h, t, _ = q.shape
     lib = load_library()
-    seg = segment_ids.to(torch.int32).contiguous()
-    lse, di = lse.contiguous(), di.contiguous()
+    seg, lse, di = _aligned(segment_ids.to(torch.int32)), _aligned(lse), _aligned(di)
     # strides of q, k, v, dout, dq, dk, dv in turn; the kernel reads its own
     dq, dk, dv = outs.get("dq", q), outs.get("dk", q), outs.get("dv", q)
     with torch.cuda.device(q.device):

@@ -35,6 +35,7 @@ from kirag_tpu_torch.models import BertConfig, BertModel, bert_encode
 from kirag_tpu_torch.models import bert as port_bert
 
 from tests.test_torch_flash import CFG, layer_params, port_model, segments
+from tests.test_torch_kernels import BWD_LAYOUTS, bwd_segments
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SCALE = 0.125
@@ -82,6 +83,68 @@ def test_backward_matches_jax_pallas_kernels(rng, t, kind):
         direct = flash_attention_bwd_plain(tq, tk, tv, tseg, o, lse, tw, SCALE)
     for g, d in zip(got, direct):
         np.testing.assert_array_equal(g.numpy(), d.numpy())
+
+
+def kept_tile_pairs(seg: torch.Tensor) -> torch.Tensor:
+    """[B, T, T] bool: whether the bf16 backward kernels compute the pair
+    (query i, key j), by their tile skip: each 64-row tile's smallest and
+    largest segment id, and a (query tile, key tile) pair kept where the two
+    ranges overlap."""
+    b, t = seg.shape
+    tiles = seg.view(b, t // 64, 64)
+    lo, hi = tiles.amin(-1), tiles.amax(-1)
+    meet = (lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :] <= hi[:, :, None])
+    return meet.repeat_interleave(64, dim=1).repeat_interleave(64, dim=2)
+
+
+def plain_backward_on_kept_tiles(q, k, v, seg, out, lse, do, sm_scale):
+    """flash_attention_bwd_plain's formulas with P (and so dS) formed only
+    on the kept tile pairs: what the kernels compute when they skip."""
+    f32 = torch.float32
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), k.to(f32)) * sm_scale
+    same = (seg[:, None, :, None] == seg[:, None, None, :]) & kept_tile_pairs(seg)[:, None]
+    p = torch.where(same, torch.exp(logits - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.to(f32), v.to(f32))
+    di = torch.sum(out.to(f32) * do.to(f32), dim=-1)
+    ds = p * (dp - di[..., None]) * sm_scale
+    p, ds = p.to(q.dtype).to(f32), ds.to(q.dtype).to(f32)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.to(f32))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(f32))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(f32))
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+def test_tile_skip_drops_no_same_segment_pair(rng, layout):
+    """The bf16 kernels' segment tile skip is exact: the plain backward on
+    the kept tile pairs alone equals the plain backward bit for bit (every
+    pair it drops has P = dS = 0), and JAX's Pallas dK/dV and dQ kernels
+    within TOL, on right-padded, all-padding, tile-edge packed, non-monotonic
+    (1, 2, 1 across tiles) and all-real segment rows at T = 256."""
+    b, t = 4, 256
+    seg = bwd_segments(layout, b, t, "cpu")
+    kept = kept_tile_pairs(seg)
+    skips = layout in ("padded", "packed_on_edges", "non_monotonic")
+    assert bool((~kept).any()) == skips  # the layouts that exercise the skip do skip
+    q, k, v, w = (rng.randn(b, 1, t, 64).astype(np.float32) for _ in range(4))
+    tq, tk, tv, tw = (torch.from_numpy(a) for a in (q, k, v, w))
+    o, lse = flash_attention_plain(tq, tk, tv, seg, SCALE, return_lse=True)
+    want = flash_attention_bwd_plain(tq, tk, tv, seg, o, lse, tw, SCALE)
+    got = plain_backward_on_kept_tiles(tq, tk, tv, seg, o, lse, tw, SCALE)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+    def loss(q, k, v):
+        out = jax_fa.flash_attention(
+            q, k, v, segment_ids=jax_fa.SegmentIds(q=jnp.asarray(seg.numpy()),
+                                                   kv=jnp.asarray(seg.numpy())),
+            sm_scale=SCALE, block_sizes=jax_block_sizes(t))
+        return jnp.sum(out * w)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
 
 
 def test_lse_is_the_log_of_the_reference_softmax_sums(rng):

@@ -441,22 +441,53 @@ def test_flash_attention_matches_plain(cuda_device, dtype, t):
         assert float((got.float() - want.float()).abs().max()) <= bf16_ulps(want)
 
 
+BWD_LAYOUTS = ("padded", "all_padding", "packed_on_edges", "non_monotonic", "all_real")
+
+
+def bwd_segments(kind: str, b: int, t: int, device) -> torch.Tensor:
+    """[b, t] segment ids of one kind for every row: right-padded (lengths
+    that end inside a tile, on a tile edge, after one token, and none);
+    padding only; packed documents whose boundaries fall on 64-row tile
+    edges (with a padding tile last in one row); ids that are not monotonic
+    across tiles (1, 2, 1 by tile, so a tile pairs with one two tiles away
+    and not with the one between; 3, 2, 1; and ids alternating inside
+    tiles); every token real."""
+    pos = torch.arange(t, device=device)
+    tile = pos // 64
+    seg = torch.ones(b, t, dtype=torch.int32, device=device)
+    for i in range(b):
+        if kind == "padded":
+            seg[i, (t - 37, t - 64 * (t // 128) if t > 64 else 32, 1, t)[i % 4]:] = 0
+        elif kind == "all_padding":
+            seg[i] = 0
+        elif kind == "packed_on_edges":
+            seg[i] = 1 + tile // (1 + i % 2)
+            if i % 4 == 3 and t > 64:
+                seg[i, t - 64:] = 0
+        elif kind == "non_monotonic":
+            seg[i] = (torch.tensor([1, 2, 1], device=device)[tile % 3],
+                      3 - tile % 3,
+                      1 + (pos // 48) % 2,
+                      torch.tensor([2, 1, 2], device=device)[tile % 3])[i % 4]
+    return seg
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [128, 256])
-def test_flash_attention_backward_matches_plain(cuda_device, dtype, t):
+@pytest.mark.parametrize("t", [64, 128, 192, 256, 512])
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+def test_flash_attention_backward_matches_plain(cuda_device, dtype, t, layout):
     """dq, dk, dv through the forward and the two backward kernels against
     the plain backward on the plain forward's residuals: f32 within 1e-4 of
     each tensor's largest magnitude (f32 sums in other orders), bf16 within
     2^-6 of it (P and dS rounded to bf16 in both, exponentials and sums in
-    other orders)."""
+    other orders). Every T a multiple of 64 (odd multiples take the 64-row
+    bf16 blocks), segment layouts whose tile ranges the bf16 kernels skip
+    by, q, k, v as strided views of one fused projection; a second backward
+    on the same inputs gives the same bits."""
     g = torch.Generator(device=cuda_device).manual_seed(4)
     b, h = 4, 4
-    seg = torch.ones(b, t, dtype=torch.int32, device=cuda_device)
-    seg[0, t - 50:] = 0
-    seg[1] = 0
-    seg[2] = torch.repeat_interleave(torch.tensor([1, 2, 3, 0], device=cuda_device),
-                                     torch.tensor([30, 70, t - 110, 10], device=cuda_device))
+    seg = bwd_segments(layout, b, t, cuda_device)
     qkv = torch.randn(b, t, 3 * h * 64, generator=g, device=cuda_device).to(dtype)
     q, k, v = (x.view(b, t, h, 64).transpose(1, 2).requires_grad_()
                for x in qkv.split(h * 64, -1))
@@ -464,19 +495,21 @@ def test_flash_attention_backward_matches_plain(cuda_device, dtype, t):
     reset_launch_counts()
     out = flash_attention(q, k, v, seg, 0.125)
     assert out.grad_fn is not None
-    got = torch.autograd.grad(out, (q, k, v), w)
+    got = torch.autograd.grad(out, (q, k, v), w, retain_graph=True)
     counts = launch_counts()
     assert (counts["flash_attention"], counts["flash_attention_bwd_dkv"],
             counts["flash_attention_bwd_dq"]) == (1, 1, 1)
+    again = torch.autograd.grad(out, (q, k, v), w)
     with torch.no_grad():
         o, lse = flash_attention_plain(q, k, v, seg, 0.125, return_lse=True)
         want = flash_attention_bwd_plain(q, k, v, seg, o, lse, w, 0.125)
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
-    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+    for name, x, y, z in zip(("dq", "dk", "dv"), got, want, again):
         assert x.dtype == dtype and torch.isfinite(x).all(), name
         err = float((x.float() - y.float()).abs().max())
         assert err <= tol * float(y.float().abs().max()), (name, err)
+        assert torch.equal(x, z), f"{name}: two launches on the same inputs differ"
 
 
 def int4_abs_sum(x, packed, scales, codebook=None):
