@@ -699,48 +699,61 @@ def bf16_ulps(x: torch.Tensor, n: int = 2) -> float:
 def check_flash(dev, gen, heads: int, power) -> dict:
     """K3 against its plain version at the encoder's shapes ([128, 16, T, 64],
     T = 128, 256, 512; q, k, v as views of one fused projection, as the
-    encoder passes them), bf16 and f32, with every kind of segment row; then
-    K3, the plain version and scaled_dot_product_attention with the
-    same-segment boolean mask (the library's call for this function, a
-    yardstick only), timed with CUDA events, median of 10."""
+    encoder passes them), bf16 and f32, on flash_segments' mixed rows and
+    with every token real: the output, each row's lse (m + log l, what the
+    backward reads) within 1e-5 of the plain logsumexp, and a second launch
+    bitwise the first. Then K3, the plain version and
+    scaled_dot_product_attention with the same-segment boolean mask (the
+    library's call for this function, a yardstick only), timed with CUDA
+    events, median of 10. Keyed (dtype, T, layout)."""
     from kirag_tpu_torch.kernels import flash_attention, flash_attention_plain
+    from kirag_tpu_torch.kernels.attention import _forward
 
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         for t in (128, 256, 512):
-            what = f"K3 {str(dtype)[6:]} [{BATCH}, {heads}, {t}, 64]"
-            seg = flash_segments(BATCH, t, dev)
-            qkv = torch.randn(BATCH, t, 3 * heads * 64, generator=gen, device=dev).to(dtype)
-            q, k, v = (x.view(BATCH, t, heads, 64).transpose(1, 2)
-                       for x in qkv.split(heads * 64, dim=-1))
-            got = flash_attention(q, k, v, seg, 0.125)
-            want = flash_attention_plain(q, k, v, seg, 0.125)
-            mask = (seg[:, None, :, None] == seg[:, None, None, :])
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, attn_mask=mask, scale=0.125)
-            lib_err = float((sdpa().float() - want.float()).abs().max())
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            tol = 1e-5 if dtype == torch.float32 else bf16_ulps(want)
-            if not (torch.isfinite(got).all() and err <= tol):
-                raise AssertionError(f"{what}: K3 differs from plain by {err} > {tol} "
-                                     "or is not finite")
-            # each input read once, the output written once; 4 * 64 flops per
-            # same-segment (query, key) pair and head, in QK^T and PV
-            pairs = int((seg[:, :, None] == seg[:, None, :]).sum())
-            kb = bound(nbytes(q, k, v, got, seg), 4 * 64 * heads * pairs,
-                       BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S)
-            r = {"err": err, "tol": tol, "bound": kb,
-                 "ms": cuda_ms(lambda: flash_attention(q, k, v, seg, 0.125)),
-                 "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, seg, 0.125)),
-                 "library_ms": cuda_ms(sdpa)}
-            out[(dtype, t)] = r
-            log(f"  {what}: max abs err {err:.3g} (tolerance {tol:.3g}; SDPA vs plain "
-                f"{lib_err:.3g}); same-segment pairs {pairs / (BATCH * t * t):.3f} of all")
-            log(f"  [{power}] {what}: K3 {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, "
-                f"SDPA with mask {r['library_ms']:.3f} ms; bound {kb[0]:.3f} ms ({kb[1]}) "
-                "(CUDA events, median of 10)")
-            del q, k, v, qkv, got, want, mask
+            for layout in BWD_LAYOUTS:
+                what = f"K3 {str(dtype)[6:]} [{BATCH}, {heads}, {t}, 64] {layout}"
+                seg = bwd_segments(layout, BATCH, t, dev)
+                qkv = torch.randn(BATCH, t, 3 * heads * 64, generator=gen, device=dev).to(dtype)
+                q, k, v = (x.view(BATCH, t, heads, 64).transpose(1, 2)
+                           for x in qkv.split(heads * 64, dim=-1))
+                got = flash_attention(q, k, v, seg, 0.125)
+                again, lse = _forward(q, k, v, seg, 0.125, with_lse=True)
+                want, want_lse = flash_attention_plain(q, k, v, seg, 0.125, return_lse=True)
+                mask = (seg[:, None, :, None] == seg[:, None, None, :])
+                sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, attn_mask=mask, scale=0.125)
+                lib_err = float((sdpa().float() - want.float()).abs().max())
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                lse_err = float((lse - want_lse).abs().max())
+                tol = 1e-5 if dtype == torch.float32 else bf16_ulps(want)
+                if not (torch.isfinite(got).all() and err <= tol and lse_err <= 1e-5):
+                    raise AssertionError(f"{what}: K3 differs from plain by {err} > {tol}, "
+                                         f"or its lse by {lse_err} > 1e-5, or is not finite")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: two launches on the same inputs differ")
+                # each input read once, the output written once; 4 * 64 flops per
+                # same-segment (query, key) pair and head, in QK^T and PV
+                pairs = int((seg[:, :, None] == seg[:, None, :]).sum())
+                kb = bound(nbytes(q, k, v, got, seg), 4 * 64 * heads * pairs,
+                           BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S)
+                # the bf16 kernel's blocks own 64 queries, the f32 kernel's 128
+                skipped = tile_pairs_skipped(seg, 64 if dtype == torch.bfloat16 else 128)
+                r = {"err": err, "tol": tol, "bound": kb,
+                     "ms": cuda_ms(lambda: flash_attention(q, k, v, seg, 0.125)),
+                     "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, seg, 0.125)),
+                     "library_ms": cuda_ms(sdpa)}
+                out[(dtype, t, layout)] = r
+                log(f"  {what}: max abs err {err:.3g} (tolerance {tol:.3g}; SDPA vs plain "
+                    f"{lib_err:.3g}); lse within {lse_err:.3g} (1e-5); a second launch "
+                    f"bitwise equal; same-segment pairs {pairs / (BATCH * t * t):.3f} of all; "
+                    f"(query block, key tile) pairs skipped {skipped:.3f} of all")
+                log(f"  [{power}] {what}: K3 {r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms, "
+                    f"SDPA with mask {r['library_ms']:.4f} ms; bound {kb[0]:.4f} ms ({kb[1]}) "
+                    "(CUDA events, median of 10)")
+                del q, k, v, qkv, got, again, want, lse, want_lse, mask
     return out
 
 
@@ -942,9 +955,9 @@ def index_build(work: Path, dev, gen, config, power, err) -> dict:
 
     # -- K3 against its plain version, and its times
     flash = check_flash(dev, gen, config.num_attention_heads, power)
-    err["flash_attention"] = max(r["err"] for (d, _), r in flash.items()
+    err["flash_attention"] = max(r["err"] for (d, _, _), r in flash.items()
                                  if d == torch.bfloat16)
-    err["flash_attention_f32"] = max(r["err"] for (d, _), r in flash.items()
+    err["flash_attention_f32"] = max(r["err"] for (d, _, _), r in flash.items()
                                      if d == torch.float32)
 
     # -- the encoder through K3 and through the plain attention path, one
@@ -1583,14 +1596,18 @@ def bwd_segments(layout: str, b: int, t: int, dev) -> torch.Tensor:
     return seg
 
 
-def tile_pairs_skipped(seg: torch.Tensor) -> float:
-    """The share of (query tile, key tile) pairs, over the batch, that the
-    bf16 backward kernels skip: those whose 64-row tiles' segment-id ranges
-    do not overlap."""
+def tile_pairs_skipped(seg: torch.Tensor, q_rows: int = 64) -> float:
+    """The share of (query block, key tile) pairs, over the batch, that the
+    kernels skip: those whose segment-id ranges do not overlap. Key tiles
+    are 64 rows; query blocks ``q_rows`` (64 for the bf16 kernels, 128 for
+    the f32 forward; the last one may be shorter)."""
     b, t = seg.shape
     tiles = seg.view(b, t // 64, 64)
     lo, hi = tiles.amin(-1), tiles.amax(-1)
-    meet = (lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :] <= hi[:, :, None])
+    per = q_rows // 64
+    q_lo = torch.stack([lo[:, i:i + per].amin(-1) for i in range(0, t // 64, per)], 1)
+    q_hi = torch.stack([hi[:, i:i + per].amax(-1) for i in range(0, t // 64, per)], 1)
+    meet = (q_lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :] <= q_hi[:, :, None])
     return 1.0 - float(meet.float().mean())
 
 
@@ -3781,7 +3798,7 @@ def main() -> int:
                 "library_ms": None,
                 "at": f"Q=32, float32 index {N_ROWS} x {DIM}, chunk {CHUNK}, k={K}"}
                for k, (src, rep) in sources.items()]
-    k3 = built["flash"][(torch.bfloat16, 512)]
+    k3 = built["flash"][(torch.bfloat16, 512, "segments")]
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": "kirag_tpu_torch/csrc/flash_attention.cu",
                     "replaces": "kirag_tpu/models/bert.py:179",

@@ -1,8 +1,9 @@
 // What the flash attention kernels share (flash_attention.cu, the forward,
 // and flash_attention_bwd.cu, the two backward kernels): tile sizes, element
-// strides, and the mma.sync m16n8k16 bf16 fragment helpers (wgmma's
-// accumulator and register operand use the same fragments, a warp's 16 rows
-// at a time).
+// strides, the mma.sync m16n8k16 bf16 fragment layout (wgmma's accumulator
+// and register operand use the same fragments, a warp's 16 rows at a time)
+// and the segment ranges of 64-row tiles that the exact tile skip tests.
+// hopper.cuh holds the bf16 kernels' TMA, mbarrier and wgmma pieces.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,30 +16,15 @@ namespace kirag_flash {
 constexpr int HD = 64;        // head dim
 constexpr int BQ = 64;        // queries per tile
 constexpr int BK = 64;        // keys per tile
-constexpr int SK = HD + 8;    // bf16 row stride of a staged tile (bank spread)
 constexpr int BF16_THREADS = 128;
 
 struct Strides {  // element strides of [B, H, T, 64] with d contiguous
   long long b, h, t;
 };
 
-template <typename T>  // two neighbouring bf16 values as one 32-bit word
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the lower 16 bits
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Fragment layout of mma.m16n8k16 (g = lane / 4, c = lane % 4):
@@ -62,6 +48,28 @@ __device__ __forceinline__ float row_max4(float x) {  // over the 4 lanes of a r
 __device__ __forceinline__ float row_sum4(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Each 64-row tile's smallest and largest segment id, r[i] = (lo, hi); all
+// threads of the block take part.
+__device__ __forceinline__ void tile_ranges(int2* r, const int* segb, int n_tiles) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < n_tiles; i += blockDim.x / 32) {
+    const int x = segb[64 * i + lane], y = segb[64 * i + 32 + lane];
+    const int lo = __reduce_min_sync(0xffffffffu, min(x, y));
+    const int hi = __reduce_max_sync(0xffffffffu, max(x, y));
+    if (lane == 0) r[i] = make_int2(lo, hi);
+  }
+}
+
+// Whether two segment ranges meet. A pair of tiles whose ranges do not holds
+// no same-segment pair: every logit between them is -inf (the exact skip).
+__device__ __forceinline__ bool overlap(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }
+
+// The first tile from j on (of n_tiles, ranges r) whose range meets own.
+__device__ __forceinline__ int next_kept(const int2* r, int2 own, int j, int n_tiles) {
+  while (j < n_tiles && !overlap(r[j], own)) ++j;
+  return j;
 }
 
 inline Strides strides_at(const long long* s, int which) {

@@ -93,7 +93,7 @@ def _forward(q, k, v, segment_ids, sm_scale, with_lse: bool):
     _kernel_operands(q, {"q": q, "k": k, "v": v})
     b, h, t, _ = q.shape
     lib = load_library()
-    seg = segment_ids.to(torch.int32).contiguous()
+    seg = _aligned(segment_ids.to(torch.int32))  # copied in bulk, 64 ids a tile
     out = _empty_like_rows(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
@@ -223,8 +223,8 @@ def flash_attention_bwd(q, k, v, segment_ids, out, lse, do, sm_scale
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous and starting on 16 bytes (the bf16 kernels copy
-    64-row slices of it in bulk)."""
+    """``x`` contiguous and starting on 16 bytes (the kernels copy 64-row
+    slices of it in bulk)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 

@@ -147,6 +147,46 @@ def test_tile_skip_drops_no_same_segment_pair(rng, layout):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
 
 
+def plain_forward_on_kept_tiles(q, k, v, seg, sm_scale):
+    """flash_attention_plain's formulas with the logits formed only on the
+    kept tile pairs (every other one -inf): what the forward kernels compute
+    when they skip. Returns (out, lse)."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k.to(torch.float32))
+    same = (seg[:, None, :, None] == seg[:, None, None, :]) & kept_tile_pairs(seg)[:, None]
+    logits = torch.where(same, logits * sm_scale, float("-inf"))
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1).to(v.dtype), v)
+    return out, torch.logsumexp(logits, dim=-1)
+
+
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+def test_forward_tile_skip_drops_no_same_segment_pair(rng, layout):
+    """The forward kernels' segment tile skip is exact: the plain forward on
+    the kept (64-query tile, 64-key tile) pairs alone equals the plain
+    forward bit for bit in out and lse (a skipped tile's logits are all
+    -inf), and both match JAX's Pallas forward (interpret mode; lse against
+    its saved m + log(l)) within TOL, on the same five segment layouts at
+    T = 256. The f32 kernel's 128-query blocks keep a superset of these
+    pairs."""
+    b, t = 4, 256
+    seg = bwd_segments(layout, b, t, "cpu")
+    q, k, v = (rng.randn(b, 1, t, 64).astype(np.float32) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    want, want_lse = flash_attention_plain(tq, tk, tv, seg, SCALE, return_lse=True)
+    got, got_lse = plain_forward_on_kept_tiles(tq, tk, tv, seg, SCALE)
+    assert torch.equal(got, want) and torch.equal(got_lse, want_lse)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref, l, m = jax_fa._flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+            jax_fa.SegmentIds(q=jnp.asarray(seg.numpy()), kv=jnp.asarray(seg.numpy())), True,
+            False, SCALE, jax_block_sizes(t), False)
+    ref_lse = np.asarray(m) + np.log(np.asarray(l))
+    for x in (got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(ref), **TOL)
+    for x in (got_lse, want_lse):
+        np.testing.assert_allclose(x.numpy(), ref_lse, **TOL)
+
+
 def test_lse_is_the_log_of_the_reference_softmax_sums(rng):
     """lse = m + log(l) of JAX's saved residuals, pad rows included (they
     attend among pads and are finite)."""

@@ -43,6 +43,7 @@ from kirag_tpu_torch.kernels import (
     window_merge,
     window_merge_plain,
 )
+from kirag_tpu_torch.kernels.attention import _forward
 from kirag_tpu_torch.kernels.qmm import dequant_nibbles
 from kirag_tpu_torch.ops.exact import _capture_budget, exact_topk_mips, hier_topk
 
@@ -413,34 +414,6 @@ def bf16_ulps(x: torch.Tensor, n: int = 2) -> float:
     return n * 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [128, 384])
-def test_flash_attention_matches_plain(cuda_device, dtype, t):
-    g = torch.Generator(device=cuda_device).manual_seed(2)
-    b, h = 3, 4
-    seg = torch.ones(b, t, dtype=torch.int32, device=cuda_device)
-    seg[0, t - 50:] = 0                                    # right padding
-    seg[1] = 0                                             # a row of padding only
-    seg[2] = torch.repeat_interleave(                      # packed documents
-        torch.tensor([1, 2, 3, 0], device=cuda_device),
-        torch.tensor([30, 70, t - 110, 10], device=cuda_device))
-    # q, k, v as strided views of one fused projection, as the encoder passes them
-    qkv = 2.0 * torch.randn(b, t, 3 * h * 64, generator=g, device=cuda_device)
-    q, k, v = (x.view(b, t, h, 64).transpose(1, 2) for x in qkv.to(dtype).split(h * 64, -1))
-    reset_launch_counts()
-    got = flash_attention(q, k, v, seg, 0.125)
-    assert launch_counts()["flash_attention"] == 1
-    want = flash_attention_plain(q, k, v, seg, 0.125)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.transpose(1, 2).is_contiguous()
-    assert torch.isfinite(got).all()
-    if dtype == torch.float32:  # logits of sd 4: f32 sums in two orders, exps
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    else:
-        assert float((got.float() - want.float()).abs().max()) <= bf16_ulps(want)
-
-
 BWD_LAYOUTS = ("padded", "all_padding", "packed_on_edges", "non_monotonic", "all_real")
 
 
@@ -470,6 +443,42 @@ def bwd_segments(kind: str, b: int, t: int, device) -> torch.Tensor:
                       1 + (pos // 48) % 2,
                       torch.tensor([2, 1, 2], device=device)[tile % 3])[i % 4]
     return seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [64, 128, 192, 256, 512])
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+def test_flash_attention_matches_plain(cuda_device, layout, t, dtype, strided):
+    """The forward kernel against the plain version: out f32 within 1e-5
+    (atol and rtol; logits of sd 4, f32 sums in two orders, exponentials),
+    bf16 within 2 bf16 ulps of the largest magnitude; lse within 1e-5 of the
+    plain logsumexp; a second launch bitwise the first. Every T a multiple of
+    64 (the f32 kernel's 128-query blocks half full at odd multiples), the
+    segment layouts the tile skip works on, q, k, v as strided views of one
+    fused projection (as the encoder passes them) or contiguous."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    b, h = 4, 4
+    seg = bwd_segments(layout, b, t, cuda_device)
+    qkv = 2.0 * torch.randn(b, t, 3 * h * 64, generator=g, device=cuda_device)
+    q, k, v = (x.view(b, t, h, 64).transpose(1, 2) for x in qkv.to(dtype).split(h * 64, -1))
+    if not strided:
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    reset_launch_counts()
+    got = flash_attention(q, k, v, seg, 0.125)
+    assert launch_counts()["flash_attention"] == 1
+    again, lse = _forward(q, k, v, seg, 0.125, with_lse=True)
+    want, want_lse = flash_attention_plain(q, k, v, seg, 0.125, return_lse=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.transpose(1, 2).is_contiguous()
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert float((got.float() - want.float()).abs().max()) <= bf16_ulps(want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, again), "two launches on the same inputs differ"
 
 
 @pytest.mark.cuda
