@@ -1004,7 +1004,7 @@ def index_build(work: Path, dev, gen, config, power, err) -> dict:
 QMM_SHAPES = (("q_proj, o_proj", 4096, 4096), ("k_proj, v_proj", 4096, 1024),
               ("gate_proj, up_proj", 4096, 14336), ("down_proj", 14336, 4096),
               ("lm_head", 4096, 128256))
-QMM_ROWS = (1, 4, 32)
+QMM_ROWS = (1, 4, 16, 32)
 L2_FLUSH_BYTES = 256 << 20  # more than the H100's 50 MB L2: each timed launch reads cold
 
 
@@ -1022,13 +1022,15 @@ def int4_error(got, want, abs_sum):
 
 def check_qmm(dev, gen, power) -> dict:
     """K6 against its plain version at every projection shape of the 8B
-    model, 1, 4 and 32 rows, NF4 and linear int4, bf16 x; then K6, the plain
-    version and torch.matmul of x with the dequantized bf16 kernel (the bf16
-    model's product for the same layer, 4x the weight bytes; a yardstick
-    only), timed with CUDA events, median of 10, the L2 cache flushed before
-    each run."""
+    model, 1, 4, 16 and 32 rows, NF4 and linear int4, bf16 x, and a second
+    launch bitwise the first; then K6, the plain version and torch.matmul of
+    x with the dequantized bf16 kernel (the bf16 model's product for the same
+    layer, 4x the weight bytes; a yardstick only), timed with CUDA events,
+    median of 10, the L2 cache flushed before each run. K6 is also timed at
+    every cluster size the shape allows (``qmm.launch``), the evidence for
+    ``qmm.SPLIT_RULE``."""
     from kirag_tpu_torch.kernels import int4_matmul, int4_matmul_plain
-    from kirag_tpu_torch.kernels.qmm import dequant_nibbles
+    from kirag_tpu_torch.kernels.qmm import MAX_CLUSTER, dequant_nibbles, launch, plan
     from kirag_tpu_torch.models.llm import _quantize_kernel_int4, _quantize_kernel_nf4
 
     scratch = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
@@ -1049,12 +1051,15 @@ def check_qmm(dev, gen, power) -> dict:
                 what = f"K6 {fmt} {names} [{in_dim // 2}, {out_dim}] x {rows} rows"
                 x = torch.randn(rows, in_dim, generator=gen, device=dev).to(torch.bfloat16)
                 got = int4_matmul(x, packed, scales, cb)
+                again = int4_matmul(x, packed, scales, cb)
                 want = int4_matmul_plain(x, packed, scales, cb)
                 err, over_ulp, ok = int4_error(got, want, x.float().abs() @ w_abs)
                 torch.cuda.synchronize()
                 if not (ok and torch.isfinite(got).all() and got.dtype == torch.bfloat16):
                     raise AssertionError(f"{what}: differs from plain by {err} beyond one "
                                          "bf16 ulp and the f32 bound, or is not finite")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: a second launch differs from the first")
                 kb = bound(nbytes(x, packed, scales, got) + (64 if cb is not None else 0),
                            2 * rows * in_dim * out_dim, BF16_FLOP_S)
                 r = {"err": err, "over_ulp": over_ulp, "bound": kb,
@@ -1062,15 +1067,31 @@ def check_qmm(dev, gen, power) -> dict:
                      "plain_ms": cuda_ms(lambda: int4_matmul_plain(x, packed, scales, cb),
                                          flush=flush),
                      "library_ms": cuda_ms(lambda: torch.matmul(x, w_bf16), flush=flush)}
+                cut = plan(rows, in_dim // 2, out_dim, cb is not None)
+                r["clusters"] = {}
+                for c in (2 ** i for i in range(MAX_CLUSTER.bit_length())):
+                    if (in_dim // 64) % c == 0:
+                        at_c = dataclasses.replace(cut, cluster=c, steps=in_dim // 64 // c)
+                        r["clusters"][c] = cuda_ms(lambda: launch(x, packed, scales, cb, at_c),
+                                                   flush=flush)
+                r["planned"] = cut.cluster
                 out[(fmt, names, rows)] = r
                 log(f"  {what}: max abs err {err:.3g} ({over_ulp} of {got.numel()} elements "
-                    f"beyond one bf16 ulp, all within the f32 bound); [{power}] K6 "
-                    f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms, bf16 matmul "
+                    f"beyond one bf16 ulp, all within the f32 bound), a second launch bitwise; "
+                    f"[{power}] K6 {r['ms']:.4f} ms (grid {cut.grid}, clusters of "
+                    f"{cut.cluster}) vs plain {r['plain_ms']:.3f} ms, bf16 matmul "
                     f"{r['library_ms']:.4f} ms; bound {kb[0]:.4f} ms ({kb[1]}) (CUDA events, "
-                    "median of 10, cold L2)")
+                    "median of 10, cold L2); K6 by cluster size: " + ", ".join(
+                        f"{c} {ms:.4f}" for c, ms in r["clusters"].items()))
             del p, packed, scales, cb, w_abs, w_bf16
         del kernel
         torch.cuda.empty_cache()
+    behind = {key: r["clusters"][r["planned"]] / min(r["clusters"].values()) - 1
+              for key, r in out.items()}
+    worst = max(behind, key=behind.get)
+    log(f"  [{power}] the plan's cluster size was the fastest in "
+        f"{sum(v == 0 for v in behind.values())} of {len(out)} cases; at most "
+        f"{100 * behind[worst]:.1f}% behind the fastest size ({' '.join(map(str, worst))})")
     return out
 
 
@@ -1182,9 +1203,14 @@ def check_load_llama(work: Path, dev, config, power) -> dict:
     return {"load_s": load_s, "launches": launched}
 
 
-def profile_decode(backend, ids, mask, steps: int, power) -> dict:
+K6_KERNEL = "qmm_kernel"  # K6's one kernel (csrc/int4_matmul.cu), one launch a call
+
+
+def profile_decode(backend, ids, mask, steps: int, per_step: int, power) -> dict:
     """Device time of ``steps`` decode steps by kernel (torch.profiler): K6,
-    the rest, and the share of the wall time the card is busy."""
+    the rest, and the share of the wall time the card is busy; K6 must have
+    launched ``per_step`` kernels a step, one a call."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _, _, state = backend.greedy_start(ids, mask, steps + 1, return_logits=False)
@@ -1194,17 +1220,22 @@ def profile_decode(backend, ids, mask, steps: int, power) -> dict:
         backend.greedy_resume(state, steps, return_logits=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    split, _ = kernel_times(prof, [("K6", ("int4_matmul_kernel", "reduce_splits_kernel"))])
+    split, _ = kernel_times(prof, [("K6", (K6_KERNEL,))])
     busy = sum(split.values()) / 1e6
     if busy <= 0:
         log("  profiler: no device time for the decode steps (not measured)")
         return {"busy_ms": None}
+    k6_kernels = sum(1 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and K6_KERNEL in e.name)
+    if k6_kernels != per_step * steps:
+        raise AssertionError(f"the profiler saw {k6_kernels} K6 kernels in {steps} decode "
+                             f"steps, not {per_step} a step")
     log(f"  [{power}] {steps} decode steps, {LLM_ROWS} rows, device time by kernel "
         f"(torch.profiler): {busy * 1e3 / steps:.3f} ms per step of "
         f"{wall * 1e3 / steps:.3f} ms wall (profiled): busy {100 * busy / wall:.1f}%, idle "
         f"{100 * (1 - busy / wall):.1f}%; " + ", ".join(
             f"{k} {v / 1e3 / steps:.3f} ms ({100 * v / 1e6 / busy:.1f}%)"
-            for k, v in split.items()))
+            for k, v in split.items()) + f"; K6 {k6_kernels // steps} kernels a step")
     return {"busy_ms": busy * 1e3 / steps, "k6_share": split["K6"] / 1e6 / busy}
 
 
@@ -1339,7 +1370,7 @@ def llm_decode(work: Path, dev, power) -> dict:
         f"ms per step, {LLM_ROWS / step_s:.1f} tokens/s (host clock over {steps} steps); "
         f"bound {step_bound * 1e3:.3f} ms (weights {quantized / 1e9:.3f} GB + KV "
         f"{kv_bytes / 1e9:.3f} GB at 3.35 TB/s)")
-    profiled = profile_decode(backend, ids, mask, 8, power)
+    profiled = profile_decode(backend, ids, mask, 8, per_step, power)
     if profiled["busy_ms"] is not None:
         idle = 1 - profiled["busy_ms"] / (step_s * 1e3)
         log(f"  [{power}] the card is busy {profiled['busy_ms']:.3f} ms of an unprofiled "

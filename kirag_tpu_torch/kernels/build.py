@@ -138,8 +138,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_float, ctypes.POINTER(i64), ptr]
     lib.kirag_flash_attention_bwd_dq.restype = i32
     lib.kirag_int4_matmul.argtypes = [
-        ptr, i32, ptr, ptr, ptr, ptr, ptr,  # x, bf16, packed, scales, codebook, out, partial
-        i32, i32, i32, i32, ptr]            # rows, half, out_dim, n_split, stream
+        ptr, i32, ptr, ptr, ptr, ptr,   # x, bf16, packed, scales, codebook, out
+        i32, i32, i32,                  # rows, half, out_dim
+        i32, i32, i32, i32, i32, ptr]   # tiles, row_blocks, col_blocks, cluster, steps, stream
     lib.kirag_int4_matmul.restype = i32
     lib.kirag_error_string.argtypes = [i32]
     lib.kirag_error_string.restype = ctypes.c_char_p

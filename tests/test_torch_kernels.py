@@ -550,9 +550,13 @@ def assert_int4_close(got, want, abs_sum):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nf4", [False, True])
-@pytest.mark.parametrize("rows", [1, 2, 3, 4, 32])
-@pytest.mark.parametrize("half,out_dim", [(256, 128), (512, 1536), (2048, 1024)])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 8, 9, 16, 17, 24, 31, 32, 40])
+@pytest.mark.parametrize("half,out_dim", [(256, 128), (512, 1536), (2048, 1024), (7168, 128)])
 def test_int4_matmul_matches_plain(cuda_device, dtype, nf4, rows, half, out_dim):
+    """Every row count of the tensor-core tiles (1-8, 9-16, 17-24, 25-32
+    rows; 40 takes a second block row), one column tile over down_proj's
+    depth (a cluster of 16 splits), every byte value; a second launch on the
+    same inputs is bitwise the first (splits added in a fixed order)."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     packed = torch.randint(0, 256, (half, out_dim), generator=g, device=cuda_device,
                            dtype=torch.uint8)
@@ -563,10 +567,34 @@ def test_int4_matmul_matches_plain(cuda_device, dtype, nf4, rows, half, out_dim)
     got = int4_matmul(x, packed, scales, cb)
     assert launch_counts()["int4_matmul"] == 1
     want = int4_matmul_plain(x, packed, scales, cb)
+    again = int4_matmul(x, packed, scales, cb)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (rows, out_dim)
     assert torch.isfinite(got).all()
     assert_int4_close(got, want, int4_abs_sum(x, packed, scales, cb))
+    assert torch.equal(got, again), "two launches on the same inputs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [{"steps": 2}, {"cluster": 8}, {"cluster": 32, "steps": 2},
+                                    {"row_blocks": 2}, {"col_blocks": 4}, {"tiles": 5}])
+def test_int4_matmul_refuses_a_plan_that_misses_the_call(cuda_device, change):
+    """The kernel takes ``qmm.plan``'s cut whole and refuses one that would
+    skip or repeat scale blocks, rows or columns, or pass its limits."""
+    import dataclasses
+
+    from kirag_tpu_torch.kernels import qmm
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    packed = torch.randint(0, 256, (2048, 1024), generator=g, device=cuda_device,
+                           dtype=torch.uint8)
+    scales = torch.rand(64, 1024, generator=g, device=cuda_device)
+    x = torch.randn(4, 4096, generator=g, device=cuda_device).to(torch.bfloat16)
+    good = qmm.plan(4, 2048, 1024, False)
+    assert (good.cluster, good.steps) == (16, 4)
+    qmm.launch(x, packed, scales, None, good)
+    with pytest.raises(RuntimeError, match="int4_matmul kernel launch failed"):
+        qmm.launch(x, packed, scales, None, dataclasses.replace(good, **change))
 
 
 # ------------------------------------------- the exact-search variants' kernels
