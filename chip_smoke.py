@@ -574,12 +574,26 @@ def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> di
                 lambda: gather_groups_plain(q, corpus, gsel, scales, quant)),
             "stream_capture_bound": k1_bound, "gather_groups_bound": k2_bound,
         }
+        lib = ""
+        if quant == "none":  # the PyTorch call for K1's maxima alone
+            t["stream_capture_library"] = cuda_ms(lambda: library_gmax(q, corpus))
+            lib = (f", library (matmul + amax, the maxima only) "
+                   f"{t['stream_capture_library']:.3f} ms; {plan_text(n_q, corpus, b)}")
+            split = kernels_per_call(
+                lambda: stream_capture(q, corpus, valid, CHUNK, b, scales, quant),
+                FLOAT_K1_KERNELS)
+            seen = [split.get(k, [0])[0] for k in FLOAT_K1_KERNELS] if split else []
+            if split is not None and (len(set(seen)) != 1 or seen[0] < 1):
+                raise AssertionError(f"{what}: float K1 calls are not one sweep and one peel "
+                                     f"kernel each: {split}")
+            t["stream_capture_kernels"] = split
+            lib += "; " + kernels_text(split)
         times[n_q] = t
         log(f"  {what}: K1 max abs err {k1_err:.3g} ({swapped} gids differ at near-ties), "
             f"K2 max abs err {k2_err:.3g}")
         log(f"  [{power}] {what}, {len(corpus)} x {DIM}, k={K}, capture {b} of "
             f"{CHUNK // 128} groups per chunk: K1 {t['stream_capture']:.3f} ms vs plain "
-            f"{t['stream_capture_plain']:.3f} ms (bound {k1_bound[0]:.3f} ms, {k1_bound[1]}); "
+            f"{t['stream_capture_plain']:.3f} ms (bound {k1_bound[0]:.3f} ms, {k1_bound[1]}{lib}); "
             f"K2 {t['gather_groups']:.3f} ms vs plain {t['gather_groups_plain']:.3f} ms "
             f"(bound {k2_bound[0]:.3f} ms, {k2_bound[1]}, "
             f"{int(torch.unique(gsel).numel())} distinct groups) (CUDA events, median of 10)")
@@ -596,6 +610,62 @@ def search_bound(q, corpus, scales, quant: str, outs):
     ops_s = F32_FLOP_S if quant == "none" else BF16_FLOP_S
     extra = () if scales is None else (scales,)
     return bound(nbytes(q, corpus, *extra, *outs), 2 * n_q * len(corpus) * d, ops_s)
+
+
+def library_gmax(q, corpus):
+    """One PyTorch call's worth of K1's and K7a's work on a float corpus:
+    every score by ``torch.matmul`` (TF32 off; a bf16 corpus gives bf16
+    scores) and the 128-row group maxima by ``amax``. It computes the maxima
+    only, not the capture or the stored scores."""
+    return torch.matmul(q, corpus.T).view(len(q), -1, 128).amax(-1)
+
+
+FLOAT_K1_KERNELS = ("capture_sweep_kernel", "peel_capture_kernel")  # one K1 launch count
+
+
+def kernels_per_call(fn, names, reps: int = 10):
+    """The kernels ``reps`` profiled calls of ``fn`` start (torch.profiler),
+    by the first of ``names`` in each kernel's name: {name: [kernels seen,
+    device ms each]}, or None when the profiler saw no device time (not
+    measured). The profiler may miss a call's kernels: compare the counts
+    with each other, not with ``reps``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: [0, 0.0] for n in (*names, "other")}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
+            slot = out[next((n for n in names if n in evt.name), "other")]
+            slot[0] += 1
+            slot[1] += evt.device_time_total / 1e3
+    if not any(n for n, _ in out.values()):
+        return None
+    return {k: [n, ms / n] for k, (n, ms) in out.items() if n}
+
+
+def kernels_text(split) -> str:
+    if split is None:
+        return "kernels of 10 calls: not measured (the profiler saw no device time)"
+    return ("kernels of 10 calls (torch.profiler): "
+            + ", ".join(f"{n} x {k} {ms:.4f} ms each" for k, (n, ms) in split.items()))
+
+
+def plan_text(n_q: int, corpus, b: int = 0) -> str:
+    """How the tree's float K1 (b > 0) or K7a (b == 0) cuts a call over
+    ``corpus`` (chunk CHUNK), for the timing lines."""
+    from kirag_tpu_torch.kernels.exact import search_plan
+    p = search_plan(n_q, len(corpus) // CHUNK, CHUNK // 128, corpus.element_size(), b)
+    held = (f", scratch slots a (range, query): {p.slots}"
+            + (" holding the best" if p.tracks_best else "")) if b else ""
+    return (f"plan: {p.q_tiles} x {p.q_tile}-query tiles, {p.splits} ranges a chunk of "
+            f"{p.groups_per_block} group(s), {p.blocks} blocks, {p.smem} B of shared "
+            f"memory{held}")
 
 
 def gather_bound(q, corpus, scales, quant: str, gsel, cand):
@@ -3490,7 +3560,7 @@ def k7_times(q, corpus, scales, quant, valid, reps=10, plain_reps=10, library=Fa
         timed["score_gmax"] = (
             lambda: score_gmax(q, corpus, valid, CHUNK, "chunk", scales, quant),
             lambda: score_gmax_plain(q, corpus, valid, CHUNK, "chunk", scales, quant),
-            (lambda: torch.matmul(q, corpus.T).view(n_q, -1, 128).amax(-1)) if library else None,
+            (lambda: library_gmax(q, corpus)) if library else None,
             search_bound(q, corpus, scales, quant, outs))
         timed["score_gather"] = (
             lambda: score_gather(outs[0], gsel), lambda: score_gather_plain(outs[0], gsel),
@@ -3507,6 +3577,8 @@ def k7_times(q, corpus, scales, quant, valid, reps=10, plain_reps=10, library=Fa
         lambda: window_merge_plain(*k1[2:], k1[1], br, total), None,
         merge_bound(k1, window_merge(*k1[2:], k1[1], br, total)))
     t = {"br": br, "bc": b}
+    if quant == "none" and "score_gmax" in names:
+        t["plan"] = plan_text(n_q, corpus)
     for name in names:
         kernel, plain, library_call, t[name + "_bound"] = timed[name]
         t[name] = cuda_ms(kernel, reps=reps)
@@ -3523,8 +3595,10 @@ def log_k7_times(power, what: str, t: dict, reps: int) -> None:
         lib = f", library {t[name + '_library']:.3f} ms" if name + "_library" in t else ""
         return (f"{name} {t[name]:.3f} ms{plain}{lib} (bound {t[name + '_bound'][0]:.4f} ms, "
                 f"{t[name + '_bound'][1]})")
+    plan = f"; K7a's {t['plan']}" if "plan" in t else ""
     log(f"  [{power}] {what}, k={K}, window br={t['br']} over bc={t['bc']}: "
-        + "; ".join(one(n) for n in K7_SOURCES if n in t) + f" (CUDA events, median of {reps})")
+        + "; ".join(one(n) for n in K7_SOURCES if n in t)
+        + f" (CUDA events, median of {reps}){plan}")
 
 
 def check_variants(dev, host_rows, gen, power) -> dict:
@@ -3827,7 +3901,10 @@ def main() -> int:
                 "max_abs_err": err[k], "ms": headline[k], "plain_ms": headline[k + "_plain"],
                 "bound_ms": headline[k + "_bound"][0], "bound_by": headline[k + "_bound"][1],
                 "library_ms": None,
-                "at": f"Q=32, float32 index {N_ROWS} x {DIM}, chunk {CHUNK}, k={K}"}
+                "at": f"Q=32, float32 index {N_ROWS} x {DIM}, chunk {CHUNK}, k={K}"
+                      + ("; launches count calls, a float call two kernels "
+                         "(capture_sweep_kernel, peel_capture_kernel), ms both"
+                         if k == "stream_capture" else "")}
                for k, (src, rep) in sources.items()]
     k3 = built["flash"][(torch.bfloat16, 512, "segments")]
     kernels.append({"name": "flash_attention", "route": "cuda",

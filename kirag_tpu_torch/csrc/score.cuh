@@ -18,6 +18,14 @@
 // operations for a (query, row) pair never depends on which kernel, block or
 // thread computes it. Equal inputs give bitwise-equal f32 scores everywhere.
 //
+// Float32 and bfloat16 corpora have a second form of the same loop for the
+// scoring sweeps of K1 and K7a, score_passes() below: a thread holds a
+// register tile of PASS_R rows x J queries and the block stages queries and
+// rows together, 128 bytes of each row at a time. Only which thread computes
+// which pairs changes: every pair still runs the chain above over the same
+// padded_depth(d) columns, so score_passes and score_group give the same bits for the same
+// (query, row), and K2 and K5 (score_group) stay bitwise equal to K1 and K7a.
+//
 // Quantized corpora (K4: the in-kernel dequant of the TPU kernels,
 // kirag_tpu/ops/pallas_exact.py::_chunk_scores) take queries that the wrapper
 // rounded to bf16 once, so every product of a query value and an int8 code or
@@ -476,6 +484,255 @@ __device__ __forceinline__ void score_group(float (&acc)[NQ],
 #pragma unroll
       for (int j = 0; j < NQ; ++j) acc[j] = __fmul_rn(acc[j], row_scale);
     }
+  }
+}
+
+// ------------------------------------------------ float corpora: score_passes
+//
+// A block of THREADS threads scores PASS_ROWS = 256 corpus rows (two groups)
+// against QT = 4 * J queries per pass. Warp w owns group w / 4 of the pass
+// and the J queries [(w % 4) J, (w % 4 + 1) J) of the tile: lane l holds the
+// pairs (row 32 i + l of the group, query (w % 4) J + j), i < PASS_R, j < J.
+// Per four columns a thread reads PASS_R corpus vectors (one 16-byte read per
+// row for f32's four columns or bf16's eight; the 32 lanes read 32
+// consecutive padded rows, four banks apart) and J query vectors, the same
+// address in every lane (one broadcast), for 4 * PASS_R * J fmas: 128 fmas
+// for 12 loads at J = 8. A warp holds all 128 rows of its group, so a
+// group's maximum is one warp reduction, and 32 lanes store 128 consecutive
+// bytes of scores. One ring slot holds the pass's rows and queries for SC =
+// 128 bytes of each row (32 f32 or 64 bf16 columns, a whole 128-byte line),
+// so a 32-query tile needs no room for whole query rows, and NS slots are in
+// flight.
+constexpr int PASS_ROWS = 256;        // corpus rows a pass: two groups
+constexpr int PASS_R = 4;             // rows a thread holds
+
+// Columns of a ring slot (SC), its padded corpus row (elements) and padded
+// query row (floats); ring slots of the float sweeps. At 32 queries a slot
+// takes 41 KB (f32) or 45 KB (bf16), so two blocks share an SM either way.
+// On an H100 at 1M x 1024, 128-byte rows, two slots and two blocks an SM
+// beat 64- and 256-byte rows, three slots, and one block an SM (PERF.md §6).
+constexpr int SWEEP_ROW_BYTES = 128;
+constexpr int SWEEP_STAGES = 2;
+constexpr int SWEEP_BLOCKS_PER_SM = 2;  // launch bounds' minimum: 128 registers a thread
+template <typename T>
+__host__ __device__ constexpr int sweep_cols() {
+  return SWEEP_ROW_BYTES / static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int sweep_row_stride() {
+  return sweep_cols<T>() + 16 / static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int sweep_q_stride() { return sweep_cols<T>() + 4; }
+
+template <typename T>
+__host__ __device__ constexpr int pass_corpus_bytes() {
+  return PASS_ROWS * sweep_row_stride<T>() * static_cast<int>(sizeof(T));
+}
+template <typename T, int QT>
+__host__ __device__ constexpr int pass_stage_bytes() {
+  return pass_corpus_bytes<T>() + QT * sweep_q_stride<T>() * static_cast<int>(sizeof(float));
+}
+
+// Start copying rows [row0, row0 + live_rows) x stored columns [c0, c0 + SC)
+// of the corpus (row stride d) and query rows [q0, min(q0 + QT, n_q)) of the
+// same columns into one ring slot; rows past live_rows, queries past n_q and
+// columns past d are zeros. All THREADS threads issue (index t), eight
+// neighbours on one row's 128 bytes.
+template <typename T, int QT>
+__device__ __forceinline__ void issue_pass_stage(char* slot, const T* __restrict__ corpus,
+                                                 int64_t row0, int live_rows, const float* q,
+                                                 int q0, int n_q, int d, int c0, int t) {
+  constexpr int SC = sweep_cols<T>();
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VPR = SC / VEC;                      // vectors a row: 8
+  constexpr int RPI = THREADS / VPR;                 // rows an issue round: 32
+  T* ctile = reinterpret_cast<T*>(slot);
+  float* qtile = reinterpret_cast<float*>(slot + pass_corpus_bytes<T>());
+  const int r0 = t / VPR;
+  const int v = (t % VPR) * VEC;
+  const bool col_ok = c0 + v < d;
+  const T* src = corpus + (row0 + r0) * static_cast<int64_t>(d) + c0 + v;
+  T* dst = ctile + r0 * sweep_row_stride<T>() + v;
+#pragma unroll
+  for (int m = 0; m < PASS_ROWS / RPI; ++m) {
+    const bool valid = col_ok && r0 + m * RPI < live_rows;
+    cp_async16(dst + m * RPI * sweep_row_stride<T>(),
+               valid ? src + static_cast<int64_t>(m) * RPI * d : corpus, valid);
+  }
+  constexpr int QV = SC / 4;                         // query vectors a row
+  for (int i = t; i < QT * QV; i += THREADS) {
+    const int r = i / QV;
+    const int qv = (i % QV) * 4;
+    const bool valid = q0 + r < n_q && c0 + qv < d;
+    const float* qsrc = valid ? q + static_cast<int64_t>(q0 + r) * d + c0 + qv : q;
+    cp_async16(qtile + r * sweep_q_stride<T>() + qv, qsrc, valid);
+  }
+}
+
+// Four columns [e, e + 4) of a 16-byte vector of corpus values as f32.
+__device__ __forceinline__ void unpack4(const uint4& raw, int, const float*, float (&out)[4]) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack4(const uint4& raw, int e, const __nv_bfloat16*,
+                                        float (&out)[4]) {
+  const unsigned lo = e == 0 ? raw.x : raw.z;  // e is 0 or 4, known at compile time
+  const unsigned hi = e == 0 ? raw.y : raw.w;
+  out[0] = __uint_as_float(lo << 16);
+  out[1] = __uint_as_float(lo & 0xffff0000u);
+  out[2] = __uint_as_float(hi << 16);
+  out[3] = __uint_as_float(hi & 0xffff0000u);
+}
+
+// Advance the thread's PASS_R x J running scores by the first `cols` (KD or
+// SC) columns of one ring slot, in column order.
+template <typename T, int J, int QT>
+__device__ __forceinline__ void fma_pass_tile(float (&acc)[PASS_R][J], const char* slot,
+                                              int cols, int row, int q) {
+  constexpr int SC = sweep_cols<T>();
+  constexpr int VEC = 16 / sizeof(T);
+  const T* crow = reinterpret_cast<const T*>(slot) + row * sweep_row_stride<T>();
+  const float* qrow = reinterpret_cast<const float*>(slot + pass_corpus_bytes<T>()) +
+                      q * sweep_q_stride<T>();
+#pragma unroll
+  for (int c = 0; c < SC; c += VEC) {
+    if (c >= cols) break;
+    uint4 raw[PASS_R];
+#pragma unroll
+    for (int i = 0; i < PASS_R; ++i) {
+      raw[i] = *reinterpret_cast<const uint4*>(crow + 32 * i * sweep_row_stride<T>() + c);
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4) {
+      float cv[PASS_R][4];
+#pragma unroll
+      for (int i = 0; i < PASS_R; ++i) unpack4(raw[i], e, crow, cv[i]);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(qrow + j * sweep_q_stride<T>() + c + e);
+#pragma unroll
+        for (int i = 0; i < PASS_R; ++i) {
+          float a = acc[i][j];
+          a = __fmaf_rn(qv.x, cv[i][0], a);
+          a = __fmaf_rn(qv.y, cv[i][1], a);
+          a = __fmaf_rn(qv.z, cv[i][2], a);
+          a = __fmaf_rn(qv.w, cv[i][3], a);
+          acc[i][j] = a;
+        }
+      }
+    }
+  }
+}
+
+// Score n_groups groups of a float32 or bfloat16 corpus, the rows from
+// row_base on (row stride d), against queries [q0, q0 + 4 J) (f32, row
+// stride d; rows past n_q score as zero queries), two groups a pass, through
+// an NS-slot cp.async ring at `ring` that runs on across passes. Each pair
+// takes the padded_depth(d) columns of score_group, no more: a slot's second
+// half of 32 columns is skipped where it lies past them. After each pass,
+// epi(p, live, acc) gets the pass index, its live groups (1 or 2) and the
+// thread's scores, acc[i][j] for row 32 i + lane of the pass's group w / 4 and
+// tile query (w % 4) J + j (lane layout above); every thread of the block
+// calls it, so it may synchronise the block. Warps of a dead group (live ==
+// 1) skip the fmas.
+template <typename T, int J, int NS, typename Epi>
+__device__ __forceinline__ void score_passes(const T* __restrict__ corpus, int64_t row_base,
+                                             int n_groups, const float* q, int q0, int n_q,
+                                             int d, char* ring, Epi&& epi) {
+  constexpr int QT = 4 * J;
+  constexpr int SC = sweep_cols<T>();
+  constexpr int STAGE = pass_stage_bytes<T, QT>();
+  const int t = threadIdx.x;
+  const int w = t / 32;
+  const int my_row = (w / 4) * LANES + t % 32;  // row 0 of the thread's, in the pass
+  const int my_q = (w % 4) * J;                 // query 0 of the thread's, in the tile
+  const int d_pad = padded_depth(d);
+  const int n_tiles = (d_pad + SC - 1) / SC;
+  const int last_cols = d_pad - (n_tiles - 1) * SC;  // KD or SC
+  const int passes = (n_groups + 1) / 2;
+  const int total = passes * n_tiles;
+  auto issue = [&](int k) {  // flat tile k = pass * n_tiles + column tile
+    if (k < total) {
+      const int p = k / n_tiles;
+      const int live_rows = min(2, n_groups - 2 * p) * LANES;
+      issue_pass_stage<T, QT>(ring + (k % NS) * STAGE, corpus,
+                              row_base + static_cast<int64_t>(p) * PASS_ROWS, live_rows, q, q0,
+                              n_q, d, (k - p * n_tiles) * SC, t);
+    }
+    cp_async_commit();  // one group per tile, empty or not: the waits count them
+  };
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) issue(s);
+  int k = 0;
+  for (int p = 0; p < passes; ++p) {
+    const bool mine = w / 4 < min(2, n_groups - 2 * p);
+    float acc[PASS_R][J];
+#pragma unroll
+    for (int i = 0; i < PASS_R; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
+    }
+    for (int it = 0; it < n_tiles; ++it, ++k) {
+      cp_async_wait<NS - 2>();  // this thread's copies of tile k have landed
+      __syncthreads();          // everyone's have; tile k - 1 is no longer read
+      issue(k + NS - 1);
+      if (mine) {
+        fma_pass_tile<T, J, QT>(acc, ring + (k % NS) * STAGE, it + 1 < n_tiles ? SC : last_cols,
+                                my_row, my_q);
+      }
+    }
+    epi(p, min(2, n_groups - 2 * p), acc);
+  }
+}
+
+// An epilogue's first step: each warp's maximum of its group for each of its
+// J queries, handed to out(j, m) in lane 0; the thread's rows are row0 + lane
+// + 32 i (global ids, row0 the group's first), and rows at or past
+// valid_rows count as FIN_MIN.
+template <int J, typename Out>
+__device__ __forceinline__ void pass_warp_maxima(float (&acc)[PASS_R][J], int64_t row0,
+                                                 int64_t valid_rows, Out&& out) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    float m = row0 + lane < valid_rows ? acc[0][j] : FIN_MIN;
+#pragma unroll
+    for (int i = 1; i < PASS_R; ++i) {
+      m = fmaxf(m, row0 + lane + 32 * i < valid_rows ? acc[i][j] : FIN_MIN);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+    if (lane == 0) out(j, m);
+  }
+}
+
+// True when `splits` ranges of `gpb` groups cover a chunk of g_count groups,
+// the last range holding 1 .. gpb of them (kernels/exact.py's search_plan).
+inline bool sweep_cut_fits(int g_count, int splits, int gpb) {
+  return splits >= 1 && gpb >= 1 && static_cast<int64_t>(splits - 1) * gpb < g_count &&
+         static_cast<int64_t>(splits) * gpb >= g_count;
+}
+
+// Call fn(std::integral_constant<int, J>{}) for a query tile of 4 J = 4, 8,
+// 16 or 32 queries; cudaErrorInvalidValue for any other tile.
+template <typename Fn>
+cudaError_t with_query_tile(int q_tile, Fn&& fn) {
+  switch (q_tile) {
+    case 4:
+      return fn(std::integral_constant<int, 1>{});
+    case 8:
+      return fn(std::integral_constant<int, 2>{});
+    case 16:
+      return fn(std::integral_constant<int, 4>{});
+    case 32:
+      return fn(std::integral_constant<int, 8>{});
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

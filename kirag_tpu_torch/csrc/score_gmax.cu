@@ -13,17 +13,24 @@
 //
 // What bounds it on the H100: the same Q x N x D fmas as K1
 // (stream_capture.cu) on the CUDA cores, plus the score write, 4 * Q * N
-// bytes (2.7 GB at 21M rows and Q = 32): at Q = 8 over an int4 corpus the
-// write is 0.67 GB against the codes' 10.8 GB, so the fmas still bound it.
+// bytes (128 MB at 1M rows and Q = 32 against the f32 corpus's 4 GB; 2.7 GB
+// at 21M rows, where an int4 corpus's codes are 10.8 GB), so the fmas or the
+// corpus read bound it, not the write.
 //
-// What the design does about it: K1's first step, unchanged: one block per
-// (query tile, chunk), the chunk's groups walked in order through score.cuh's
-// score_group (cp.async tiles in flight), each thread holding the scores of
-// one row for the block's queries; a warp's 32 rows are 32 consecutive
-// floats, so every score store is one coalesced 128-byte write. Because the
-// scores come from score_group, they are bitwise K1's and K2's for the same
-// rows, and the maxima bitwise K1's (before its clamp), so every impl of the
-// exact search selects the same groups and returns the same values.
+// What the design does about it: K1's first launch with a store in place of
+// its capture. Float32 and bfloat16 corpora: one block per (query tile of
+// 4-32 queries, chunk, range of the chunk's groups), cut by
+// kernels/exact.py's search_plan, scoring through score.cuh's score_passes
+// (a register tile of 4 rows x up to 8 queries a thread, queries staged with
+// the rows); per pass each warp holds one group for its queries, so it
+// reduces the group's masked maximum itself and stores its scores 128
+// consecutive bytes an instruction. Quantized corpora keep the one block per
+// (query tile of 4 or 8, chunk) walking its groups through score_group, a
+// warp's 32 rows one coalesced 128-byte store. Because every score comes
+// from score.cuh's one
+// fma order, the scores are bitwise K1's and K2's for the same rows, and the
+// maxima bitwise K1's (before its clamp), so every impl of the exact search
+// selects the same groups and returns the same values.
 #include "score.cuh"
 
 using namespace kirag;
@@ -113,29 +120,114 @@ cudaError_t launch(const float* q, const void* corpus, const float* scales, floa
   return cudaGetLastError();
 }
 
+// Float corpora: block x = (chunk * splits + split) * q_tiles + query tile,
+// as K1's capture_sweep_kernel. Shared memory: the ring.
+template <typename T, int J>
+__global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
+    score_sweep_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
+                       float* __restrict__ scores, float* __restrict__ gmax, int n_q, int d,
+                       int chunk_size, int64_t valid_rows, int64_t s_chunk, int64_t s_q,
+                       int q_tiles, int splits, int gpb) {
+  constexpr int QT = 4 * J;
+  constexpr int NS = SWEEP_STAGES;
+  extern __shared__ __align__(16) char smem_raw[];
+
+  const int t = threadIdx.x;
+  const int w = t / 32;
+  const int g_count = chunk_size / LANES;
+  const int q0 = (blockIdx.x % q_tiles) * QT + (w % 4) * J;  // this warp's first query
+  const int range = blockIdx.x / q_tiles;
+  const int chunk = range / splits;
+  const int g_begin = (range % splits) * gpb;
+  const int64_t chunk_row0 = static_cast<int64_t>(chunk) * chunk_size;
+
+  auto epilogue = [&](int p, int live, auto& acc) {
+    const int g = g_begin + 2 * p + w / 4;  // this warp's group
+    if (w / 4 >= live) return;              // no block barrier here
+    pass_warp_maxima<J>(acc, chunk_row0 + static_cast<int64_t>(g) * LANES, valid_rows,
+                        [&](int j, float m) {
+                          if (q0 + j < n_q) {
+                            gmax[(static_cast<int64_t>(chunk) * g_count + g) * n_q + q0 + j] = m;
+                          }
+                        });
+    if (scores != nullptr) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (q0 + j < n_q) {
+          float* dst = scores + chunk * s_chunk + (q0 + j) * s_q + g * LANES + t % 32;
+#pragma unroll
+          for (int i = 0; i < PASS_R; ++i) dst[32 * i] = acc[i][j];
+        }
+      }
+    }
+  };
+  score_passes<T, J, NS>(corpus, chunk_row0 + static_cast<int64_t>(g_begin) * LANES,
+                         min(gpb, g_count - g_begin), q,
+                         (blockIdx.x % q_tiles) * QT, n_q, d, smem_raw, epilogue);
+}
+
+template <typename T, int J>
+cudaError_t launch_float(const float* q, const void* corpus, float* scores, float* gmax,
+                         int n_q, int d, int num_chunks, int chunk_size, int64_t valid_rows,
+                         int64_t s_chunk, int64_t s_q, int splits, int gpb, int plan_smem,
+                         cudaStream_t stream) {
+  constexpr int QT = 4 * J;
+  const size_t smem = static_cast<size_t>(SWEEP_STAGES) * pass_stage_bytes<T, QT>();
+  if (!sweep_cut_fits(chunk_size / LANES, splits, gpb) ||
+      smem != static_cast<size_t>(plan_smem)) {
+    return cudaErrorInvalidValue;
+  }
+  const int q_tiles = (n_q + QT - 1) / QT;
+  const int64_t blocks = static_cast<int64_t>(q_tiles) * num_chunks * splits;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  auto kernel = score_sweep_kernel<T, J>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the caller raises on the returned code
+    return err;
+  }
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+      q, static_cast<const T*>(corpus), scores, gmax, n_q, d, chunk_size, valid_rows, s_chunk,
+      s_q, q_tiles, splits, gpb);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Queries f32 [n_q, d]; corpus [num_chunks * chunk_size, *] in the format of
 // `kind` with its `scales` (as kirag_stream_capture's); scores null or f32
 // with the strides s_chunk, s_q (see the header note); gmax f32
-// [num_chunks, chunk_size / 128, n_q]. qpt in {2, 4} queries per thread sets
-// the query tile (2 * qpt queries per block). Returns the launch's cudaError_t.
+// [num_chunks, chunk_size / 128, n_q]. Float corpora (kind 0, 1) take
+// search_plan's cut (q_tile, splits, gpb, smem, as kirag_stream_capture's),
+// quantized ones qpt in {2, 4} queries per thread (2 * qpt queries a block).
+// Returns the launch's cudaError_t.
 extern "C" int kirag_score_gmax(const float* q, const void* corpus, int kind,
                                 const float* scales, float* scores, float* gmax, int n_q, int d,
                                 int num_chunks, int chunk_size, long long valid_rows,
-                                long long s_chunk, long long s_q, int qpt, void* stream) {
+                                long long s_chunk, long long s_q, int qpt, int q_tile,
+                                int splits, int gpb, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_format(kind, d, [&](auto fmt) {
     using F = decltype(fmt);
-    switch (qpt) {
-      case 2:
-        return launch<F, 2>(q, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
-                            valid_rows, s_chunk, s_q, s);
-      case 4:
-        return launch<F, 4>(q, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
-                            valid_rows, s_chunk, s_q, s);
-      default:
-        return cudaErrorInvalidValue;
+    using T = typename F::T;
+    if constexpr (std::is_same<F, F32>::value || std::is_same<F, BF16>::value) {
+      return with_query_tile(q_tile, [&](auto j) {
+        return launch_float<T, decltype(j)::value>(q, corpus, scores, gmax, n_q, d, num_chunks,
+                                                   chunk_size, valid_rows, s_chunk, s_q,
+                                                   splits, gpb, smem, s);
+      });
+    } else {
+      switch (qpt) {
+        case 2:
+          return launch<F, 2>(q, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
+                              valid_rows, s_chunk, s_q, s);
+        case 4:
+          return launch<F, 4>(q, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
+                              valid_rows, s_chunk, s_q, s);
+        default:
+          return cudaErrorInvalidValue;
+      }
     }
   });
 }

@@ -32,6 +32,7 @@ from kirag_tpu_torch.kernels.exact import (
     _tensors,
     check_corpus,
     quant_scores,
+    score_group_qpt,
 )
 
 _PLAIN_ROWS = 1 << 16  # corpus rows the plain version scores at a time
@@ -74,11 +75,10 @@ def group_max(queries: torch.Tensor, corpus: torch.Tensor, winners: int = 1,
     groups = corpus.shape[0] // LANES
     gmax = torch.empty((n_q, winners, groups), dtype=torch.float32, device=dev)
     gidx = torch.empty((n_q, winners, groups), dtype=torch.int32, device=dev)
-    qpt = 2 if n_q <= 8 else 4  # K1's query tiles (kernels/exact.py)
     with torch.cuda.device(dev):
         err = lib.kirag_group_max(
             q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand), gmax.data_ptr(),
-            gidx.data_ptr(), n_q, d, corpus.shape[0], winners, qpt,
+            gidx.data_ptr(), n_q, d, corpus.shape[0], winners, score_group_qpt(n_q),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib, "group_max")
     count_launch(_launch_name("group_max", quant))

@@ -38,6 +38,8 @@ named by ``quant``:
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -174,8 +176,9 @@ def _kernel_args(queries, corpus, scales, quant: str):
     """The kernel's queries (f32; rounded to bf16 first for a quantized
     corpus, as the reference does), format code and scales (pq4: the
     kernels' copy of the level table, :func:`_pq_kernel_table`)."""
-    if quant == "none":
-        return queries.to(torch.float32).contiguous(), _KIND[corpus.dtype], None
+    if quant == "none":  # the float sweeps copy the queries 16 bytes at a time
+        q = queries.to(torch.float32).contiguous()
+        return (q if q.data_ptr() % 16 == 0 else q.clone()), _KIND[corpus.dtype], None
     q = queries.to(torch.bfloat16).to(torch.float32).contiguous()
     if quant == "pq4":
         m = 2 * corpus.shape[1]
@@ -238,6 +241,117 @@ def quant_scores(queries: torch.Tensor, corpus: torch.Tensor,
     return out
 
 
+# ------------------------------------------------------------- search_plan
+#
+# How a K1 or K7a call over a float32 or bfloat16 corpus is cut
+# (csrc/score.cuh's score_passes; quantized corpora keep one block per
+# (query tile, chunk), :func:`score_group_qpt`).
+
+SMS = 132                  # the H100's streaming multiprocessors
+BLOCKS_PER_SM = 2          # score.cuh's SWEEP_BLOCKS_PER_SM; K1's bf16 32-query sweep
+                           # runs 1, where half the ranges time the same (PERF.md §6)
+SMEM_PER_SM = 233472       # 228 KB of shared memory an SM,
+SMEM_PER_BLOCK = 232448    # 227 KB of it at most a block,
+SMEM_RESERVED = 1024       # and 1 KB the hardware keeps per block
+QUERY_TILES = (4, 8, 16, 32)  # queries a block: 4 J, J queries a thread
+PASS_ROWS = 256            # corpus rows a pass: two groups
+ROW_BYTES = 128            # bytes of each row a ring slot holds (32 f32 or 64 bf16 columns)
+STAGES = 2                 # ring slots (score.cuh's SWEEP_STAGES)
+FILL = 0.9                 # the share of the last wave of blocks the cut fills
+MAX_SCRATCH = 8            # K1's scratch holds at most 8x the capture's groups,
+MAX_HELD_SMEM = 64 * 1024  # and a block tracks its best groups in at most 64 KB
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchPlan:
+    """The cut of one float K1 or K7a call, passed whole to the kernel,
+    which refuses a cut that does not cover its call: ``q_tiles`` tiles of
+    ``q_tile`` queries times, for each chunk, ``splits`` ranges of
+    ``groups_per_block`` groups (the last may hold fewer), one block each. K1
+    keeps ``slots`` = min(b, groups_per_block) groups per (range, query) in
+    its scratch (``slots == 0`` for K7a); ``smem`` is a sweep block's shared
+    memory (the kernel refuses a figure other than its own), ``blocks`` the
+    grid."""
+
+    q_tile: int
+    q_tiles: int
+    splits: int
+    groups_per_block: int
+    slots: int
+    smem: int
+    blocks: int
+
+    @property
+    def tracks_best(self) -> bool:
+        """True when a range holds more groups than slots, so a group takes
+        a slot only by beating the worst one held."""
+        return 0 < self.slots < self.groups_per_block
+
+
+def _sweep_smem(elem_bytes: int, q_tile: int, b: int, slots: int, gpb: int) -> int:
+    """The shared memory of one sweep block (capture_sweep_kernel with b > 0,
+    score_sweep_kernel with b == 0)."""
+    cols = ROW_BYTES // elem_bytes                        # score.cuh's sweep_cols
+    stage = PASS_ROWS * (ROW_BYTES + 16) + q_tile * (cols + 4) * 4
+    smem = STAGES * stage                                # the ring
+    if b:
+        smem += 4 * 4 * q_tile                           # the pass's maxima and slots
+        if slots < gpb:
+            smem += 8 * q_tile * slots + 4 * q_tile      # held maxima and ids, worst slot
+    return smem
+
+
+@functools.lru_cache(maxsize=4096)
+def search_plan(n_q: int, num_chunks: int, groups_per_chunk: int, elem_bytes: int,
+                b: int = 0) -> SearchPlan:
+    """The cut of a float32 (``elem_bytes`` 4) or bfloat16 (2) K1 call with
+    capture budget ``b``, or K7a call (``b`` 0), over ``num_chunks`` chunks
+    of ``groups_per_chunk`` groups and ``n_q`` queries.
+
+    The query tile is the smallest of 4, 8, 16, 32 that holds the queries
+    (32 beyond), halved while even one group a block would leave SMs idle.
+    The chunk's groups are then split over 1, 2, 4, ... ranges until the
+    blocks fill ``FILL`` of their last wave (``SMS * BLOCKS_PER_SM`` blocks
+    a wave) or a range is one group, unless K1's scratch would pass
+    ``MAX_SCRATCH`` times its capture; K1 splits further where tracking a
+    range's best groups would take more than ``MAX_HELD_SMEM``."""
+    g = groups_per_chunk
+    if n_q < 1 or num_chunks < 1 or g < 1 or elem_bytes not in (2, 4) or not 0 <= b <= g:
+        raise ValueError(f"no search plan for Q={n_q}, {num_chunks} chunks of {g} groups, "
+                         f"{elem_bytes}-byte rows, b={b}")
+    q_tile = next((t for t in QUERY_TILES if t >= n_q), QUERY_TILES[-1])
+    while q_tile > QUERY_TILES[0] and -(-n_q // q_tile) * num_chunks * g < SMS:
+        q_tile //= 2
+    q_tiles = -(-n_q // q_tile)
+
+    def cut(s: int):
+        gpb = -(-g // s)
+        return -(-g // gpb), gpb, (min(b, gpb) if b else 0)
+
+    def filled(blocks: int) -> float:
+        wave = SMS * BLOCKS_PER_SM
+        return blocks / (-(-blocks // wave) * wave)
+
+    splits, gpb, slots = cut(1)
+    while gpb > 1 and filled(q_tiles * num_chunks * splits) < FILL:
+        nxt = cut(2 * splits)
+        if b and nxt[0] * nxt[2] > MAX_SCRATCH * b:
+            break
+        splits, gpb, slots = nxt
+    while b and slots < gpb and 8 * q_tile * slots > MAX_HELD_SMEM:
+        splits, gpb, slots = cut(2 * splits)
+    return SearchPlan(q_tile, q_tiles, splits, gpb, slots,
+                      _sweep_smem(elem_bytes, q_tile, b, slots, gpb),
+                      q_tiles * num_chunks * splits)
+
+
+def score_group_qpt(n_q: int) -> int:
+    """Queries per thread of the kernels that score through score.cuh's
+    score_group with a query tile of 2 * qpt (K5, and the quantized K1/K7a,
+    one block per (query tile, chunk)): 4 queries a block for Q <= 8, else 8."""
+    return 2 if n_q <= 8 else 4
+
+
 # ------------------------------------------------------------ stream_capture
 
 
@@ -288,15 +402,22 @@ def stream_capture(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
     gids = torch.empty((num_chunks, b, n_q), dtype=torch.int32, device=dev)
     capmax = torch.empty((num_chunks, b, n_q), dtype=torch.float32, device=dev)
     resid = torch.empty((num_chunks, 1, n_q), dtype=torch.float32, device=dev)
-    # queries per thread (2 * qpt per block). On an H100 at 1M x 1024, 4
-    # queries per block were fastest for Q <= 8 and 8 per block within 17% of
-    # the best for Q = 16-64 (tiles of 2, 4, 8 and 16 queries timed)
-    qpt = 2 if n_q <= 8 else 4
+    scratch = held = None
+    cut = (0, 0, 0, 0, 0)
+    if quant == "none":  # the float sweep: search_plan's cut, the capture from a scratch
+        p = search_plan(n_q, num_chunks, groups_per_chunk, corpus.element_size(), b)
+        scratch = torch.empty((num_chunks * p.splits, n_q, p.slots, LANES),
+                              dtype=torch.float32, device=dev)
+        if p.tracks_best:
+            held = torch.empty((num_chunks * p.splits, n_q, p.slots), dtype=torch.int32,
+                               device=dev)
+        cut = (p.q_tile, p.splits, p.groups_per_block, p.slots, p.smem)
     with torch.cuda.device(dev):
         err = lib.kirag_stream_capture(
             q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand),
             gmax.data_ptr(), capture.data_ptr(), gids.data_ptr(), capmax.data_ptr(),
-            resid.data_ptr(), n_q, d, num_chunks, chunk_size, b, int(valid_rows), qpt,
+            resid.data_ptr(), _ptr(scratch), _ptr(held), n_q, d, num_chunks, chunk_size, b,
+            int(valid_rows), score_group_qpt(n_q), *cut,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib, "stream_capture")
     count_launch(_launch_name("stream_capture", quant))
@@ -443,12 +564,15 @@ def score_gmax(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
     elif store == "row":
         scores = torch.empty((n_q, n), dtype=torch.float32, device=dev)
         s_chunk, s_q = chunk_size, n
-    qpt = 2 if n_q <= 8 else 4  # K1's query tiles
+    cut = (0, 0, 0, 0)
+    if quant == "none":
+        p = search_plan(n_q, num_chunks, groups_per_chunk, corpus.element_size())
+        cut = (p.q_tile, p.splits, p.groups_per_block, p.smem)
     with torch.cuda.device(dev):
         err = lib.kirag_score_gmax(
             q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand), _ptr(scores),
             gmax.data_ptr(), n_q, d, num_chunks, chunk_size, int(valid_rows), s_chunk, s_q,
-            qpt, torch.cuda.current_stream(dev).cuda_stream)
+            score_group_qpt(n_q), *cut, torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib, "score_gmax")
     count_launch(_launch_name("score_gmax", quant))
     return scores, gmax

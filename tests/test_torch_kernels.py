@@ -15,6 +15,7 @@ Tests marked ``cuda`` skip without a GPU. On integer-valued data every score
 is exact in any summation order, so kernel and plain version agree bitwise.
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -642,6 +643,111 @@ def test_score_gmax_bitwise_equal_plain_and_k1(cuda_device, fmt):
             cap = score_gather(chunked.contiguous(), k1[2].permute(2, 0, 1).reshape(n_q, -1))
             assert torch.equal(cap.view(n_q, -1, 8, 128).transpose(0, 1),
                                k1[1].view(-1, n_q, 8, 128))
+
+
+def unit_rows(n, d, g, device, dtype):
+    """Seeded random unit rows (not integers: sums round, so only one fma
+    order gives the same bits)."""
+    x = torch.randn(n, d, generator=g, device=device)
+    return torch.nn.functional.normalize(x, dim=-1).to(dtype)
+
+
+def peel_of(gmax, b):
+    """K1's gids, capmax and resid as the peel of its own maxima gmax
+    [C, G, Q]: larger maximum first, ties to the lower group id."""
+    n_c, groups, n_q = gmax.shape
+    vals, idx = torch.sort(gmax.transpose(1, 2), dim=-1, descending=True, stable=True)
+    gids = idx[..., :b] + torch.arange(n_c, device=gmax.device).view(-1, 1, 1) * groups
+    resid = vals[..., b] if b < groups else torch.full((n_c, n_q), float("-inf"),
+                                                       device=gmax.device)
+    return (gids.to(torch.int32).transpose(1, 2), vals[..., :b].transpose(1, 2),
+            resid[:, None, :])
+
+
+FLOAT_LAYOUTS = {  # name: (rows, chunk, capture budget b)
+    "one chunk, b = G": (16384, 16384, 128),
+    "one chunk, b << G": (16384, 16384, 8),
+    "16 chunks of 16 groups": (32768, 2048, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(FLOAT_LAYOUTS))
+@pytest.mark.parametrize("d", [200, 1024, 1040])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_sweeps_bitwise_equal_k2_and_k5_on_random_rows(cuda_device, dtype, d, layout):
+    """The float K1 and K7a (search_plan's cuts) on random unit rows, with
+    D off the 32-column tile (200, 1040), valid_rows mid-group, all-zero
+    corpus and query rows: K1's capture bitwise K2's re-score of the captured
+    groups, its gids/capmax/resid the peel of its own maxima, K7a's maxima
+    bitwise K1's (unclamped: no score reaches FIN_MIN) and its scores of those
+    groups bitwise K2's, K5's W = 1 values bitwise K1's unmasked maxima, a
+    second launch bitwise the first, the maxima within 1e-4 of the plain
+    version (another summation order)."""
+    n, chunk, b = FLOAT_LAYOUTS[layout]
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    c = unit_rows(n, d, g, cuda_device, dtype)
+    c[5] = 0
+    c[n - 100:] = 0  # the indexer pads a corpus with zero rows
+    valid = n - 70
+    n_c, groups = n // chunk, chunk // 128
+    for n_q in (1, 3, 8, 9, 16, 31, 32, 33, 64):
+        q = unit_rows(n_q, d, g, cuda_device, dtype)
+        q[-1] = 0  # the indexer pads a query batch with zero rows
+        reset_launch_counts()
+        k1 = stream_capture(q, c, valid, chunk, b)
+        assert all(torch.equal(x, y) for x, y in zip(k1, stream_capture(q, c, valid, chunk, b)))
+        gmax, capture, gids, capmax, resid = k1
+        for x, y in zip((gids, capmax, resid), peel_of(gmax, b)):
+            assert torch.equal(x, y), (n_q, "peel")
+        gsel = gids.permute(2, 0, 1).reshape(n_q, -1)
+        cand = gather_groups(q, c, gsel)
+        assert torch.equal(cand, capture.view(n_c, n_q, b, 128).transpose(0, 1)
+                           .reshape(n_q, -1, 128)), (n_q, "capture vs K2")
+        scores, k7 = score_gmax(q, c, valid, chunk, "chunk")
+        assert torch.equal(k7, gmax), (n_q, "K7a maxima")
+        assert torch.equal(score_gather(scores, gsel), cand), (n_q, "K7a scores vs K2")
+        rows, k7_row = score_gmax(q, c, valid, chunk, "row")
+        assert torch.equal(k7_row, gmax)
+        assert torch.equal(rows.view(n_q, n_c, chunk).transpose(0, 1), scores)
+        assert score_gmax(q, c, valid, chunk, "none")[0] is None
+        unmasked = stream_capture(q, c, n, chunk, b)[0]
+        assert torch.equal(group_max(q, c, 1)[0][:, 0], unmasked.reshape(-1, n_q).T)
+        plain = stream_capture_plain(q, c, valid, chunk, b)
+        assert float((gmax - plain[0]).abs().max()) <= 1e-4
+        counts = launch_counts()
+        assert counts["stream_capture"] == 3 and counts["score_gmax"] == 3
+        assert counts["gather_groups"] == 1 and counts["group_max"] == 1
+
+
+@pytest.mark.cuda
+def test_float_sweeps_refuse_a_cut_that_misses_the_call(cuda_device):
+    """The float K1 and K7a take search_plan's cut whole and refuse one that
+    leaves a group unscored or a range empty, K1's slots off min(b, gpb), or
+    a shared-memory figure that is not the launch's own."""
+    from kirag_tpu_torch.kernels import exact as kx
+
+    c = torch.zeros(4096, 64, device=cuda_device)
+    q = torch.zeros(8, 64, device=cuda_device)
+    good = kx.search_plan(8, 2, 16, 4, 4)
+    bad = [dataclasses.replace(good, splits=good.splits - 1),
+           dataclasses.replace(good, splits=good.splits + 1),
+           dataclasses.replace(good, slots=good.slots + 1),
+           dataclasses.replace(good, smem=good.smem + 16)]
+    k7a = kx.search_plan(8, 2, 16, 4)
+    old = kx.search_plan
+    try:
+        for cut in bad:
+            kx.search_plan = lambda *args, _cut=cut: _cut
+            with pytest.raises(RuntimeError, match="stream_capture kernel launch failed"):
+                stream_capture(q, c, 4096, 2048, 4)
+        for cut in (dataclasses.replace(k7a, groups_per_block=3),
+                    dataclasses.replace(k7a, smem=k7a.smem - 16)):
+            kx.search_plan = lambda *args, _cut=cut: _cut
+            with pytest.raises(RuntimeError, match="score_gmax kernel launch failed"):
+                score_gmax(q, c, 4096, 2048, "chunk")
+    finally:
+        kx.search_plan = old
 
 
 @pytest.mark.cuda
