@@ -575,17 +575,30 @@ def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> di
             "stream_capture_bound": k1_bound, "gather_groups_bound": k2_bound,
         }
         lib = ""
-        if quant == "none":  # the PyTorch call for K1's maxima alone
+        lib2 = ""
+        if quant == "none":  # the PyTorch calls for K1's maxima alone and for K2
             t["stream_capture_library"] = cuda_ms(lambda: library_gmax(q, corpus))
+            t["gather_groups_library"] = cuda_ms(lambda: library_gather(q, corpus, gsel))
             lib = (f", library (matmul + amax, the maxima only) "
                    f"{t['stream_capture_library']:.3f} ms; {plan_text(n_q, corpus, b)}")
-            split = kernels_per_call(
-                lambda: stream_capture(q, corpus, valid, CHUNK, b, scales, quant),
-                FLOAT_K1_KERNELS)
-            seen = [split.get(k, [0])[0] for k in FLOAT_K1_KERNELS] if split else []
-            if split is not None and (len(set(seen)) != 1 or seen[0] < 1):
+            lib2 = (f", library (gather of the groups' rows + a batched product"
+                    f"{', bf16 scores' if corpus.dtype == torch.bfloat16 else ''}) "
+                    f"{t['gather_groups_library']:.3f} ms")
+            # one sweep and one peel kernel a call: the counts of a profiled
+            # window agree. The profiler can drop a record of these short
+            # kernels, so a window that disagrees is profiled again, up to
+            # three; a call that started other kernels disagrees in every one.
+            for window in range(1, 4):
+                split = kernels_per_call(
+                    lambda: stream_capture(q, corpus, valid, CHUNK, b, scales, quant),
+                    FLOAT_K1_KERNELS)
+                seen = [split.get(k, [0])[0] for k in FLOAT_K1_KERNELS] if split else []
+                if split is None or (len(set(seen)) == 1 and seen[0] >= 1):
+                    break
+                log(f"  {what}: profiled window {window} saw {split}")
+            else:
                 raise AssertionError(f"{what}: float K1 calls are not one sweep and one peel "
-                                     f"kernel each: {split}")
+                                     f"kernel each in 3 profiled windows: {split}")
             t["stream_capture_kernels"] = split
             lib += "; " + kernels_text(split)
         times[n_q] = t
@@ -596,7 +609,8 @@ def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> di
             f"{t['stream_capture_plain']:.3f} ms (bound {k1_bound[0]:.3f} ms, {k1_bound[1]}{lib}); "
             f"K2 {t['gather_groups']:.3f} ms vs plain {t['gather_groups_plain']:.3f} ms "
             f"(bound {k2_bound[0]:.3f} ms, {k2_bound[1]}, "
-            f"{int(torch.unique(gsel).numel())} distinct groups) (CUDA events, median of 10)")
+            f"{int(torch.unique(gsel).numel())} distinct groups{lib2}) (CUDA events, median "
+            "of 10)")
     return times
 
 
@@ -618,6 +632,24 @@ def library_gmax(q, corpus):
     scores) and the 128-row group maxima by ``amax``. It computes the maxima
     only, not the capture or the stored scores."""
     return torch.matmul(q, corpus.T).view(len(q), -1, 128).amax(-1)
+
+
+def library_group_max(q, corpus, winners: int):
+    """One PyTorch call's worth of K5's work on a float corpus: every score by
+    ``torch.matmul`` (TF32 off; a bf16 corpus gives bf16 scores) viewed
+    [Q, G, 128], then ``max`` (W = 1: values and a maximal lane) or
+    ``topk`` (W > 1: the W largest and their lanes) over each group."""
+    s = torch.matmul(q, corpus.T).view(len(q), -1, 128)
+    return s.max(-1) if winners == 1 else s.topk(winners, -1)
+
+
+def library_gather(q, corpus, gsel):
+    """One PyTorch call's worth of K2's work on a float corpus: the selected
+    groups' rows by ``index_select`` on the [G, 128 D] view and their scores
+    by a batched product (TF32 off; bf16 rows give bf16 scores)."""
+    d = corpus.shape[1]
+    rows = corpus.view(-1, 128 * d).index_select(0, gsel.reshape(-1))  # [Q k, 128 D]
+    return torch.matmul(rows.view(len(q), -1, d), q[:, :, None]).view(len(q), -1, 128)
 
 
 FLOAT_K1_KERNELS = ("capture_sweep_kernel", "peel_capture_kernel")  # one K1 launch count
@@ -2788,33 +2820,56 @@ def check_approx_kernels(dev, gen, err) -> dict:
     return times
 
 
-def k5_times(label, index, gen, power, err, query_counts=APPROX_QUERIES,
-             winners=(1, 2), reps=10) -> dict:
-    """K5 against its plain version on a served index (its rows, its
-    format), then timed with CUDA events, median of ``reps`` (the plain
-    version's of 3), each beside its bound."""
+FLOAT_K5_KERNELS = ("group_max_sweep_kernel", "group_max_kernel")  # float, quantized
+
+
+def k5_times(label, corpus, scales, quant: str, queries, gen, power, err,
+             query_counts=APPROX_QUERIES, winners=(1, 2), reps=10) -> dict:
+    """K5 against its plain version on a served index's group view (its
+    rows, its format; ``queries(n_q)`` gives the searched queries), then
+    timed with CUDA events, median of ``reps`` (the plain version's of 3),
+    each beside its bound. On a float corpus also beside one PyTorch call
+    for the same function (:func:`library_group_max`), and the kernels of 10
+    calls by torch.profiler at W = 1 and the largest W: one
+    ``group_max_sweep_kernel`` a call (a bf16 call adds the queries' cast)."""
     from kirag_tpu_torch.kernels import group_max, group_max_plain
 
-    (corpus, scales), quant = index._group_view(), index.compression  # what the search reads
     name = k5_name(quant)
     times = {}
     for n_q in query_counts:
-        q = index._search_queries(unit_rows(n_q, gen, corpus.device).to(index.device_dtype))
+        q = queries(n_q)
         for w in winners:
             what = f"{label} Q={n_q} W={w}"
             got = group_max(q, corpus, w, scales, quant)
-            e, swapped = k5_error(got, group_max_plain(q, corpus, w + 1, scales, quant), what)
+            want = group_max_plain(q, corpus, min(w + 1, 128), scales, quant)
+            e, swapped = k5_error(got, want, what)
             err[name] = max(err.get(name, 0.0), e)
             t = {"ms": cuda_ms(lambda: group_max(q, corpus, w, scales, quant), reps=reps),
                  "plain_ms": cuda_ms(lambda: group_max_plain(q, corpus, w, scales, quant),
                                      reps=3),
-                 "bound": k5_bound(q, corpus, scales, quant, got)}
-            del got
+                 "bound": k5_bound(q, corpus, scales, quant, got), "library_ms": None}
+            del got, want
+            extra = ""
+            if quant == "none":
+                t["library_ms"] = cuda_ms(lambda: library_group_max(q, corpus, w), reps=reps)
+                extra = (f", library ({'max' if w == 1 else 'topk'} over matmul's groups"
+                         f"{', bf16 scores' if corpus.dtype == torch.bfloat16 else ''}) "
+                         f"{t['library_ms']:.3f} ms")
+                if w in (winners[0], winners[-1]):  # 10 calls: at most 10 sweep kernels
+                    split = kernels_per_call(lambda: group_max(q, corpus, w), FLOAT_K5_KERNELS)
+                    n = split.get(FLOAT_K5_KERNELS[0], [0])[0] if split else 0
+                    casts = 10 if q.dtype != torch.float32 else 0  # the queries' cast to f32
+                    if split is not None and (FLOAT_K5_KERNELS[1] in split or not 1 <= n <= 10
+                                              or split.get("other", [0])[0] > casts):
+                        raise AssertionError(f"{what}: a float K5 call is not one "
+                                             f"{FLOAT_K5_KERNELS[0]}: {split}")
+                    t["kernels"] = split
+                    extra += "; " + kernels_text(split)
             times[(n_q, w)] = t
             log(f"  [{power}] {what}, {len(corpus)} x {q.shape[1]}: K5 {t['ms']:.3f} ms vs "
-                f"plain {t['plain_ms']:.3f} ms (bound {t['bound'][0]:.3f} ms, {t['bound'][1]}); "
-                f"max abs err {e:.3g} ({swapped} lanes differ at near-ties) (CUDA events, "
-                f"median of {reps})")
+                f"plain {t['plain_ms']:.3f} ms (bound {t['bound'][0]:.3f} ms, {t['bound'][1]}"
+                f"{extra}); max abs err {e:.3g} ({swapped} lanes differ at near-ties) (CUDA "
+                f"events, median of {reps})")
     return times
 
 
@@ -2835,7 +2890,9 @@ def serve_approx(dev, encoder, collator, host_rows, texts, text_rows, text_emb, 
     ``shuffle_rows=True``, at W = 1 and 2 (APPROX_REQUESTS requests from 4
     threads, then lone requests of 1, 8 and 32 texts); every served batch
     held against the plain search; recall@10/@100 of the texts' searches
-    against the exact search over the same index; K5 timed on each index."""
+    against the exact search over the same index; K5 timed on each index
+    (float32 at W = 1, 2, 8, 128 beside ``torch.matmul`` + ``max``/``topk``,
+    then a bfloat16 copy of its rows likewise; int4 at W = 1, 2)."""
     from kirag_tpu_torch.index import TorchIndexer
 
     served, timed, recalls = {}, {}, {}
@@ -2870,8 +2927,21 @@ def serve_approx(dev, encoder, collator, host_rows, texts, text_rows, text_emb, 
             stats["recall"] = r
             served[label] = stats
             recalls[(fmt, w)] = r
-        timed[fmt] = k5_times(f"{fmt} shuffled 1M", index, gen, power, err)
-        del index
+        corpus, scales = index._group_view()  # what the search reads
+
+        def queries(n_q, dtype=index.device_dtype):
+            return index._search_queries(unit_rows(n_q, gen, dev).to(dtype))
+
+        float_w = APPROX_WINNERS if quant == "none" else (1, 2)
+        timed[fmt] = k5_times(f"{fmt} shuffled 1M", corpus, scales, quant, queries, gen, power,
+                              err, winners=float_w)
+        if quant == "none":  # the same rows as bfloat16 (2 GB), searched with bf16 queries
+            c16 = corpus.to(torch.bfloat16)
+            timed["bfloat16"] = k5_times(
+                "bfloat16 copy of the shuffled 1M", c16, None, quant,
+                lambda n_q: queries(n_q, torch.bfloat16), gen, power, err, winners=float_w)
+            del c16
+        del index, corpus, scales
         torch.cuda.empty_cache()
     return served, timed, recalls
 
@@ -3900,11 +3970,13 @@ def main() -> int:
                 "launches": launches[k],
                 "max_abs_err": err[k], "ms": headline[k], "plain_ms": headline[k + "_plain"],
                 "bound_ms": headline[k + "_bound"][0], "bound_by": headline[k + "_bound"][1],
-                "library_ms": None,
+                "library_ms": headline[k + "_library"],
                 "at": f"Q=32, float32 index {N_ROWS} x {DIM}, chunk {CHUNK}, k={K}"
                       + ("; launches count calls, a float call two kernels "
-                         "(capture_sweep_kernel, peel_capture_kernel), ms both"
-                         if k == "stream_capture" else "")}
+                         "(capture_sweep_kernel, peel_capture_kernel), ms both; library_ms: "
+                         "torch.matmul (TF32 off) and amax, the maxima only"
+                         if k == "stream_capture" else "; library_ms: an index gather of the "
+                         "selected groups' rows and a batched product")}
                for k, (src, rep) in sources.items()]
     k3 = built["flash"][(torch.bfloat16, 512, "segments")]
     kernels.append({"name": "flash_attention", "route": "cuda",
@@ -3987,22 +4059,30 @@ def main() -> int:
     # index at Q=32, W=1; the int8 and int4 kernels at the DPR scale (phase
     # 12 d), Q=8, W=1, where their plain versions were timed too
     k5_rows = [("group_max", approx_timed["float32"], 32,
-                f"float32 shuffled index {N_ROWS} x {DIM} (1,015,808 rows with padding), Q=32, "
-                "W=1; by_q: Q and W"),
+                f"float32 shuffled index {N_ROWS} x {DIM} (1,000,064 rows in its groups), Q=32, "
+                "W=1; library_ms: torch.matmul (TF32 off) and max (W > 1: topk) over 128-row "
+                "groups; by_q: Q and W; by_q_bf16: a bfloat16 copy of the rows (bf16 library "
+                "scores)", approx_timed["bfloat16"]),
                *((k5_name(quant), dpr[quant]["approx"]["times"], DPR_QUERIES[0],
                   f"{quant} {DPR_ROWS} x {DIM} (the DPR corpus), Q={DPR_QUERIES[0]}, W=1; by_q: "
-                  "Q and W") for quant in QUANTS)]
-    for name, times, n_q, at in k5_rows:
+                  "Q and W; library_ms: no PyTorch call scores codes against bf16 queries",
+                  None) for quant in QUANTS)]
+
+    def k5_by_q(times):
+        return {f"Q={q} W={w}": {"ms": x["ms"], "bound_ms": x["bound"][0],
+                                 "bound_by": x["bound"][1], "library_ms": x.get("library_ms")}
+                for (q, w), x in times.items()}
+
+    for name, times, n_q, at, bf16_times in k5_rows:
         t = times[(n_q, 1)]
         kernels.append({
             "name": name, "route": "cuda", "source": "kirag_tpu_torch/csrc/group_max.cu",
             "replaces": "kirag_tpu/ops/pallas_mips.py:42", "launches": launches[name],
             "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None,
-            "at": at + "; library_ms: no PyTorch call computes a grouped top-W",
-            "by_q": {f"Q={q} W={w}": {"ms": x["ms"], "bound_ms": x["bound"][0],
-                                      "bound_by": x["bound"][1]}
-                     for (q, w), x in times.items()}})
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t.get("library_ms"), "at": at, "by_q": k5_by_q(times)})
+        if bf16_times is not None:
+            kernels[-1]["by_q_bf16"] = k5_by_q(bf16_times)
     # K7a/K7b/K8/K9 (phase 15): times at Q=32 on phase 15 (b)'s 1M indexes
     # (float32; int8 and PQ for their K7a), K7a int4 at the DPR scale, Q=8;
     # by_q / by_q_21m: the DPR scale's other query counts

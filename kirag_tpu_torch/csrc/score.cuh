@@ -19,12 +19,12 @@
 // thread computes it. Equal inputs give bitwise-equal f32 scores everywhere.
 //
 // Float32 and bfloat16 corpora have a second form of the same loop for the
-// scoring sweeps of K1 and K7a, score_passes() below: a thread holds a
+// scoring sweeps of K1, K5 and K7a, score_passes() below: a thread holds a
 // register tile of PASS_R rows x J queries and the block stages queries and
 // rows together, 128 bytes of each row at a time. Only which thread computes
 // which pairs changes: every pair still runs the chain above over the same
 // padded_depth(d) columns, so score_passes and score_group give the same bits for the same
-// (query, row), and K2 and K5 (score_group) stay bitwise equal to K1 and K7a.
+// (query, row), and K2 (score_group) stays bitwise equal to K1, K5 and K7a.
 //
 // Quantized corpora (K4: the in-kernel dequant of the TPU kernels,
 // kirag_tpu/ops/pallas_exact.py::_chunk_scores) take queries that the wrapper

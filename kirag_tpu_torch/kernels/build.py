@@ -122,7 +122,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kirag_window_merge.restype = i32
     lib.kirag_group_max.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr,  # q, corpus, kind, scales, gmax, gidx
-        i32, i32, i64, i32, i32, ptr]  # n_q, d, n_rows, winners, qpt, stream
+        i32, i32, i64, i32, i32,       # n_q, d, n_rows, winners, qpt
+        i32, i32, i32, i32, ptr]       # q_tile, splits, gpb, smem, stream
     lib.kirag_group_max.restype = i32
     lib.kirag_flash_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,             # q, k, v, seg, out, lse (or null)

@@ -243,9 +243,11 @@ def quant_scores(queries: torch.Tensor, corpus: torch.Tensor,
 
 # ------------------------------------------------------------- search_plan
 #
-# How a K1 or K7a call over a float32 or bfloat16 corpus is cut
+# How a K1, K5 or K7a call over a float32 or bfloat16 corpus is cut
 # (csrc/score.cuh's score_passes; quantized corpora keep one block per
-# (query tile, chunk), :func:`score_group_qpt`).
+# (query tile, chunk) or, K5, per (query tile, range of groups),
+# :func:`score_group_qpt`). K5 is cut as one chunk of all the corpus's
+# groups, as K7a with no store.
 
 SMS = 132                  # the H100's streaming multiprocessors
 BLOCKS_PER_SM = 2          # score.cuh's SWEEP_BLOCKS_PER_SM; K1's bf16 32-query sweep
@@ -264,12 +266,12 @@ MAX_HELD_SMEM = 64 * 1024  # and a block tracks its best groups in at most 64 KB
 
 @dataclasses.dataclass(frozen=True)
 class SearchPlan:
-    """The cut of one float K1 or K7a call, passed whole to the kernel,
+    """The cut of one float K1, K5 or K7a call, passed whole to the kernel,
     which refuses a cut that does not cover its call: ``q_tiles`` tiles of
     ``q_tile`` queries times, for each chunk, ``splits`` ranges of
     ``groups_per_block`` groups (the last may hold fewer), one block each. K1
     keeps ``slots`` = min(b, groups_per_block) groups per (range, query) in
-    its scratch (``slots == 0`` for K7a); ``smem`` is a sweep block's shared
+    its scratch (``slots == 0`` for K5 and K7a); ``smem`` is a sweep block's shared
     memory (the kernel refuses a figure other than its own), ``blocks`` the
     grid."""
 
@@ -290,7 +292,8 @@ class SearchPlan:
 
 def _sweep_smem(elem_bytes: int, q_tile: int, b: int, slots: int, gpb: int) -> int:
     """The shared memory of one sweep block (capture_sweep_kernel with b > 0,
-    score_sweep_kernel with b == 0)."""
+    score_sweep_kernel and group_max_sweep_kernel with b == 0: the ring
+    alone, since K5 peels in registers)."""
     cols = ROW_BYTES // elem_bytes                        # score.cuh's sweep_cols
     stage = PASS_ROWS * (ROW_BYTES + 16) + q_tile * (cols + 4) * 4
     smem = STAGES * stage                                # the ring
@@ -305,8 +308,8 @@ def _sweep_smem(elem_bytes: int, q_tile: int, b: int, slots: int, gpb: int) -> i
 def search_plan(n_q: int, num_chunks: int, groups_per_chunk: int, elem_bytes: int,
                 b: int = 0) -> SearchPlan:
     """The cut of a float32 (``elem_bytes`` 4) or bfloat16 (2) K1 call with
-    capture budget ``b``, or K7a call (``b`` 0), over ``num_chunks`` chunks
-    of ``groups_per_chunk`` groups and ``n_q`` queries.
+    capture budget ``b``, or K7a or K5 call (``b`` 0; K5 one chunk), over
+    ``num_chunks`` chunks of ``groups_per_chunk`` groups and ``n_q`` queries.
 
     The query tile is the smallest of 4, 8, 16, 32 that holds the queries
     (32 beyond), halved while even one group a block would leave SMs idle.
@@ -347,8 +350,9 @@ def search_plan(n_q: int, num_chunks: int, groups_per_chunk: int, elem_bytes: in
 
 def score_group_qpt(n_q: int) -> int:
     """Queries per thread of the kernels that score through score.cuh's
-    score_group with a query tile of 2 * qpt (K5, and the quantized K1/K7a,
-    one block per (query tile, chunk)): 4 queries a block for Q <= 8, else 8."""
+    score_group with a query tile of 2 * qpt (the quantized K1/K7a, one
+    block per (query tile, chunk), and the quantized K5): 4 queries a block
+    for Q <= 8, else 8."""
     return 2 if n_q <= 8 else 4
 
 

@@ -750,6 +750,121 @@ def test_float_sweeps_refuse_a_cut_that_misses_the_call(cuda_device):
         kx.search_plan = old
 
 
+# K5 on float corpora: search_plan's cut of one chunk, each group peeled in
+# registers (the reference's rounds up to 24 winners, a sort above)
+K5_QUERIES = (1, 3, 8, 9, 17, 32, 33, 64)
+K5_WINNERS = (1, 2, 8, 24, 25, 33, 128)
+K5_GROUPS = 1003  # search_plan leaves the last range 3 groups short at every Q
+
+
+def k5_lanes_clear(want, w, tol):
+    """Where the plain version's winner r of W stands more than ``tol`` from
+    the winners before and after it (``want`` peeled one further where W <
+    128), so that another summation order cannot swap its lane."""
+    vals = want[0]
+    nxt = torch.cat([vals[:, 1:], torch.full_like(vals[:, :1], float("-inf"))], dim=1)[:, :w]
+    gap = vals[:, :w] - nxt
+    clear = gap > tol
+    clear[:, 1:] &= gap[:, :-1] > tol
+    return clear
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [200, 1024, 1040])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_group_max_bitwise_equal_plain_at_the_plans_cuts(cuda_device, dtype, d):
+    """The float K5 on integer data (every score exact in any order, many
+    ties) at search_plan's cuts, ragged last range included, Q = 1-64, W =
+    1, 2, 8, 24 (the rounds), 25, 33 and 128 (the sort): values and lanes bitwise the
+    plain version's, one launch a call, a second launch bitwise the first;
+    then with positive queries over rows of -3e38, a group scoring -inf
+    throughout and one with 64 finite scores (fewer than W); then one group
+    (N = 128)."""
+    from kirag_tpu_torch.kernels.exact import search_plan
+
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    c = torch.randint(-3, 4, (K5_GROUPS * 128, d), generator=g, device=cuda_device).to(dtype)
+    c_inf = c.clone()
+    c_inf[128:320] = -3e38  # group 1 and the first half of group 2
+    ragged = set()
+    for n_q in K5_QUERIES:
+        p = search_plan(n_q, 1, K5_GROUPS, c.element_size())
+        if K5_GROUPS % p.groups_per_block:
+            ragged.add(n_q)
+        signed = torch.randint(-2, 3, (n_q, d), generator=g, device=cuda_device).to(dtype)
+        positive = torch.randint(1, 3, (n_q, d), generator=g, device=cuda_device).to(dtype)
+        for corpus, q in ((c, signed), (c_inf, positive), (c[:128], signed),
+                          (c_inf[128:256], positive)):
+            for w in K5_WINNERS:
+                reset_launch_counts()
+                got = group_max(q, corpus, w)
+                assert launch_counts()["group_max"] == 1
+                again = group_max(q, corpus, w)
+                want = group_max_plain(q, corpus, w)
+                torch.cuda.synchronize()
+                assert got[0].shape == (n_q, w, corpus.shape[0] // 128)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (n_q, w)
+                assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+        if n_q == 64:
+            tail = group_max(positive, c_inf, 128)
+            assert bool(torch.isinf(tail[0][:, :, 1]).all())
+            assert int(torch.isfinite(tail[0][:, :, 2]).sum(1).max()) == 64
+    assert ragged == set(K5_QUERIES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [200, 1024, 1040])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_group_max_matches_plain_on_random_rows(cuda_device, dtype, d):
+    """The float K5 on random unit rows: W = 1 values bitwise K1's unmasked
+    maxima (one fma order), values within 1e-4 of the plain version's (another
+    summation order), lanes equal wherever the winner stands more than that
+    from its neighbours, a second launch bitwise the first."""
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    n = K5_GROUPS * 128
+    c = unit_rows(n, d, g, cuda_device, dtype)
+    for n_q in (1, 9, 33, 64):
+        q = unit_rows(n_q, d, g, cuda_device, dtype)
+        k1 = stream_capture(q, c, n, 59 * 128, 1)[0]                     # [17, 59, Q]
+        for w in K5_WINNERS:
+            got = group_max(q, c, w)
+            again = group_max(q, c, w)
+            want = group_max_plain(q, c, min(w + 1, 128))
+            torch.cuda.synchronize()
+            assert float((got[0] - want[0][:, :w]).abs().max()) <= 1e-4, (n_q, w)
+            clear = k5_lanes_clear(want, w, 1e-4)
+            assert torch.equal(got[1][clear], want[1][:, :w][clear]), (n_q, w)
+            assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+            if w == 1:
+                assert torch.equal(got[0][:, 0], k1.reshape(-1, n_q).T)
+
+
+@pytest.mark.cuda
+def test_float_group_max_refuses_a_cut_that_misses_the_call(cuda_device):
+    """The float K5 takes search_plan's cut whole and refuses one that leaves
+    a group unscored or a range empty, a query tile it has no kernel for, or
+    a shared-memory figure that is not the launch's own."""
+    from kirag_tpu_torch.kernels import approx as ka
+
+    c = torch.zeros(4096, 64, device=cuda_device)
+    q = torch.zeros(8, 64, device=cuda_device)
+    good = ka.search_plan(8, 1, 32, 4)
+    bad = [dataclasses.replace(good, splits=good.splits - 1),
+           dataclasses.replace(good, splits=good.splits + 1),
+           dataclasses.replace(good, q_tile=64),
+           dataclasses.replace(good, smem=good.smem + 16),
+           ka.search_plan(8, 1, 32, 2)]  # a bf16 block's shared memory
+    old = ka.search_plan
+    try:
+        for cut in bad:
+            ka.search_plan = lambda *args, _cut=cut: _cut
+            with pytest.raises(RuntimeError, match="group_max kernel launch failed"):
+                group_max(q, c, 2)
+    finally:
+        ka.search_plan = old
+    assert torch.equal(group_max(q, c, 2)[1], group_max_plain(q, c, 2)[1])
+
+
 @pytest.mark.cuda
 def test_copy_kernels_bitwise_equal_plain(cuda_device):
     """K7b and K8: copies, zeros for an index outside the source."""

@@ -1,6 +1,7 @@
-"""``kirag_tpu_torch.kernels.exact.search_plan``: how K1 and K7a cut a call
-over a float32 or bfloat16 corpus into blocks (query tiles x ranges of each
-chunk's groups), and a model of K1's capture scratch.
+"""``kirag_tpu_torch.kernels.exact.search_plan``: how K1, K5 and K7a cut a
+call over a float32 or bfloat16 corpus into blocks (query tiles x ranges of
+each chunk's groups; K5's corpus is one chunk), and a model of K1's capture
+scratch.
 
 The plan is a pure function of (Q, chunks, groups a chunk, element size,
 capture budget), so its properties are held here on the CPU: every group of
@@ -21,6 +22,7 @@ import torch
 from kirag_tpu_torch.kernels import stream_capture_plain
 from kirag_tpu_torch.kernels.exact import (
     BLOCKS_PER_SM,
+    FILL,
     FIN_MIN,
     LANES,
     MAX_SCRATCH,
@@ -28,6 +30,7 @@ from kirag_tpu_torch.kernels.exact import (
     SMEM_PER_SM,
     SMEM_RESERVED,
     SMS,
+    _sweep_smem,
     quant_scores,
     search_plan,
 )
@@ -49,11 +52,17 @@ def blocks_of(plan, num_chunks, groups):
     return out
 
 
+ONE_M_GROUPS = 7813     # phase 12's shuffled 1M rows: 1,000,064 rows, one chunk (K5)
+DPR_GROUPS = 164183     # the DPR corpus, 21,015,324 rows: the largest float index a card holds
+
 GEOMETRIES = [  # (Q, chunks, groups a chunk, element bytes, b)
     *((n_q, ONE_M_CHUNKS, G, e, 8) for n_q in (1, 8, 16, 32, 33, 64, 256) for e in (4, 2)),
     *((n_q, 1, G, 4, 128) for n_q in (1, 8, 9, 64, 256)),
     (32, 1, G, 4, 8), (8, 1283, G, 2, 8), (5, 8, 16, 4, 16), (40, 3, 7, 2, 3),
     *((n_q, ONE_M_CHUNKS, G, 4, 0) for n_q in (8, 32, 256)), (64, 1, G, 2, 0),
+    # K5: the corpus as one chunk of every group, no capture
+    *((n_q, 1, groups, e, 0) for n_q in (1, 8, 16, 32, 33, 64, 256)
+      for groups in (1, 3, 1003, ONE_M_GROUPS) for e in (4, 2)),
 ]
 
 
@@ -124,6 +133,46 @@ def test_plan_rejects_what_no_kernel_takes():
                  (8, 1, 0, 4, 0)]:
         with pytest.raises(ValueError, match="no search plan"):
             search_plan(*args)
+
+
+# ------------------------------------------------ K5: the corpus as one chunk
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("n_q,groups", [(8, ONE_M_GROUPS), (16, ONE_M_GROUPS),
+                                        (32, ONE_M_GROUPS), (8, G), (64, G)])
+def test_k5_plan_fills_the_card(n_q, groups, elem):
+    """At 1M rows and on phase 6's 16,384-row index, at least one block an
+    SM; at 1M and Q <= 32 the corpus is read once (one query tile) and the
+    blocks fill FILL of a wave of two an SM."""
+    p = search_plan(n_q, 1, groups, elem)
+    assert p.blocks >= SMS
+    if groups == ONE_M_GROUPS:
+        assert p.q_tiles == 1 and p.blocks >= FILL * SMS * BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+def test_k5_plan_shared_memory_fits(elem):
+    """K5 peels in registers: a block's shared memory is the ring alone (K7a's
+    figure at its query tile), within 227 KB and two blocks an SM at every Q."""
+    for n_q in range(1, 257):
+        for groups in (G, ONE_M_GROUPS, DPR_GROUPS):
+            p = search_plan(n_q, 1, groups, elem)
+            assert p.smem == _sweep_smem(elem, p.q_tile, 0, 0, p.groups_per_block)
+            assert p.smem <= SMEM_PER_BLOCK
+            assert BLOCKS_PER_SM * (p.smem + SMEM_RESERVED) <= SMEM_PER_SM, (n_q, groups, p)
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("n_q", [1, 8, 32, 256, 4096])
+def test_k5_plan_fits_the_grid_at_the_dpr_scale(n_q, elem):
+    """At the DPR corpus's 164,183 groups: the kernel's cut check passes
+    (the last range holds 1 .. gpb groups), its row ids fit the int32 group
+    count x 128, and the blocks fit one grid axis (2^31 - 1)."""
+    p = search_plan(n_q, 1, DPR_GROUPS, elem)
+    assert (p.splits - 1) * p.groups_per_block < DPR_GROUPS <= p.splits * p.groups_per_block
+    assert DPR_GROUPS * LANES < 2 ** 31 and p.blocks < 2 ** 31
+    assert p.blocks == p.q_tiles * p.splits >= SMS
 
 
 # ------------------------------------------------ the capture scratch, modelled
