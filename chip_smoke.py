@@ -134,6 +134,14 @@ QUEUE_CYCLES = 4_000_000
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+# f32-grade products on the tensor cores: the data sheet's dense TF32 rate
+# (495 TFLOP/s) over the three passes of a split-f32 ("3xTF32") product, each
+# operand a = hi + lo in TF32, a b = lo.hi + hi.lo + hi.hi. K3's f32 work (the
+# forward and both backward kernels) is bound at this rate, whatever
+# implements it: the card can do it so (SDPA's f32 path does). The float
+# search kernels (K1, K2, K5, K7a) keep F32_FLOP_S: their contract is one fma
+# order, bitwise across four kernels, which tensor-core sums cannot give.
+TF32X3_FLOP_S = 495e12 / 3
 # the exact search the indexer served until the port had every variant, and
 # which phases 3-14 hold to its plain version: stream capture, capture-domain
 # selection (the reference's defaults are impl="auto", select="flat")
@@ -617,9 +625,10 @@ def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> di
 def search_bound(q, corpus, scales, quant: str, outs):
     """K1's bound: the corpus (and its scales) and the queries read once,
     the outputs written once; 2 * Q * N * D operations, on the CUDA cores'
-    f32 rate for a float corpus and at the bf16 tensor-core rate for a
-    quantized one (its codes and levels are exact in bf16, as on the
-    reference's matrix unit)."""
+    f32 rate for a float corpus (not TF32X3_FLOP_S: the float sweeps share
+    one fma order bitwise, which tensor-core sums cannot keep) and at the
+    bf16 tensor-core rate for a quantized one (its codes and levels are
+    exact in bf16, as on the reference's matrix unit)."""
     n_q, d = q.shape
     ops_s = F32_FLOP_S if quant == "none" else BF16_FLOP_S
     extra = () if scales is None else (scales,)
@@ -837,13 +846,16 @@ def check_flash(dev, gen, heads: int, power) -> dict:
                 if not torch.equal(got, again):
                     raise AssertionError(f"{what}: two launches on the same inputs differ")
                 # each input read once, the output written once; 4 * 64 flops per
-                # same-segment (query, key) pair and head, in QK^T and PV
+                # same-segment (query, key) pair and head, in QK^T and PV; f32 at
+                # the split-TF32 rate, and beside it at the CUDA cores' (the rate
+                # the f32 kernels were first bound at)
                 pairs = int((seg[:, :, None] == seg[:, None, :]).sum())
                 kb = bound(nbytes(q, k, v, got, seg), 4 * 64 * heads * pairs,
-                           BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S)
+                           BF16_FLOP_S if dtype == torch.bfloat16 else TF32X3_FLOP_S)
+                kb_cc = bound(nbytes(q, k, v, got, seg), 4 * 64 * heads * pairs, F32_FLOP_S)
                 # the bf16 kernel's blocks own 64 queries, the f32 kernel's 128
                 skipped = tile_pairs_skipped(seg, 64 if dtype == torch.bfloat16 else 128)
-                r = {"err": err, "tol": tol, "bound": kb,
+                r = {"err": err, "tol": tol, "bound": kb, "bound_cuda_cores": kb_cc,
                      "ms": cuda_ms(lambda: flash_attention(q, k, v, seg, 0.125)),
                      "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, seg, 0.125)),
                      "library_ms": cuda_ms(sdpa)}
@@ -852,9 +864,12 @@ def check_flash(dev, gen, heads: int, power) -> dict:
                     f"{lib_err:.3g}); lse within {lse_err:.3g} (1e-5); a second launch "
                     f"bitwise equal; same-segment pairs {pairs / (BATCH * t * t):.3f} of all; "
                     f"(query block, key tile) pairs skipped {skipped:.3f} of all")
+                cc = ("" if dtype == torch.bfloat16 else
+                      f" at 3xTF32's {TF32X3_FLOP_S / 1e12:.0f} TFLOP/s; at the CUDA cores' "
+                      f"{F32_FLOP_S / 1e12:.0f}: {kb_cc[0]:.4f} ms ({kb_cc[1]})")
                 log(f"  [{power}] {what}: K3 {r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms, "
-                    f"SDPA with mask {r['library_ms']:.4f} ms; bound {kb[0]:.4f} ms ({kb[1]}) "
-                    "(CUDA events, median of 10)")
+                    f"SDPA with mask {r['library_ms']:.4f} ms; bound {kb[0]:.4f} ms ({kb[1]})"
+                    f"{cc} (CUDA events, median of 10)")
                 del q, k, v, qkv, got, again, want, lse, want_lse, mask
     return out
 
@@ -1685,9 +1700,13 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
 # 32 sequences x 16 heads x 256 tokens. dq, dk and dv each within a share of
 # the tensor's largest magnitude: bf16 2^-6 (both versions round P and dS to
 # bf16 before their products; exponentials and sums run in other orders),
-# f32 1e-4 (f32 sums of up to 256 products in other orders)
+# f32 1e-4 (f32 sums of up to 256 products in other orders); and the f32
+# kernels, on the plain forward's residuals, within 1e-5: their products are
+# split TF32 (three passes, f32-grade), which one TF32 pass (about 5e-4
+# here, tests/test_torch_flash_bwd_tf32.py) would miss
 BWD_SHAPE = (32, 16, 256, 64)
 BWD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
+BWD_TOL_F32_KERNELS = 1e-5
 # (b) one training step through the kernels against the same step through
 # the plain K3 forward and backward: f32 gradients within 1e-4 of each
 # tensor's norm, bf16 gradients at a cosine of at least 0.99 per tensor; the
@@ -1810,6 +1829,13 @@ def check_flash_bwd(dev, gen, power) -> dict:
                             raise AssertionError(f"{what}: {label} {name} differs from plain "
                                                  f"by {err} > {lim}, or is not finite")
                         errs[(label, name)] = err
+                if dtype == torch.float32:
+                    for name, y in zip(("dq", "dk", "dv"), want):
+                        lim = BWD_TOL_F32_KERNELS * float(y.abs().max())
+                        if not errs[("kernels", name)] <= lim:
+                            raise AssertionError(f"{what}: kernels' {name} differs from plain by "
+                                                 f"{errs[('kernels', name)]} > {lim} (split TF32 "
+                                                 "must be f32-grade)")
                 for name, x, y in zip(("dq", "dk", "dv"), (dq, dk, dv), (dq2, dk2, dv2)):
                     if not torch.equal(x, y):
                         raise AssertionError(f"{what}: two launches on the same inputs give "
@@ -1818,16 +1844,21 @@ def check_flash_bwd(dev, gen, power) -> dict:
                 # per product, same-segment pair and head: dK/dV recomputes S = Q K^T
                 # and takes dP = dO V^T, dV = P^T dO, dK = dS^T Q (8 * 64); dQ
                 # recomputes S and dP and takes dQ = dS K (6 * 64); the backward as a
-                # whole needs S, dP, dV, dK and dQ once each (10 * 64)
-                ops_s = BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S
+                # whole needs S, dP, dV, dK and dQ once each (10 * 64); f32 at the
+                # split-TF32 rate, and at the CUDA cores' beside it (the earlier bound)
+                def bounds(ops_s):
+                    return {"bound_dkv": bound(nbytes(q, k, v, do, lse, di, seg, dk, dv),
+                                               8 * d * h * pairs, ops_s),
+                            "bound_dq": bound(nbytes(q, k, v, do, lse, di, seg, dq),
+                                              6 * d * h * pairs, ops_s),
+                            "bound": bound(nbytes(q, k, v, o, do, lse, seg, dq, dk, dv),
+                                           10 * d * h * pairs, ops_s)}
+
                 r = {"err_dkv": max(errs[("kernels", "dk")], errs[("kernels", "dv")]),
                      "err_dq": errs[("kernels", "dq")], "skipped": tile_pairs_skipped(seg),
-                     "bound_dkv": bound(nbytes(q, k, v, do, lse, di, seg, dk, dv),
-                                        8 * d * h * pairs, ops_s),
-                     "bound_dq": bound(nbytes(q, k, v, do, lse, di, seg, dq), 6 * d * h * pairs,
-                                       ops_s),
-                     "bound": bound(nbytes(q, k, v, o, do, lse, seg, dq, dk, dv),
-                                    10 * d * h * pairs, ops_s)}
+                     **bounds(BF16_FLOP_S if dtype == torch.bfloat16 else TF32X3_FLOP_S)}
+                if dtype == torch.float32:
+                    r["bound_cuda_cores"] = bounds(F32_FLOP_S)
                 del dq, dk, dv, dq2, dk2, dv2, through, want, qg, kg, vg
                 ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
                 lib_out = torch.nn.functional.scaled_dot_product_attention(
@@ -1848,12 +1879,21 @@ def check_flash_bwd(dev, gen, power) -> dict:
                     f"second launch bitwise equal; same-segment pairs "
                     f"{pairs / (b * t * t):.3f} of all; tile pairs skipped "
                     f"{r['skipped']:.3f} of all")
+                cc = ""
+                if dtype == torch.float32:
+                    c = r["bound_cuda_cores"]
+                    cc = (f"; bounds at 3xTF32's {TF32X3_FLOP_S / 1e12:.0f} TFLOP/s, at the CUDA "
+                          f"cores' {F32_FLOP_S / 1e12:.0f}: dK/dV {c['bound_dkv'][0]:.4f}, dQ "
+                          f"{c['bound_dq'][0]:.4f}, the pair {c['bound_dkv'][0] + c['bound_dq'][0]:.4f}, "
+                          f"the backward {c['bound'][0]:.4f} ms")
                 log(f"  [{power}] {what}: dK/dV {r['dkv_ms']:.4f} ms (bound "
                     f"{r['bound_dkv'][0]:.4f} ms, {r['bound_dkv'][1]}), dQ {r['dq_ms']:.4f} ms "
-                    f"(bound {r['bound_dq'][0]:.4f} ms, {r['bound_dq'][1]}); the backward "
-                    f"{r['dkv_ms'] + r['dq_ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms vs "
-                    f"SDPA's backward with mask {r['library_ms']:.4f} ms, bound "
-                    f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) (CUDA events, median of 10)")
+                    f"(bound {r['bound_dq'][0]:.4f} ms, {r['bound_dq'][1]}); the pair "
+                    f"{r['dkv_ms'] + r['dq_ms']:.4f} ms (bound "
+                    f"{r['bound_dkv'][0] + r['bound_dq'][0]:.4f} ms) vs plain "
+                    f"{r['plain_ms']:.3f} ms vs SDPA's backward with mask {r['library_ms']:.4f} ms, "
+                    f"the backward's bound {r['bound'][0]:.4f} ms ({r['bound'][1]}){cc} (CUDA "
+                    "events, median of 10)")
                 del q, k, v, do, o, lse, di, ql, kl, vl, lib_out, mask
         out[dtype] = out[(dtype, BWD_SHAPE[2], "segments")]
     return out
@@ -1927,6 +1967,7 @@ def check_train_grads(model, dev) -> dict:
     from kirag_tpu_torch.training import in_batch_contrastive_loss
 
     q_args, d_args, pos, _ = train_batch(GRAD_QUERIES, np.random.RandomState(SEED + 11), True)
+    f32_launches = dict.fromkeys(K3_NAMES, 0)  # the f32 steps through the kernels
     batch = {"query_args": {k: torch.from_numpy(v).long().to(dev) for k, v in q_args.items()},
              "doc_args": {k: torch.from_numpy(v).long().to(dev) for k, v in d_args.items()},
              "positive_doc_indices": torch.from_numpy(pos).long().to(dev)}
@@ -1947,6 +1988,9 @@ def check_train_grads(model, dev) -> dict:
         if (max(counts) != 0) if plain else (min(counts) == 0):
             raise AssertionError(f"gradient check ({dtype}, remat {remat}, packed {packed}, "
                                  f"plain {plain}): K3 launches {counts}")
+        if dtype == torch.float32 and not plain:
+            for name, n in zip(K3_NAMES, counts):
+                f32_launches[name] += n
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return float(loss.detach()), grads
 
@@ -1987,6 +2031,9 @@ def check_train_grads(model, dev) -> dict:
                 f"through the plain K3; smallest gradient cosine {cos[0]:.6f} ({cos[1]}; "
                 f"tolerance {GRAD_COS_BF16})")
             del ref, got
+    out["launches_f32"] = f32_launches
+    log(f"  f32 training steps through the kernels (two-call and packed, remat none, full "
+        f"and dots): K3 launches {[f32_launches[k] for k in K3_NAMES]}")
     return out
 
 
@@ -2152,8 +2199,8 @@ def profile_train_step(trainer, batch, label, step_ms, power) -> dict:
         torch.cuda.synchronize()
     split, by_name = kernel_times(prof, [
         ("K3 forward", ("flash_bf16_kernel", "flash_f32_kernel")),
-        ("K3 backward", ("dkv_bf16_kernel", "dkv_f32_kernel", "dq_bf16_kernel",
-                         "dq_f32_kernel"))])
+        ("K3 backward", ("dkv_bf16_kernel", "dkv_tf32_kernel", "dq_bf16_kernel",
+                         "dq_tf32_kernel"))])
     busy = sum(split.values()) / 1e3  # ms
     if busy <= 0:
         log("  profiler: no device time for the training step (not measured)")
@@ -2264,7 +2311,7 @@ def aligner_training(work: Path, built: dict, dev, gen, power) -> dict:
     del model
     torch.cuda.empty_cache()
     return {"flash_bwd": flash_bwd, "grads": grads, "cli": cli, "timing": timing,
-            "launches": cli["launches"]}
+            "launches": cli["launches"], "launches_f32": grads["launches_f32"]}
 
 
 # ---------------------------------------------------------------- phase 11
@@ -4005,19 +4052,33 @@ def main() -> int:
     flash_py = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     for key, kernel, line in (("dkv", "flash_attention_bwd_dkv", 796),
                               ("dq", "flash_attention_bwd_dq", 1146)):
+        if trained["launches_f32"][kernel] == 0:
+            raise AssertionError(f"{kernel}: no f32 launch in the f32 training steps")
         kernels.append({"name": kernel, "route": "cuda",
                         "source": "kirag_tpu_torch/csrc/flash_attention_bwd.cu",
                         "replaces": f"{flash_py}:{line}",
-                        "launches": launches[kernel], "max_abs_err": bwd[f"err_{key}"],
+                        "launches": launches[kernel],
+                        "launches_f32": trained["launches_f32"][kernel],
+                        "max_abs_err": bwd[f"err_{key}"],
                         "max_abs_err_f32": bwd_f32[f"err_{key}"], "ms": bwd[f"{key}_ms"],
                         "plain_ms": bwd["plain_ms"], "bound_ms": bwd[f"bound_{key}"][0],
                         "bound_by": bwd[f"bound_{key}"][1], "library_ms": bwd["library_ms"],
+                        "ms_f32": bwd_f32[f"{key}_ms"], "plain_ms_f32": bwd_f32["plain_ms"],
+                        "bound_ms_f32": bwd_f32[f"bound_{key}"][0],
+                        "bound_by_f32": bwd_f32[f"bound_{key}"][1],
+                        "bound_ms_f32_cuda_cores": bwd_f32["bound_cuda_cores"][f"bound_{key}"][0],
+                        "library_ms_f32": bwd_f32["library_ms"],
                         "at": f"bf16 {list(BWD_SHAPE)} (the aligner's query batch), mixed "
                               "padded, unpadded, all-padding and packed segment rows; the "
                               "backward of K3, reached from kirag_tpu/models/bert.py:179; "
                               "plain_ms and library_ms: the whole backward (dq, dk, dv), "
                               "the plain version and scaled_dot_product_attention's "
-                              "backward with the same-segment mask"})
+                              "backward with the same-segment mask; launches: the bf16 "
+                              "train_aligner run; the *_f32 keys: f32 at the same shape "
+                              "(dkv_tf32_kernel, dq_tf32_kernel: split-TF32 products on the "
+                              "tensor cores), launches_f32 from the f32 training steps of "
+                              "the gradient check, bound_ms_f32 at 495 / 3 TFLOP/s (3xTF32), "
+                              "bound_ms_f32_cuda_cores at the CUDA cores' 67"})
     # K4 (int8/int4/pq4 scoring inside K1 and K2): times at the DPR scale, Q=8
     # (where the plain versions were timed too), the other Qs beside them
     for quant in (*QUANTS, "pq4"):

@@ -231,17 +231,6 @@ struct F32Smem {
   static size_t bytes(int n_tiles) { return 4 * static_cast<size_t>(RANGES) + 8 * n_tiles; }
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ float row_max16(float x) {  // over the 16 lanes of a row group
 #pragma unroll
   for (int o = 1; o < 16; o *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -327,7 +316,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
   }
 
   for (int bb = 0; j < n_tiles; bb ^= 1) {
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // tile j is in buffer bb; the block is done with buffer bb ^ 1
     const int jn = next_kept(ranges, own, j + 1, n_tiles);
     if (jn < n_tiles) stage_kv(sm, bb ^ 1, kb, vb, segb, sk.t, sv.t, jn);

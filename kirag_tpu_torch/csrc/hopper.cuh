@@ -1,9 +1,10 @@
-// The Hopper pieces that the bf16 flash attention kernels share (the forward,
+// The Hopper pieces that the flash attention kernels share (the forward,
 // flash_attention.cu, and the two backward kernels, flash_attention_bwd.cu):
-// mbarriers, TMA copies and the 4-d tensor maps that feed them, wgmma with
-// its 128-byte-swizzle shared-memory descriptors, and the ring of stages
-// that streams the kept 64-row tiles of two operands past a block's resident
-// tiles.
+// for the bf16 kernels mbarriers, TMA copies and the 4-d tensor maps that
+// feed them, wgmma with its 128-byte-swizzle shared-memory descriptors, and
+// the ring of stages that streams the kept 64-row tiles of two operands past
+// a block's resident tiles; for the f32 kernels the cp.async copies of their
+// rings.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is looked up at run time)
@@ -28,6 +29,22 @@ struct Smem {  // byte offsets from a 1024-aligned base: the resident tiles firs
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- cp.async
+
+// 16 bytes from device memory into shared memory, asynchronously (the f32
+// kernels' tile rings)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>  // until at most N of this thread's committed groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------------------ mbarrier, TMA

@@ -25,6 +25,8 @@ from kirag_tpu_torch.kernels import (
     cap_assemble,
     cap_assemble_plain,
     flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
     flash_attention_bwd_plain,
     flash_attention_plain,
     gather_groups,
@@ -520,6 +522,80 @@ def test_flash_attention_backward_matches_plain(cuda_device, dtype, t, layout):
         err = float((x.float() - y.float()).abs().max())
         assert err <= tol * float(y.float().abs().max()), (name, err)
         assert torch.equal(x, z), f"{name}: two launches on the same inputs differ"
+
+
+def bwd_kernels_and_plain(device, dtype, t, seg, seed):
+    """dq, dk, dv through flash_attention_bwd_dq/_dkv and through the plain
+    backward on the plain forward's residuals, q, k, v strided views of one
+    fused projection (b = 4, h = 4)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, h = seg.shape[0], 4
+    qkv = torch.randn(b, t, 3 * h * 64, generator=g, device=device).to(dtype)
+    q, k, v = (x.view(b, t, h, 64).transpose(1, 2) for x in qkv.split(h * 64, -1))
+    do = torch.randn(b, h, t, 64, generator=g, device=device).to(dtype)
+    o, lse = flash_attention_plain(q, k, v, seg, 0.125, return_lse=True)
+    di = torch.sum(o.float() * do.float(), dim=-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, seg, lse, di, do, 0.125)
+    dq = flash_attention_bwd_dq(q, k, v, seg, lse, di, do, 0.125)
+    want = flash_attention_bwd_plain(q, k, v, seg, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    return (dq, dk, dv), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [64, 128, 192, 256, 512])
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+def test_flash_attention_backward_f32_is_f32_grade(cuda_device, t, layout):
+    """The f32 kernels take their products as split TF32 (three passes):
+    dq, dk, dv within 1e-5 of each tensor's largest magnitude of the plain
+    backward (f32 on the CUDA cores), ten times tighter than the 1e-4 check
+    above; one TF32 pass would miss it by about 50x (tests/
+    test_torch_flash_bwd_tf32.py models both)."""
+    seg = bwd_segments(layout, 4, t, cuda_device)
+    got, want = bwd_kernels_and_plain(cuda_device, torch.float32, t, seg, 5)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == torch.float32 and torch.isfinite(x).all(), name
+        err = float((x - y).abs().max())
+        assert err <= 1e-5 * float(y.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_when_each_tile_keeps_only_itself(cuda_device, dtype):
+    """Every 64-row tile its own segment: each block's ring holds its own
+    tile alone and skips every other; the gradients still match the plain
+    backward (f32 within 1e-5, bf16 2^-6 of each largest magnitude)."""
+    t = 256
+    seg = (1 + torch.arange(t, device=cuda_device, dtype=torch.int32) // 64).repeat(4, 1)
+    got, want = bwd_kernels_and_plain(cuda_device, dtype, t, seg, 6)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and torch.isfinite(x).all(), name
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= tol * float(y.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_f32_is_one_kernel_each(cuda_device):
+    """The profiler sees one dkv_tf32_kernel and one dq_tf32_kernel for an
+    f32 backward, and nothing of the CUDA-core loops they replaced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seg = bwd_segments("padded", 4, 256, cuda_device)
+    bwd_kernels_and_plain(cuda_device, torch.float32, 256, seg, 7)  # builds, warms up
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do = (torch.randn(4, 4, 256, 64, generator=g, device=cuda_device)
+                   for _ in range(4))
+    lse = torch.randn(4, 4, 256, generator=g, device=cuda_device)
+    di = torch.randn(4, 4, 256, generator=g, device=cuda_device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention_bwd_dkv(q, k, v, seg, lse, di, do, 0.125)
+        flash_attention_bwd_dq(q, k, v, seg, lse, di, do, 0.125)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("dkv_tf32_kernel" in n for n in names) == 1, names
+    assert sum("dq_tf32_kernel" in n for n in names) == 1, names
+    assert not any("_f32_kernel" in n for n in names), names
 
 
 def int4_abs_sum(x, packed, scales, codebook=None):
