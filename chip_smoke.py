@@ -66,11 +66,13 @@ weights at E5-large and Llama-3-8B-Instruct width:
   against the exact float32 top-100;
 - the exact-search variants (phase 15): K7a (every score and the group
   maxima, stored chunk-major, row-major or not at all), K7b and K8 (group
-  copies) and K9 (merge's running window) held against their plain
+  copies, on int64 and int32 indices, one device kernel a call by
+  torch.profiler) and K9 (merge's running window) held against their plain
   versions in five formats (K7a's maxima bitwise K1's); every
   ``(impl, select)`` of ``exact_topk_mips`` over phase 4's 1,000,000 rows
   as float32, bfloat16, int8, int4 and PQ indexes at Q = 8, 32, 256,
-  bitwise equal to stream/capdom; phase 4's server with
+  bitwise equal to stream/capdom, K7b and K8 timed at each Q beside
+  ``index_select``; phase 4's server with
   ``pallas_select="merge"`` and ``"hier"``; and ``impl="single"``,
   ``"twopass"`` and ``select="merge"`` over the DPR corpus's int4 codes,
   equal to the capdom search, with K7a, K7b, K8 and K9 timed.
@@ -129,6 +131,12 @@ LOGIT_TOL_F32 = 1e-3
 # a spin of about 2 ms at the H100's 1.98 GHz, longer than the host takes to
 # enqueue any timed call (see cuda_ms)
 QUEUE_CYCLES = 4_000_000
+# the spins that open each torch.profiler window whose kernels are counted
+# (profile_lead_in): PROFILE_LEAD_SPINS short ones, then one of about 20 ms;
+# SPIN_KERNEL is their kernel, left out of every tally
+PROFILE_LEAD_CYCLES = 40_000_000
+PROFILE_LEAD_SPINS = 4
+SPIN_KERNEL = "spin_kernel"
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, f32 FMA
 # on the CUDA cores and bf16 tensor-core operations per second
 HBM_BYTES_S = 3.35e12
@@ -664,6 +672,22 @@ def library_gather(q, corpus, gsel):
 FLOAT_K1_KERNELS = ("capture_sweep_kernel", "peel_capture_kernel")  # one K1 launch count
 
 
+def profile_lead_in() -> None:
+    """The first thing inside a torch.profiler window: PROFILE_LEAD_SPINS
+    short spins, then one of PROFILE_LEAD_CYCLES, each waited out by the
+    host, so the kernels the window counts run well after it opens and
+    after several kernel records. On some H100 machines, late in a long
+    process, the profiler loses a window's first kernel records: the same
+    1-3 K1 kernels missing from each of three windows running, once all 30
+    kernels of ten short calls, and behind one 20 ms spin still one K1
+    sweep in each of three windows (in another run one whole K1 call)."""
+    for _ in range(PROFILE_LEAD_SPINS):
+        torch.cuda._sleep(PROFILE_LEAD_CYCLES // 100)
+        torch.cuda.synchronize()
+    torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+    torch.cuda.synchronize()
+
+
 def kernels_per_call(fn, names, reps: int = 10):
     """The kernels ``reps`` profiled calls of ``fn`` start (torch.profiler),
     by the first of ``names`` in each kernel's name: {name: [kernels seen,
@@ -676,12 +700,14 @@ def kernels_per_call(fn, names, reps: int = 10):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_lead_in()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     out = {n: [0, 0.0] for n in (*names, "other")}
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and evt.device_time_total > 0:
+        if (evt.device_type == DeviceType.CUDA and evt.device_time_total > 0
+                and SPIN_KERNEL not in evt.name):
             slot = out[next((n for n in names if n in evt.name), "other")]
             slot[0] += 1
             slot[1] += evt.device_time_total / 1e3
@@ -890,7 +916,7 @@ def kernel_times(prof, groups):
     split["other"] = 0.0
     by_name = {}
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or SPIN_KERNEL in evt.name:
             continue
         by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.device_time_total
         name = evt.name.lower()
@@ -1333,6 +1359,7 @@ def profile_decode(backend, ids, mask, steps: int, per_step: int, power) -> dict
     _, _, state = backend.greedy_start(ids, mask, steps + 1, return_logits=False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_lead_in()
         t0 = time.perf_counter()
         backend.greedy_resume(state, steps, return_logits=False)
         torch.cuda.synchronize()
@@ -3556,13 +3583,116 @@ def capdom_positions(k1_outs, k: int):
     return stable_topk(capmax.permute(2, 0, 1).reshape(n_q, n_c * b), k)[1]
 
 
-def check_variant_kernels(dev, gen, err) -> None:
+def device_kernels(fn) -> list:
+    """The names of the device kernels one call of ``fn`` starts
+    (torch.profiler), after a call that warms it up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profile_lead_in()
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and SPIN_KERNEL not in e.name]
+
+
+def one_copy_kernel(fn, name: str, what: str) -> list:
+    """The device kernels of one call of ``fn`` (K7b or K8); fails unless
+    they are one copy_groups_kernel. A window that saw no kernel (its record
+    lost) is profiled again, up to three."""
+    for _ in range(3):
+        kernels = device_kernels(fn)
+        if kernels:
+            break
+    if len(kernels) != 1 or "copy_groups_kernel" not in kernels[0]:
+        raise AssertionError(f"{what}: one {name} call started {kernels} (torch.profiler), "
+                             "not one copy_groups_kernel")
+    return kernels
+
+
+def copy_kernels_a_call(device: str = "cuda") -> None:
+    """Phase 15 (a)'s count of the device kernels of one K7b and one K8 call,
+    run in a process of its own (:func:`copy_kernels_in_a_fresh_process`):
+    small random sources at Q = 8 and int64 indices laid out as
+    ``impl="single"`` and capdom hand them over (a sorted row slice of a top
+    k, and column-major positions); prints one JSON line {name: [kernel
+    names], "strides": ...}. Late in a long run this process's profiler can
+    see no device kernel at all (phase 12 (b)'s "not measured"), so the
+    count is taken where the profiler starts fresh."""
+    from kirag_tpu_torch.kernels import cap_assemble, score_gather
+    from kirag_tpu_torch.ops import hier_topk
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_c, g_per, b, n_q = 16, CHUNK // 128, 8, 8
+    scores = torch.randn(n_c, n_q, CHUNK, generator=gen, device=dev)
+    gmax = torch.randn(n_c * g_per, n_q, generator=gen, device=dev)
+    gsel = torch.sort(hier_topk(gmax.T, K)[1], dim=-1).values
+    capture = torch.randn(n_c, n_q, b * 128, generator=gen, device=dev)
+    capmax = torch.randn(n_c, b, n_q, generator=gen, device=dev)
+    cpos = capdom_positions((None, None, None, capmax), K)
+    what = f"Q={n_q}, k={K}"
+    print(json.dumps({
+        "score_gather": one_copy_kernel(lambda: score_gather(scores, gsel), "score_gather",
+                                        what),
+        "cap_assemble": one_copy_kernel(lambda: cap_assemble(cpos, capture, b),
+                                        "cap_assemble", what),
+        "strides": [list(gsel.stride()), list(cpos.stride()), str(gsel.dtype)]}), flush=True)
+
+
+def copy_kernels_in_a_fresh_process() -> dict:
+    """:func:`copy_kernels_a_call` in a child Python process (the library is
+    built already), waited for: its JSON line, or an AssertionError with
+    its error output."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.copy_kernels_a_call()"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError("the count of K7b's and K8's device kernels failed:\n"
+                             + proc.stderr[-3000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    strides = out.pop("strides")
+    log(f"  one score_gather and one cap_assemble call ({strides[2]} indices as the search "
+        f"gives them, strides {tuple(strides[0])} and {tuple(strides[1])}) each start one "
+        f"device kernel (torch.profiler, a fresh process): {out['score_gather'][0]}")
+    return out
+
+
+def check_copy_kernels(scores, gsel, capture, cpos, b: int, what: str) -> None:
+    """K7b and K8 bitwise their plain versions on the search's int64
+    indices and on int32 copies of them (the same layout), each with an
+    index before the source and one past it in its first two slots."""
+    from kirag_tpu_torch.kernels import (cap_assemble, cap_assemble_plain, score_gather,
+                                         score_gather_plain)
+
+    cases = (("K7b", gsel, scores.shape[0] * scores.shape[2] // 128,
+              lambda i: score_gather(scores, i), lambda i: score_gather_plain(scores, i)),
+             ("K8", cpos, capture.shape[0] * b, lambda i: cap_assemble(i, capture, b),
+              lambda i: cap_assemble_plain(i, capture, b)))
+    for name, idx, n_src, kernel, plain in cases:
+        for dtype in (torch.int64, torch.int32):
+            i = idx.clone().to(dtype)
+            i[:, 0], i[:, 1] = -1, n_src
+            got = kernel(i)
+            if not (torch.equal(got, plain(i)) and not got[:, :2].any()):
+                raise AssertionError(f"{what}: {name} on {dtype} indices with out-of-range "
+                                     "ones differs from plain")
+
+
+def check_variant_kernels(dev, gen, err) -> dict:
     """Phase 15 (a): K7a (three stores), K7b, K8 and K9 against their plain
     versions at phase 3's geometry, five formats, Q = 8, 16, 32. K7a's
     maxima are bitwise K1's on any data, its scores bitwise the plain
     version's on integer data (within ATOL on unit rows) and, where K7b
     copies the selected groups, bitwise K2's re-scores; K7b, K8 and K9 are
-    bitwise their plain versions (copies and selections)."""
+    bitwise their plain versions (copies and selections), K7b and K8 also
+    on int32 indices and out-of-range ones. Returns the device kernels of
+    one K7b and one K8 call on the search's int64 indices (torch.profiler,
+    :func:`copy_kernels_a_call`), and fails unless each is one
+    ``copy_groups_kernel``."""
     from kirag_tpu_torch.kernels import (cap_assemble, cap_assemble_plain, gather_groups,
                                          score_gather, score_gather_plain, score_gmax,
                                          score_gmax_plain, stream_capture, window_merge,
@@ -3574,6 +3704,7 @@ def check_variant_kernels(dev, gen, err) -> None:
     num_chunks, g_per = n // CHUNK, CHUNK // 128
     b = _capture_budget(K, num_chunks, g_per)
     _, br, _ = _merge_geometry(K, num_chunks, g_per, 8)
+    one_call = copy_kernels_in_a_fresh_process()
     for fmt in VARIANT_FORMATS:
         for data in ("integer", "random"):
             c, s, quant = variant_corpus(fmt, n, gen, dev, data == "integer")
@@ -3615,6 +3746,7 @@ def check_variant_kernels(dev, gen, err) -> None:
                 if not torch.equal(cap_assemble(cpos, k1[1], b),
                                    cap_assemble_plain(cpos, k1[1], b)):
                     raise AssertionError(f"{what}: K8 differs from plain")
+                check_copy_kernels(scores, gsel, k1[1], cpos, b, what)
                 total = n // 128
                 merged = window_merge(*k1[2:], k1[1], br, total)
                 for part, x, y in zip(("win", "wkey", "wgid", "lost"), merged,
@@ -3625,10 +3757,12 @@ def check_variant_kernels(dev, gen, err) -> None:
             log(f"  {data} {fmt}, Q = 8/16/32: K7a (chunk-major, row-major, no store) maxima "
                 f"bitwise K1's, scores {'bitwise' if data == 'integer' else 'within ATOL of'} "
                 f"plain (largest error {data_err:.3g}); K7b bitwise plain and K2's re-scores; "
-                f"K8 bitwise plain; K9 (win, wkey, wgid, lost; br={br}, bc={b}) bitwise plain")
+                f"K7b and K8 bitwise plain on int64 and int32 indices, out-of-range ones "
+                f"included; K9 (win, wkey, wgid, lost; br={br}, bc={b}) bitwise plain")
             del c, s
     for name in ("score_gather", "cap_assemble", "window_merge"):
         err[name] = 0.0
+    return one_call
 
 
 def variants_search(q, corpus, search: dict, what: str, variants=VARIANTS,
@@ -3653,9 +3787,10 @@ def k7_times(q, corpus, scales, quant, valid, reps=10, plain_reps=10, library=Fa
              names=tuple(K7_SOURCES)) -> dict:
     """The kernels ``names`` of K7a (chunk-major store), K7b, K8 and K9 timed
     at one Q on one corpus, beside their bounds and (``plain_reps``) their
-    plain versions' times; K7b and K8 beside the one PyTorch call that makes
-    the same copy, K7a (``library``, float corpora) beside ``torch.matmul``
-    and ``amax``."""
+    plain versions' times; K7b and K8 held bitwise against their plain
+    versions on the timed inputs and timed beside the one PyTorch call that
+    makes the same copy, K7a (``library``, float corpora) beside
+    ``torch.matmul`` and ``amax``."""
     from kirag_tpu_torch.kernels import (cap_assemble, cap_assemble_plain, score_gather,
                                          score_gather_plain, score_gmax, score_gmax_plain,
                                          stream_capture, window_merge, window_merge_plain)
@@ -3669,35 +3804,43 @@ def k7_times(q, corpus, scales, quant, valid, reps=10, plain_reps=10, library=Fa
     total = len(corpus) // 128
     qrow = torch.arange(n_q, device=q.device)[:, None]
     timed = {}  # name: (kernel call, plain call, library call or None, bound)
-    if "score_gmax" in names:
+    # the library's K7b and K8: one index_select of the groups' flat rows,
+    # worked out beforehand (capdom's positions are column-major: their
+    # flat rows are made contiguous outside the timed call)
+    if "score_gmax" in names or "score_gather" in names:
         outs = score_gmax(q, corpus, valid, CHUNK, "chunk", scales, quant)
         gsel = torch.sort(hier_topk(outs[1].reshape(-1, n_q).T, K)[1], dim=-1).values
         cand = score_gather(outs[0], gsel)
-        src, rows7 = outs[0].view(-1, 128), ((gsel // g_per) * n_q + qrow) * g_per + gsel % g_per
-        timed["score_gmax"] = (
-            lambda: score_gmax(q, corpus, valid, CHUNK, "chunk", scales, quant),
-            lambda: score_gmax_plain(q, corpus, valid, CHUNK, "chunk", scales, quant),
-            (lambda: library_gmax(q, corpus)) if library else None,
-            search_bound(q, corpus, scales, quant, outs))
+        src = outs[0].view(-1, 128)
+        rows7 = (((gsel // g_per) * n_q + qrow) * g_per + gsel % g_per).reshape(-1)
+        if "score_gmax" in names:
+            timed["score_gmax"] = (
+                lambda: score_gmax(q, corpus, valid, CHUNK, "chunk", scales, quant),
+                lambda: score_gmax_plain(q, corpus, valid, CHUNK, "chunk", scales, quant),
+                (lambda: library_gmax(q, corpus)) if library else None,
+                search_bound(q, corpus, scales, quant, outs))
         timed["score_gather"] = (
             lambda: score_gather(outs[0], gsel), lambda: score_gather_plain(outs[0], gsel),
-            lambda: src.index_select(0, rows7.reshape(-1)), copy_bound(gsel, cand))
-    k1 = stream_capture(q, corpus, valid, CHUNK, b, scales, quant)
-    cpos = capdom_positions(k1, K)
-    cap, rows8 = k1[1].view(-1, 128), ((cpos // b) * n_q + qrow) * b + cpos % b
-    timed["cap_assemble"] = (
-        lambda: cap_assemble(cpos, k1[1], b), lambda: cap_assemble_plain(cpos, k1[1], b),
-        lambda: cap.index_select(0, rows8.reshape(-1)),
-        copy_bound(cpos, cap_assemble(cpos, k1[1], b)))
-    timed["window_merge"] = (
-        lambda: window_merge(*k1[2:], k1[1], br, total),
-        lambda: window_merge_plain(*k1[2:], k1[1], br, total), None,
-        merge_bound(k1, window_merge(*k1[2:], k1[1], br, total)))
+            lambda: src.index_select(0, rows7), copy_bound(gsel, cand))
+    if "cap_assemble" in names or "window_merge" in names:
+        k1 = stream_capture(q, corpus, valid, CHUNK, b, scales, quant)
+        cpos = capdom_positions(k1, K)
+        cap = k1[1].view(-1, 128)
+        rows8 = (((cpos // b) * n_q + qrow) * b + cpos % b).reshape(-1)
+        timed["cap_assemble"] = (
+            lambda: cap_assemble(cpos, k1[1], b), lambda: cap_assemble_plain(cpos, k1[1], b),
+            lambda: cap.index_select(0, rows8), copy_bound(cpos, cap_assemble(cpos, k1[1], b)))
+        timed["window_merge"] = (
+            lambda: window_merge(*k1[2:], k1[1], br, total),
+            lambda: window_merge_plain(*k1[2:], k1[1], br, total), None,
+            merge_bound(k1, window_merge(*k1[2:], k1[1], br, total)))
     t = {"br": br, "bc": b}
     if quant == "none" and "score_gmax" in names:
         t["plan"] = plan_text(n_q, corpus)
     for name in names:
         kernel, plain, library_call, t[name + "_bound"] = timed[name]
+        if name in ("score_gather", "cap_assemble") and not torch.equal(kernel(), plain()):
+            raise AssertionError(f"{name} at Q={n_q} differs from plain on the timed inputs")
         t[name] = cuda_ms(kernel, reps=reps)
         if plain_reps:
             t[name + "_plain"] = cuda_ms(plain, reps=plain_reps)
@@ -3710,8 +3853,9 @@ def log_k7_times(power, what: str, t: dict, reps: int) -> None:
     def one(name):
         plain = f" vs plain {t[name + '_plain']:.3f} ms" if name + "_plain" in t else ""
         lib = f", library {t[name + '_library']:.3f} ms" if name + "_library" in t else ""
+        same = ", bitwise plain" if name in ("score_gather", "cap_assemble") else ""
         return (f"{name} {t[name]:.3f} ms{plain}{lib} (bound {t[name + '_bound'][0]:.4f} ms, "
-                f"{t[name + '_bound'][1]})")
+                f"{t[name + '_bound'][1]}{same})")
     plan = f"; K7a's {t['plan']}" if "plan" in t else ""
     log(f"  [{power}] {what}, k={K}, window br={t['br']} over bc={t['bc']}: "
         + "; ".join(one(n) for n in K7_SOURCES if n in t)
@@ -3722,12 +3866,14 @@ def check_variants(dev, host_rows, gen, power) -> dict:
     """Phase 15 (b): phase 4's 1,000,000 rows as float32, bfloat16, int8,
     int4 and PQ (m = PQ_M) indexes; at Q = 8, 32, 256 every (impl, select)
     through ``exact_topk_mips`` over the index's device rows equals
-    stream/capdom bitwise; then K7a/K7b/K8/K9 timed at Q = 32. Returns the
-    launches of the variant runs and the times by format."""
+    stream/capdom bitwise; then K7a/K7b/K8/K9 timed at Q = 32, and on the
+    float32 index K7b and K8 at every VARIANT_QUERIES count. Returns the
+    launches of the variant runs, the times by format and the float32
+    copies' times by Q."""
     from kirag_tpu_torch.index import TorchIndexer
     from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    launches, times = {}, {}
+    launches, times, copies = {}, {}, {}
     q_all = unit_rows(VARIANT_QUERIES[-1], gen, dev)
     for fmt in VARIANT_FORMATS:
         kw = ({"device_dtype": getattr(torch, fmt)} if fmt in ("float32", "bfloat16") else
@@ -3757,9 +3903,15 @@ def check_variants(dev, host_rows, gen, power) -> dict:
             times[fmt] = k7_times(q[:n_q], corpus, scales, quant, valid,
                                   library=quant == "none")
             log_k7_times(power, f"{fmt} 1M Q={n_q}", times[fmt], 10)
+        if fmt == "float32":  # K7b and K8 at every Q, beside index_select
+            for n_q in VARIANT_QUERIES:
+                copies[n_q] = times[fmt] if n_q == 32 else k7_times(
+                    q[:n_q], corpus, scales, quant, valid, names=("score_gather", "cap_assemble"))
+                if n_q != 32:
+                    log_k7_times(power, f"{fmt} 1M Q={n_q}", copies[n_q], 10)
         del index, corpus, scales
         torch.cuda.empty_cache()
-    return {"launches": launches, "times": times}
+    return {"launches": launches, "times": times, "copies": copies}
 
 
 def serve_variants(dev, encoder, collator, host_rows, texts, text_rows, power) -> dict:
@@ -3968,7 +4120,7 @@ def main() -> int:
         t15 = time.perf_counter()
         phase(f"phase 15 (a): K7a/K7b/K8/K9 vs plain versions ({CHECK_ROWS} x {DIM}, chunk "
               f"{CHUNK}, k={K}, {len(VARIANT_FORMATS)} formats)")
-        check_variant_kernels(dev, gen, err)
+        copy_kernels = check_variant_kernels(dev, gen, err)
         phase(f"phase 15 (b): every (impl, select) over {N_ROWS} x {DIM} float32, bfloat16, "
               "int8, int4 and PQ indexes")
         variants = check_variants(dev, host_rows, gen, power)
@@ -4163,10 +4315,11 @@ def main() -> int:
                 + "; " + no_lib["score_gmax"].format("PQ")),
                ("score_gather", "score_gather", t_1m["float32"], at_1m.format("float32")
                 + "; library_ms: index_select of the groups' rows of the scores viewed "
-                "[rows, 128]; by_q_21m: the int4 DPR corpus"),
+                "[rows, 128] (the flat row ids made beforehand); by_q_21m: the int4 DPR "
+                "corpus"),
                ("cap_assemble", "cap_assemble", t_1m["float32"], at_1m.format("float32")
-                + "; library_ms: index_select of the capture viewed [rows, 128]; by_q_21m: "
-                "the int4 DPR corpus"),
+                + "; library_ms: index_select of the capture viewed [rows, 128] (the flat "
+                "row ids made beforehand, contiguous); by_q_21m: the int4 DPR corpus"),
                ("window_merge", "window_merge", t_1m["float32"], at_1m.format("float32")
                 + f"; K1's capture, br={t_1m['float32']['br']}; library_ms: "
                 + no_lib["window_merge"] + "; by_q_21m: the int4 DPR corpus")]
@@ -4178,12 +4331,22 @@ def main() -> int:
                "bound_by": t[kernel + "_bound"][1], "library_ms": t.get(kernel + "_library"),
                "at": at}
         by_q = {str(n_q): {"ms": x[kernel], "bound_ms": x[kernel + "_bound"][0],
-                           "bound_by": x[kernel + "_bound"][1]}
+                           "bound_by": x[kernel + "_bound"][1],
+                           "library_ms": x.get(kernel + "_library")}
                 for n_q, x in t_dpr.items() if kernel in x}
         if name == "score_gmax_int4":
             row["by_q"] = {q: v for q, v in by_q.items() if q != str(DPR_QUERIES[0])}
         elif kernel != "score_gmax":
             row["by_q_21m"] = by_q
+        if kernel in copy_kernels:  # K7b, K8: every Q on the float32 index, one kernel a call
+            row["at"] += "; by_q_1m: the float32 index at each Q"
+            row["by_q_1m"] = {
+                str(n_q): {"ms": x[kernel], "plain_ms": x[kernel + "_plain"],
+                           "bound_ms": x[kernel + "_bound"][0],
+                           "bound_by": x[kernel + "_bound"][1],
+                           "library_ms": x[kernel + "_library"]}
+                for n_q, x in variants["copies"].items()}
+            row["device_kernels_a_call"] = copy_kernels[kernel]
         kernels.append(row)
     merge_s, hier_s = served_v["merge"], served_v["hier"]
     log(f"  phase 15: {phase15_s + dpr['int4']['variants']['seconds']:.1f} s in all "

@@ -114,7 +114,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kirag_score_gmax.restype = i32
     for name in ("kirag_score_gather", "kirag_cap_assemble"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]  # src, idx, out, C, Q, k, per
+        fn.argtypes = [ptr, ptr, i32, i64, i64, ptr,  # src, idx, its bytes and strides, out
+                       i32, i32, i32, i32,            # C, Q, k, per
+                       i32, i32, ptr]                 # warps a block, blocks, stream
         fn.restype = i32
     lib.kirag_window_merge.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # gids, capmax, resid, capture, 4 outputs

@@ -8,7 +8,9 @@
   maxima, the scores written chunk-major, row-major or not at all;
 - ``score_gather`` (K7b) and ``cap_assemble`` (K8), both
   ``csrc/copy_groups.cu``: copy selected 128-score groups out of K7a's
-  scores or K1's capture;
+  scores or K1's capture, one launch a call that reads int32 or int64
+  indices as given (no cast), a warp a (query, slot) pair, cut by
+  :func:`copy_plan`;
 - ``window_merge`` (K9, ``csrc/window_merge.cu``): the running top-``br``
   group window of ``select="merge"`` over K1's per-chunk capture.
 
@@ -625,17 +627,50 @@ def _check_copy(src: torch.Tensor, idx: torch.Tensor, per: int, what: str) -> No
         raise TypeError(f"{what}: indices must be int32 or int64, got {idx.dtype}")
 
 
+COPY_WARPS_PER_BLOCK = (8, 4, 2, 1)  # csrc/copy_groups.cu takes at most the first
+
+
+@dataclasses.dataclass(frozen=True)
+class CopyPlan:
+    """The cut of one K7b or K8 call: one (query, slot) pair a warp,
+    ``warps_per_block`` warps a block, ``blocks`` blocks. The kernel refuses
+    a cut that does not cover the call's Q * k pairs with every block
+    holding at least one."""
+
+    warps_per_block: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=4096)
+def copy_plan(n_q: int, k: int, sm_count: int = SMS) -> CopyPlan:
+    """The cut of a copy of ``n_q * k`` groups: the most warps a block of
+    :data:`COPY_WARPS_PER_BLOCK` that still give every SM a block, else
+    one."""
+    if n_q < 1 or k < 1 or sm_count < 1:
+        raise ValueError(f"no copy plan for Q={n_q}, k={k}, {sm_count} SMs")
+    pairs = n_q * k
+    wpb = next((w for w in COPY_WARPS_PER_BLOCK if -(-pairs // w) >= sm_count), 1)
+    return CopyPlan(wpb, -(-pairs // wpb))
+
+
 def _copy_groups(src: torch.Tensor, idx: torch.Tensor, per: int, name: str,
                  entry: str) -> torch.Tensor:
     """Launch csrc/copy_groups.cu: ``out[q, j] = src[idx // per, q, idx % per]``
-    as 128-score groups; zeros for an index outside [0, C * per)."""
+    as 128-score groups; zeros for an index outside [0, C * per). The int32
+    or int64 indices are read where they lie, at their own strides: no cast,
+    no copy."""
     lib = load_library()
     n_q, k = idx.shape
-    i32 = idx.to(torch.int32).contiguous()
+    if src.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads the source 16 bytes at a time; "
+                         "it must be 16-byte aligned")
+    p = copy_plan(n_q, k)
     out = torch.empty((n_q, k, LANES), dtype=torch.float32, device=src.device)
     with torch.cuda.device(src.device):
-        err = getattr(lib, entry)(src.data_ptr(), i32.data_ptr(), out.data_ptr(), src.shape[0],
-                                  n_q, k, per, torch.cuda.current_stream(src.device).cuda_stream)
+        err = getattr(lib, entry)(src.data_ptr(), idx.data_ptr(), idx.element_size(),
+                                  *idx.stride(), out.data_ptr(), src.shape[0], n_q, k, per,
+                                  p.warps_per_block, p.blocks,
+                                  torch.cuda.current_stream(src.device).cuda_stream)
     raise_on(err, lib, name)
     count_launch(name)
     return out
