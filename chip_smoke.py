@@ -37,8 +37,14 @@ weights at E5-large and Llama-3-8B-Instruct width:
   encoder; and step times at the JAX package's training-benchmark geometry;
 - the compressed index (phase 11): K1 and K2 with K4's int8 and int4
   scoring held against their plain versions (bitwise on integer data); the
+  mma order of that scoring across kernels: one (row, query) pair at every
+  place of the mma fragments scores the same bits, and on random data K1's
+  captures equal K2's re-scores, K7a's maxima K1's and K5's W = 1 values
+  K1's maxima, bitwise (int8 at D = 1024, int4 at 1024 and 2048), and each
+  wrapper's device kernels a call, counted in a fresh process; the
   server of phase 4 over the same 1,000,000 rows as int8 and int4 indexes
-  quantized on the card; ``build_index --compression`` over phase 6's shards
+  quantized on the card, K1/K2 timed at Q = 8, 16, 32, 256;
+  ``build_index --compression`` over phase 6's shards
   and the reloaded index; and the DPR corpus's 21,015,324 x 1024 rows made
   and quantized on the card, int4 then int8, searched at Q = 8, 32, 256 with
   K1/K2 timed, self-hits checked and recall@10/@100 against the exact
@@ -617,6 +623,13 @@ def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> di
                                      f"kernel each in 3 profiled windows: {split}")
             t["stream_capture_kernels"] = split
             lib += "; " + kernels_text(split)
+        elif quant in QUANTS:  # the sweep and peel kernels' device time, reported (the
+            # kernels a call are checked in a fresh process, phase 11 a)
+            split = kernels_per_call(
+                lambda: stream_capture(q, corpus, valid, CHUNK, b, scales, quant),
+                FLOAT_K1_KERNELS)
+            t["stream_capture_kernels"] = split
+            lib = f"; {plan_text(n_q, corpus, b)}; " + kernels_text(split)
         times[n_q] = t
         log(f"  {what}: K1 max abs err {k1_err:.3g} ({swapped} gids differ at near-ties), "
             f"K2 max abs err {k2_err:.3g}")
@@ -670,6 +683,7 @@ def library_gather(q, corpus, gsel):
 
 
 FLOAT_K1_KERNELS = ("capture_sweep_kernel", "peel_capture_kernel")  # one K1 launch count
+# (the float, int8 and int4 K1 alike)
 
 
 def profile_lead_in() -> None:
@@ -724,8 +738,8 @@ def kernels_text(split) -> str:
 
 
 def plan_text(n_q: int, corpus, b: int = 0) -> str:
-    """How the tree's float K1 (b > 0) or K7a (b == 0) cuts a call over
-    ``corpus`` (chunk CHUNK), for the timing lines."""
+    """How the tree's float, int8 or int4 K1 (b > 0) or K7a (b == 0) cuts a
+    call over ``corpus`` (chunk CHUNK), for the timing lines."""
     from kirag_tpu_torch.kernels.exact import search_plan
     p = search_plan(n_q, len(corpus) // CHUNK, CHUNK // 128, corpus.element_size(), b)
     held = (f", scratch slots a (range, query): {p.slots}"
@@ -2439,6 +2453,144 @@ def check_quantized_kernels(dev, gen, err) -> None:
             del c, s
 
 
+MMA_ORDER_CASES = (("int8", 1024), ("int4", 1024), ("int4", 2048))
+MMA_ORDER_QUERIES = (8, 32)
+QUANT_KERNELS = {  # a call's device kernels, given bf16 queries and int32 group ids
+    "stream_capture": ("capture_sweep_kernel", "peel_capture_kernel"),
+    "gather_groups": ("gather_mma_kernel",), "group_max": ("group_max_sweep_kernel",),
+    "score_gmax": ("score_sweep_kernel",)}
+
+
+def mma_probe(quant: str, d: int, gen, dev) -> dict:
+    """The mma order's position check: one (row, query) pair of seeded unit
+    data (the row quantized on the card) at each of the 32 x 8 places of a
+    probe tile (two m16 A tiles, one n8 B tile), every other row and query
+    random and different in each of the 256 tiles; the pair's score must be
+    the same bits at every place, and the tile within ATOL of the plain
+    version. Returns the pair's score and the largest error."""
+    from kirag_tpu_torch.kernels.exact import score_probe, score_probe_plain
+    from kirag_tpu_torch.ops import quantize_rows_int4_torch, quantize_rows_int8_torch
+
+    quantize = quantize_rows_int8_torch if quant == "int8" else quantize_rows_int4_torch
+    tiles = 32 * 8
+    codes, scales = quantize(unit_rows(tiles * 32, gen, dev, d))
+    codes = codes.view(tiles, 32, -1).clone()
+    scales = scales.view(tiles, 32, *scales.shape[1:]).clone()
+    queries = unit_rows(tiles * 8, gen, dev, d).view(tiles, 8, d)
+    t = torch.arange(tiles, device=dev)
+    m_of, n_of = t // 8, t % 8
+    row, row_scale, query = codes[0, 0].clone(), scales[0, 0].clone(), queries[0, 0].clone()
+    codes[t, m_of], scales[t, m_of], queries[t, n_of] = row, row_scale, query
+    out = score_probe(codes, scales, queries, quant)
+    err = float((out - score_probe_plain(codes, scales, queries, quant)).abs().max())
+    pair = out[t, m_of, n_of]
+    if not torch.equal(pair, pair[:1].expand(tiles)):
+        raise AssertionError(f"{quant} D={d}: the mma order's score of one (row, query) pair "
+                             f"depends on its place in the fragments: {pair.unique().tolist()}")
+    if not err <= ATOL:
+        raise AssertionError(f"{quant} D={d}: the probe differs from plain by {err}")
+    return {"pair": float(pair[0]), "err": err}
+
+
+def check_mma_order(dev, gen, err) -> dict:
+    """Phase 11 (a), the int8/int4 mma order across kernels: for int8 at D =
+    1024 and int4 at D = 1024 and 2048, the position probe (:func:`mma_probe`),
+    then on CHECK_ROWS seeded unit rows quantized on the card (sums round, so
+    no tie hides a difference) at Q = 8 and 32: K1's captures bitwise K2's
+    re-scores of the captured groups, K7a's maxima bitwise K1's, K5's W = 1
+    values bitwise K1's unmasked maxima; then each wrapper's device kernels
+    a call, counted in a fresh process (:func:`quant_kernels_in_a_fresh_process`)."""
+    from kirag_tpu_torch.kernels import gather_groups, group_max, score_gmax, stream_capture
+    from kirag_tpu_torch.ops.exact import _capture_budget
+
+    n, valid = CHECK_ROWS, CHECK_ROWS - 1000
+    n_c = n // CHUNK
+    b = _capture_budget(K, n_c, CHUNK // 128)
+    out = {"probe": {}}
+    for quant, d in MMA_ORDER_CASES:
+        probe = mma_probe(quant, d, gen, dev)
+        c, s = quantized_corpus(quant, n, gen, dev, False, d)
+        for n_q in MMA_ORDER_QUERIES:
+            what = f"random {quant} D={d} Q={n_q}"
+            q = unit_rows(n_q, gen, dev, d)
+            gmax, capture, gids = stream_capture(q, c, valid, CHUNK, b, s, quant)[:3]
+            gsel = gids.permute(2, 0, 1).reshape(n_q, -1)
+            rescored = gather_groups(q, c, gsel, s, quant)
+            k7 = score_gmax(q, c, valid, CHUNK, "none", s, quant)[1]
+            unmasked = stream_capture(q, c, n, CHUNK, b, s, quant)[0]
+            k5 = group_max(q, c, 1, s, quant)[0][:, 0]
+            torch.cuda.synchronize()
+            if not torch.equal(rescored, capture.view(n_c, n_q, b, 128).transpose(0, 1)
+                               .reshape(n_q, -1, 128)):
+                raise AssertionError(f"{what}: K1's captures differ from K2's re-scores")
+            if not torch.equal(k7, gmax):
+                raise AssertionError(f"{what}: K7a's maxima differ from K1's")
+            if not torch.equal(k5, unmasked.reshape(-1, n_q).T):
+                raise AssertionError(f"{what}: K5's W=1 values differ from K1's maxima")
+            log(f"  {what}: K1's {gsel.numel()} captured groups bitwise K2's re-scores, K7a's "
+                f"maxima bitwise K1's, K5's W=1 values bitwise K1's unmasked maxima")
+        log(f"  {quant} D={d}: one (row, query) pair at all 256 places of the mma fragments "
+            f"scores {probe['pair']!r} at each, bitwise; probe within {probe['err']:.3g} of "
+            "plain")
+        out["probe"][(quant, d)] = probe
+        del c, s
+    out["kernels"] = quant_kernels_in_a_fresh_process()
+    return out
+
+
+def quant_kernels_a_call(device: str = "cuda") -> None:
+    """The device kernels of one int8 and one int4 call of K1, K2, K5 and
+    K7a (torch.profiler), run in a process of its own
+    (:func:`quant_kernels_in_a_fresh_process`, as phase 15 (a)'s count of
+    K7b and K8): 16 chunks of seeded codes, Q = 8, the queries bf16 and the
+    group ids int32 (so no wrapper casts them). Prints one JSON line
+    {"<wrapper>_<quant>": [kernel names]}; fails unless each call's kernels
+    are its QUANT_KERNELS, in order."""
+    from kirag_tpu_torch.kernels import gather_groups, group_max, score_gmax, stream_capture
+    from kirag_tpu_torch.ops import hier_topk
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n, n_q, b = 16 * CHUNK, 8, 8
+    out = {}
+    for quant in QUANTS:
+        c, s = quantized_corpus(quant, n, gen, dev, True)
+        q = unit_rows(n_q, gen, dev).to(torch.bfloat16)
+        gmax = stream_capture(q, c, n, CHUNK, b, s, quant)[0]
+        gsel = torch.sort(hier_topk(gmax.reshape(-1, n_q).T, K)[1], dim=-1).values.to(torch.int32)
+        calls = {"stream_capture": lambda: stream_capture(q, c, n, CHUNK, b, s, quant),
+                 "gather_groups": lambda: gather_groups(q, c, gsel, s, quant),
+                 "group_max": lambda: group_max(q, c, 1, s, quant),
+                 "score_gmax": lambda: score_gmax(q, c, n, CHUNK, "chunk", s, quant)}
+        for name, fn in calls.items():
+            for _ in range(3):  # a window that saw no kernel (its records lost) is profiled again
+                kernels = device_kernels(fn)
+                if kernels:
+                    break
+            want = QUANT_KERNELS[name]
+            if len(kernels) != len(want) or any(w not in k for w, k in zip(want, kernels)):
+                raise AssertionError(f"{name} {quant}: one call started {kernels} "
+                                     f"(torch.profiler), not {want}")
+            out[f"{name}_{quant}"] = kernels
+    print(json.dumps(out), flush=True)
+
+
+def quant_kernels_in_a_fresh_process() -> dict:
+    """:func:`quant_kernels_a_call` in a child Python process (the library
+    is built already), waited for: its JSON line, or an AssertionError with
+    its error output."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.quant_kernels_a_call()"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError("the count of the int8/int4 kernels' device kernels failed:\n"
+                             + proc.stderr[-3000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("  device kernels of one call (torch.profiler, a fresh process, Q=8): " + "; ".join(
+        f"{name} {kernels}" for name, kernels in out.items()))
+    return out
+
+
 def serve_compressed(dev, encoder, collator, host_rows, texts, text_rows, gen, power, err):
     """Phase 11 (b): the retrieval server over phase 4's 1,000,000 host rows
     as int8 and int4 indexes, quantized on the card by ``to_device``; then K1
@@ -2457,7 +2609,8 @@ def serve_compressed(dev, encoder, collator, host_rows, texts, text_rows, gen, p
             f"{time.perf_counter() - t0:.2f} s (host clock, copies included): "
             f"{nbytes(index._device_corpus, index._device_scales) / 1e9:.3f} GB on the card")
         served[label] = serve(label, encoder, collator, index, texts, text_rows, power)
-        index_kernels(label, index, gen, power, err)
+        served[label]["timed"] = index_kernels(label, index, gen, power, err,
+                                               query_counts=(8, 16, 32, 256))
         del index
         torch.cuda.empty_cache()
     return served
@@ -2894,7 +3047,7 @@ def check_approx_kernels(dev, gen, err) -> dict:
     return times
 
 
-FLOAT_K5_KERNELS = ("group_max_sweep_kernel", "group_max_kernel")  # float, quantized
+FLOAT_K5_KERNELS = ("group_max_sweep_kernel",)  # every format's K5
 
 
 def k5_times(label, corpus, scales, quant: str, queries, gen, power, err,
@@ -2933,7 +3086,7 @@ def k5_times(label, corpus, scales, quant: str, queries, gen, power, err,
                     split = kernels_per_call(lambda: group_max(q, corpus, w), FLOAT_K5_KERNELS)
                     n = split.get(FLOAT_K5_KERNELS[0], [0])[0] if split else 0
                     casts = 10 if q.dtype != torch.float32 else 0  # the queries' cast to f32
-                    if split is not None and (FLOAT_K5_KERNELS[1] in split or not 1 <= n <= 10
+                    if split is not None and (not 1 <= n <= 10
                                               or split.get("other", [0])[0] > casts):
                         raise AssertionError(f"{what}: a float K5 call is not one "
                                              f"{FLOAT_K5_KERNELS[0]}: {split}")
@@ -4094,6 +4247,7 @@ def main() -> int:
         phase(f"phase 11 (a): K1/K2 with K4's int8/int4 scoring vs plain versions "
             f"({CHECK_ROWS} x {DIM}, chunk {CHUNK}, k={K})")
         check_quantized_kernels(dev, gen, err)
+        mma_order = check_mma_order(dev, gen, err)
         phase(f"phase 11 (b): the retrieval server over {N_ROWS} x {DIM} int8 and int4 indexes")
         served_q = serve_compressed(dev, encoder, collator, host_rows, texts, text_rows, gen,
                                     power, err)
@@ -4262,6 +4416,17 @@ def main() -> int:
                                "bound_ms": t1[kernel + "_bound"][0],
                                "bound_by": t1[kernel + "_bound"][1]}
                     for n_q, t1 in served_pq["timed"].items()}
+            if quant in QUANTS:  # the served 1M index, Q = 8, 16, 32, 256
+                kernels[-1]["at"] += (f"; by_q_1m: the served {N_ROWS}-row {quant} index; "
+                                      "mma_order: the position probe's pair and error")
+                kernels[-1]["by_q_1m"] = {
+                    str(n_q): {"ms": t1[kernel], "plain_ms": t1[kernel + "_plain"],
+                               "bound_ms": t1[kernel + "_bound"][0],
+                               "bound_by": t1[kernel + "_bound"][1]}
+                    for n_q, t1 in served_q[f"{quant} index"]["timed"].items()}
+                kernels[-1]["mma_order"] = {f"D={d}": v for (fmt, d), v
+                                            in mma_order["probe"].items() if fmt == quant}
+                kernels[-1]["device_kernels_a_call"] = mma_order["kernels"][variant]
             if variant == "stream_capture_int4":  # the depths the card took since this slice
                 kernels[-1]["by_depth"] = {
                     f"D={d} Q={n_q} ({CHECK_ROWS} rows)": {
@@ -4294,6 +4459,8 @@ def main() -> int:
             "max_abs_err": err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t.get("library_ms"), "at": at, "by_q": k5_by_q(times)})
+        if name in mma_order["kernels"]:
+            kernels[-1]["device_kernels_a_call"] = mma_order["kernels"][name]
         if bf16_times is not None:
             kernels[-1]["by_q_bf16"] = k5_by_q(bf16_times)
     # K7a/K7b/K8/K9 (phase 15): times at Q=32 on phase 15 (b)'s 1M indexes
@@ -4334,6 +4501,8 @@ def main() -> int:
                            "bound_by": x[kernel + "_bound"][1],
                            "library_ms": x.get(kernel + "_library")}
                 for n_q, x in t_dpr.items() if kernel in x}
+        if name in mma_order["kernels"]:
+            row["device_kernels_a_call"] = mma_order["kernels"][name]
         if name == "score_gmax_int4":
             row["by_q"] = {q: v for q, v in by_q.items() if q != str(DPR_QUERIES[0])}
         elif kernel != "score_gmax":

@@ -9,15 +9,23 @@
 // corpus gives zeros, as the reference's one-hot accumulation does.
 //
 // What bounds it on the H100: it reads k * 128 rows per query, Q x k x 128 x D
-// corpus values in all (1.7 GB at Q = 32, k = 100, D = 1024 f32), with D fmas
-// per row on the CUDA cores. The reference instead re-read the whole corpus
-// and multiplied by a one-hot matrix; here only the selected rows are read.
-// An int8 or int4 corpus reads 4x or 8x fewer bytes for the same fmas.
+// corpus values in all (1.7 GB at Q = 32, k = 100, D = 1024 f32), with D
+// products per row. The reference instead re-read the whole corpus and
+// multiplied by a one-hot matrix; here only the selected rows are read. An
+// int8 or int4 corpus reads 4x or 8x fewer bytes for the same products.
 //
-// What the design does about it: one block per (query, 8 slots); each half of
-// the block stages one group's rows through shared memory (coalesced reads)
-// and scores them against the query in score.cuh's fma order, so the values
-// are bitwise those the capture kernel computed for the same rows.
+// What the design does about it: each selected group is staged through
+// shared memory (coalesced reads) and scored in the format's order of
+// score.cuh, so the values are bitwise those the capture kernel computed for
+// the same rows. Float32, bfloat16 and pq4 corpora: one block per (query,
+// 8 slots); each half of the block stages one group's rows and scores them
+// against the query in the fma order (score_group). int8 and int4 corpora:
+// one block per (query, 2 slots), the two groups one pass of mma_passes,
+// K1's own scoring, with the query in column 0 of the n8 tile (the other
+// columns zero), each warp 32 rows of a group.
+//
+// score_probe_kernel (kirag_score_probe) is the mma order on its own, one
+// warp scoring 32 rows against 8 queries, for the card's tests of it.
 #include "score.cuh"
 
 using namespace kirag;
@@ -26,6 +34,7 @@ namespace {
 
 constexpr int SLOTS = 8;  // selected groups per block, two at a time
 
+// Float32, bfloat16 and pq4 corpora: see the header note.
 template <typename F>
 __global__ void __launch_bounds__(THREADS)
     gather_groups_kernel(const float* __restrict__ q, const typename F::T* __restrict__ corpus,
@@ -80,16 +89,148 @@ cudaError_t launch(const float* q, const void* corpus, const float* scales, cons
   return cudaGetLastError();
 }
 
+// int8 and int4 corpora: block (x, qi) scores query qi's slots 2 x and
+// 2 x + 1 as one pass of K1's mma_passes (a 4-query tile holding query qi
+// alone); warps 0 and 4 hold the groups' scores in the epilogue layout and
+// store them. Shared memory: the ring.
+constexpr int MMA_GATHER_SLOTS = 2;  // a pass: two groups
+
+template <typename F>
+__global__ void __launch_bounds__(THREADS)
+    gather_mma_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ corpus,
+                      const float* __restrict__ scales, const int* __restrict__ gsel,
+                      float* __restrict__ cand, int n_q, int d, int k, int64_t n_groups) {
+  extern __shared__ __align__(16) char smem_raw[];
+  const int qi = blockIdx.y;
+  const int slot0 = blockIdx.x * MMA_GATHER_SLOTS;
+  auto row_of = [&](int, int gl) -> int64_t {
+    const int slot = slot0 + gl;
+    const int64_t g = slot < k ? gsel[static_cast<int64_t>(qi) * k + slot] : -1;
+    return g >= 0 && g < n_groups ? g * LANES : -1;
+  };
+  mma_passes<F, 1, SWEEP_STAGES>(
+      corpus, scales, 1, row_of, q, qi, qi + 1, d, smem_raw, [&](int, auto& out) {
+        const int w = threadIdx.x / 32;
+        const int slot = slot0 + w / 4;
+        if (w % 4 != 0 || slot >= k) return;  // warps 0 and 4 hold query qi's scores
+        const bool live = row_of(0, w / 4) >= 0;
+        float* dst = cand + (static_cast<int64_t>(qi) * k + slot) * LANES + threadIdx.x % 32;
+#pragma unroll
+        for (int i = 0; i < PASS_R; ++i) dst[32 * i] = live ? out[i][0] : 0.f;
+      });
+}
+
+template <typename F>
+cudaError_t launch_mma(const void* q, const void* corpus, const float* scales, const int* gsel,
+                       float* cand, int n_q, int d, int k, int64_t n_rows, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(SWEEP_STAGES) * mma_stage_bytes<4>();
+  auto kernel = gather_mma_kernel<F>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  const dim3 grid((k + MMA_GATHER_SLOTS - 1) / MMA_GATHER_SLOTS, n_q);
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const __nv_bfloat16*>(q),
+                                          static_cast<const uint8_t*>(corpus), scales, gsel,
+                                          cand, n_q, d, k, n_rows / LANES);
+  return cudaGetLastError();
+}
+
+// The mma order alone: one warp a tile scores the tile's 32 rows (codes
+// [32][row bytes], scales [32] or [32][d / 128]) against its 8 queries (bf16
+// [8][d]) through mma_slot_fold and scale_rows, staging each slot itself,
+// and writes out [32][8] f32. int4 in two walks (the one walk's chains and
+// fold are the same).
+template <bool kInt4>
+__global__ void __launch_bounds__(32)
+    score_probe_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ scales,
+                       const __nv_bfloat16* __restrict__ q, float* __restrict__ out, int d) {
+  __shared__ __align__(16) uint8_t rows_s[32 * MMA_ROW_STRIDE];
+  __shared__ __align__(16) __nv_bfloat16 q_s[8 * MMA_Q_STRIDE];
+  const int lane = threadIdx.x;
+  const int row_bytes = kInt4 ? d / 2 : d;
+  const int n_slots = mma_slots(kInt4, false, d);
+  const int nbh = n_slots / 2;
+  const int64_t tile = blockIdx.x;
+  codes += tile * 32 * row_bytes;
+  scales += tile * 32 * (kInt4 ? d / INT4_BLOCK : 1);
+  q += tile * 8 * d;
+  const int r0 = lane / 4;  // the lane's rows: r0 + 16 m + 8 h
+  float acc[2][1][4] = {};
+  float sc[2][2];
+  if constexpr (!kInt4) lane_row_values(sc, scales, r0, 1, true);
+  for (int s = 0; s < n_slots; ++s) {
+    const int c = kInt4 && s >= nbh ? s - nbh : s;
+    const int qd0 = (kInt4 && s >= nbh ? d / 2 : 0) + c * MMA_SLOT_DIMS;
+    __syncwarp();
+    for (int i = lane; i < 32 * 8; i += 32) {  // 32 rows x 8 vectors
+      const int r = i / 8;
+      const int v = c * MMA_SLOT_BYTES + (i % 8) * 16;
+      *reinterpret_cast<uint4*>(rows_s + r * MMA_ROW_STRIDE + (i % 8) * 16) =
+          v < row_bytes ? *reinterpret_cast<const uint4*>(codes + r * row_bytes + v)
+                        : make_uint4(0, 0, 0, 0);
+    }
+    for (int i = lane; i < 8 * 16; i += 32) {  // 8 queries x 16 vectors
+      const int r = i / 16;
+      const int e = (i % 16) * 8;
+      *reinterpret_cast<uint4*>(q_s + r * MMA_Q_STRIDE + e) =
+          qd0 + e < d ? *reinterpret_cast<const uint4*>(q + r * d + qd0 + e)
+                      : make_uint4(0, 0, 0, 0);
+    }
+    __syncwarp();
+    if constexpr (kInt4) lane_row_values(sc, scales + s, r0, 2 * nbh, true);
+    mma_slot_fold<kInt4, 1>(acc, rows_s, q_s, s, d, sc, lane);
+  }
+  if constexpr (!kInt4) scale_rows<1>(acc, sc);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      out[tile * 256 + (16 * m + r0 + 8 * (e / 2)) * 8 + 2 * (lane % 4) + e % 2] = acc[m][0][e];
+    }
+  }
+}
+
 }  // namespace
 
-// Queries f32 [n_q, d]; corpus [n_rows, *] in the format of `kind` (as
-// kirag_stream_capture's, with its `scales`), n_rows a multiple of 128; gsel
-// int32 [n_q, k]; cand f32 [n_q, k, 128]. Returns the launch's cudaError_t.
-extern "C" int kirag_gather_groups(const float* q, const void* corpus, int kind,
+// Queries [n_q, d] (f32, or bf16 for int8 and int4 corpora); corpus
+// [n_rows, *] in the format of `kind` (as kirag_stream_capture's, with its
+// `scales`), n_rows a multiple of 128; gsel int32 [n_q, k]; cand f32
+// [n_q, k, 128]. Returns the launch's cudaError_t.
+extern "C" int kirag_gather_groups(const void* q, const void* corpus, int kind,
                                    const float* scales, const int* gsel, float* cand, int n_q,
                                    int d, int k, long long n_rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_format(kind, d, [&](auto fmt) {
-    return launch<decltype(fmt)>(q, corpus, scales, gsel, cand, n_q, d, k, n_rows, s);
+    using F = decltype(fmt);
+    if constexpr (F::QUANT) {
+      return launch_mma<F>(q, corpus, scales, gsel, cand, n_q, d, k, n_rows, s);
+    } else {
+      return launch<F>(static_cast<const float*>(q), corpus, scales, gsel, cand, n_q, d, k,
+                       n_rows, s);
+    }
+  });
+}
+
+// `tiles` tiles of the mma order alone (score_probe_kernel): codes int8
+// [tiles, 32, d] (kind 2) or packed int4 [tiles, 32, d / 2] (kind 3), f32
+// scales [tiles, 32] or [tiles, 32, d / 128], queries bf16 [tiles, 8, d],
+// out f32 [tiles, 32, 8]. Returns the launch's cudaError_t.
+extern "C" int kirag_score_probe(const void* codes, int kind, const float* scales,
+                                 const void* q, float* out, int tiles, int d, void* stream) {
+  if (tiles < 1 || (kind != 2 && kind != 3)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_format<false>(kind, d, [&](auto fmt) {
+    using F = decltype(fmt);
+    if constexpr (F::QUANT) {
+      score_probe_kernel<F::INT4><<<tiles, 32, 0, s>>>(
+          static_cast<const uint8_t*>(codes), scales, static_cast<const __nv_bfloat16*>(q), out,
+          d);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
   });
 }

@@ -10,18 +10,23 @@
 // scored, zero pad rows too; the caller masks rows past its valid count after
 // the peel, as the reference does (pallas_mips.py:198-200).
 //
-// What bounds it on the H100: the same dot products as K1 (Q x N x D fmas on the
-// CUDA cores; TF32 would round the products) against one read of the corpus
-// (4 GB f32 at 1M x 1024: 1.2 ms at 3.35 TB/s, the fmas 1.0 ms at Q = 32 at the
-// f32 peak); the peel adds W rounds of a warp argmax per group and query, which
-// at W = 1 is under 1% of the scoring and at W = 128 more than the scoring.
+// What bounds it on the H100: the same scoring as K1 (2 Q N D operations:
+// float corpora on the CUDA cores, since TF32 would round the products;
+// int8 and int4 ones on the tensor cores, their codes exact in bf16) against
+// one read of the corpus (4 GB f32 at 1M x 1024: 1.2 ms at 3.35 TB/s, the
+// fmas 1.0 ms at Q = 32 at the f32 peak; an int4 corpus at 21M x 1024,
+// 11.4 GB: 3.4 ms); the peel adds W rounds of a warp argmax per group and
+// query, which at W = 1 is under 1% of the scoring and at W = 128 more than
+// the scoring.
 //
-// What the design does about it, float32 and bfloat16 corpora: K7a's sweep
-// (score_gmax.cu) with the peel in place of the store. One block per (query
-// tile of 4-32 queries, range of groups), the whole corpus one chunk, cut by
-// kernels/exact.py's search_plan, scoring through score.cuh's score_passes (a
-// register tile of 4 rows x up to 8 queries a thread, so a corpus row is read
-// from HBM once for up to 32 queries). After each pass lane l of warp w holds
+// What the design does about it: K7a's sweep (score_gmax.cu) with the peel
+// in place of the store. One block per (query tile of 4-32 queries, range
+// of groups), the whole corpus one chunk, cut by kernels/exact.py's
+// search_plan, scoring through score.cuh's sweep_passes (float32 and
+// bfloat16: score_passes, a register tile of 4 rows x up to 8 queries a
+// thread; int8 and int4: mma_passes on the tensor cores, the scores
+// transposed into the same layout), so a corpus row is read from HBM once
+// for up to 32 queries. After each pass lane l of warp w holds
 // rows l + 32 i of its group for its J queries, the peel's own layout, so each
 // warp peels its group in registers: no score leaves the registers and the
 // epilogue adds no barrier. Up to PEEL_MAX_WINNERS winners it runs the
@@ -30,13 +35,9 @@
 // whose first W places are the rounds' winners (once only -inf is left the
 // rounds return lane 0, and so does the sort's tail). Winners go out
 // [Q, G, W], a query's W of a group in consecutive words (the wrapper returns
-// the [Q, W, G] view; storing [Q, W, G] took 2.3x as long at W = 128). Quantized
-// corpora keep one block per (query tile of 4 or 8, range of groups), each
-// group scored by score_group into shared memory [NQ][128], then one warp per
-// query peels its W winners from there. Every score comes from score.cuh's one
-// fma order, so the scores are bitwise K1's and K2's.
-#include <algorithm>
-
+// the [Q, W, G] view; storing [Q, W, G] took 2.3x as long at W = 128). Every
+// score comes from score.cuh's one order for its format, so the scores are
+// bitwise K1's and K2's.
 #include "score.cuh"
 
 using namespace kirag;
@@ -50,114 +51,7 @@ __device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <typename F, int QPT>
-__global__ void __launch_bounds__(THREADS)
-    group_max_kernel(const float* __restrict__ q, const typename F::T* __restrict__ corpus,
-                     const float* __restrict__ scales, float* __restrict__ gmax,
-                     int* __restrict__ gidx, int n_q, int d, int64_t n_groups, int winners,
-                     int groups_per_block) {
-  using T = typename F::T;
-  constexpr int NQ = 2 * QPT;  // queries of this block, one peeling warp each
-  static_assert(NQ <= THREADS / 32, "one warp per query of the tile");
-  extern __shared__ __align__(16) float smem[];
-  const int d_pad = padded_depth(d);
-  float* q_s = smem;                                                     // [NQ][d_pad]
-  T* tiles = reinterpret_cast<T*>(q_s + NQ * d_pad);                     // [STAGES][LANES][stride]
-  float* sc_s = reinterpret_cast<float*>(tiles + STAGES * tile_elems<T>());  // [NQ][LANES]
-
-  const int t = threadIdx.x;
-  const int half = t / LANES;
-  const int lane = t % LANES;
-  const int warp = t / 32;
-  const int wl = t % 32;
-  const int q0 = blockIdx.x * NQ;
-  const int nq_here = min(NQ, n_q - q0);
-  const int64_t g_begin = static_cast<int64_t>(blockIdx.y) * groups_per_block;
-  const int64_t g_end =
-      g_begin + groups_per_block < n_groups ? g_begin + groups_per_block : n_groups;
-
-  stage_queries(q_s, q, q0, NQ, n_q, d, d_pad);
-  __syncthreads();
-
-  for (int64_t g = g_begin; g < g_end; ++g) {
-    // Half h scores block queries h, h + 2, ... against row `lane` of the
-    // group. score_group starts by synchronising the block, so no warp is
-    // still peeling the previous group when sc_s is written below.
-    float acc[QPT];
-    score_group<F, THREADS, QPT, STAGES>(acc, corpus, scales, g * LANES, d, q_s + half * d_pad,
-                                         2 * d_pad, tiles, t, lane, true);
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) sc_s[(2 * j + half) * LANES + lane] = acc[j];
-    __syncthreads();
-    if (warp < nq_here) {
-      float v[4];  // lanes wl, wl + 32, wl + 64, wl + 96 of the group
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = sc_s[warp * LANES + wl + 32 * i];
-      const int64_t out0 = static_cast<int64_t>(q0 + warp) * winners * n_groups + g;
-      for (int w = 0; w < winners; ++w) {
-        float bv = v[0];
-        int bi = wl;
-#pragma unroll
-        for (int i = 1; i < 4; ++i) {  // ascending lanes: strict > keeps the lowest
-          if (v[i] > bv) {
-            bv = v[i];
-            bi = wl + 32 * i;
-          }
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(FULL_MASK, bv, o);
-          const int oi = __shfl_xor_sync(FULL_MASK, bi, o);
-          if (beats(ov, oi, bv, bi)) {
-            bv = ov;
-            bi = oi;
-          }
-        }
-        if (wl == 0) {  // every lane holds the same winner
-          gmax[out0 + w * n_groups] = bv;
-          gidx[out0 + w * n_groups] = bi;
-        }
-        // the winner's owner masks it, by selects so that v stays in registers
-        const bool owner = (bi & 31) == wl;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = owner && i == bi / 32 ? -CUDART_INF_F : v[i];
-      }
-    }
-  }
-}
-
-template <typename F, int QPT>
-cudaError_t launch(const float* q, const void* corpus, const float* scales, float* gmax,
-                   int* gidx, int n_q, int d, int64_t n_rows, int winners,
-                   cudaStream_t stream) {
-  using T = typename F::T;
-  constexpr int NQ = 2 * QPT;
-  const size_t smem = sizeof(float) * (NQ * padded_depth(d) + NQ * LANES) +
-                      sizeof(T) * STAGES * tile_elems<T>();
-  auto kernel = group_max_kernel<F, QPT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the caller raises on the returned code
-    return err;
-  }
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  // groups per block: about 8 blocks per SM in all, at most 64 groups a block,
-  // and at least enough that the group ranges fit the grid's y limit
-  const int64_t n_groups = n_rows / LANES;
-  const int64_t q_tiles = (n_q + NQ - 1) / NQ;
-  int64_t gpb = n_groups * q_tiles / (8 * static_cast<int64_t>(sms));
-  gpb = std::max<int64_t>(1, std::min<int64_t>(64, gpb));
-  gpb = std::max<int64_t>(gpb, (n_groups + 65534) / 65535);
-  const dim3 grid(static_cast<unsigned>(q_tiles),
-                  static_cast<unsigned>((n_groups + gpb - 1) / gpb));
-  kernel<<<grid, THREADS, smem, stream>>>(q, static_cast<const T*>(corpus), scales, gmax, gidx,
-                                          n_q, d, n_groups, winners, static_cast<int>(gpb));
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------ float corpora: the sweep
+// ------------------------------------------------ the sweep
 
 // Winners a group up to which the float sweep runs the reference's rounds;
 // above it one sort of the group's 128 pairs does. On an H100 at 1M x 1024,
@@ -293,10 +187,11 @@ __device__ __forceinline__ void sort_winners(float (&v)[PASS_R], int winners,
 
 // Block x = range * q_tiles + query tile; the range holds the groups
 // [range * gpb, min((range + 1) * gpb, n_groups)). Shared memory: the ring.
-template <typename T, int J>
+template <typename F, int J>
 __global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
-    group_max_sweep_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
-                           float* __restrict__ gmax, int* __restrict__ gidx, int n_q, int d,
+    group_max_sweep_kernel(const void* __restrict__ q, const void* __restrict__ corpus,
+                           const float* __restrict__ scales, float* __restrict__ gmax,
+                           int* __restrict__ gidx, int n_q, int d,
                            int n_groups, int winners, int q_tiles, int gpb) {
   constexpr int QT = 4 * J;
   extern __shared__ __align__(16) char smem_raw[];
@@ -322,24 +217,24 @@ __global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
       }
     }
   };
-  score_passes<T, J, SWEEP_STAGES>(corpus, static_cast<int64_t>(g_begin) * LANES,
+  sweep_passes<F, J, SWEEP_STAGES>(corpus, scales, static_cast<int64_t>(g_begin) * LANES,
                                    min(gpb, n_groups - g_begin), q, tile_q0, n_q, d, smem_raw,
                                    epilogue);
 }
 
-template <typename T, int J>
-cudaError_t launch_float(const float* q, const void* corpus, float* gmax, int* gidx, int n_q,
-                         int d, int n_groups, int winners, int splits, int gpb, int plan_smem,
-                         cudaStream_t stream) {
+template <typename F, int J>
+cudaError_t launch_sweep(const void* q, const void* corpus, const float* scales, float* gmax,
+                         int* gidx, int n_q, int d, int n_groups, int winners, int splits,
+                         int gpb, int plan_smem, cudaStream_t stream) {
   constexpr int QT = 4 * J;
-  const size_t smem = static_cast<size_t>(SWEEP_STAGES) * pass_stage_bytes<T, QT>();
+  const size_t smem = static_cast<size_t>(SWEEP_STAGES) * sweep_stage_bytes<F, QT>();
   if (!sweep_cut_fits(n_groups, splits, gpb) || smem != static_cast<size_t>(plan_smem)) {
     return cudaErrorInvalidValue;
   }
   const int q_tiles = (n_q + QT - 1) / QT;
   const int64_t blocks = static_cast<int64_t>(q_tiles) * splits;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = group_max_sweep_kernel<T, J>;
+  auto kernel = group_max_sweep_kernel<F, J>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
@@ -347,46 +242,33 @@ cudaError_t launch_float(const float* q, const void* corpus, float* gmax, int* g
     return err;
   }
   kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      q, static_cast<const T*>(corpus), gmax, gidx, n_q, d, n_groups, winners, q_tiles, gpb);
+      q, corpus, scales, gmax, gidx, n_q, d, n_groups, winners, q_tiles, gpb);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Queries f32 [n_q, d]; corpus [n_rows, *] in the format of `kind` (as
-// kirag_stream_capture's, with its `scales`), n_rows a positive multiple of
-// 128; 1 <= winners <= 128. Float corpora (kind 0, 1) take search_plan's cut
-// of one chunk of n_rows / 128 groups (q_tile, splits, gpb, smem, as
-// kirag_score_gmax's) and write gmax f32 and gidx int32 [n_q, n_rows / 128,
-// winners]; quantized ones take qpt in {2, 4} queries per thread (2 * qpt
-// queries per block) and write them [n_q, winners, n_rows / 128]. Returns the
-// launch's cudaError_t.
-extern "C" int kirag_group_max(const float* q, const void* corpus, int kind,
+// Queries [n_q, d] (f32, or bf16 for int8 and int4 corpora); corpus
+// [n_rows, *] in the format of `kind` (as kirag_stream_capture's, with its
+// `scales`; no pq4), n_rows a positive multiple of 128; 1 <= winners <= 128.
+// search_plan's cut of one chunk of n_rows / 128 groups (q_tile, splits, gpb,
+// smem, as kirag_score_gmax's); writes gmax f32 and gidx int32 [n_q,
+// n_rows / 128, winners]. Returns the launch's cudaError_t.
+extern "C" int kirag_group_max(const void* q, const void* corpus, int kind,
                                const float* scales, float* gmax, int* gidx, int n_q, int d,
-                               long long n_rows, int winners, int qpt, int q_tile, int splits,
-                               int gpb, int smem, void* stream) {
-  if (winners < 1 || winners > LANES || n_rows <= 0 || n_rows % LANES) {
+                               long long n_rows, int winners, int q_tile, int splits, int gpb,
+                               int smem, void* stream) {
+  if (winners < 1 || winners > LANES || n_rows <= 0 || n_rows % LANES ||
+      n_rows / LANES > 0x7fffffff) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_groups = static_cast<int>(n_rows / LANES);
   return with_format<false>(kind, d, [&](auto fmt) {  // no pq4: approx on PQ serves exact
     using F = decltype(fmt);
-    if constexpr (std::is_same<F, F32>::value || std::is_same<F, BF16>::value) {
-      if (n_rows / LANES > 0x7fffffff) return cudaErrorInvalidValue;
-      const int n_groups = static_cast<int>(n_rows / LANES);
-      return with_query_tile(q_tile, [&](auto j) {
-        return launch_float<typename F::T, decltype(j)::value>(
-            q, corpus, gmax, gidx, n_q, d, n_groups, winners, splits, gpb, smem, s);
-      });
-    } else {
-      switch (qpt) {
-        case 2:
-          return launch<F, 2>(q, corpus, scales, gmax, gidx, n_q, d, n_rows, winners, s);
-        case 4:
-          return launch<F, 4>(q, corpus, scales, gmax, gidx, n_q, d, n_rows, winners, s);
-        default:
-          return cudaErrorInvalidValue;
-      }
-    }
+    return with_query_tile(q_tile, [&](auto j) {
+      return launch_sweep<F, decltype(j)::value>(q, corpus, scales, gmax, gidx, n_q, d, n_groups,
+                                                 winners, splits, gpb, smem, s);
+    });
   });
 }

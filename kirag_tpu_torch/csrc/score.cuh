@@ -1,44 +1,31 @@
 // Shared corpus scoring for the search kernels (stream_capture.cu,
-// gather_groups.cu and group_max.cu).
+// gather_groups.cu, group_max.cu and score_gmax.cu).
 //
 // The kernels score (query, corpus row) pairs, and the exactness check of the
 // capture-domain selection compares values that come from different kernels:
 // the capture's group maxima and raw scores (stream_capture) and the fallback
 // gather's re-scored groups (gather_groups); the approximate search
-// (group_max) promises the exact search's scores. So every score of every
-// kernel is computed by score_group() below, in ONE fixed order:
+// (group_max) and the fused scoring pass (score_gmax) promise the exact
+// search's scores. So every score of a corpus format is computed in ONE fixed
+// order, whichever kernel, block, warp or thread computes it. There are two
+// orders, one for float and pq4 corpora, one for int8 and packed-int4 ones.
+//
+// The fma order (float32, bfloat16, pq4), score_group() and score_passes():
 //
 //     s = +0.0f;  for d = 0 .. D-1 ascending:  s = fma(q[d], c[d], s)
 //
 // with q and c converted to f32 first (bf16 -> f32 is exact, so every product
-// is the exact product of the stored values). Rows are staged through shared
-// memory one [128 rows x KD columns] tile at a time (cp.async, several tiles
-// in flight), columns past D are staged as zeros (fma(0, 0, s) == s), and
-// each thread walks its tile row in column order, so the sequence of fma
-// operations for a (query, row) pair never depends on which kernel, block or
-// thread computes it. Equal inputs give bitwise-equal f32 scores everywhere.
+// is the exact product of the stored values). score_group stages rows through
+// shared memory one [128 rows x KD columns] tile at a time (cp.async, several
+// tiles in flight), columns past D are staged as zeros (fma(0, 0, s) == s),
+// and each thread walks its tile row in column order. score_passes (the float
+// sweeps of K1, K5 and K7a) holds a register tile of PASS_R rows x J queries
+// a thread and stages queries and rows together, 128 bytes of each row at a
+// time; only which thread computes which pairs changes, every pair runs the
+// chain above over the same padded_depth(d) columns, so score_passes and
+// score_group (K2) give the same bits. Tensor cores are out for these
+// formats: TF32 would round the products.
 //
-// Float32 and bfloat16 corpora have a second form of the same loop for the
-// scoring sweeps of K1, K5 and K7a, score_passes() below: a thread holds a
-// register tile of PASS_R rows x J queries and the block stages queries and
-// rows together, 128 bytes of each row at a time. Only which thread computes
-// which pairs changes: every pair still runs the chain above over the same
-// padded_depth(d) columns, so score_passes and score_group give the same bits for the same
-// (query, row), and K2 (score_group) stays bitwise equal to K1, K5 and K7a.
-//
-// Quantized corpora (K4: the in-kernel dequant of the TPU kernels,
-// kirag_tpu/ops/pallas_exact.py::_chunk_scores) take queries that the wrapper
-// rounded to bf16 once, so every product of a query value and an int8 code or
-// an int4 level n - 7.5 is exact in f32 and only the sums round:
-//
-//   int8: the fma chain above over the codes, then s = s * row_scale;
-//   int4: one fma chain per 128-dim block b giving p_b, then in block order
-//         s = p_0 * scale_0;  s = s + p_b * scale_b  for b = 1 .. NB-1, each
-//         product and sum rounded on its own (the reference's
-//         `p = p * s; out = out + p`). Byte t of a packed row holds dim t
-//         (low nibble, block t / 128) and dim t + D/2 (high nibble, block
-//         t / 128 + NB/2): the low-plane partials fold as their block ends,
-//         the high-plane ones wait in NB/2 registers a query;
 //   pq4:  4-bit product-quantization codes, m / 2 bytes a row (byte t:
 //         subspace t in the low nibble, t + m / 2 in the high one; subspace
 //         s owns dims j * m + s, j < DS = D / m), decoded through the level
@@ -48,6 +35,36 @@
 //         s = s + p_(1,lo); ... (the reference's `out = out + p`). Walking a
 //         row's bytes in order advances all 2 * DS chains at once, so they
 //         stay in registers.
+//
+// The mma order (int8, packed int4: K4, the in-kernel dequant of the TPU
+// kernels, kirag_tpu/ops/pallas_exact.py::_chunk_scores, which sends the
+// codes as bf16 to the matrix unit), mma_passes() and mma_slot() below. The
+// wrapper rounds the queries to bf16 once; the codes are decoded exactly to
+// bf16 (int8: the code c in [-128, 127]; int4: the level n - 7.5), so every
+// product is exact and only the sums round:
+//
+//   products: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, corpus
+//         rows as A (M), queries as B (N), over k-steps of 16 dims in
+//         ascending order, accumulator from +0.0f. Inside a k-step of dims
+//         [16 s, 16 s + 16), dim 16 s + 4 t + e sits at k-slot 2 t + e
+//         (e = 0, 1) and 2 t + 8 + (e - 2) (e = 2, 3), so lane t of a
+//         fragment holds four consecutive dims of a row and of a query;
+//   int8: one chain over all D (D % 16 == 0, exactly D / 16 k-steps), then
+//         s = s * row_scale;
+//   int4: byte t of a packed row holds dim t (low nibble, block t / 128) and
+//         dim t + D/2 (high nibble, block t / 128 + NB/2). One chain of 8
+//         k-steps per 128-dim block b giving p_b, then in block order
+//         s = p_0 * scale_0;  s = s + p_b * scale_b  for b = 1 .. NB-1, each
+//         product and sum rounded on its own (the reference's
+//         `p = p * s; out = out + p`). The row's bytes are walked once
+//         (the high plane's partials wait in registers) or twice (the low
+//         plane's blocks, then the high plane's): the same operations.
+//
+// An mma output element depends on its A row, its B column and its C value
+// only, not on where the row and the query sit in the tile (tested on the
+// card with score_probe, a pair placed at every (m, n) of a fragment), so K1,
+// K5 and K7a (a query at column j % 8 of n-tile j / 8) and K2 (the query at
+// column 0) give the same bits for a (row, query) pair.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,23 +85,22 @@ constexpr float FIN_MIN = -1e30f;   // finite mask value of the reference kernel
 
 __host__ __device__ constexpr int padded_depth(int d) { return (d + KD - 1) / KD * KD; }
 
-// Corpus formats: the stored element T; for packed int4, NBH = D / 256, the
-// 128-byte blocks of a row; for pq4, DS = D / m, the components of a
-// subspace. Both are fixed at compile time so that the partials stay in
-// registers.
-template <typename T_, int NBH_ = 0, int DS_ = 0>
+// Corpus formats: the stored element T; for pq4, DS = D / m, the components
+// of a subspace, fixed at compile time so that the partials stay in
+// registers; INT4 marks packed int4. QUANT: int8 and int4, the mma order.
+template <typename T_, int DS_ = 0, bool INT4_ = false>
 struct Fmt {
   using T = T_;
-  static constexpr int NBH = NBH_;
   static constexpr int DS = DS_;
+  static constexpr bool INT4 = INT4_;
+  static constexpr bool QUANT = INT4_ || std::is_same<T_, int8_t>::value;
 };
 using F32 = Fmt<float>;
 using BF16 = Fmt<__nv_bfloat16>;
 using I8 = Fmt<int8_t>;
-template <int NBH>
-using I4 = Fmt<uint8_t, NBH>;
+using I4 = Fmt<uint8_t, 0, true>;
 template <int DS>
-using PQ4 = Fmt<uint8_t, 0, DS>;
+using PQ4 = Fmt<uint8_t, DS>;
 
 // pq4's level table lives in shared memory as bf16 [m][16][DS]: entry
 // (s, code, j) = L[code, j * m + s], so one vector read gives a code's DS
@@ -127,28 +143,6 @@ __device__ __forceinline__ void unpack(const uint4& raw, const __nv_bfloat16*, f
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
-// Codes become f32 exactly by building a float in the mantissa and taking
-// its offset off: two full-rate integer and float operations, where a
-// conversion instruction runs at a quarter of the fma rate.
-//   int8 code c (its 8 bits in `byte`): 2^23 + (c + 128), minus 2^23 + 128;
-//   int4 code n: 2^22 + n (the mantissa's last bit is worth 0.5 at 2^22),
-//   minus 2^22 + 7.5, which is the level n - 7.5.
-__device__ __forceinline__ float int8_value(unsigned byte) {
-  return __uint_as_float(0x4B000000u | ((byte & 0xFFu) ^ 0x80u)) - 8388736.0f;
-}
-__device__ __forceinline__ float int4_level(unsigned n) {
-  return __uint_as_float(0x4A800000u | (n << 1)) - 4194311.5f;
-}
-
-__device__ __forceinline__ void unpack(const uint4& raw, const int8_t*, float* out) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) out[4 * i + b] = int8_value(w[i] >> (8 * b));
-  }
-}
-
 // Corpus tiles live in shared memory as raw values, [LANES rows][KD + one
 // 16-byte vector of padding] so that the per-row 16-byte reads of a warp hit
 // distinct banks. A block keeps STAGES of them in flight.
@@ -242,94 +236,6 @@ __device__ __forceinline__ void fma_tile(float (&acc)[NQ], const float* q, int q
         acc[j] = __fmaf_rn(qv.z, cv[e + 2], acc[j]);
         acc[j] = __fmaf_rn(qv.w, cv[e + 3], acc[j]);
       }
-    }
-  }
-}
-
-// The packed-int4 form of fma_tile: byte c of the tile row holds the codes of
-// dim c0 + c (low nibble, into lo) and dim half + c0 + c (high nibble, into
-// hi), half = D / 2.
-template <int NQ>
-__device__ __forceinline__ void fma_tile_int4(float (&lo)[NQ], float (&hi)[NQ], const float* q,
-                                              int q_stride, int c0, int half,
-                                              const uint8_t* trow) {
-#pragma unroll
-  for (int c = 0; c < KD; c += 16) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(trow + c);
-    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-    float cl[16], ch[16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        cl[4 * i + b] = int4_level((w[i] >> (8 * b)) & 15u);
-        ch[4 * i + b] = int4_level((w[i] >> (8 * b + 4)) & 15u);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 16; e += 4) {
-        const float4 ql = *reinterpret_cast<const float4*>(q + j * q_stride + c0 + c + e);
-        lo[j] = __fmaf_rn(ql.x, cl[e], lo[j]);
-        lo[j] = __fmaf_rn(ql.y, cl[e + 1], lo[j]);
-        lo[j] = __fmaf_rn(ql.z, cl[e + 2], lo[j]);
-        lo[j] = __fmaf_rn(ql.w, cl[e + 3], lo[j]);
-        const float4 qh = *reinterpret_cast<const float4*>(q + j * q_stride + half + c0 + c + e);
-        hi[j] = __fmaf_rn(qh.x, ch[e], hi[j]);
-        hi[j] = __fmaf_rn(qh.y, ch[e + 1], hi[j]);
-        hi[j] = __fmaf_rn(qh.z, ch[e + 2], hi[j]);
-        hi[j] = __fmaf_rn(qh.w, ch[e + 3], hi[j]);
-      }
-    }
-  }
-}
-
-// score_group for packed int4 with NBH = D / 256 (see the header note).
-template <int NBH, int NT, int NQ, int NS>
-__device__ __forceinline__ void score_group_int4(float (&acc)[NQ],
-                                                 const uint8_t* __restrict__ corpus,
-                                                 const float* __restrict__ scales, int64_t row0,
-                                                 const float* q, int q_stride, uint8_t* tiles,
-                                                 int t, int lane, bool active) {
-  constexpr int NB = 2 * NBH;             // scales (128-dim blocks) of a row
-  constexpr int W = NBH * INT4_BLOCK;     // bytes of a row, D / 2
-  constexpr int TPB = INT4_BLOCK / KD;    // tiles of one block's bytes
-  float s[NB];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) s[b] = active ? scales[(row0 + lane) * NB + b] : 0.f;
-  float lo[NQ], hi[NBH][NQ];
-#pragma unroll
-  for (int j = 0; j < NQ; ++j) {
-    acc[j] = 0.f;
-    lo[j] = 0.f;
-#pragma unroll
-    for (int h = 0; h < NBH; ++h) hi[h][j] = 0.f;
-  }
-  tiles_begin<uint8_t, NT, NS>(tiles, corpus, row0, W, NBH * TPB, t, active);
-#pragma unroll
-  for (int h = 0; h < NBH; ++h) {  // unrolled: hi[h] and s[h] stay in registers
-#pragma unroll 1
-    for (int i = 0; i < TPB; ++i) {
-      const int it = h * TPB + i;
-      const uint8_t* trow =
-          tiles_next<uint8_t, NT, NS>(tiles, corpus, row0, W, NBH * TPB, it, t, lane, active);
-      if (active) fma_tile_int4<NQ>(lo, hi[h], q, q_stride, it * KD, W, trow);
-    }
-    if (active) {  // low block h is complete: fold it
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        const float p = __fmul_rn(lo[j], s[h]);
-        acc[j] = h == 0 ? p : __fadd_rn(acc[j], p);
-        lo[j] = 0.f;
-      }
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int h = 0; h < NBH; ++h) {
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(hi[h][j], s[NBH + h]));
     }
   }
 }
@@ -446,11 +352,11 @@ __device__ __forceinline__ void score_group_pq4(float (&acc)[NQ],
   }
 }
 
-// THE scoring routine of every kernel. Scores the 128 rows [row0, row0 + 128)
-// against NQ query rows (q, q + q_stride, ...) of depth d: on return acc[j]
-// holds the score of query j and row row0 + lane. `scales` is read for
-// quantized formats only (int8: [rows], int4: [rows][D / 128], pq4: the
-// level table that stage_table put in shared memory). The NT
+// The fma order's routine for float32, bfloat16 and pq4 corpora. Scores the
+// 128 rows [row0, row0 + 128) against NQ query rows (q, q + q_stride, ...) of
+// depth d: on return acc[j] holds the score of query j and row row0 + lane.
+// `scales` is read for pq4 only (the level table that stage_table put in
+// shared memory). The NT
 // threads of the calling group (index t within it) stream the rows through NS
 // tiles at `tiles`, so that NS - 1 tiles are being copied while one is
 // multiplied. Every thread of the block must call it the same number of times
@@ -463,15 +369,11 @@ __device__ __forceinline__ void score_group(float (&acc)[NQ],
                                             const float* q, int q_stride, typename F::T* tiles,
                                             int t, int lane, bool active) {
   using T = typename F::T;
-  if constexpr (F::NBH > 0) {
-    score_group_int4<F::NBH, NT, NQ, NS>(acc, corpus, scales, row0, q, q_stride, tiles, t, lane,
-                                         active);
-  } else if constexpr (F::DS > 0) {
+  static_assert(!F::QUANT, "int8 and int4 corpora score in the mma order (mma_passes)");
+  if constexpr (F::DS > 0) {
     score_group_pq4<F::DS, NT, NQ, NS>(acc, corpus, scales, row0, d, q, q_stride, tiles, t,
                                        lane, active);
   } else {
-    constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-    const float row_scale = kInt8 && active ? scales[row0 + lane] : 0.f;
     const int n_tiles = padded_depth(d) / KD;
 #pragma unroll
     for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
@@ -479,10 +381,6 @@ __device__ __forceinline__ void score_group(float (&acc)[NQ],
     for (int it = 0; it < n_tiles; ++it) {
       const T* trow = tiles_next<T, NT, NS>(tiles, corpus, row0, d, n_tiles, it, t, lane, active);
       if (active) fma_tile<NQ>(acc, q, q_stride, it * KD, trow);
-    }
-    if (kInt8 && active) {
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) acc[j] = __fmul_rn(acc[j], row_scale);
     }
   }
 }
@@ -711,6 +609,447 @@ __device__ __forceinline__ void pass_warp_maxima(float (&acc)[PASS_R][J], int64_
   }
 }
 
+// ------------------------------------------------ int8 and int4: the mma order
+//
+// The quantized sweeps keep score_passes' block (THREADS threads, a pass of
+// PASS_ROWS rows, two groups, against QT = 4 J queries) and its epilogue
+// layout, but the products go through the tensor cores. Warp w owns the 32
+// pass rows [32 w, 32 w + 32) (two m16 tiles) against every query of the
+// tile (NT = ceil(QT / 8) n8 tiles), so each code of the pass is decoded once
+// for the block and query tile. A ring slot holds MMA_SLOT_BYTES bytes of
+// each pass row (int8: 128 dims; int4: 128 dims of each plane) and the query
+// tile's bf16 values of the slot's MMA_SLOT_DIMS dims (int4: of the plane
+// being walked, or of both planes). int4 walks a row's bytes once when the
+// query tile is one n8 tile and D <= 1024: the high plane's block partials
+// wait in registers (at most 4 x 8 a lane) until the low blocks are folded;
+// otherwise twice, the low plane's blocks, then the high plane's. Either way
+// each block's chain and the fold are the same operations in the same order.
+// After the pass, the accumulators go through shared memory (the slot just
+// read) into the epilogue's layout: thread lane of warp w gets rows 32 i +
+// lane of group w / 4 for queries (w % 4) J + j.
+constexpr int MMA_SLOT_BYTES = 128;                  // bytes of each corpus row a slot holds
+constexpr int MMA_ROW_STRIDE = MMA_SLOT_BYTES + 16;  // a slot row: 4 t + 36 g words, no conflict
+constexpr int MMA_SLOT_DIMS = 128;                   // query dims a slot holds
+constexpr int MMA_Q_STRIDE = MMA_SLOT_DIMS + 16;     // bf16: 288 bytes, rows 8 banks apart
+constexpr int MMA_KSTEP = 16;                        // dims of one mma
+
+constexpr int MMA_ONE_WALK_NBH = 4;                  // int4 walks once up to D = 1024 ...
+template <int QT>
+__host__ __device__ constexpr int mma_q_rows() { return (QT + 7) / 8 * 8; }  // whole n8 tiles
+template <int QT>
+__host__ __device__ constexpr int mma_q_planes() { return QT <= 8 ? 2 : 1; }  // ... at one n8 tile
+template <int QT>
+__host__ __device__ constexpr int mma_stage_bytes() {
+  return PASS_ROWS * MMA_ROW_STRIDE + mma_q_planes<QT>() * mma_q_rows<QT>() * MMA_Q_STRIDE *
+                                          static_cast<int>(sizeof(__nv_bfloat16));
+}
+
+// A sweep's ring slot: the fma order's (score_passes) or the mma order's.
+// Both orders' sweeps run SWEEP_STAGES slots and SWEEP_BLOCKS_PER_SM blocks
+// an SM: on an H100 at 21M int8/int4 rows, 3 or 4 slots, or 2 at one block
+// an SM, were no faster at Q = 8, 32 or 256 (PERF.md §6,
+// tools/time_quantized_kernels.py).
+template <typename F, int QT>
+__host__ __device__ constexpr int sweep_stage_bytes() {
+  if constexpr (F::QUANT) {
+    return mma_stage_bytes<QT>();
+  } else {
+    return pass_stage_bytes<typename F::T, QT>();
+  }
+}
+
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+// a + c on two bf16 values, as a * 1 + c (exact wherever the sum is)
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(0x3f803f80u), "r"(c));
+  return d;
+}
+
+// The decode: four codes of a row (bytes 0-3 of w, dims 4 t .. 4 t + 3 of a
+// k-step) as two bf16x2 operands, lo = dims 4 t, 4 t + 1 and hi = 4 t + 2,
+// 4 t + 3 (the earlier dim in the lower half). Exact, in integer and bf16
+// operations (tests/test_torch_quant_decode.py restates them):
+//   int8 code c, bits m = c & 0x7f and sign bit b7: the bf16 0x4300 | m is
+//     128 + m, and 0xC300 | b7 << 7 is -128 or -256, so their sum is c;
+//   int4 nibble n (plane 0: the low nibble, 1: the high one): the bf16
+//     0x4280 | 2 n is 64 + n, and 64 + n - 71.5 is the level n - 7.5.
+// prmt's selector 0x4140 puts bytes 0 and 1 of its first operand under a
+// byte of its second (0x4342: bytes 2 and 3).
+__device__ __forceinline__ void decode_i8(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t m = w & 0x7f7f7f7fu;
+  const uint32_t b7 = w & 0x80808080u;
+  lo = bf16x2_add(prmt(m, 0x43434343u, 0x4140u), prmt(b7, 0xC3C3C3C3u, 0x4140u));
+  hi = bf16x2_add(prmt(m, 0x43434343u, 0x4342u), prmt(b7, 0xC3C3C3C3u, 0x4342u));
+}
+__device__ __forceinline__ void decode_i4(uint32_t w, int plane, uint32_t& lo, uint32_t& hi) {
+  const uint32_t x = ((plane ? w >> 3 : w << 1) & 0x1e1e1e1eu) | 0x80808080u;  // 0x80 | 2 n
+  lo = bf16x2_add(prmt(x, 0x42424242u, 0x4140u), 0xC28FC28Fu);  // + (-71.5, -71.5)
+  hi = bf16x2_add(prmt(x, 0x42424242u, 0x4342u), 0xC28FC28Fu);
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Advance a warp's 32 rows x NT * 8 queries by the first `ksteps` k-steps
+// of one slot: `crows` is the warp's first row in the slot (stride
+// MMA_ROW_STRIDE), `qs` the slot's first query row (stride MMA_Q_STRIDE).
+// Lane (g, t) = (lane / 4, lane % 4) reads word t of each k-step of rows g,
+// g + 8, g + 16, g + 24 and four dims of query g of each n8 tile.
+// acc[m][n] is the D fragment of m16 tile m and n8 tile n.
+template <bool kInt4, int NT>
+__device__ __forceinline__ void mma_slot(float (&acc)[2][NT][4], const uint8_t* crows,
+                                         const __nv_bfloat16* qs, int ksteps, int plane,
+                                         int lane) {
+  const uint8_t* c = crows + (lane / 4) * MMA_ROW_STRIDE + 4 * (lane % 4);
+  const __nv_bfloat16* qv = qs + (lane / 4) * MMA_Q_STRIDE + 4 * (lane % 4);
+#pragma unroll
+  for (int ks = 0; ks < MMA_SLOT_DIMS / MMA_KSTEP; ++ks) {
+    if (ks >= ksteps) break;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // a[h]: rows g (+ 8 h), k-slots 2 t..; a[2 + h]: 2 t + 8..
+        const uint32_t w =
+            *reinterpret_cast<const uint32_t*>(c + (16 * m + 8 * h) * MMA_ROW_STRIDE +
+                                               MMA_KSTEP * ks);
+        if constexpr (kInt4) {
+          decode_i4(w, plane, a[m][h], a[m][2 + h]);
+        } else {
+          decode_i8(w, a[m][h], a[m][2 + h]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const uint2 b = *reinterpret_cast<const uint2*>(qv + n * 8 * MMA_Q_STRIDE + MMA_KSTEP * ks);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) mma_bf16(acc[m][n], a[m], b.x, b.y);
+    }
+  }
+}
+
+// int4's one walk: the k-steps of one slot for both planes at once, each
+// loaded word decoded twice: plane 0 into lo's chain (against the queries'
+// low-plane dims at qs_lo), plane 1 into hi's (qs_hi). Each chain is
+// mma_slot's for its plane.
+template <int NT>
+__device__ __forceinline__ void mma_slot_planes(float (&lo)[2][NT][4], float (&hi)[2][NT][4],
+                                                const uint8_t* crows,
+                                                const __nv_bfloat16* qs_lo,
+                                                const __nv_bfloat16* qs_hi, int lane) {
+  const uint8_t* c = crows + (lane / 4) * MMA_ROW_STRIDE + 4 * (lane % 4);
+  const int q_off = (lane / 4) * MMA_Q_STRIDE + 4 * (lane % 4);
+#pragma unroll 2  // fuller unrolling spills (ptxas -v)
+  for (int ks = 0; ks < MMA_SLOT_DIMS / MMA_KSTEP; ++ks) {
+    uint32_t w[2][2];  // rows g + 16 m + 8 h
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        w[m][h] = *reinterpret_cast<const uint32_t*>(c + (16 * m + 8 * h) * MMA_ROW_STRIDE +
+                                                     MMA_KSTEP * ks);
+      }
+    }
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane) {  // one plane's operands live at a time
+      uint32_t a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) decode_i4(w[m][h], plane, a[m][h], a[m][2 + h]);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const uint2 b = *reinterpret_cast<const uint2*>((plane ? qs_hi : qs_lo) + q_off +
+                                                        n * 8 * MMA_Q_STRIDE + MMA_KSTEP * ks);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma_bf16(plane ? hi[m][n] : lo[m][n], a[m], b.x, b.y);
+      }
+    }
+  }
+}
+
+// acc = p * scale (first) or acc + p * scale, each product and sum rounded
+// on its own: the int4 fold of one block.
+template <int NT>
+__device__ __forceinline__ void fold_block(float (&acc)[2][NT][4], const float (&p)[2][NT][4],
+                                           const float (&bs)[2][2], bool first) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = __fmul_rn(p[m][n][e], bs[m][e / 2]);
+        acc[m][n][e] = first ? v : __fadd_rn(acc[m][n][e], v);
+      }
+    }
+  }
+}
+
+// The f32 values at p[(r0 + 16 m + 8 h) * stride] for the lane's four rows
+// (D fragment element e of m16 tile m is row g + 8 (e / 2)); zeros when !live.
+__device__ __forceinline__ void lane_row_values(float (&v)[2][2], const float* __restrict__ p,
+                                                int64_t r0, int stride, bool live) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) v[m][h] = live ? p[(r0 + 16 * m + 8 * h) * stride] : 0.f;
+  }
+}
+
+// One slot of a pass in the mma order: int8 advances the row's one chain by
+// the slot's k-steps (the dims of slot s that lie below d); int4 forms block
+// s's partial (8 k-steps; blocks 0 .. NB/2 - 1 are the low plane's, the row's
+// bytes walked once for each plane) and folds it in with the lane's block
+// scales bs: s = p_0 * scale_0, then s = s + p_b * scale_b.
+template <bool kInt4, int NT>
+__device__ __forceinline__ void mma_slot_fold(float (&acc)[2][NT][4], const uint8_t* crows,
+                                              const __nv_bfloat16* qs, int s, int d,
+                                              const float (&bs)[2][2], int lane) {
+  if constexpr (kInt4) {
+    float p[2][NT][4] = {};
+    const int nbh = d / (2 * INT4_BLOCK);
+    mma_slot<true, NT>(p, crows, qs, MMA_SLOT_DIMS / MMA_KSTEP, s >= nbh, lane);
+    fold_block<NT>(acc, p, bs, s == 0);
+  } else {
+    mma_slot<false, NT>(acc, crows, qs, min(MMA_SLOT_DIMS, d - s * MMA_SLOT_DIMS) / MMA_KSTEP,
+                        0, lane);
+  }
+}
+
+// int8's last step: s = s * row_scale.
+template <int NT>
+__device__ __forceinline__ void scale_rows(float (&acc)[2][NT][4], const float (&rs)[2][2]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = __fmul_rn(acc[m][n][e], rs[m][e / 2]);
+    }
+  }
+}
+
+// Slots a pass walks: int8 ceil(D / 128); int4 D / 256 in one walk, D / 128
+// in two (the row's D / 2 bytes once for each plane).
+__host__ __device__ inline int mma_slots(bool int4, bool one_walk, int d) {
+  return int4 ? d / MMA_SLOT_DIMS / (one_walk ? 2 : 1) : (d + MMA_SLOT_DIMS - 1) / MMA_SLOT_DIMS;
+}
+
+// Start copying slot s of a pass into `slot`: bytes [128 c, 128 c + 128) of
+// the pass's rows (group gl's rows from row0[gl]; row0 < 0: a dead group, its
+// rows zeros) and the dims [qd0, qd0 + 128) of query rows [q0, min(q0 +
+// mma_q_rows, n_q)) (bf16, row stride d; rows past n_q and dims past d are
+// zeros), and when qd1 >= 0 the dims [qd1, qd1 + 128) into the second query
+// plane. All THREADS threads issue (index t), eight neighbours on one row's
+// 128 bytes.
+template <int QT>
+__device__ __forceinline__ void issue_mma_stage(char* slot, const uint8_t* __restrict__ corpus,
+                                                int64_t row0_a, int64_t row0_b, int row_bytes,
+                                                int c0, const __nv_bfloat16* __restrict__ q,
+                                                int q0, int n_q, int d, int qd0, int qd1,
+                                                int t) {
+  constexpr int VPR = MMA_SLOT_BYTES / 16;  // vectors a row: 8
+  constexpr int RPI = THREADS / VPR;        // rows an issue round: 32
+  const int v = (t % VPR) * 16;
+  const bool col_ok = c0 + v < row_bytes;
+#pragma unroll
+  for (int m = 0; m < PASS_ROWS / RPI; ++m) {
+    const int r = t / VPR + m * RPI;  // group r / LANES, known per m at compile time
+    const int64_t g0 = m < LANES / RPI ? row0_a : row0_b;
+    const bool valid = col_ok && g0 >= 0;
+    const uint8_t* src =
+        valid ? corpus + (g0 + r % LANES) * static_cast<int64_t>(row_bytes) + c0 + v : corpus;
+    cp_async16(slot + r * MMA_ROW_STRIDE + v, src, valid);
+  }
+  constexpr int QV = MMA_SLOT_DIMS / 8;  // 16-byte vectors of a query row's slice
+  constexpr int QR = mma_q_rows<QT>();
+  __nv_bfloat16* qtile = reinterpret_cast<__nv_bfloat16*>(slot + PASS_ROWS * MMA_ROW_STRIDE);
+  const int planes = qd1 >= 0 ? 2 : 1;
+  for (int i = t; i < planes * QR * QV; i += THREADS) {
+    const int r = i / QV;  // plane r / QR, query row r % QR
+    const int e = (i % QV) * 8;
+    const int dim = (r < QR ? qd0 : qd1) + e;
+    const bool valid = q0 + r % QR < n_q && dim < d;
+    const __nv_bfloat16* src = valid ? q + static_cast<int64_t>(q0 + r % QR) * d + dim : q;
+    cp_async16(qtile + r * MMA_Q_STRIDE + e, src, valid);
+  }
+}
+
+// Score `passes` passes of an int8 or packed-int4 corpus (row bytes d or
+// d / 2; `scales` [rows] or [rows][d / 128]) in the mma order, through an
+// NS-slot cp.async ring at `ring` that runs on across passes: pass p holds
+// group gl (0, 1) from corpus row row_of(p, gl), or none when that is
+// negative, against queries [q0, q0 + 4 J) (bf16, row stride d; rows past
+// n_q score as zero queries). After each pass, epi(p, out) gets the scores
+// in score_passes' epilogue layout: out[i][j] for row 32 i + lane of the
+// pass's group w / 4 and tile query (w % 4) J + j. Every thread of the block
+// calls it, so it may synchronise the block; a dead group's scores are
+// garbage. Warps of a dead group skip the mmas.
+template <typename F, int J, int NS, typename RowOf, typename Epi>
+__device__ __forceinline__ void mma_passes(const uint8_t* __restrict__ corpus,
+                                           const float* __restrict__ scales, int passes,
+                                           RowOf&& row_of, const __nv_bfloat16* q, int q0,
+                                           int n_q, int d, char* ring, Epi&& epi) {
+  static_assert(F::QUANT, "the mma order scores int8 and int4 corpora");
+  constexpr bool kInt4 = F::INT4;
+  constexpr int QT = 4 * J;
+  constexpr int NT = mma_q_rows<QT>() / 8;
+  constexpr int STAGE = mma_stage_bytes<QT>();
+  constexpr int TS = QT + 1;  // the transpose's row of scores, odd: reads are conflict free
+  static_assert(PASS_ROWS * TS * 4 <= PASS_ROWS * MMA_ROW_STRIDE, "the transpose fits a slot");
+  const int t = threadIdx.x;
+  const int w = t / 32;
+  const int lane = t % 32;
+  const int row_bytes = kInt4 ? d / 2 : d;
+  const int nbh = d / (2 * INT4_BLOCK);  // int4: blocks of one plane
+  // int4 in one walk: a single n8 tile and D <= 1024 (see above)
+  const bool one_walk = kInt4 && mma_q_planes<QT>() == 2 && nbh <= MMA_ONE_WALK_NBH;
+  const int n_slots = mma_slots(kInt4, one_walk, d);
+  const int total = passes * n_slots;
+  auto issue = [&](int k) {  // flat slot k = pass * n_slots + slot
+    if (k < total) {
+      const int p = k / n_slots;
+      const int s = k - p * n_slots;
+      const int c = kInt4 && !one_walk && s >= nbh ? s - nbh : s;  // the slot's bytes
+      const int qd0 = (kInt4 && !one_walk && s >= nbh ? d / 2 : 0) + c * MMA_SLOT_DIMS;
+      issue_mma_stage<QT>(ring + (k % NS) * STAGE, corpus, row_of(p, 0), row_of(p, 1),
+                          row_bytes, c * MMA_SLOT_BYTES, q, q0, n_q, d, qd0,
+                          one_walk ? d / 2 + c * MMA_SLOT_DIMS : -1, t);
+    }
+    cp_async_commit();  // one group per slot, empty or not: the waits count them
+  };
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) issue(s);
+  int k = 0;
+  for (int p = 0; p < passes; ++p) {
+    const int64_t g0 = row_of(p, w / 4);
+    const bool mine = g0 >= 0;
+    const int64_t r0 = g0 + (w % 4) * 32 + lane / 4;  // the lane's rows: r0 + 16 m + 8 h
+    float acc[2][NT][4] = {};
+    float sc[2][2];  // int8: the row scales; int4: block s's
+    if constexpr (!kInt4) lane_row_values(sc, scales, r0, 1, mine);
+    auto slot_rows = [&](int kk) {
+      return reinterpret_cast<const uint8_t*>(ring + (kk % NS) * STAGE) + w * 32 * MMA_ROW_STRIDE;
+    };
+    auto slot_queries = [&](int kk, int plane) {
+      return reinterpret_cast<const __nv_bfloat16*>(ring + (kk % NS) * STAGE +
+                                                    PASS_ROWS * MMA_ROW_STRIDE) +
+             plane * mma_q_rows<QT>() * MMA_Q_STRIDE;
+    };
+    if constexpr (kInt4 && mma_q_planes<QT>() == 2) {
+      if (one_walk) {
+        // slot s: low block s, folded now, and high block nbh + s, kept
+        float hi[MMA_ONE_WALK_NBH][2][NT][4];
+#pragma unroll
+        for (int s = 0; s < MMA_ONE_WALK_NBH; ++s) {
+          if (s >= n_slots) break;  // the same in every thread
+          lane_row_values(sc, scales + s, r0, 2 * nbh, mine);
+          cp_async_wait<NS - 2>();
+          __syncthreads();
+          issue(k + NS - 1);
+          if (mine) {
+            float lo[2][NT][4] = {};
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+#pragma unroll
+              for (int n = 0; n < NT; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) hi[s][m][n][e] = 0.f;
+              }
+            }
+            mma_slot_planes<NT>(lo, hi[s], slot_rows(k), slot_queries(k, 0),
+                                slot_queries(k, 1), lane);
+            fold_block<NT>(acc, lo, sc, s == 0);
+          }
+          ++k;
+        }
+        if (mine) {
+#pragma unroll
+          for (int s = 0; s < MMA_ONE_WALK_NBH; ++s) {
+            if (s < n_slots) {
+              lane_row_values(sc, scales + nbh + s, r0, 2 * nbh, true);
+              fold_block<NT>(acc, hi[s], sc, false);
+            }
+          }
+        }
+      }
+    }
+    for (int s = 0; s < (one_walk ? 0 : n_slots); ++s, ++k) {
+      if constexpr (kInt4) lane_row_values(sc, scales + s, r0, 2 * nbh, mine);  // block s
+      cp_async_wait<NS - 2>();  // this thread's copies of slot k have landed
+      __syncthreads();          // everyone's have; slot k - 1 is no longer read
+      issue(k + NS - 1);
+      if (mine) mma_slot_fold<kInt4, NT>(acc, slot_rows(k), slot_queries(k, 0), s, d, sc, lane);
+    }
+    if constexpr (!kInt4) {
+      if (mine) scale_rows<NT>(acc, sc);
+    }
+    // The transpose, through the slot just read: no copy lands there before
+    // the next pass's first barrier.
+    __syncthreads();
+    float* tb = reinterpret_cast<float*>(ring + ((k - 1) % NS) * STAGE);
+    if (mine) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * n + 2 * (lane % 4) + e % 2;
+            if (col < QT) tb[(32 * w + 16 * m + lane / 4 + 8 * (e / 2)) * TS + col] = acc[m][n][e];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    float out[PASS_R][J];
+#pragma unroll
+    for (int i = 0; i < PASS_R; ++i) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) out[i][j] = tb[((w / 4) * LANES + 32 * i + lane) * TS + (w % 4) * J + j];
+    }
+    epi(p, out);
+  }
+}
+
+// The sweeps' scoring (K1, K5, K7a): n_groups groups from corpus row row_base,
+// two a pass, against queries [q0, q0 + 4 J) (f32 for a float corpus, bf16
+// for int8/int4), in the format's order; epi(p, live, acc) as score_passes'.
+template <typename F, int J, int NS, typename Epi>
+__device__ __forceinline__ void sweep_passes(const void* corpus, const float* scales,
+                                             int64_t row_base, int n_groups, const void* q,
+                                             int q0, int n_q, int d, char* ring, Epi&& epi) {
+  if constexpr (F::QUANT) {
+    mma_passes<F, J, NS>(
+        static_cast<const uint8_t*>(corpus), scales, (n_groups + 1) / 2,
+        [=](int p, int gl) -> int64_t {
+          const int g = 2 * p + gl;
+          return g < n_groups ? row_base + static_cast<int64_t>(g) * LANES : -1;
+        },
+        static_cast<const __nv_bfloat16*>(q), q0, n_q, d, ring,
+        [&](int p, auto& out) { epi(p, min(2, n_groups - 2 * p), out); });
+  } else {
+    score_passes<typename F::T, J, NS>(static_cast<const typename F::T*>(corpus), row_base,
+                                       n_groups, static_cast<const float*>(q), q0, n_q, d, ring,
+                                       epi);
+  }
+}
+
 // True when `splits` ranges of `gpb` groups cover a chunk of g_count groups,
 // the last range holding 1 .. gpb of them (kernels/exact.py's search_plan).
 inline bool sweep_cut_fits(int g_count, int splits, int gpb) {
@@ -748,11 +1087,12 @@ __device__ __forceinline__ void stage_queries(float* q_s, const float* __restric
 }
 
 // Call fn(Fmt{}) with the format of `kind` (0 float32, 1 bfloat16, 2 int8,
-// 3 packed int4 of depth d = 256 * NBH, NBH = 1 .. 8, so D = 256 .. 2048;
-// 4 + log2(DS) pq4 with DS = D / m in {1, 2, 4, 8}, when kPQ);
-// cudaErrorInvalidValue for anything else. At NBH = 8 a thread keeps 8 x NQ
-// high-plane partials and 16 scales in registers, at DS = 8 pq4 keeps
-// 16 x NQ partials (ptxas -v reports any spill).
+// 3 packed int4 of depth d = 256 .. MAX_INT4_DIM in steps of 256; 4 +
+// log2(DS) pq4 with DS = D / m in {1, 2, 4, 8}, when kPQ);
+// cudaErrorInvalidValue for anything else. At DS = 8 pq4 keeps 16 x NQ
+// partials in registers (ptxas -v reports any spill).
+constexpr int MAX_INT4_DIM = 2048;
+
 template <bool kPQ = true, typename Fn>
 cudaError_t with_format(int kind, int d, Fn&& fn) {
   if (kind >= 4 && kind <= 7) {
@@ -776,29 +1116,11 @@ cudaError_t with_format(int kind, int d, Fn&& fn) {
     case 1:
       return fn(BF16{});
     case 2:
+      if (d % MMA_KSTEP != 0) return cudaErrorInvalidValue;
       return fn(I8{});
     case 3:
-      if (d % 256 != 0) return cudaErrorInvalidValue;
-      switch (d / 256) {
-        case 1:
-          return fn(I4<1>{});
-        case 2:
-          return fn(I4<2>{});
-        case 3:
-          return fn(I4<3>{});
-        case 4:
-          return fn(I4<4>{});
-        case 5:
-          return fn(I4<5>{});
-        case 6:
-          return fn(I4<6>{});
-        case 7:
-          return fn(I4<7>{});
-        case 8:
-          return fn(I4<8>{});
-        default:
-          return cudaErrorInvalidValue;
-      }
+      if (d % 256 != 0 || d < 256 || d > MAX_INT4_DIM) return cudaErrorInvalidValue;
+      return fn(I4{});
     default:
       return cudaErrorInvalidValue;
   }

@@ -11,26 +11,28 @@
 //          ("single_strided"), or not at all (scores == null, "twopass" pass A).
 // The maxima are masked, the scores are not (the tail masks rows by row id).
 //
-// What bounds it on the H100: the same Q x N x D fmas as K1
-// (stream_capture.cu) on the CUDA cores, plus the score write, 4 * Q * N
-// bytes (128 MB at 1M rows and Q = 32 against the f32 corpus's 4 GB; 2.7 GB
-// at 21M rows, where an int4 corpus's codes are 10.8 GB), so the fmas or the
-// corpus read bound it, not the write.
+// What bounds it on the H100: the same 2 Q N D operations and corpus read as
+// K1 (stream_capture.cu; float corpora on the CUDA cores, int8 and int4 ones
+// on the tensor cores), plus the score write, 4 * Q * N bytes (128 MB at 1M
+// rows and Q = 32 against the f32 corpus's 4 GB; 2.7 GB at 21M rows, where
+// an int4 corpus's codes are 10.8 GB), so the operations or the corpus read
+// bound it, not the write.
 //
 // What the design does about it: K1's first launch with a store in place of
-// its capture. Float32 and bfloat16 corpora: one block per (query tile of
-// 4-32 queries, chunk, range of the chunk's groups), cut by
-// kernels/exact.py's search_plan, scoring through score.cuh's score_passes
-// (a register tile of 4 rows x up to 8 queries a thread, queries staged with
-// the rows); per pass each warp holds one group for its queries, so it
-// reduces the group's masked maximum itself and stores its scores 128
-// consecutive bytes an instruction. Quantized corpora keep the one block per
-// (query tile of 4 or 8, chunk) walking its groups through score_group, a
-// warp's 32 rows one coalesced 128-byte store. Because every score comes
-// from score.cuh's one
-// fma order, the scores are bitwise K1's and K2's for the same rows, and the
-// maxima bitwise K1's (before its clamp), so every impl of the exact search
-// selects the same groups and returns the same values.
+// its capture. Float32, bfloat16, int8 and int4 corpora: one block per
+// (query tile of 4-32 queries, chunk, range of the chunk's groups), cut by
+// kernels/exact.py's search_plan, scoring through score.cuh's sweep_passes
+// (float: score_passes, a register tile of 4 rows x up to 8 queries a
+// thread; int8/int4: mma_passes, the tensor cores, the scores transposed
+// into the same layout); per pass each warp holds one group for its
+// queries, so it reduces the group's masked maximum itself and stores its
+// scores 128 consecutive bytes an instruction. pq4 corpora keep the one
+// block per (query tile of 4 or 8, chunk) walking its groups through
+// score_group, a warp's 32 rows one coalesced 128-byte store. Because every
+// score comes from score.cuh's one order for its format, the scores are
+// bitwise K1's and K2's for the same rows, and the maxima bitwise K1's
+// (before its clamp), so every impl of the exact search selects the same
+// groups and returns the same values.
 #include "score.cuh"
 
 using namespace kirag;
@@ -39,6 +41,7 @@ namespace {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
+// pq4 corpora: see the header note.
 template <typename F, int QPT>
 __global__ void __launch_bounds__(THREADS)
     score_gmax_kernel(const float* __restrict__ q, const typename F::T* __restrict__ corpus,
@@ -120,12 +123,13 @@ cudaError_t launch(const float* q, const void* corpus, const float* scales, floa
   return cudaGetLastError();
 }
 
-// Float corpora: block x = (chunk * splits + split) * q_tiles + query tile,
-// as K1's capture_sweep_kernel. Shared memory: the ring.
-template <typename T, int J>
+// Float, int8 and int4 corpora: block x = (chunk * splits + split) * q_tiles
+// + query tile, as K1's capture_sweep_kernel. Shared memory: the ring.
+template <typename F, int J>
 __global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
-    score_sweep_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
-                       float* __restrict__ scores, float* __restrict__ gmax, int n_q, int d,
+    score_sweep_kernel(const void* __restrict__ q, const void* __restrict__ corpus,
+                       const float* __restrict__ scales, float* __restrict__ scores,
+                       float* __restrict__ gmax, int n_q, int d,
                        int chunk_size, int64_t valid_rows, int64_t s_chunk, int64_t s_q,
                        int q_tiles, int splits, int gpb) {
   constexpr int QT = 4 * J;
@@ -161,18 +165,18 @@ __global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
       }
     }
   };
-  score_passes<T, J, NS>(corpus, chunk_row0 + static_cast<int64_t>(g_begin) * LANES,
-                         min(gpb, g_count - g_begin), q,
-                         (blockIdx.x % q_tiles) * QT, n_q, d, smem_raw, epilogue);
+  sweep_passes<F, J, NS>(corpus, scales, chunk_row0 + static_cast<int64_t>(g_begin) * LANES,
+                         min(gpb, g_count - g_begin), q, (blockIdx.x % q_tiles) * QT, n_q, d,
+                         smem_raw, epilogue);
 }
 
-template <typename T, int J>
-cudaError_t launch_float(const float* q, const void* corpus, float* scores, float* gmax,
-                         int n_q, int d, int num_chunks, int chunk_size, int64_t valid_rows,
-                         int64_t s_chunk, int64_t s_q, int splits, int gpb, int plan_smem,
-                         cudaStream_t stream) {
+template <typename F, int J>
+cudaError_t launch_sweep(const void* q, const void* corpus, const float* scales, float* scores,
+                         float* gmax, int n_q, int d, int num_chunks, int chunk_size,
+                         int64_t valid_rows, int64_t s_chunk, int64_t s_q, int splits, int gpb,
+                         int plan_smem, cudaStream_t stream) {
   constexpr int QT = 4 * J;
-  const size_t smem = static_cast<size_t>(SWEEP_STAGES) * pass_stage_bytes<T, QT>();
+  const size_t smem = static_cast<size_t>(SWEEP_STAGES) * sweep_stage_bytes<F, QT>();
   if (!sweep_cut_fits(chunk_size / LANES, splits, gpb) ||
       smem != static_cast<size_t>(plan_smem)) {
     return cudaErrorInvalidValue;
@@ -180,7 +184,7 @@ cudaError_t launch_float(const float* q, const void* corpus, float* scores, floa
   const int q_tiles = (n_q + QT - 1) / QT;
   const int64_t blocks = static_cast<int64_t>(q_tiles) * num_chunks * splits;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = score_sweep_kernel<T, J>;
+  auto kernel = score_sweep_kernel<F, J>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
@@ -188,21 +192,22 @@ cudaError_t launch_float(const float* q, const void* corpus, float* scores, floa
     return err;
   }
   kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      q, static_cast<const T*>(corpus), scores, gmax, n_q, d, chunk_size, valid_rows, s_chunk,
-      s_q, q_tiles, splits, gpb);
+      q, corpus, scales, scores, gmax, n_q, d, chunk_size, valid_rows, s_chunk, s_q, q_tiles,
+      splits, gpb);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Queries f32 [n_q, d]; corpus [num_chunks * chunk_size, *] in the format of
-// `kind` with its `scales` (as kirag_stream_capture's); scores null or f32
-// with the strides s_chunk, s_q (see the header note); gmax f32
-// [num_chunks, chunk_size / 128, n_q]. Float corpora (kind 0, 1) take
-// search_plan's cut (q_tile, splits, gpb, smem, as kirag_stream_capture's),
-// quantized ones qpt in {2, 4} queries per thread (2 * qpt queries a block).
-// Returns the launch's cudaError_t.
-extern "C" int kirag_score_gmax(const float* q, const void* corpus, int kind,
+// Queries [n_q, d] (f32, or bf16 for int8 and int4 corpora); corpus
+// [num_chunks * chunk_size, *] in the format of `kind` with its `scales` (as
+// kirag_stream_capture's); scores null or f32 with the strides s_chunk, s_q
+// (see the header note); gmax f32 [num_chunks, chunk_size / 128, n_q].
+// Float, int8 and int4 corpora (kind 0-3) take search_plan's cut (q_tile,
+// splits, gpb, smem, as kirag_stream_capture's), pq4 ones qpt in {2, 4}
+// queries per thread (2 * qpt queries a block). Returns the launch's
+// cudaError_t.
+extern "C" int kirag_score_gmax(const void* q, const void* corpus, int kind,
                                 const float* scales, float* scores, float* gmax, int n_q, int d,
                                 int num_chunks, int chunk_size, long long valid_rows,
                                 long long s_chunk, long long s_q, int qpt, int q_tile,
@@ -210,20 +215,20 @@ extern "C" int kirag_score_gmax(const float* q, const void* corpus, int kind,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_format(kind, d, [&](auto fmt) {
     using F = decltype(fmt);
-    using T = typename F::T;
-    if constexpr (std::is_same<F, F32>::value || std::is_same<F, BF16>::value) {
+    if constexpr (F::DS == 0) {
       return with_query_tile(q_tile, [&](auto j) {
-        return launch_float<T, decltype(j)::value>(q, corpus, scores, gmax, n_q, d, num_chunks,
-                                                   chunk_size, valid_rows, s_chunk, s_q,
-                                                   splits, gpb, smem, s);
+        return launch_sweep<F, decltype(j)::value>(q, corpus, scales, scores, gmax, n_q, d,
+                                                   num_chunks, chunk_size, valid_rows, s_chunk,
+                                                   s_q, splits, gpb, smem, s);
       });
     } else {
+      const float* qf = static_cast<const float*>(q);
       switch (qpt) {
         case 2:
-          return launch<F, 2>(q, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
+          return launch<F, 2>(qf, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
                               valid_rows, s_chunk, s_q, s);
         case 4:
-          return launch<F, 4>(q, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
+          return launch<F, 4>(qf, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
                               valid_rows, s_chunk, s_q, s);
         default:
           return cudaErrorInvalidValue;

@@ -13,22 +13,29 @@
 //   resid  [C, 1, Q] f32  the largest maximum not captured (-inf when B == G)
 // Captured scores stay raw (the tail masks invalid rows by row id).
 //
-// What bounds it on the H100: the dot products run on the CUDA cores in f32
-// (Q x N x D fmas: 67 GFLOP at 1M x 1024 and Q = 32, 1.0 ms at the f32 peak)
-// against one read of the corpus (4 GB f32 at 3.35 TB/s, 1.24 ms; bf16 half).
-// Tensor cores are out: TF32 would round the products, and every kernel must
-// keep score.cuh's one fma order. A quantized corpus moves 4x (int8), 8x
-// (int4) or 32x (pq4 at m = D / 4) fewer bytes for the same fmas, plus the
-// decode of each code, so it is bound by the CUDA cores even more.
+// What bounds it on the H100: one read of the corpus against 2 Q N D
+// operations. A float corpus scores in score.cuh's fma order on the CUDA
+// cores (67 GFLOP at 1M x 1024 and Q = 32, 1.0 ms at the f32 peak) against
+// 4 GB of f32 (1.24 ms at 3.35 TB/s; bf16 half); tensor cores are out for it,
+// since TF32 would round the products. An int8 or packed-int4 corpus (K4)
+// moves 4x or 8x fewer bytes, and its codes and levels are exact in bf16, so
+// it scores on the tensor cores in score.cuh's mma order: at 21M x 1024 its
+// bytes bound it up to Q = 32 (int8 6.4 ms, int4 3.4 ms), its bf16
+// operations at Q = 256 (11 TFLOP, 11.1 ms at 989 TFLOP/s), and the decode
+// of every code for each query tile sits between the two.
 //
-// What the design does about it, float32 and bfloat16 corpora (two launches
-// a call, cut by kernels/exact.py's `search_plan`):
+// What the design does about it, float32, bfloat16, int8 and int4 corpora
+// (two launches a call, cut by kernels/exact.py's `search_plan`):
 //   1. capture_sweep_kernel: one block per (query tile of 4-32 queries,
 //      chunk, range of the chunk's groups), enough blocks to fill the card at
-//      any Q and corpus size. It runs score.cuh's score_passes (a register
-//      tile of 4 rows x up to 8 queries a thread: 128 fmas per 12 shared
-//      loads at 32 queries; queries staged with the rows, 128 bytes of each
-//      row at a time), so a chunk is read from HBM once for up to 32 queries.
+//      any Q and corpus size. A float corpus runs score.cuh's score_passes (a
+//      register tile of 4 rows x up to 8 queries a thread: 128 fmas per 12
+//      shared loads at 32 queries; queries staged with the rows, 128 bytes of
+//      each row at a time); an int8 or int4 corpus runs mma_passes (a warp
+//      32 rows x the tile's queries on mma.sync, each code decoded once for
+//      the block, 128 bytes of each row and the tile's bf16 queries a slot,
+//      the scores transposed into score_passes' layout through shared
+//      memory), so a chunk is read from HBM once for up to 32 queries.
 //      Per pass it writes the clamped group maxima and keeps, for each query,
 //      the scores of its range's top-`slots` groups in a scratch
 //      [C, splits, Q, slots, 128] (every group when slots = its groups; else
@@ -39,14 +46,14 @@
 //   2. peel_capture_kernel: one warp per (chunk, query) peels B groups from
 //      the maxima, writes gids, capmax and resid, and copies each captured
 //      group's 128 scores out of the scratch (one 16-byte vector a lane).
-// Quantized corpora keep the single launch of stream_capture_kernel: one
+// A pq4 corpus keeps the single launch of stream_capture_kernel: one
 // block per (query tile of 4 or 8, chunk), the groups walked in order
 // through score_group, the [tile, G] maxima kept in shared memory, B groups
 // peeled per query (one warp each), then those B groups re-scored to write
 // their raw scores.
-// All scores come from score.cuh's one fma order, so capture, re-score and
-// the fallback gather agree bitwise, and the strict check `kth > resid` of
-// the tail is taken on the values it returns.
+// Every score of a format comes from score.cuh's one order for it, so
+// capture, re-score and the fallback gather agree bitwise, and the strict
+// check `kth > resid` of the tail is taken on the values it returns.
 #include <algorithm>
 
 #include "score.cuh"
@@ -62,6 +69,7 @@ __device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+// pq4 corpora: see the header note.
 template <typename F, int QPT>
 __global__ void __launch_bounds__(THREADS)
     stream_capture_kernel(const float* __restrict__ q, const typename F::T* __restrict__ corpus,
@@ -215,7 +223,7 @@ cudaError_t launch(const float* q, const void* corpus, const float* scales, floa
   return cudaGetLastError();
 }
 
-// ------------------------------------------------ float corpora: two launches
+// ------------------------------------------------ float, int8 and int4 corpora: two launches
 
 // The worst of n held groups by the peel's order: the smallest maximum,
 // ties to the higher group id.
@@ -236,15 +244,16 @@ __device__ __forceinline__ int worst_slot(const float* v, const int* g, int n) {
 // capture's epilogue and the unpacked rows need more than two blocks' 128
 // registers a thread, and ptxas would spill, so that instantiation runs one
 // block an SM.
-template <typename T, int J>
+template <typename F, int J>
 constexpr int capture_blocks_per_sm() {
-  return sizeof(T) == 2 && J == 8 ? 1 : SWEEP_BLOCKS_PER_SM;
+  return std::is_same<F, BF16>::value && J == 8 ? 1 : SWEEP_BLOCKS_PER_SM;
 }
 
-template <typename T, int J>
-__global__ void __launch_bounds__(THREADS, (capture_blocks_per_sm<T, J>()))
-    capture_sweep_kernel(const float* __restrict__ q, const T* __restrict__ corpus,
-                         float* __restrict__ gmax, float* __restrict__ scratch,
+template <typename F, int J>
+__global__ void __launch_bounds__(THREADS, (capture_blocks_per_sm<F, J>()))
+    capture_sweep_kernel(const void* __restrict__ q, const void* __restrict__ corpus,
+                         const float* __restrict__ scales, float* __restrict__ gmax,
+                         float* __restrict__ scratch,
                          int* __restrict__ scratch_gid, int n_q, int d, int chunk_size,
                          int64_t valid_rows, int q_tiles, int splits, int gpb, int slots) {
   constexpr int QT = 4 * J;
@@ -257,7 +266,7 @@ __global__ void __launch_bounds__(THREADS, (capture_blocks_per_sm<T, J>()))
   // What only the epilogue reads is worked out there, so that it holds no
   // register through the fma loop.
   auto epilogue = [&](int p, int live, auto& acc) {
-    float* red_s = reinterpret_cast<float*>(smem_raw + NS * pass_stage_bytes<T, QT>());
+    float* red_s = reinterpret_cast<float*>(smem_raw + NS * sweep_stage_bytes<F, QT>());
     int* slot_s = reinterpret_cast<int*>(red_s + 2 * QT);
     float* held_v = reinterpret_cast<float*>(slot_s + 2 * QT);
     int* held_g = reinterpret_cast<int*>(held_v + QT * slots);
@@ -324,8 +333,9 @@ __global__ void __launch_bounds__(THREADS, (capture_blocks_per_sm<T, J>()))
       }
     }
   };
-  score_passes<T, J, NS>(corpus, static_cast<int64_t>(range / splits) * chunk_size +
-                                     static_cast<int64_t>(g_begin) * LANES,
+  sweep_passes<F, J, NS>(corpus, scales,
+                         static_cast<int64_t>(range / splits) * chunk_size +
+                             static_cast<int64_t>(g_begin) * LANES,
                          min(gpb, g_count - g_begin), q, (blockIdx.x % q_tiles) * QT, n_q, d,
                          smem_raw, epilogue);
 }
@@ -411,16 +421,16 @@ __global__ void __launch_bounds__(THREADS)
   if (lost) __trap();
 }
 
-template <typename T, int J>
-cudaError_t launch_float(const float* q, const void* corpus, float* gmax, float* capture,
-                         int* gids, float* capmax, float* resid, float* scratch,
-                         int* scratch_gid, int n_q, int d, int num_chunks, int chunk_size,
-                         int b, int64_t valid_rows, int splits, int gpb, int slots,
-                         int plan_smem, cudaStream_t stream) {
+template <typename F, int J>
+cudaError_t launch_sweep(const void* q, const void* corpus, const float* scales, float* gmax,
+                         float* capture, int* gids, float* capmax, float* resid,
+                         float* scratch, int* scratch_gid, int n_q, int d, int num_chunks,
+                         int chunk_size, int b, int64_t valid_rows, int splits, int gpb,
+                         int slots, int plan_smem, cudaStream_t stream) {
   constexpr int QT = 4 * J;
   const int g_count = chunk_size / LANES;
   const size_t smem =
-      static_cast<size_t>(SWEEP_STAGES) * pass_stage_bytes<T, QT>() +
+      static_cast<size_t>(SWEEP_STAGES) * sweep_stage_bytes<F, QT>() +
       sizeof(float) * 2 * QT + sizeof(int) * 2 * QT +
       (slots < gpb ? (sizeof(float) + sizeof(int)) * QT * slots + sizeof(int) * QT : 0);
   if (!sweep_cut_fits(g_count, splits, gpb) || slots != std::min(b, gpb) ||
@@ -432,13 +442,13 @@ cudaError_t launch_float(const float* q, const void* corpus, float* gmax, float*
   const int peel_qpb =
       std::min(8, static_cast<int>(232448 / (sizeof(float) * (g_count + b))));
   if (blocks > 0x7fffffff || peel_qpb < 1) return cudaErrorInvalidValue;
-  auto sweep = capture_sweep_kernel<T, J>;
+  auto sweep = capture_sweep_kernel<F, J>;
   cudaError_t err = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err == cudaSuccess) {
     sweep<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-        q, static_cast<const T*>(corpus), gmax, scratch, scratch_gid, n_q, d, chunk_size,
-        valid_rows, q_tiles, splits, gpb, slots);
+        q, corpus, scales, gmax, scratch, scratch_gid, n_q, d, chunk_size, valid_rows, q_tiles,
+        splits, gpb, slots);
     err = cudaGetLastError();
   }
   const size_t peel_smem = sizeof(float) * peel_qpb * (g_count + b);
@@ -459,22 +469,23 @@ cudaError_t launch_float(const float* q, const void* corpus, float* gmax, float*
 
 }  // namespace
 
-// Queries f32 [n_q, d]; corpus [num_chunks * chunk_size, *] in the format of
+// Queries [n_q, d], f32 for float32, bfloat16 and pq4 corpora and bf16 for
+// int8 and int4 ones; corpus [num_chunks * chunk_size, *] in the format of
 // `kind` (0 float32 [., d], 1 bfloat16 [., d], 2 int8 [., d] with f32 row
 // scales [rows], 3 packed int4 [., d / 2] with f32 block scales
 // [rows, d / 128], 4 + log2(d / m) 4-bit PQ codes [., m / 2] with the bf16
 // level table [m][16][d / m] (score.cuh); `scales` is null for 0 and 1);
 // outputs as in the header note.
-// Float corpora (0, 1) take search_plan's cut: q_tile in {4, 8, 16, 32}
-// queries a block, each chunk's G groups in `splits` ranges of `gpb`,
-// `slots` = min(b, gpb), and the scratch f32 [num_chunks * splits, n_q,
-// slots, 128] with, when slots < gpb, its group ids int32 [num_chunks *
+// Float, int8 and int4 corpora (0-3) take search_plan's cut: q_tile in {4, 8,
+// 16, 32} queries a block, each chunk's G groups in `splits` ranges of
+// `gpb`, `slots` = min(b, gpb), and the scratch f32 [num_chunks * splits,
+// n_q, slots, 128] with, when slots < gpb, its group ids int32 [num_chunks *
 // splits, n_q, slots] (else null), and `smem` the plan's shared memory of a
 // sweep block; a cut that does not cover the call, or whose `smem` is not
-// the launch's own, is refused. Quantized corpora take qpt in {2, 4}
-// queries per thread (2 * qpt queries a block) and no scratch. Returns the
-// first launch error.
-extern "C" int kirag_stream_capture(const float* q, const void* corpus, int kind,
+// the launch's own, is refused. pq4 corpora take qpt in {2, 4} queries per
+// thread (2 * qpt queries a block) and no scratch. Returns the first launch
+// error.
+extern "C" int kirag_stream_capture(const void* q, const void* corpus, int kind,
                                     const float* scales, float* gmax, float* capture, int* gids,
                                     float* capmax, float* resid, float* scratch,
                                     int* scratch_gid, int n_q, int d, int num_chunks,
@@ -484,21 +495,21 @@ extern "C" int kirag_stream_capture(const float* q, const void* corpus, int kind
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_format(kind, d, [&](auto fmt) {
     using F = decltype(fmt);
-    using T = typename F::T;
-    if constexpr (std::is_same<F, F32>::value || std::is_same<F, BF16>::value) {
+    if constexpr (F::DS == 0) {
       return with_query_tile(q_tile, [&](auto j) {
-        return launch_float<T, decltype(j)::value>(q, corpus, gmax, capture, gids, capmax,
-                                                   resid, scratch, scratch_gid, n_q, d,
+        return launch_sweep<F, decltype(j)::value>(q, corpus, scales, gmax, capture, gids,
+                                                   capmax, resid, scratch, scratch_gid, n_q, d,
                                                    num_chunks, chunk_size, b, valid_rows,
                                                    splits, gpb, slots, smem, s);
       });
     } else {
+      const float* qf = static_cast<const float*>(q);
       switch (qpt) {
         case 2:
-          return launch<F, 2>(q, corpus, scales, gmax, capture, gids, capmax, resid, n_q, d,
+          return launch<F, 2>(qf, corpus, scales, gmax, capture, gids, capmax, resid, n_q, d,
                               num_chunks, chunk_size, b, valid_rows, s);
         case 4:
-          return launch<F, 4>(q, corpus, scales, gmax, capture, gids, capmax, resid, n_q, d,
+          return launch<F, 4>(qf, corpus, scales, gmax, capture, gids, capmax, resid, n_q, d,
                               num_chunks, chunk_size, b, valid_rows, s);
         default:
           return cudaErrorInvalidValue;

@@ -11,9 +11,9 @@ float corpus, ``group_max_int8``/``group_max_int4`` for a quantized one.
 The corpus formats and their arithmetic are the exact search's
 (:mod:`kirag_tpu_torch.kernels.exact`, :func:`quant_scores`): K5 scores
 through the same routine as K1 and K2, so approximate and exact search see
-bitwise the same scores. A float32 or bfloat16 corpus runs K7a's sweep,
-cut by :func:`~kirag_tpu_torch.kernels.exact.search_plan` as one chunk of
-all the corpus's groups.
+bitwise the same scores. Every format runs K7a's sweep, cut by
+:func:`~kirag_tpu_torch.kernels.exact.search_plan` as one chunk of all the
+corpus's groups.
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from kirag_tpu_torch.kernels.exact import (
     _tensors,
     check_corpus,
     quant_scores,
-    score_group_qpt,
     search_plan,
 )
 
@@ -65,10 +64,10 @@ def group_max(queries: torch.Tensor, corpus: torch.Tensor, winners: int = 1,
     [Q, D]. Returns ``(gmax [Q, W, N/128] f32, gidx [Q, W, N/128] int32)``:
     per group the W largest scores, descending, and their lanes (row - 128 g),
     equal scores to the lower lane, by W rounds of a masked maximum (the
-    reference's peel). Every row is scored, pad rows too. For a float corpus
-    on the card both are ``[Q, N/128, W]`` tensors seen through
-    ``transpose(1, 2)`` (a group's W winners in consecutive words, so
-    ``transpose(1, 2).reshape(Q, -1)`` is a view); elsewhere contiguous.
+    reference's peel). Every row is scored, pad rows too. On the card both
+    are ``[Q, N/128, W]`` tensors seen through ``transpose(1, 2)`` (a
+    group's W winners in consecutive words, so ``transpose(1, 2).reshape(Q,
+    -1)`` is a view); on the CPU contiguous.
     """
     _check_group_max(queries, corpus, winners, scales, quant)
     if on_cpu(queries, *_tensors(corpus, scales)):
@@ -79,22 +78,17 @@ def group_max(queries: torch.Tensor, corpus: torch.Tensor, winners: int = 1,
     q, kind, operand = _kernel_args(queries, corpus, scales, quant)
     dev = corpus.device
     groups = corpus.shape[0] // LANES
-    shape, cut = (n_q, winners, groups), (score_group_qpt(n_q), 0, 0, 0, 0)
-    if quant == "none":  # the float sweep: search_plan's cut of one chunk
-        p = search_plan(n_q, 1, groups, corpus.element_size())
-        shape, cut = (n_q, groups, winners), (0, p.q_tile, p.splits, p.groups_per_block, p.smem)
-    gmax = torch.empty(shape, dtype=torch.float32, device=dev)
-    gidx = torch.empty(shape, dtype=torch.int32, device=dev)
+    p = search_plan(n_q, 1, groups, corpus.element_size())  # the sweep's cut of one chunk
+    gmax = torch.empty((n_q, groups, winners), dtype=torch.float32, device=dev)
+    gidx = torch.empty((n_q, groups, winners), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.kirag_group_max(
             q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand), gmax.data_ptr(),
-            gidx.data_ptr(), n_q, d, corpus.shape[0], winners, *cut,
-            torch.cuda.current_stream(dev).cuda_stream)
+            gidx.data_ptr(), n_q, d, corpus.shape[0], winners, p.q_tile, p.splits,
+            p.groups_per_block, p.smem, torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib, "group_max")
     count_launch(_launch_name("group_max", quant))
-    if quant == "none":
-        return gmax.transpose(1, 2), gidx.transpose(1, 2)
-    return gmax, gidx
+    return gmax.transpose(1, 2), gidx.transpose(1, 2)
 
 
 def group_max_plain(queries: torch.Tensor, corpus: torch.Tensor, winners: int = 1,

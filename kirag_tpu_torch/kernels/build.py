@@ -124,9 +124,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kirag_window_merge.restype = i32
     lib.kirag_group_max.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr,  # q, corpus, kind, scales, gmax, gidx
-        i32, i32, i64, i32, i32,       # n_q, d, n_rows, winners, qpt
+        i32, i32, i64, i32,            # n_q, d, n_rows, winners
         i32, i32, i32, i32, ptr]       # q_tile, splits, gpb, smem, stream
     lib.kirag_group_max.restype = i32
+    lib.kirag_score_probe.argtypes = [
+        ptr, i32, ptr, ptr, ptr,  # codes, kind, scales, queries, out
+        i32, i32, ptr]            # tiles, d, stream
+    lib.kirag_score_probe.restype = i32
     lib.kirag_flash_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,             # q, k, v, seg, out, lse (or null)
         i32, i32, i32, i32,                       # bf16, b, h, t

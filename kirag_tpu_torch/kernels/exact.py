@@ -24,7 +24,11 @@ a quantized corpus (K1, K2, K7a).
 
 The scoring kernels take a float32 or bfloat16 corpus, or a quantized one
 (K4, the in-kernel dequant of ``kirag_tpu.ops.pallas_exact._chunk_scores``),
-named by ``quant``:
+named by ``quant``. Float32, bfloat16 and pq4 corpora score in
+``csrc/score.cuh``'s fma order on the CUDA cores, int8 and int4 ones in its
+mma order on the tensor cores (codes decoded exactly to bf16; every kernel
+the same instruction over the same k-steps, so K1, K2, K5 and K7a agree
+bitwise for each format):
 
 - ``"int8"``: int8 codes [N, D] and f32 row scales [N];
 - ``"int4"``: packed uint8 [N, D/2] (byte j: dim j in the low nibble, dim
@@ -123,7 +127,7 @@ def check_corpus(corpus: torch.Tensor, scales: Optional[torch.Tensor], quant: st
         raise TypeError(f"scales must be float32, got {scales.dtype}")
 
 
-MAX_INT4_DIM = 2048  # csrc/score.cuh's with_format: int4 D = 256 * NBH, NBH = 1 .. 8
+MAX_INT4_DIM = 2048  # csrc/score.cuh's MAX_INT4_DIM: int4 D = 256 .. 2048 in steps of 256
 MAX_PQ_DIM = 2048    # pq4: the table ([m][16][D/m] bf16, 32 bytes a dim) in shared memory
 PQ_DS = (1, 2, 4, 8)  # pq4's D / m that with_format instantiates
 
@@ -175,12 +179,15 @@ def _pq_kernel_table(scales: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def _kernel_args(queries, corpus, scales, quant: str):
-    """The kernel's queries (f32; rounded to bf16 first for a quantized
-    corpus, as the reference does), format code and scales (pq4: the
-    kernels' copy of the level table, :func:`_pq_kernel_table`)."""
-    if quant == "none":  # the float sweeps copy the queries 16 bytes at a time
-        q = queries.to(torch.float32).contiguous()
-        return (q if q.data_ptr() % 16 == 0 else q.clone()), _KIND[corpus.dtype], None
+    """The kernel's queries (f32; for a quantized corpus rounded to bf16
+    first, as the reference does, and kept bf16 for int8 and int4, whose
+    kernels multiply them on the tensor cores), format code and scales (pq4:
+    the kernels' copy of the level table, :func:`_pq_kernel_table`)."""
+    if quant in ("none", "int8", "int4"):  # the sweeps copy the queries 16 bytes at a time
+        dtype = torch.float32 if quant == "none" else torch.bfloat16
+        q = queries.to(dtype).contiguous()
+        q = q if q.data_ptr() % 16 == 0 else q.clone()
+        return q, _KIND[corpus.dtype if quant == "none" else quant], scales
     q = queries.to(torch.bfloat16).to(torch.float32).contiguous()
     if quant == "pq4":
         m = 2 * corpus.shape[1]
@@ -243,13 +250,57 @@ def quant_scores(queries: torch.Tensor, corpus: torch.Tensor,
     return out
 
 
+def score_probe(codes: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+                quant: str) -> torch.Tensor:
+    """The mma order alone, for the card's tests of it (``csrc/gather_groups.cu``'s
+    ``score_probe_kernel``: one warp a tile, the sweeps' ``mma_slot_fold``).
+
+    ``codes`` [T, 32, *] in ``quant``'s format ("int8" or "int4") with
+    ``scales`` [T, 32] or [T, 32, D/128], ``queries`` [T, 8, D] -> f32
+    [T, 32, 8]: tile t's 32 rows (the A operand's two m16 tiles) against its
+    8 queries (one n8 tile), so a test can put one (row, query) pair at
+    every place of the fragments. A diagnostic on no search path: it counts
+    no launch. On CPU tensors it runs :func:`score_probe_plain`.
+    """
+    if quant not in ("int8", "int4") or codes.dim() != 3 or codes.shape[1] != 32:
+        raise ValueError(f"score_probe takes int8 or int4 codes [T, 32, *], got {quant} "
+                         f"{tuple(codes.shape)}")
+    tiles = codes.shape[0]
+    d = queries.shape[-1]
+    check_corpus(codes.reshape(tiles * 32, -1), scales.reshape(tiles * 32, *scales.shape[2:]),
+                 quant)
+    if tuple(queries.shape) != (tiles, 8, d) or _corpus_dim(codes[0], None, quant) != d:
+        raise ValueError(f"queries {tuple(queries.shape)} do not match codes "
+                         f"{tuple(codes.shape)}")
+    if on_cpu(codes, scales, queries):
+        return score_probe_plain(codes, scales, queries, quant)
+    _check_kernel_operands(codes.reshape(tiles * 32, -1), scales, quant)
+    lib = load_library()
+    q, kind, _ = _kernel_args(queries.reshape(tiles * 8, d), codes, scales, quant)
+    out = torch.empty((tiles, 32, 8), dtype=torch.float32, device=codes.device)
+    with torch.cuda.device(codes.device):
+        err = lib.kirag_score_probe(codes.data_ptr(), kind, scales.data_ptr(), q.data_ptr(),
+                                    out.data_ptr(), tiles, d,
+                                    torch.cuda.current_stream(codes.device).cuda_stream)
+    raise_on(err, lib, "score_probe")
+    return out
+
+
+def score_probe_plain(codes: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+                      quant: str) -> torch.Tensor:
+    """Plain PyTorch version of :func:`score_probe`: :func:`quant_scores`
+    of each tile."""
+    return torch.stack([quant_scores(queries[t], codes[t], scales[t], quant).T
+                        for t in range(codes.shape[0])])
+
+
 # ------------------------------------------------------------- search_plan
 #
-# How a K1, K5 or K7a call over a float32 or bfloat16 corpus is cut
-# (csrc/score.cuh's score_passes; quantized corpora keep one block per
-# (query tile, chunk) or, K5, per (query tile, range of groups),
-# :func:`score_group_qpt`). K5 is cut as one chunk of all the corpus's
-# groups, as K7a with no store.
+# How a K1, K5 or K7a call over a float32, bfloat16, int8 or packed-int4
+# corpus is cut (csrc/score.cuh's sweep_passes: score_passes for float rows,
+# mma_passes for int8 and int4; pq4 corpora keep one block per (query tile,
+# chunk), :func:`score_group_qpt`). K5 is cut as one chunk of all the
+# corpus's groups, as K7a with no store.
 
 SMS = 132                  # the H100's streaming multiprocessors
 BLOCKS_PER_SM = 2          # score.cuh's SWEEP_BLOCKS_PER_SM; K1's bf16 32-query sweep
@@ -259,7 +310,9 @@ SMEM_PER_BLOCK = 232448    # 227 KB of it at most a block,
 SMEM_RESERVED = 1024       # and 1 KB the hardware keeps per block
 QUERY_TILES = (4, 8, 16, 32)  # queries a block: 4 J, J queries a thread
 PASS_ROWS = 256            # corpus rows a pass: two groups
-ROW_BYTES = 128            # bytes of each row a ring slot holds (32 f32 or 64 bf16 columns)
+ROW_BYTES = 128            # bytes of each row a ring slot holds (32 f32, 64 bf16 columns;
+                           # 128 int8 dims, or 128 dims of each int4 plane)
+MMA_SLOT_DIMS = 128        # int8/int4: the bf16 query dims of a slot (score.cuh)
 STAGES = 2                 # ring slots (score.cuh's SWEEP_STAGES)
 FILL = 0.9                 # the share of the last wave of blocks the cut fills
 MAX_SCRATCH = 8            # K1's scratch holds at most 8x the capture's groups,
@@ -268,7 +321,8 @@ MAX_HELD_SMEM = 64 * 1024  # and a block tracks its best groups in at most 64 KB
 
 @dataclasses.dataclass(frozen=True)
 class SearchPlan:
-    """The cut of one float K1, K5 or K7a call, passed whole to the kernel,
+    """The cut of one K1, K5 or K7a call over a float, int8 or int4 corpus,
+    passed whole to the kernel,
     which refuses a cut that does not cover its call: ``q_tiles`` tiles of
     ``q_tile`` queries times, for each chunk, ``splits`` ranges of
     ``groups_per_block`` groups (the last may hold fewer), one block each. K1
@@ -295,9 +349,17 @@ class SearchPlan:
 def _sweep_smem(elem_bytes: int, q_tile: int, b: int, slots: int, gpb: int) -> int:
     """The shared memory of one sweep block (capture_sweep_kernel with b > 0,
     score_sweep_kernel and group_max_sweep_kernel with b == 0: the ring
-    alone, since K5 peels in registers)."""
-    cols = ROW_BYTES // elem_bytes                        # score.cuh's sweep_cols
-    stage = PASS_ROWS * (ROW_BYTES + 16) + q_tile * (cols + 4) * 4
+    alone, since K5 peels in registers). ``elem_bytes`` 1 is an int8 or
+    packed-int4 corpus: a slot's queries are bf16, whole n8 tiles of them,
+    for both int4 planes at a tile of one n8 tile (score.cuh's
+    mma_stage_bytes)."""
+    if elem_bytes == 1:
+        q_rows = -(-q_tile // 8) * 8
+        planes = 2 if q_tile <= 8 else 1
+        stage = PASS_ROWS * (ROW_BYTES + 16) + planes * q_rows * (MMA_SLOT_DIMS + 16) * 2
+    else:
+        cols = ROW_BYTES // elem_bytes                    # score.cuh's sweep_cols
+        stage = PASS_ROWS * (ROW_BYTES + 16) + q_tile * (cols + 4) * 4
     smem = STAGES * stage                                # the ring
     if b:
         smem += 4 * 4 * q_tile                           # the pass's maxima and slots
@@ -309,9 +371,10 @@ def _sweep_smem(elem_bytes: int, q_tile: int, b: int, slots: int, gpb: int) -> i
 @functools.lru_cache(maxsize=4096)
 def search_plan(n_q: int, num_chunks: int, groups_per_chunk: int, elem_bytes: int,
                 b: int = 0) -> SearchPlan:
-    """The cut of a float32 (``elem_bytes`` 4) or bfloat16 (2) K1 call with
-    capture budget ``b``, or K7a or K5 call (``b`` 0; K5 one chunk), over
-    ``num_chunks`` chunks of ``groups_per_chunk`` groups and ``n_q`` queries.
+    """The cut of a float32 (``elem_bytes`` 4), bfloat16 (2), int8 or
+    packed-int4 (1) K1 call with capture budget ``b``, or K7a or K5 call
+    (``b`` 0; K5 one chunk), over ``num_chunks`` chunks of
+    ``groups_per_chunk`` groups and ``n_q`` queries.
 
     The query tile is the smallest of 4, 8, 16, 32 that holds the queries
     (32 beyond), halved while even one group a block would leave SMs idle.
@@ -321,7 +384,7 @@ def search_plan(n_q: int, num_chunks: int, groups_per_chunk: int, elem_bytes: in
     ``MAX_SCRATCH`` times its capture; K1 splits further where tracking a
     range's best groups would take more than ``MAX_HELD_SMEM``."""
     g = groups_per_chunk
-    if n_q < 1 or num_chunks < 1 or g < 1 or elem_bytes not in (2, 4) or not 0 <= b <= g:
+    if n_q < 1 or num_chunks < 1 or g < 1 or elem_bytes not in (1, 2, 4) or not 0 <= b <= g:
         raise ValueError(f"no search plan for Q={n_q}, {num_chunks} chunks of {g} groups, "
                          f"{elem_bytes}-byte rows, b={b}")
     q_tile = next((t for t in QUERY_TILES if t >= n_q), QUERY_TILES[-1])
@@ -352,10 +415,18 @@ def search_plan(n_q: int, num_chunks: int, groups_per_chunk: int, elem_bytes: in
 
 def score_group_qpt(n_q: int) -> int:
     """Queries per thread of the kernels that score through score.cuh's
-    score_group with a query tile of 2 * qpt (the quantized K1/K7a, one
-    block per (query tile, chunk), and the quantized K5): 4 queries a block
-    for Q <= 8, else 8."""
+    score_group with a query tile of 2 * qpt (the pq4 K1/K7a, one block per
+    (query tile, chunk)): 4 queries a block for Q <= 8, else 8."""
     return 2 if n_q <= 8 else 4
+
+
+def _sweep_plan(n_q: int, num_chunks: int, groups: int, corpus, quant: str,
+                b: int = 0) -> Optional[SearchPlan]:
+    """search_plan's cut of a K1 (b > 0), K7a or K5 call, or None for a pq4
+    corpus (score_group's grid)."""
+    if quant == "pq4":
+        return None
+    return search_plan(n_q, num_chunks, groups, corpus.element_size(), b)
 
 
 # ------------------------------------------------------------ stream_capture
@@ -410,8 +481,8 @@ def stream_capture(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
     resid = torch.empty((num_chunks, 1, n_q), dtype=torch.float32, device=dev)
     scratch = held = None
     cut = (0, 0, 0, 0, 0)
-    if quant == "none":  # the float sweep: search_plan's cut, the capture from a scratch
-        p = search_plan(n_q, num_chunks, groups_per_chunk, corpus.element_size(), b)
+    p = _sweep_plan(n_q, num_chunks, groups_per_chunk, corpus, quant, b)
+    if p is not None:  # the sweep: search_plan's cut, the capture from a scratch
         scratch = torch.empty((num_chunks * p.splits, n_q, p.slots, LANES),
                               dtype=torch.float32, device=dev)
         if p.tracks_best:
@@ -571,8 +642,8 @@ def score_gmax(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
         scores = torch.empty((n_q, n), dtype=torch.float32, device=dev)
         s_chunk, s_q = chunk_size, n
     cut = (0, 0, 0, 0)
-    if quant == "none":
-        p = search_plan(n_q, num_chunks, groups_per_chunk, corpus.element_size())
+    p = _sweep_plan(n_q, num_chunks, groups_per_chunk, corpus, quant)
+    if p is not None:
         cut = (p.q_tile, p.splits, p.groups_per_block, p.smem)
     with torch.cuda.device(dev):
         err = lib.kirag_score_gmax(

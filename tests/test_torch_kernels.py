@@ -117,6 +117,33 @@ def test_wrappers_check_their_operands():
         group_max(q, torch.zeros(256, 16), 129)
 
 
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_score_probe_runs_its_plain_version_on_the_cpu(quant):
+    """The mma order's probe wrapper on CPU tensors: quant_scores of each
+    tile's 32 rows and 8 queries, [T, 32, 8]; it counts no launch and
+    refuses what the probe kernel does not take."""
+    from kirag_tpu_torch.kernels.exact import quant_scores, score_probe
+
+    g = torch.Generator().manual_seed(3)
+    d = 256
+    if quant == "int8":
+        codes = torch.randint(-127, 128, (3, 32, d), generator=g).to(torch.int8)
+        scales = torch.rand(3, 32, generator=g)
+    else:
+        codes = torch.randint(0, 256, (3, 32, d // 2), generator=g).to(torch.uint8)
+        scales = torch.rand(3, 32, d // 128, generator=g)
+    q = torch.randn(3, 8, d, generator=g)
+    reset_launch_counts()
+    out = score_probe(codes, scales, q, quant)
+    assert out.shape == (3, 32, 8) and not any(launch_counts().values())
+    for t in range(3):
+        assert torch.equal(out[t], quant_scores(q[t], codes[t], scales[t], quant).T)
+    with pytest.raises(ValueError, match="score_probe takes"):
+        score_probe(codes[:, :16], scales[:, :16], q, quant)
+    with pytest.raises(ValueError, match="do not match"):
+        score_probe(codes, scales, q[:, :4], quant)
+
+
 def test_group_max_plain_peels_ties_to_the_lowest_lane():
     """Scores 5, 5, 3 at lanes 7, 2, 9 of one group, everything else 0: the
     peel gives 5 (lane 2), 5 (lane 7), 3 (lane 9), then 0 at lane 0."""
@@ -204,6 +231,118 @@ def test_quantized_kernels_bitwise_equal_plain_on_integer_data(cuda_device, quan
         assert counts[f"stream_capture_{quant}"] == 1
         assert counts[f"gather_groups_{quant}"] == 2
         assert counts["stream_capture"] == counts["gather_groups"] == 0
+
+
+QUANT_DEPTHS = [("int8", 208), ("int8", 1024), ("int4", 256), ("int4", 768), ("int4", 1024),
+                ("int4", 1280), ("int4", 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,d", QUANT_DEPTHS)
+def test_quantized_k5_and_k7a_bitwise_equal_plain_on_integer_data(cuda_device, quant, d):
+    """The int8/int4 K5 (W = 1, 2, 128) and K7a (three stores) on integer
+    data, valid_rows mid-group: bitwise their plain versions, K7a's maxima
+    bitwise K1's, K5's W = 1 values bitwise K1's unmasked maxima."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    n, chunk = 16384, 2048
+    c, s = quantized_corpus(quant, n, d, g, cuda_device)
+    for n_q in (3, 8, 32, 40):
+        q = torch.randint(-2, 3, (n_q, d), generator=g, device=cuda_device).float()
+        k1 = stream_capture(q, c, n - 300, chunk, 4, s, quant)[0]
+        unmasked = stream_capture(q, c, n, chunk, 4, s, quant)[0]
+        for store in ("chunk", "row", "none"):
+            got = score_gmax(q, c, n - 300, chunk, store, s, quant)
+            want = score_gmax_plain(q, c, n - 300, chunk, store, s, quant)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[1], k1), (n_q, store)
+            if store != "none":
+                assert torch.equal(got[0], want[0]), (n_q, store)
+        for w in (1, 2, 128):
+            got = group_max(q, c, w, s, quant)
+            want = group_max_plain(q, c, w, s, quant)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (n_q, w)
+            if w == 1:
+                assert torch.equal(got[0][:, 0], unmasked.reshape(-1, n_q).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,d", [("int8", 208), ("int8", 1024), ("int4", 1024),
+                                     ("int4", 2048)])
+def test_mma_order_is_the_same_at_every_place_of_the_fragments(cuda_device, quant, d):
+    """The mma order assumes an output element depends on its row, its
+    query and its running sum only. One (row, query) pair of random data is
+    placed at each of the 32 x 8 places of a probe tile (two m16 A tiles,
+    one n8 B tile), every other row and query random and different in each
+    tile: the pair's score is the same bits at all 256 places, and equals
+    the sweeps' score of the same pair (K1's maxima of a one-row group,
+    K2's re-score with the query in column 0)."""
+    from kirag_tpu_torch.kernels.exact import score_probe, score_probe_plain
+    from kirag_tpu_torch.ops.quantized import quantize_rows_int4_torch, quantize_rows_int8_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    quantize = quantize_rows_int8_torch if quant == "int8" else quantize_rows_int4_torch
+    tiles = 32 * 8
+    rows = torch.nn.functional.normalize(
+        torch.randn(tiles * 32, d, generator=g, device=cuda_device), dim=-1)
+    codes, scales = quantize(rows)
+    codes = codes.view(tiles, 32, -1).clone()
+    scales = scales.view(tiles, 32, *scales.shape[1:]).clone()
+    queries = torch.nn.functional.normalize(
+        torch.randn(tiles, 8, d, generator=g, device=cuda_device), dim=-1)
+    m_of = torch.arange(tiles, device=cuda_device) // 8
+    n_of = torch.arange(tiles, device=cuda_device) % 8
+    t = torch.arange(tiles, device=cuda_device)
+    row, row_scale, query = codes[0, 0].clone(), scales[0, 0].clone(), queries[0, 0].clone()
+    codes[t, m_of], scales[t, m_of], queries[t, n_of] = row, row_scale, query
+    out = score_probe(codes, scales, queries, quant)
+    plain = score_probe_plain(codes, scales, queries, quant)
+    torch.cuda.synchronize()
+    pair = out[t, m_of, n_of]
+    assert torch.equal(pair, pair[:1].expand(tiles)), pair.unique()
+    assert float((out - plain).abs().max()) <= 1e-5
+    # the sweeps and the gather place the pair elsewhere: same bits
+    c = torch.zeros((128, codes.shape[2]), dtype=codes.dtype, device=cuda_device)
+    c[:] = codes[0, 0]
+    sc = scales[0, 0].expand(128, *scales.shape[2:]).contiguous()
+    q = queries[0, :1].expand(3, d).contiguous()
+    k1 = stream_capture(q, c, 128, 128, 1, sc, quant)[0]
+    cand = gather_groups(q, c, torch.zeros((3, 1), dtype=torch.int32, device=cuda_device), sc,
+                         quant)
+    assert torch.equal(k1.reshape(3), pair[:3])
+    assert torch.equal(cand.reshape(3, 128), pair[:1].expand(3, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,d", [("int8", 1024), ("int4", 1024), ("int4", 2048)])
+def test_quantized_kernels_agree_bitwise_on_random_data(cuda_device, quant, d):
+    """Random unit rows quantized on the card, unit queries (sums round, so
+    only one order gives the same bits), valid_rows mid-group, many chunks:
+    K1's capture bitwise K2's re-scores, K7a's maxima bitwise K1's and its
+    scores of the captured groups bitwise K2's, K5's W = 1 values bitwise
+    K1's unmasked maxima, a second launch bitwise the first."""
+    from kirag_tpu_torch.ops.quantized import quantize_rows_int4_torch, quantize_rows_int8_torch
+
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    n, chunk, b = 32768, 2048, 4
+    rows = torch.nn.functional.normalize(
+        torch.randn(n, d, generator=g, device=cuda_device), dim=-1)
+    c, s = (quantize_rows_int8_torch if quant == "int8" else quantize_rows_int4_torch)(rows)
+    valid, n_c = n - 70, n // chunk
+    for n_q in (1, 8, 9, 32, 33):
+        q = torch.nn.functional.normalize(
+            torch.randn(n_q, d, generator=g, device=cuda_device), dim=-1)
+        k1 = stream_capture(q, c, valid, chunk, b, s, quant)
+        assert all(torch.equal(x, y)
+                   for x, y in zip(k1, stream_capture(q, c, valid, chunk, b, s, quant)))
+        gmax, capture, gids = k1[:3]
+        gsel = gids.permute(2, 0, 1).reshape(n_q, -1)
+        cand = gather_groups(q, c, gsel, s, quant)
+        assert torch.equal(cand, capture.view(n_c, n_q, b, 128).transpose(0, 1)
+                           .reshape(n_q, -1, 128)), n_q
+        scores, k7 = score_gmax(q, c, valid, chunk, "chunk", s, quant)
+        assert torch.equal(k7, gmax), n_q
+        assert torch.equal(score_gather(scores, gsel), cand), n_q
+        unmasked = stream_capture(q, c, n, chunk, b, s, quant)[0]
+        assert torch.equal(group_max(q, c, 1, s, quant)[0][:, 0], unmasked.reshape(-1, n_q).T)
 
 
 @pytest.mark.cuda

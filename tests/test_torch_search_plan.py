@@ -1,16 +1,18 @@
 """``kirag_tpu_torch.kernels.exact.search_plan``: how K1, K5 and K7a cut a
-call over a float32 or bfloat16 corpus into blocks (query tiles x ranges of
-each chunk's groups; K5's corpus is one chunk), and a model of K1's capture
-scratch.
+call over a float32, bfloat16, int8 or packed-int4 corpus into blocks (query
+tiles x ranges of each chunk's groups; K5's corpus is one chunk), and a
+model of K1's capture scratch.
 
 The plan is a pure function of (Q, chunks, groups a chunk, element size,
 capture budget), so its properties are held here on the CPU: every group of
 every chunk is scored once for every query, the grid fills the H100 where the
 corpus allows it, a block's shared memory fits, and K1's scratch stays a
 bounded multiple of its capture. ``model_capture`` restates, in Python, how
-the float K1 fills its scratch (each range keeps the scores of its best
-``slots`` groups a query) and copies the capture out of it, and is held
-bitwise against ``stream_capture_plain`` on tie-heavy and random data. The
+K1 fills its scratch (each range keeps the scores of its best ``slots``
+groups a query) and copies the capture out of it, and is held bitwise
+against ``stream_capture_plain`` on tie-heavy and random data, float and
+quantized. Element size 1 is an int8 or packed-int4 corpus (the mma order's
+ring: bf16 query slices). The
 kernels themselves run only on the card (``tests/test_torch_kernels.py``).
 """
 
@@ -35,6 +37,7 @@ from kirag_tpu_torch.kernels.exact import (
     search_plan,
 )
 from kirag_tpu_torch.ops.exact import _capture_budget
+from kirag_tpu_torch.ops.quantized import quantize_rows_int4_torch, quantize_rows_int8_torch
 
 ONE_M_CHUNKS = 62     # 1,000,000 rows on the indexer's grid of 16,384-row chunks
 G = 128               # groups of a 16,384-row chunk
@@ -54,15 +57,18 @@ def blocks_of(plan, num_chunks, groups):
 
 ONE_M_GROUPS = 7813     # phase 12's shuffled 1M rows: 1,000,064 rows, one chunk (K5)
 DPR_GROUPS = 164183     # the DPR corpus, 21,015,324 rows: the largest float index a card holds
+DPR_CHUNKS = 1283       # the DPR corpus on the indexer's grid of 16,384-row chunks (K1, K7a)
+ELEMS = (4, 2, 1)       # float32, bfloat16, int8 / packed int4
 
 GEOMETRIES = [  # (Q, chunks, groups a chunk, element bytes, b)
-    *((n_q, ONE_M_CHUNKS, G, e, 8) for n_q in (1, 8, 16, 32, 33, 64, 256) for e in (4, 2)),
+    *((n_q, ONE_M_CHUNKS, G, e, 8) for n_q in (1, 8, 16, 32, 33, 64, 256) for e in ELEMS),
+    *((n_q, DPR_CHUNKS, G, 1, b) for n_q in (8, 32, 256) for b in (2, 0)),
     *((n_q, 1, G, 4, 128) for n_q in (1, 8, 9, 64, 256)),
     (32, 1, G, 4, 8), (8, 1283, G, 2, 8), (5, 8, 16, 4, 16), (40, 3, 7, 2, 3),
     *((n_q, ONE_M_CHUNKS, G, 4, 0) for n_q in (8, 32, 256)), (64, 1, G, 2, 0),
     # K5: the corpus as one chunk of every group, no capture
     *((n_q, 1, groups, e, 0) for n_q in (1, 8, 16, 32, 33, 64, 256)
-      for groups in (1, 3, 1003, ONE_M_GROUPS) for e in (4, 2)),
+      for groups in (1, 3, 1003, ONE_M_GROUPS) for e in ELEMS),
 ]
 
 
@@ -81,7 +87,7 @@ def test_plan_scores_every_group_of_every_chunk_once(n_q, chunks, groups, elem, 
     assert search_plan(n_q, chunks, groups, elem, b) == p  # a pure function of its inputs
 
 
-@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("elem", ELEMS)
 @pytest.mark.parametrize("n_q,chunks,b", [(8, ONE_M_CHUNKS, 8), (16, ONE_M_CHUNKS, 8),
                                           (32, ONE_M_CHUNKS, 8), (8, 1, G), (64, 1, G)])
 def test_plan_fills_the_card(n_q, chunks, b, elem):
@@ -100,7 +106,7 @@ def test_plan_splits_queries_where_the_groups_cannot_fill_the_card():
     assert search_plan(32, ONE_M_CHUNKS, G, 4, 8).q_tiles == 1  # one HBM read at Q <= 32
 
 
-@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("elem", ELEMS)
 @pytest.mark.parametrize("groups", [16, 128, 1024])
 def test_plan_shared_memory_fits(groups, elem):
     """Every Q up to 256 (and any depth: the queries are staged KD columns at
@@ -123,22 +129,59 @@ def test_plan_bounds_the_capture_scratch(n_q):
     groups, whatever budget the indexer gives (1M rows, 1 to 62 chunks)."""
     for chunks in (1, 2, 8, ONE_M_CHUNKS):
         b = _capture_budget(100, chunks, G)
-        for elem in (4, 2):
+        for elem in ELEMS:
             p = search_plan(n_q, chunks, G, elem, b)
             assert p.splits * p.slots <= min(MAX_SCRATCH * b, G + p.splits), (chunks, p)
 
 
 def test_plan_rejects_what_no_kernel_takes():
-    for args in [(0, 1, G, 4, 8), (8, 0, G, 4, 8), (8, 1, G, 1, 8), (8, 1, G, 4, G + 1),
-                 (8, 1, 0, 4, 0)]:
+    for args in [(0, 1, G, 4, 8), (8, 0, G, 4, 8), (8, 1, G, 3, 8), (8, 1, G, 8, 8),
+                 (8, 1, G, 4, G + 1), (8, 1, 0, 4, 0)]:
         with pytest.raises(ValueError, match="no search plan"):
             search_plan(*args)
+
+
+@pytest.mark.parametrize("b", [2, 0])
+@pytest.mark.parametrize("n_q", [8, 32, 256])
+def test_quantized_plan_at_the_dpr_scale(n_q, b):
+    """The int8/int4 K1 (b > 0) and K7a over the DPR corpus's 1,283 chunks:
+    32-query tiles, so Q = 256 reads the codes 8 times (the pre-sweep kernel
+    read them 32 times in 8-query tiles), at least a full wave of blocks, the
+    scratch at most MAX_SCRATCH times the capture, two blocks an SM."""
+    p = search_plan(n_q, DPR_CHUNKS, G, 1, b)
+    assert p.q_tile == min(32, n_q) and p.q_tiles == -(-n_q // 32)
+    assert p.blocks >= SMS * BLOCKS_PER_SM
+    assert p.splits * p.slots <= MAX_SCRATCH * max(b, 1)
+    assert BLOCKS_PER_SM * (p.smem + SMEM_RESERVED) <= SMEM_PER_SM
+
+
+def test_quantized_plan_fills_the_card_at_1m_and_q8():
+    """1M int8/int4 rows at Q = 8: one query tile (the codes read once),
+    split until the blocks fill FILL of a wave of two an SM (the pre-sweep
+    kernel ran 2 tiles x 62 chunks = 124 blocks on 132 SMs)."""
+    for b in (8, 0):
+        p = search_plan(8, ONE_M_CHUNKS, G, 1, b)
+        assert p.q_tiles == 1 and p.blocks >= FILL * SMS * BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("q_tile", [4, 8, 16, 32])
+def test_quantized_ring_slot_holds_whole_n8_query_tiles(q_tile):
+    """An int8/int4 ring slot: 256 rows of 128 + 16 bytes, then the query
+    tile rounded up to whole n8 tiles of bf16 rows of 128 + 16 dims (the
+    mma's B operand reads 8 query rows), twice at one n8 tile (int4's one
+    walk reads both planes' dims); two slots, and K1's maxima and slots
+    [2][QT] each, as score.cuh's mma_stage_bytes and the launch's figure."""
+    stage = 256 * 144 + (2 if q_tile <= 8 else 1) * max(q_tile, 8) * 144 * 2
+    assert _sweep_smem(1, q_tile, 0, 0, 1) == 2 * stage
+    assert _sweep_smem(1, q_tile, 4, 4, 4) == 2 * stage + 16 * q_tile
+    assert _sweep_smem(1, q_tile, 4, 4, 8) == 2 * stage + 16 * q_tile + 8 * q_tile * 4 + \
+        4 * q_tile
 
 
 # ------------------------------------------------ K5: the corpus as one chunk
 
 
-@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("elem", ELEMS)
 @pytest.mark.parametrize("n_q,groups", [(8, ONE_M_GROUPS), (16, ONE_M_GROUPS),
                                         (32, ONE_M_GROUPS), (8, G), (64, G)])
 def test_k5_plan_fills_the_card(n_q, groups, elem):
@@ -151,7 +194,7 @@ def test_k5_plan_fills_the_card(n_q, groups, elem):
         assert p.q_tiles == 1 and p.blocks >= FILL * SMS * BLOCKS_PER_SM
 
 
-@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("elem", ELEMS)
 def test_k5_plan_shared_memory_fits(elem):
     """K5 peels in registers: a block's shared memory is the ring alone (K7a's
     figure at its query tile), within 227 KB and two blocks an SM at every Q."""
@@ -163,7 +206,7 @@ def test_k5_plan_shared_memory_fits(elem):
             assert BLOCKS_PER_SM * (p.smem + SMEM_RESERVED) <= SMEM_PER_SM, (n_q, groups, p)
 
 
-@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("elem", ELEMS)
 @pytest.mark.parametrize("n_q", [1, 8, 32, 256, 4096])
 def test_k5_plan_fits_the_grid_at_the_dpr_scale(n_q, elem):
     """At the DPR corpus's 164,183 groups: the kernel's cut check passes
@@ -268,6 +311,27 @@ def test_capture_model_equals_the_plain_capture(b, splits, gpb, data):
                           for i in range(n_c)])
     got = model_capture(scores, valid, b, splits, gpb, min(b, gpb))
     want = stream_capture_plain(q, c, valid, chunk, b)
+    for x, y in zip(got, want):
+        assert torch.equal(x.contiguous(), y)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("b,splits,gpb", CUTS)
+def test_capture_model_equals_the_plain_capture_on_quantized_scores(b, splits, gpb, quant):
+    """The int8/int4 K1 fills and copies its scratch as the float one does:
+    the model over quantized scores (random unit rows quantized, queries
+    rounded to bf16 as the wrapper rounds them) is the plain version's
+    capture, gids, capmax and resid, bitwise."""
+    g = torch.Generator().manual_seed(11 + splits)
+    n_c, chunk, d, n_q = 3, 16 * LANES, 256, 3
+    rows = torch.nn.functional.normalize(torch.randn(n_c * chunk, d, generator=g), dim=-1)
+    c, s = (quantize_rows_int8_torch if quant == "int8" else quantize_rows_int4_torch)(rows)
+    q = torch.randn(n_q, d, generator=g)
+    valid = n_c * chunk - 200
+    scores = torch.stack([quant_scores(q, c[i * chunk:(i + 1) * chunk],
+                                       s[i * chunk:(i + 1) * chunk], quant) for i in range(n_c)])
+    got = model_capture(scores, valid, b, splits, gpb, min(b, gpb))
+    want = stream_capture_plain(q, c, valid, chunk, b, s, quant)
     for x, y in zip(got, want):
         assert torch.equal(x.contiguous(), y)
 
