@@ -60,12 +60,14 @@ weights at E5-large and Llama-3-8B-Instruct width:
   phase 9 while its LLM is on the card) and ``cli/retrieval_eval``; K5 over
   the DPR-scale codes of phase 11 (d); and phase 4's rows as l2 indexes in
   float32, int8 and int4 (depth 1280), served exactly and approximately;
-- product quantization (phase 14): K1 and K2 with K4's pq4 scoring held
-  against their plain versions at m = 128, 256, 512 (bitwise on integer
-  data); k-means and the encoder on the card; the server of phase 4 over
-  the same rows as a PQ index (m = 256) trained and encoded on the card by
-  ``TorchIndexer(compression="pq")``, with ``mode="approx"`` serving the
-  exact results and a ``serialize`` -> ``deserialize_from`` round trip;
+- product quantization (phase 14): K1, K2 and K7a with K4's pq4 scoring
+  (the mma order) held against their plain versions at m = 128, 256, 512
+  (bitwise on integer data; the position probe; K1's captures bitwise K2's
+  re-scores and K7a's scores); k-means and the encoder on the card; the
+  server of phase 4 over the same rows as a PQ index (m = 256) trained and
+  encoded on the card by ``TorchIndexer(compression="pq")``, with
+  ``mode="approx"`` serving the exact results and a ``serialize`` ->
+  ``deserialize_from`` round trip;
   ``cli/retrieve --index_folder`` over phase 6's embeddings as a PQ index
   (run D, beside phase 9); and the DPR corpus's 21,015,324 rows as a PQ
   index (2.69 GB of codes), searched at Q = 8, 32, 256 with recall@10/@100
@@ -623,13 +625,13 @@ def index_kernels(label, index, gen, power, err, query_counts=(8, 16, 32)) -> di
                                      f"kernel each in 3 profiled windows: {split}")
             t["stream_capture_kernels"] = split
             lib += "; " + kernels_text(split)
-        elif quant in QUANTS:  # the sweep and peel kernels' device time, reported (the
-            # kernels a call are checked in a fresh process, phase 11 a)
+        else:  # the sweep and peel kernels' device time, reported (the kernels a call
+            # are checked in a fresh process, phase 11 a)
             split = kernels_per_call(
                 lambda: stream_capture(q, corpus, valid, CHUNK, b, scales, quant),
                 FLOAT_K1_KERNELS)
             t["stream_capture_kernels"] = split
-            lib = f"; {plan_text(n_q, corpus, b)}; " + kernels_text(split)
+            lib = f"; {plan_text(n_q, corpus, b, scales, quant)}; " + kernels_text(split)
         times[n_q] = t
         log(f"  {what}: K1 max abs err {k1_err:.3g} ({swapped} gids differ at near-ties), "
             f"K2 max abs err {k2_err:.3g}")
@@ -683,7 +685,7 @@ def library_gather(q, corpus, gsel):
 
 
 FLOAT_K1_KERNELS = ("capture_sweep_kernel", "peel_capture_kernel")  # one K1 launch count
-# (the float, int8 and int4 K1 alike)
+# (every format's K1 alike)
 
 
 def profile_lead_in() -> None:
@@ -737,11 +739,11 @@ def kernels_text(split) -> str:
             + ", ".join(f"{n} x {k} {ms:.4f} ms each" for k, (n, ms) in split.items()))
 
 
-def plan_text(n_q: int, corpus, b: int = 0) -> str:
-    """How the tree's float, int8 or int4 K1 (b > 0) or K7a (b == 0) cuts a
-    call over ``corpus`` (chunk CHUNK), for the timing lines."""
-    from kirag_tpu_torch.kernels.exact import search_plan
-    p = search_plan(n_q, len(corpus) // CHUNK, CHUNK // 128, corpus.element_size(), b)
+def plan_text(n_q: int, corpus, b: int = 0, scales=None, quant: str = "none") -> str:
+    """How the tree's K1 (b > 0) or K7a (b == 0) cuts a call over ``corpus``
+    stored in ``quant``'s format (chunk CHUNK), for the timing lines."""
+    from kirag_tpu_torch.kernels.exact import corpus_plan
+    p = corpus_plan(n_q, len(corpus) // CHUNK, CHUNK // 128, corpus, scales, quant, b)
     held = (f", scratch slots a (range, query): {p.slots}"
             + (" holding the best" if p.tracks_best else "")) if b else ""
     return (f"plan: {p.q_tiles} x {p.q_tile}-query tiles, {p.splits} ranges a chunk of "
@@ -2539,8 +2541,8 @@ def check_mma_order(dev, gen, err) -> dict:
 
 
 def quant_kernels_a_call(device: str = "cuda") -> None:
-    """The device kernels of one int8 and one int4 call of K1, K2, K5 and
-    K7a (torch.profiler), run in a process of its own
+    """The device kernels of one int8, int4 and pq4 (m = PQ_M) call of K1,
+    K2, K5 (not pq4) and K7a (torch.profiler), run in a process of its own
     (:func:`quant_kernels_in_a_fresh_process`, as phase 15 (a)'s count of
     K7b and K8): 16 chunks of seeded codes, Q = 8, the queries bf16 and the
     group ids int32 (so no wrapper casts them). Prints one JSON line
@@ -2553,8 +2555,11 @@ def quant_kernels_a_call(device: str = "cuda") -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n, n_q, b = 16 * CHUNK, 8, 8
     out = {}
-    for quant in QUANTS:
-        c, s = quantized_corpus(quant, n, gen, dev, True)
+    for quant in (*QUANTS, "pq4"):
+        if quant == "pq4":
+            c, s = pq_corpus(PQ_M, n, gen, dev, True)
+        else:
+            c, s = quantized_corpus(quant, n, gen, dev, True)
         q = unit_rows(n_q, gen, dev).to(torch.bfloat16)
         gmax = stream_capture(q, c, n, CHUNK, b, s, quant)[0]
         gsel = torch.sort(hier_topk(gmax.reshape(-1, n_q).T, K)[1], dim=-1).values.to(torch.int32)
@@ -2562,6 +2567,8 @@ def quant_kernels_a_call(device: str = "cuda") -> None:
                  "gather_groups": lambda: gather_groups(q, c, gsel, s, quant),
                  "group_max": lambda: group_max(q, c, 1, s, quant),
                  "score_gmax": lambda: score_gmax(q, c, n, CHUNK, "chunk", s, quant)}
+        if quant == "pq4":  # approximate search on PQ serves the exact search (no K5)
+            del calls["group_max"]
         for name, fn in calls.items():
             for _ in range(3):  # a window that saw no kernel (its records lost) is profiled again
                 kernels = device_kernels(fn)
@@ -2583,7 +2590,7 @@ def quant_kernels_in_a_fresh_process() -> dict:
         [sys.executable, "-c", "import chip_smoke; chip_smoke.quant_kernels_a_call()"],
         cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
-        raise AssertionError("the count of the int8/int4 kernels' device kernels failed:\n"
+        raise AssertionError("the count of the int8/int4/pq4 kernels' device kernels failed:\n"
                              + proc.stderr[-3000:])
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     log("  device kernels of one call (torch.profiler, a fresh process, Q=8): " + "; ".join(
@@ -3376,23 +3383,61 @@ def pq_corpus(m: int, n: int, gen, dev, integer: bool):
     return codes, table
 
 
-def check_pq_kernels(dev, gen, err) -> None:
-    """Phase 14 (a): K1 and K2 with K4's pq4 scoring against their plain
-    versions at phase 3's geometry, m = 128, 256, 512, Q = 8, 16, 32. On
-    integer data every output of K1, K2 and the search is bitwise the plain
-    version's, and K1's captures bitwise K2's re-scores; on random levels
-    within PQ_REL of the largest score (the search within ATOL, ids equal
-    but at near-ties)."""
-    from kirag_tpu_torch.kernels import (gather_groups, gather_groups_plain, stream_capture,
+def pq_probe(m: int, gen, dev) -> dict:
+    """pq4's mma order at one place and another (:func:`mma_probe`'s check):
+    one (row, query) pair of random codes, seeded levels and a unit query at
+    each of the 32 x 8 places of a probe tile, every other row and query
+    random and different in each of the 256 tiles; the pair's score must be
+    the same bits at every place, and the tiles within PQ_REL of the largest
+    plain score. Returns the pair's score and the largest error."""
+    from kirag_tpu_torch.kernels.exact import score_probe, score_probe_plain
+
+    tiles = 32 * 8
+    codes, table = pq_corpus(m, tiles * 32, gen, dev, False)
+    codes = codes.view(tiles, 32, -1).clone()
+    queries = unit_rows(tiles * 8, gen, dev).view(tiles, 8, DIM)
+    t = torch.arange(tiles, device=dev)
+    m_of, n_of = t // 8, t % 8
+    row, query = codes[0, 0].clone(), queries[0, 0].clone()
+    codes[t, m_of], queries[t, n_of] = row, query
+    out = score_probe(codes, table, queries, "pq4")
+    plain = score_probe_plain(codes, table, queries, "pq4")
+    err = float((out - plain).abs().max())
+    pair = out[t, m_of, n_of]
+    if not torch.equal(pair, pair[:1].expand(tiles)):
+        raise AssertionError(f"pq4 m={m}: the mma order's score of one (row, query) pair "
+                             f"depends on its place in the fragments: {pair.unique().tolist()}")
+    if not err <= PQ_REL * float(plain.abs().max()):
+        raise AssertionError(f"pq4 m={m}: the probe differs from plain by {err}")
+    return {"pair": float(pair[0]), "err": err}
+
+
+def check_pq_kernels(dev, gen, err) -> dict:
+    """Phase 14 (a): K1, K2 and K7a with K4's pq4 scoring (the mma order)
+    against their plain versions at phase 3's geometry, m = 128, 256, 512,
+    Q = 8, 16, 32, after the position probe (:func:`pq_probe`). On integer
+    data every output of K1, K2 and the search is bitwise the plain
+    version's; on random levels within PQ_REL of the largest score (the
+    search within ATOL, ids equal but at near-ties). On both, K1's captures
+    are bitwise K2's re-scores of the captured groups, K7a's maxima bitwise
+    K1's and its scores of those groups bitwise K2's. Returns the probes."""
+    from kirag_tpu_torch.kernels import (gather_groups, gather_groups_plain, score_gather,
+                                         score_gmax, score_gmax_plain, stream_capture,
                                          stream_capture_plain)
     from kirag_tpu_torch.ops import exact_topk_mips, hier_topk
     from kirag_tpu_torch.ops.exact import _capture_budget
 
     n, valid = CHECK_ROWS, CHECK_ROWS - 1000
-    b = _capture_budget(K, n // CHUNK, CHUNK // 128)
+    n_c = n // CHUNK
+    b = _capture_budget(K, n_c, CHUNK // 128)
     k1, k2 = kernel_names("pq")
     search = dict(chunk_size=CHUNK, valid_rows=valid, on_miss="flag", quant="pq4", **CAPDOM)
+    probes = {}
     for m in PQ_MS:
+        probes[m] = pq_probe(m, gen, dev)
+        log(f"  pq4 m={m}: one (row, query) pair at all 256 places of the mma fragments "
+            f"scores {probes[m]['pair']!r} at each, bitwise; probe within "
+            f"{probes[m]['err']:.3g} of plain")
         for data in ("integer", "random"):
             c, table = pq_corpus(m, n, gen, dev, data == "integer")
             for n_q in (8, 16, 32):
@@ -3408,40 +3453,55 @@ def check_pq_kernels(dev, gen, err) -> None:
                 cand_plain = gather_groups_plain(q, c, gsel, table, "pq4")
                 res = exact_topk_mips(q, c, K, scales=table, **search)
                 ref = exact_topk_mips(q, c, K, scales=table, plain=True, **search)
+                captured = got[2].permute(2, 0, 1).reshape(n_q, -1)
+                rescored = gather_groups(q, c, captured, table, "pq4")
+                scores7, gmax7 = score_gmax(q, c, valid, CHUNK, "chunk", table, "pq4")
                 torch.cuda.synchronize()
+                if not torch.equal(rescored, got[1].view(n_c, n_q, b, 128).transpose(0, 1)
+                                   .reshape(n_q, -1, 128)):
+                    raise AssertionError(f"{what}: K1's captures differ from K2's re-scores "
+                                         "of the same groups")
+                if not (torch.equal(gmax7, got[0])
+                        and torch.equal(score_gather(scores7, captured), rescored)):
+                    raise AssertionError(f"{what}: K7a's maxima or scores differ from K1's "
+                                         "and K2's")
                 if data == "integer":
                     for name, x, y in zip(CAPTURE_OUTPUTS, got, want):
                         if not torch.equal(x, y):
                             raise AssertionError(f"{what}: K1 {name} differs from plain")
                     if not torch.equal(cand, cand_plain):
                         raise AssertionError(f"{what}: K2 differs from plain")
-                    captured = got[2].permute(2, 0, 1).reshape(n_q, -1)
-                    rescored = gather_groups(q, c, captured, table, "pq4")
-                    if not torch.equal(rescored.view(n_q, -1, b, 128).transpose(0, 1),
-                                       got[1].view(-1, n_q, b, 128)):
-                        raise AssertionError(f"{what}: K1's captures differ from K2's "
-                                             "re-scores of the same groups")
+                    if not torch.equal(scores7, score_gmax_plain(q, c, valid, CHUNK, "chunk",
+                                                                 table, "pq4")[0]):
+                        raise AssertionError(f"{what}: K7a differs from plain")
                     for x, y in zip(res, ref):
                         if not torch.equal(x, y):
                             raise AssertionError(f"{what}: exact search differs from plain")
-                    log(f"  {what}: K1 5/5 outputs and K2 bitwise equal to plain, K1's "
-                        f"{captured.numel()} captured groups bitwise equal to K2's re-scores; "
-                        f"search bitwise equal, ok={bool(res[2])}")
+                    log(f"  {what}: K1 5/5 outputs, K2 and K7a bitwise equal to plain, K1's "
+                        f"{captured.numel()} captured groups bitwise equal to K2's re-scores "
+                        f"and K7a's scores, K7a's maxima K1's; search bitwise equal, "
+                        f"ok={bool(res[2])}")
                     continue
+                scores7_plain = score_gmax_plain(q, c, valid, CHUNK, "chunk", table, "pq4")[0]
                 scale = max(float(want[1].abs().max()), float(cand_plain.abs().max()))
                 same = (got[2] == want[2]).permute(0, 2, 1).repeat_interleave(128, dim=2)
                 k1_err = max(float((got[i] - want[i]).abs().max()) for i in (0, 3, 4))
                 k1_err = max(k1_err, float((got[1] - want[1]).abs()[same].max()))
                 k2_err = float((cand - cand_plain).abs().max())
-                if not max(k1_err, k2_err) <= PQ_REL * scale:
-                    raise AssertionError(f"{what}: K1 {k1_err}, K2 {k2_err} from plain, over "
-                                         f"{PQ_REL} of the largest score {scale}")
+                k7_err = float((scores7 - scores7_plain).abs().max())
+                if not max(k1_err, k2_err, k7_err) <= PQ_REL * scale:
+                    raise AssertionError(f"{what}: K1 {k1_err}, K2 {k2_err}, K7a {k7_err} from "
+                                         f"plain, over {PQ_REL} of the largest score {scale}")
                 check_topk_close(res[0], res[1], ref[0], ref[1], f"{what} search")
                 err[k1], err[k2] = max(err.get(k1, 0.0), k1_err), max(err.get(k2, 0.0), k2_err)
-                log(f"  {what}: K1 max abs err {k1_err:.3g}, K2 {k2_err:.3g} (largest score "
-                    f"{scale:.3g}; {int((~same).sum()) // 128} captured groups differ at "
-                    f"near-ties), search ok={bool(res[2])}/{bool(ref[2])}")
+                err["score_gmax_pq4"] = max(err.get("score_gmax_pq4", 0.0), k7_err)
+                log(f"  {what}: K1 max abs err {k1_err:.3g}, K2 {k2_err:.3g}, K7a {k7_err:.3g} "
+                    f"(largest score {scale:.3g}; {int((~same).sum()) // 128} captured groups "
+                    f"differ at near-ties); K1's {captured.numel()} captured groups bitwise "
+                    f"K2's re-scores and K7a's scores, K7a's maxima K1's; search "
+                    f"ok={bool(res[2])}/{bool(ref[2])}")
             del c, table
+    return {"probe": probes}
 
 
 def check_pq_training(dev, gen, power) -> None:
@@ -3988,8 +4048,8 @@ def k7_times(q, corpus, scales, quant, valid, reps=10, plain_reps=10, library=Fa
             lambda: window_merge_plain(*k1[2:], k1[1], br, total), None,
             merge_bound(k1, window_merge(*k1[2:], k1[1], br, total)))
     t = {"br": br, "bc": b}
-    if quant == "none" and "score_gmax" in names:
-        t["plan"] = plan_text(n_q, corpus)
+    if "score_gmax" in names:
+        t["plan"] = plan_text(n_q, corpus, 0, scales, quant)
     for name in names:
         kernel, plain, library_call, t[name + "_bound"] = timed[name]
         if name in ("score_gather", "cap_assemble") and not torch.equal(kernel(), plain()):
@@ -4262,9 +4322,12 @@ def main() -> int:
         phase(f"phase 13: l2 indexes (float32, int8, int4) over {N_ROWS} x {DIM}, exact and "
               "approximate serving")
         served_l2 = serve_l2(dev, encoder, collator, host_rows, texts, text_rows, power)
-        phase(f"phase 14 (a): K1/K2 with K4's pq4 scoring vs plain versions ({CHECK_ROWS} x "
+        phase(f"phase 14 (a): K1/K2/K7a with K4's pq4 scoring vs plain versions ({CHECK_ROWS} x "
               f"{DIM}, m = {PQ_MS}, chunk {CHUNK}, k={K})")
-        check_pq_kernels(dev, gen, err)
+        pq_order = check_pq_kernels(dev, gen, err)
+        log("  pq4 device kernels of one call (phase 11 (a)'s fresh process, Q=8): " + "; ".join(
+            f"{name} {kernels}" for name, kernels in mma_order["kernels"].items()
+            if name.endswith("_pq4")))
         phase("phase 14 (b): k-means and the PQ encoder on the card")
         check_pq_training(dev, gen, power)
         phase(f"phase 14 (c): the retrieval server over {N_ROWS} x {DIM} as a PQ index "
@@ -4410,7 +4473,10 @@ def main() -> int:
                 "recall_at_10": dpr[quant]["recall"][10],
                 "recall_at_100": dpr[quant]["recall"][K]})
             if quant == "pq4":  # the served 1M index, Q = 8, 16, 32
-                kernels[-1]["at"] += f"; by_q_1m: the served {N_ROWS}-row PQ index"
+                kernels[-1]["at"] += (f"; by_q_1m: the served {N_ROWS}-row PQ index; "
+                                      "mma_order: the position probe's pair and error")
+                kernels[-1]["mma_order"] = {f"m={m}": v for m, v in pq_order["probe"].items()}
+                kernels[-1]["device_kernels_a_call"] = mma_order["kernels"][variant]
                 kernels[-1]["by_q_1m"] = {
                     str(n_q): {"ms": t1[kernel], "plain_ms": t1[kernel + "_plain"],
                                "bound_ms": t1[kernel + "_bound"][0],

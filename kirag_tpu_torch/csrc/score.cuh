@@ -8,9 +8,9 @@
 // (group_max) and the fused scoring pass (score_gmax) promise the exact
 // search's scores. So every score of a corpus format is computed in ONE fixed
 // order, whichever kernel, block, warp or thread computes it. There are two
-// orders, one for float and pq4 corpora, one for int8 and packed-int4 ones.
+// orders, one for float corpora, one for int8, packed-int4 and pq4 ones.
 //
-// The fma order (float32, bfloat16, pq4), score_group() and score_passes():
+// The fma order (float32, bfloat16), score_group() and score_passes():
 //
 //     s = +0.0f;  for d = 0 .. D-1 ascending:  s = fma(q[d], c[d], s)
 //
@@ -26,22 +26,13 @@
 // score_group (K2) give the same bits. Tensor cores are out for these
 // formats: TF32 would round the products.
 //
-//   pq4:  4-bit product-quantization codes, m / 2 bytes a row (byte t:
-//         subspace t in the low nibble, t + m / 2 in the high one; subspace
-//         s owns dims j * m + s, j < DS = D / m), decoded through the level
-//         table rounded to bf16 once. One fma chain per (component j,
-//         plane p) over the m / 2 dims [j * m + p * m / 2, +m / 2) in
-//         ascending order, then s = p_(0,lo);  s = s + p_(0,hi);
-//         s = s + p_(1,lo); ... (the reference's `out = out + p`). Walking a
-//         row's bytes in order advances all 2 * DS chains at once, so they
-//         stay in registers.
-//
-// The mma order (int8, packed int4: K4, the in-kernel dequant of the TPU
-// kernels, kirag_tpu/ops/pallas_exact.py::_chunk_scores, which sends the
-// codes as bf16 to the matrix unit), mma_passes() and mma_slot() below. The
-// wrapper rounds the queries to bf16 once; the codes are decoded exactly to
-// bf16 (int8: the code c in [-128, 127]; int4: the level n - 7.5), so every
-// product is exact and only the sums round:
+// The mma order (int8, packed int4 and pq4: K4, the in-kernel dequant of the
+// TPU kernels, kirag_tpu/ops/pallas_exact.py::_chunk_scores, which sends the
+// codes as bf16 to the matrix unit), mma_passes(), pq_passes() and their
+// slot routines below. The wrapper rounds the queries to bf16 once; the codes
+// are decoded exactly to bf16 (int8: the code c in [-128, 127]; int4: the
+// level n - 7.5; pq4: the level table's entry, rounded to bf16 once by the
+// wrapper), so every product is exact and only the sums round:
 //
 //   products: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, corpus
 //         rows as A (M), queries as B (N), over k-steps of 16 dims in
@@ -58,7 +49,18 @@
 //         product and sum rounded on its own (the reference's
 //         `p = p * s; out = out + p`). The row's bytes are walked once
 //         (the high plane's partials wait in registers) or twice (the low
-//         plane's blocks, then the high plane's): the same operations.
+//         plane's blocks, then the high plane's): the same operations;
+//   pq4:  4-bit product-quantization codes, m / 2 bytes a row (byte b:
+//         subspace b in the low nibble, plane 0, and b + m / 2 in the high
+//         one, plane 1; subspace s owns dims j * m + s, j < DS = D / m). The
+//         nibble n of byte b, plane p, component j decodes to the bf16 level
+//         L[n, j * m + p * m / 2 + b], looked up in the table in shared
+//         memory (pq_slot). One chain per (component j, plane p) over the
+//         m / 2 dims [j * m + p * m / 2, +m / 2) in k-steps of 16 ascending
+//         (dims 4 t .. 4 t + 3 of a k-step are bytes 16 s + 4 t .. + 3 of the
+//         row, one 32-bit word, at nibble p), then s = p_(0,lo);
+//         s = s + p_(0,hi);  s = s + p_(1,lo); ... each sum rounded on its
+//         own (the reference's `out = out + p`).
 //
 // An mma output element depends on its A row, its B column and its C value
 // only, not on where the row and the query sit in the tile (tested on the
@@ -86,14 +88,15 @@ constexpr float FIN_MIN = -1e30f;   // finite mask value of the reference kernel
 __host__ __device__ constexpr int padded_depth(int d) { return (d + KD - 1) / KD * KD; }
 
 // Corpus formats: the stored element T; for pq4, DS = D / m, the components
-// of a subspace, fixed at compile time so that the partials stay in
-// registers; INT4 marks packed int4. QUANT: int8 and int4, the mma order.
+// of a subspace, fixed at compile time so that the chains stay in registers;
+// INT4 marks packed int4, PQ pq4. QUANT: int8, int4 and pq4, the mma order.
 template <typename T_, int DS_ = 0, bool INT4_ = false>
 struct Fmt {
   using T = T_;
   static constexpr int DS = DS_;
   static constexpr bool INT4 = INT4_;
-  static constexpr bool QUANT = INT4_ || std::is_same<T_, int8_t>::value;
+  static constexpr bool PQ = DS_ > 0;
+  static constexpr bool QUANT = INT4_ || PQ || std::is_same<T_, int8_t>::value;
 };
 using F32 = Fmt<float>;
 using BF16 = Fmt<__nv_bfloat16>;
@@ -101,32 +104,6 @@ using I8 = Fmt<int8_t>;
 using I4 = Fmt<uint8_t, 0, true>;
 template <int DS>
 using PQ4 = Fmt<uint8_t, DS>;
-
-// pq4's level table lives in shared memory as bf16 [m][16][DS]: entry
-// (s, code, j) = L[code, j * m + s], so one vector read gives a code's DS
-// component values, and the 32 rows of a warp reading subspace s hit one
-// 32 * DS-byte span. Other formats stage no table.
-template <typename F>
-__host__ __device__ constexpr int table_bytes(int d) {
-  return F::DS > 0 ? d * 16 * static_cast<int>(sizeof(__nv_bfloat16)) : 0;
-}
-
-// Copy the wrapper's bf16 [m][16][DS] table (`scales`, global memory) into
-// `table_s` (16-byte aligned shared memory) and return it, for pq4; return
-// `scales` unchanged for the other formats. The caller synchronises the
-// block before the first score_group.
-template <typename F>
-__device__ __forceinline__ const float* stage_table(void* table_s, const float* __restrict__ scales,
-                                                    int d) {
-  if constexpr (F::DS > 0) {
-    const uint4* src = reinterpret_cast<const uint4*>(scales);
-    uint4* dst = static_cast<uint4*>(table_s);
-    for (int i = threadIdx.x; i < table_bytes<F>(d) / 16; i += blockDim.x) dst[i] = src[i];
-    return static_cast<const float*>(table_s);
-  } else {
-    return scales;
-  }
-}
 
 // Unpack one 16-byte vector of corpus values into f32.
 __device__ __forceinline__ void unpack(const uint4& raw, const float*, float* out) {
@@ -240,124 +217,10 @@ __device__ __forceinline__ void fma_tile(float (&acc)[NQ], const float* q, int q
   }
 }
 
-// DS bf16 levels at `p` (aligned to their size) as f32.
-template <int DS>
-__device__ __forceinline__ void load_levels(const __nv_bfloat16* p, float (&out)[DS]) {
-  if constexpr (DS == 1) {
-    out[0] = __uint_as_float(static_cast<unsigned>(*reinterpret_cast<const uint16_t*>(p)) << 16);
-  } else {
-    constexpr int WORDS = DS / 2;
-    unsigned w[WORDS];
-    if constexpr (DS == 2) {
-      w[0] = *reinterpret_cast<const unsigned*>(p);
-    } else if constexpr (DS == 4) {
-      const uint2 v = *reinterpret_cast<const uint2*>(p);
-      w[0] = v.x;
-      w[1] = v.y;
-    } else {
-      const uint4 v = *reinterpret_cast<const uint4*>(p);
-      w[0] = v.x;
-      w[1] = v.y;
-      w[2] = v.z;
-      w[3] = v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < WORDS; ++i) {
-      out[2 * i] = __uint_as_float(w[i] << 16);
-      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-}
-
-// The pq4 form of fma_tile: bytes c0 .. c0 + KD - 1 of this thread's row
-// (subspaces c0 + c and m2 + c0 + c, m2 = m / 2) advance part[j][p][.], the
-// chain of component j and plane p, by the dims j * m + p * m2 + c0 + c in
-// ascending order. Bytes at or past m2 (the zeros of a tile's tail) are not
-// codes and are skipped (m2 % 16 == 0).
-template <int DS, int NQ>
-__device__ __forceinline__ void fma_tile_pq4(float (&part)[DS][2][NQ], const float* q,
-                                             int q_stride, int c0, int m, int m2,
-                                             const __nv_bfloat16* table, const uint8_t* trow) {
-#pragma unroll
-  for (int c = 0; c < KD; c += 16) {
-    if (c0 + c >= m2) break;
-    const uint4 raw = *reinterpret_cast<const uint4*>(trow + c);
-    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // bytes c0 + c + 4i .. +3
-      const int s0 = c0 + c + 4 * i;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        float v[4][DS];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const unsigned code = (w[i] >> (8 * b + 4 * p)) & 15u;
-          load_levels<DS>(table + ((p * m2 + s0 + b) * 16 + code) * DS, v[b]);
-        }
-#pragma unroll
-        for (int jq = 0; jq < NQ; ++jq) {
-#pragma unroll
-          for (int j = 0; j < DS; ++j) {
-            const float4 qv =
-                *reinterpret_cast<const float4*>(q + jq * q_stride + j * m + p * m2 + s0);
-            float a = part[j][p][jq];
-            a = __fmaf_rn(qv.x, v[0][j], a);
-            a = __fmaf_rn(qv.y, v[1][j], a);
-            a = __fmaf_rn(qv.z, v[2][j], a);
-            a = __fmaf_rn(qv.w, v[3][j], a);
-            part[j][p][jq] = a;
-          }
-        }
-      }
-    }
-  }
-}
-
-// score_group for pq4 with DS = D / m (see the header note); `table` is the
-// staged level table (stage_table).
-template <int DS, int NT, int NQ, int NS>
-__device__ __forceinline__ void score_group_pq4(float (&acc)[NQ],
-                                                const uint8_t* __restrict__ corpus,
-                                                const float* table, int64_t row0, int d,
-                                                const float* q, int q_stride, uint8_t* tiles,
-                                                int t, int lane, bool active) {
-  const int m = d / DS;
-  const int m2 = m / 2;  // bytes of a row
-  const int n_tiles = (m2 + KD - 1) / KD;
-  const __nv_bfloat16* lv = reinterpret_cast<const __nv_bfloat16*>(table);
-  float part[DS][2][NQ];
-#pragma unroll
-  for (int j = 0; j < DS; ++j) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-#pragma unroll
-      for (int jq = 0; jq < NQ; ++jq) part[j][p][jq] = 0.f;
-    }
-  }
-  tiles_begin<uint8_t, NT, NS>(tiles, corpus, row0, m2, n_tiles, t, active);
-  for (int it = 0; it < n_tiles; ++it) {
-    const uint8_t* trow =
-        tiles_next<uint8_t, NT, NS>(tiles, corpus, row0, m2, n_tiles, it, t, lane, active);
-    if (active) fma_tile_pq4<DS, NQ>(part, q, q_stride, it * KD, m, m2, lv, trow);
-  }
-#pragma unroll
-  for (int jq = 0; jq < NQ; ++jq) {
-    float s = __fadd_rn(part[0][0][jq], part[0][1][jq]);
-#pragma unroll
-    for (int j = 1; j < DS; ++j) {
-      s = __fadd_rn(s, part[j][0][jq]);
-      s = __fadd_rn(s, part[j][1][jq]);
-    }
-    acc[jq] = s;
-  }
-}
-
-// The fma order's routine for float32, bfloat16 and pq4 corpora. Scores the
-// 128 rows [row0, row0 + 128) against NQ query rows (q, q + q_stride, ...) of
+// The fma order's routine for float32 and bfloat16 corpora. Scores the 128
+// rows [row0, row0 + 128) against NQ query rows (q, q + q_stride, ...) of
 // depth d: on return acc[j] holds the score of query j and row row0 + lane.
-// `scales` is read for pq4 only (the level table that stage_table put in
-// shared memory). The NT
-// threads of the calling group (index t within it) stream the rows through NS
+// The NT threads of the calling group (index t within it) stream the rows through NS
 // tiles at `tiles`, so that NS - 1 tiles are being copied while one is
 // multiplied. Every thread of the block must call it the same number of times
 // (it synchronises the block); groups that have nothing to score pass
@@ -365,23 +228,17 @@ __device__ __forceinline__ void score_group_pq4(float (&acc)[NQ],
 template <typename F, int NT, int NQ, int NS>
 __device__ __forceinline__ void score_group(float (&acc)[NQ],
                                             const typename F::T* __restrict__ corpus,
-                                            const float* __restrict__ scales, int64_t row0, int d,
-                                            const float* q, int q_stride, typename F::T* tiles,
-                                            int t, int lane, bool active) {
+                                            int64_t row0, int d, const float* q, int q_stride,
+                                            typename F::T* tiles, int t, int lane, bool active) {
   using T = typename F::T;
-  static_assert(!F::QUANT, "int8 and int4 corpora score in the mma order (mma_passes)");
-  if constexpr (F::DS > 0) {
-    score_group_pq4<F::DS, NT, NQ, NS>(acc, corpus, scales, row0, d, q, q_stride, tiles, t,
-                                       lane, active);
-  } else {
-    const int n_tiles = padded_depth(d) / KD;
+  static_assert(!F::QUANT, "int8, int4 and pq4 corpora score in the mma order");
+  const int n_tiles = padded_depth(d) / KD;
 #pragma unroll
-    for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
-    tiles_begin<T, NT, NS>(tiles, corpus, row0, d, n_tiles, t, active);
-    for (int it = 0; it < n_tiles; ++it) {
-      const T* trow = tiles_next<T, NT, NS>(tiles, corpus, row0, d, n_tiles, it, t, lane, active);
-      if (active) fma_tile<NQ>(acc, q, q_stride, it * KD, trow);
-    }
+  for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
+  tiles_begin<T, NT, NS>(tiles, corpus, row0, d, n_tiles, t, active);
+  for (int it = 0; it < n_tiles; ++it) {
+    const T* trow = tiles_next<T, NT, NS>(tiles, corpus, row0, d, n_tiles, it, t, lane, active);
+    if (active) fma_tile<NQ>(acc, q, q_stride, it * KD, trow);
   }
 }
 
@@ -609,7 +466,7 @@ __device__ __forceinline__ void pass_warp_maxima(float (&acc)[PASS_R][J], int64_
   }
 }
 
-// ------------------------------------------------ int8 and int4: the mma order
+// ------------------------------------------------ int8, int4 and pq4: the mma order
 //
 // The quantized sweeps keep score_passes' block (THREADS threads, a pass of
 // PASS_ROWS rows, two groups, against QT = 4 J queries) and its epilogue
@@ -626,7 +483,8 @@ __device__ __forceinline__ void pass_warp_maxima(float (&acc)[PASS_R][J], int64_
 // each block's chain and the fold are the same operations in the same order.
 // After the pass, the accumulators go through shared memory (the slot just
 // read) into the epilogue's layout: thread lane of warp w gets rows 32 i +
-// lane of group w / 4 for queries (w % 4) J + j.
+// lane of group w / 4 for queries (w % 4) J + j. pq4 keeps the block, the
+// warps' rows and the transpose (pq_passes, below), with its own slots.
 constexpr int MMA_SLOT_BYTES = 128;                  // bytes of each corpus row a slot holds
 constexpr int MMA_ROW_STRIDE = MMA_SLOT_BYTES + 16;  // a slot row: 4 t + 36 g words, no conflict
 constexpr int MMA_SLOT_DIMS = 128;                   // query dims a slot holds
@@ -644,18 +502,84 @@ __host__ __device__ constexpr int mma_stage_bytes() {
                                           static_cast<int>(sizeof(__nv_bfloat16));
 }
 
-// A sweep's ring slot: the fma order's (score_passes) or the mma order's.
-// Both orders' sweeps run SWEEP_STAGES slots and SWEEP_BLOCKS_PER_SM blocks
-// an SM: on an H100 at 21M int8/int4 rows, 3 or 4 slots, or 2 at one block
-// an SM, were no faster at Q = 8, 32 or 256 (PERF.md §6,
-// tools/time_quantized_kernels.py).
+// pq4's level table in shared memory (the wrapper builds it in this layout
+// once per table; kernels/exact.py's _pq_kernel_table). An entry holds the
+// bf16 levels of one (subspace s, code n) for U components: a pair,
+// components U h and U h + 1 in its low and high halves, for DS >= 2; one
+// bf16 for DS = 1. A (subspace, code) has H = DS / U entries. With t =
+// s / 4 % 4 (the lane of a k-step that reads s), e = s % 4 and s' = s / 16,
+// entry h of code n lies at byte
+//     (t / W) * Q + ((4 s' + e) * H + h) * 128 + (t % W) * 16 EB + n * EB
+// (EB = 2 U bytes an entry; W = 128 / (16 EB) = 2 or 4 values of t share
+// each 128-byte slot, t % W picking its 16 EB bytes; Q = 32 m H the bytes of
+// one t / W; 32 D bytes in all). So one load of a k-step puts lanes of t and
+// t + 1 on other bank halves (EB = 4; t and t + 2 share one) or each t on
+// its own bank quarter (EB = 2); lanes of one t read one subspace's 16
+// codes, distinct banks or one word. And the address of a lookup is one
+// prmt: byte 0 is byte e of the row's code word shifted to n * EB with
+// (t % W) * 16 EB and bit 7 (h & 1) or'd in, bytes 1-3 are the lane's base
+// (the table's address, a multiple of PQ_TABLE_ALIGN, (t / W) * Q, and
+// (4 s' H + h & ~1) * 128 for the plane's and slot's bytes), and the load's
+// immediate adds the k-step's and byte's (4 ks + e) * H * 128.
+template <int DS>
+__host__ __device__ constexpr int pq_u() { return DS == 1 ? 1 : 2; }
+template <int DS>
+__host__ __device__ constexpr int pq_h() { return DS / pq_u<DS>(); }
+template <int DS>
+__host__ __device__ constexpr int pq_entry_bytes() { return 2 * pq_u<DS>(); }
+template <int DS>
+__host__ __device__ constexpr int pq_ways() { return 128 / (16 * pq_entry_bytes<DS>()); }
+template <int DS>
+__host__ __device__ constexpr int pq_table_bytes(int m) {
+  return 4 / pq_ways<DS>() * (32 * m * pq_h<DS>());  // 32 D
+}
+constexpr int PQ_TABLE_ALIGN = 256;  // the table's shared address: byte 0 is the lookup's
+
+// pq4's query tile stays in shared memory for the block's passes: every
+// dim of mma_q_rows rows (bf16, row stride D + PQ_Q_PAD: 2 D + 32 bytes, so
+// the 8-byte B loads of four rows hit distinct banks), since a slot's codes
+// reach 2 DS slices of the queries.
+constexpr int PQ_Q_PAD = 16;
+template <int QT>
+__host__ __device__ constexpr int pq_query_bytes(int d) {
+  return mma_q_rows<QT>() * (d + PQ_Q_PAD) * static_cast<int>(sizeof(__nv_bfloat16));
+}
+
+// A sweep's ring slot: the fma order's (score_passes) or the mma order's
+// (pq4: the codes alone, 128 bytes of each pass row with no padding, its
+// 16-byte chunk c of row r at chunk c ^ (r % 8), so that the word t loads of
+// rows g hit banks 4 (ks ^ g) + t, no conflict; and room for the transpose
+// of 32 queries). The float, int8 and int4 sweeps run SWEEP_STAGES
+// slots and SWEEP_BLOCKS_PER_SM blocks an SM: on an H100 at 21M int8/int4
+// rows, 3 or 4 slots, or 2 at one block an SM, were no faster at Q = 8, 32
+// or 256 (PERF.md §6, tools/time_quantized_kernels.py). pq4 blocks run two
+// an SM up to 8 queries (at D = 1024 the table, the slots and the query tile
+// of two fit an SM, one block's lookups run through the other's barriers and
+// epilogue), one at 16 and 32 (whose chains take up to 255 registers).
 template <typename F, int QT>
 __host__ __device__ constexpr int sweep_stage_bytes() {
-  if constexpr (F::QUANT) {
+  if constexpr (F::PQ) {
+    return PASS_ROWS * (QT + 1) * 4 > PASS_ROWS * MMA_SLOT_BYTES ? PASS_ROWS * (QT + 1) * 4
+                                                                   : PASS_ROWS * MMA_SLOT_BYTES;
+  } else if constexpr (F::QUANT) {
     return mma_stage_bytes<QT>();
   } else {
     return pass_stage_bytes<typename F::T, QT>();
   }
+}
+constexpr int PQ_TWO_BLOCKS_MAX_QT = 8;  // pq4: the largest query tile at two blocks an SM
+template <typename F, int QT>
+__host__ __device__ constexpr int sweep_blocks_per_sm() {
+  return F::PQ && QT > PQ_TWO_BLOCKS_MAX_QT ? 1 : SWEEP_BLOCKS_PER_SM;
+}
+// A sweep block's shared memory ahead of its epilogue's: the ring, and for
+// pq4 the level table ahead of it (at the start of the block's shared
+// memory, which is PQ_TABLE_ALIGN-aligned) and the query tile behind it.
+template <typename F, int QT>
+__host__ __device__ inline int sweep_ring_bytes(int d) {
+  int bytes = SWEEP_STAGES * sweep_stage_bytes<F, QT>();
+  if constexpr (F::PQ) bytes += pq_table_bytes<F::DS>(d / F::DS) + pq_query_bytes<QT>(d);
+  return bytes;
 }
 
 
@@ -852,17 +776,18 @@ __host__ __device__ inline int mma_slots(bool int4, bool one_walk, int d) {
 
 // Start copying slot s of a pass into `slot`: bytes [128 c, 128 c + 128) of
 // the pass's rows (group gl's rows from row0[gl]; row0 < 0: a dead group, its
-// rows zeros) and the dims [qd0, qd0 + 128) of query rows [q0, min(q0 +
+// rows zeros; issue_mma_rows alone) and the dims [qd0, qd0 + 128) of query rows [q0, min(q0 +
 // mma_q_rows, n_q)) (bf16, row stride d; rows past n_q and dims past d are
 // zeros), and when qd1 >= 0 the dims [qd1, qd1 + 128) into the second query
 // plane. All THREADS threads issue (index t), eight neighbours on one row's
 // 128 bytes.
-template <int QT>
-__device__ __forceinline__ void issue_mma_stage(char* slot, const uint8_t* __restrict__ corpus,
-                                                int64_t row0_a, int64_t row0_b, int row_bytes,
-                                                int c0, const __nv_bfloat16* __restrict__ q,
-                                                int q0, int n_q, int d, int qd0, int qd1,
-                                                int t) {
+// kSwizzle: a pq4 slot, rows MMA_SLOT_BYTES apart with chunk v / 16 of row
+// r at chunk v / 16 ^ r % 8 (sweep_stage_bytes); else rows MMA_ROW_STRIDE
+// apart.
+template <bool kSwizzle = false>
+__device__ __forceinline__ void issue_mma_rows(char* slot, const uint8_t* __restrict__ corpus,
+                                               int64_t row0_a, int64_t row0_b, int row_bytes,
+                                               int c0, int t) {
   constexpr int VPR = MMA_SLOT_BYTES / 16;  // vectors a row: 8
   constexpr int RPI = THREADS / VPR;        // rows an issue round: 32
   const int v = (t % VPR) * 16;
@@ -874,8 +799,17 @@ __device__ __forceinline__ void issue_mma_stage(char* slot, const uint8_t* __res
     const bool valid = col_ok && g0 >= 0;
     const uint8_t* src =
         valid ? corpus + (g0 + r % LANES) * static_cast<int64_t>(row_bytes) + c0 + v : corpus;
-    cp_async16(slot + r * MMA_ROW_STRIDE + v, src, valid);
+    cp_async16(slot + (kSwizzle ? r * MMA_SLOT_BYTES + (v ^ r % 8 * 16) : r * MMA_ROW_STRIDE + v),
+               src, valid);
   }
+}
+template <int QT>
+__device__ __forceinline__ void issue_mma_stage(char* slot, const uint8_t* __restrict__ corpus,
+                                                int64_t row0_a, int64_t row0_b, int row_bytes,
+                                                int c0, const __nv_bfloat16* __restrict__ q,
+                                                int q0, int n_q, int d, int qd0, int qd1,
+                                                int t) {
+  issue_mma_rows(slot, corpus, row0_a, row0_b, row_bytes, c0, t);
   constexpr int QV = MMA_SLOT_DIMS / 8;  // 16-byte vectors of a query row's slice
   constexpr int QR = mma_q_rows<QT>();
   __nv_bfloat16* qtile = reinterpret_cast<__nv_bfloat16*>(slot + PASS_ROWS * MMA_ROW_STRIDE);
@@ -888,6 +822,46 @@ __device__ __forceinline__ void issue_mma_stage(char* slot, const uint8_t* __res
     const __nv_bfloat16* src = valid ? q + static_cast<int64_t>(q0 + r % QR) * d + dim : q;
     cp_async16(qtile + r * MMA_Q_STRIDE + e, src, valid);
   }
+}
+
+// The end of a pass of the mma order: the warps' accumulators (acc[m][n],
+// the D fragments; `mine`: the warp's group is live) go through `slot` (the
+// slot just read, STAGE bytes: no copy lands there before the next pass's
+// first barrier)
+// into score_passes' epilogue layout, out[i][j] for row 32 i + lane of the
+// pass's group w / 4 and tile query (w % 4) J + j, handed to epi(p, out).
+// Every thread of the block calls it; it synchronises the block.
+template <int J, int STAGE, int NT, typename Epi>
+__device__ __forceinline__ void mma_epilogue(const float (&acc)[2][NT][4], char* slot, bool mine,
+                                             int p, Epi&& epi) {
+  constexpr int QT = 4 * J;
+  constexpr int TS = QT + 1;  // the transpose's row of scores, odd: reads are conflict free
+  static_assert(PASS_ROWS * TS * 4 <= STAGE, "the transpose fits a slot of STAGE bytes");
+  const int w = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  __syncthreads();
+  float* tb = reinterpret_cast<float*>(slot);
+  if (mine) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * (lane % 4) + e % 2;
+          if (col < QT) tb[(32 * w + 16 * m + lane / 4 + 8 * (e / 2)) * TS + col] = acc[m][n][e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float out[PASS_R][J];
+#pragma unroll
+  for (int i = 0; i < PASS_R; ++i) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) out[i][j] = tb[((w / 4) * LANES + 32 * i + lane) * TS + (w % 4) * J + j];
+  }
+  epi(p, out);
 }
 
 // Score `passes` passes of an int8 or packed-int4 corpus (row bytes d or
@@ -905,13 +879,11 @@ __device__ __forceinline__ void mma_passes(const uint8_t* __restrict__ corpus,
                                            const float* __restrict__ scales, int passes,
                                            RowOf&& row_of, const __nv_bfloat16* q, int q0,
                                            int n_q, int d, char* ring, Epi&& epi) {
-  static_assert(F::QUANT, "the mma order scores int8 and int4 corpora");
+  static_assert(F::QUANT && !F::PQ, "mma_passes scores int8 and int4 corpora");
   constexpr bool kInt4 = F::INT4;
   constexpr int QT = 4 * J;
   constexpr int NT = mma_q_rows<QT>() / 8;
   constexpr int STAGE = mma_stage_bytes<QT>();
-  constexpr int TS = QT + 1;  // the transpose's row of scores, odd: reads are conflict free
-  static_assert(PASS_ROWS * TS * 4 <= PASS_ROWS * MMA_ROW_STRIDE, "the transpose fits a slot");
   const int t = threadIdx.x;
   const int w = t / 32;
   const int lane = t % 32;
@@ -999,43 +971,293 @@ __device__ __forceinline__ void mma_passes(const uint8_t* __restrict__ corpus,
     if constexpr (!kInt4) {
       if (mine) scale_rows<NT>(acc, sc);
     }
-    // The transpose, through the slot just read: no copy lands there before
-    // the next pass's first barrier.
-    __syncthreads();
-    float* tb = reinterpret_cast<float*>(ring + ((k - 1) % NS) * STAGE);
-    if (mine) {
+    mma_epilogue<J, STAGE>(acc, ring + ((k - 1) % NS) * STAGE, mine, p, epi);
+  }
+}
+
+// ------------------------------------------------ pq4 in the mma order
+//
+// pq_passes keeps mma_passes' block, passes, warps and transpose. What
+// differs: the level table (pq_table_bytes) and the query tile
+// (pq_query_bytes) are copied into shared memory once, the table ahead of
+// the ring and the queries behind it, and a ring slot holds MMA_SLOT_BYTES
+// bytes of each pass row (sweep_stage_bytes) and nothing else. A warp walks
+// its 32 rows' bytes once for each entry h of the table (a pair of
+// components), both planes at once: four chains live, (U h, lo), (U h, hi),
+// (U h + 1, lo), (U h + 1, hi), folded into the row's sum in that order when
+// the walk ends. A row that fits one slot (m <= 256) is read by every walk
+// from that slot; a longer one is staged again for each walk, slot by slot,
+// its chains held across the slots.
+
+// One table entry (EB bytes) at shared address `addr`, zero-extended.
+template <int EB>
+__device__ __forceinline__ uint32_t lds_entry(uint32_t addr) {
+  uint32_t v;
+  if constexpr (EB == 4) {
+    asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  } else {
+    asm volatile("ld.shared.u16 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  }
+  return v;
+}
+
+// A lane's base in the table: the table's shared address `table` (a
+// multiple of PQ_TABLE_ALIGN) and its t's (t / W) * Q.
+template <int DS>
+__device__ __forceinline__ uint32_t pq_lane_base(uint32_t table, int m, int lane) {
+  return table + lane % 4 / pq_ways<DS>() * (32 * m * pq_h<DS>());
+}
+
+// One slot of a walk: entry h (components U h .. U h + U - 1) of bytes [c0,
+// c0 + 16 ksteps) of the warp's 32 rows at `crows` (a pq4 slot's rows,
+// issue_mma_rows<true>'s layout), both planes. ch[u][p] is the D fragment set of
+// component U h + u and plane p; `qs` the query tile (stride q_stride) and
+// `tbase` the lane's base in the table (pq_lane_base), both in shared
+// memory. Lane (g, t) reads word t of each k-step of rows g + 8 r + 16 mt,
+// looks byte e at plane p up in subspace p m / 2 + c0 + 16 ks + 4 t + e, and
+// packs the levels of bytes e = 0, 1 (and 2, 3) of one component into one
+// bf16x2 A register, as mma_slot's int8 decode does.
+template <int DS, int NT>
+__device__ __forceinline__ void pq_slot(float (&ch)[pq_u<DS>()][2][2][NT][4],
+                                        const uint8_t* crows, const __nv_bfloat16* qs,
+                                        int q_stride, uint32_t tbase, int m, int h, int c0,
+                                        int ksteps, int lane) {
+  constexpr int U = pq_u<DS>();
+  constexpr int H = pq_h<DS>();
+  constexpr int EB = pq_entry_bytes<DS>();
+  constexpr int W = pq_ways<DS>();
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int m2 = m / 2;
+  const uint8_t* c = crows + g * MMA_SLOT_BYTES + 4 * t;
+  const __nv_bfloat16* qv = qs + g * q_stride + 4 * t + U * h * m + c0;
+  // or'd into each byte of a code word: t % W's bytes of the slot and h's
+  // low bit; h's other bits go to the base
+  const uint32_t tw = static_cast<uint32_t>(t % W * 16 * EB | (h & 1) << 7) * 0x01010101u;
+  const uint32_t tb = tbase + (h >> 1) * 256;
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
+  for (int ks = 0; ks < MMA_SLOT_BYTES / MMA_KSTEP; ++ks) {
+    if (ks >= ksteps) break;
+    uint32_t w[2][2];  // rows g + 16 mt + 8 r: chunk ks of each at chunk ks ^ g
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        w[mt][r] = *reinterpret_cast<const uint32_t*>(c + (16 * mt + 8 * r) * MMA_SLOT_BYTES +
+                                                      ((ks ^ g) * 16));
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const uint32_t tp = tb + (p * m2 + c0) / 16 * (512 * H);  // the slot's subspaces s'
+      uint32_t v[2][2][4];  // the entries of bytes e = 0 .. 3 of each word
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          // each byte's nibble at plane p times EB, with tw: byte 0 of its address
+          const uint32_t x = (EB == 4 ? (p ? w[mt][r] >> 2 : w[mt][r] << 2) & 0x3C3C3C3Cu
+                                      : (p ? w[mt][r] >> 3 : w[mt][r] << 1) & 0x1E1E1E1Eu) |
+                             tw;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int col = 8 * n + 2 * (lane % 4) + e % 2;
-            if (col < QT) tb[(32 * w + 16 * m + lane / 4 + 8 * (e / 2)) * TS + col] = acc[m][n][e];
+            // byte e of x under bytes 1-3 of tp, then the k-step's and byte's slots
+            v[mt][r][e] = lds_entry<EB>(prmt(x, tp, 0x7650u | e) + (4 * ks + e) * H * 128);
           }
         }
       }
-    }
-    __syncthreads();
-    float out[PASS_R][J];
 #pragma unroll
-    for (int i = 0; i < PASS_R; ++i) {
+      for (int u = 0; u < U; ++u) {
+        const uint32_t sel = u ? 0x7632u : 0x5410u;  // the entries' high or low halves
+        uint32_t a[2][4];
 #pragma unroll
-      for (int j = 0; j < J; ++j) out[i][j] = tb[((w / 4) * LANES + 32 * i + lane) * TS + (w % 4) * J + j];
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            a[mt][r] = prmt(v[mt][r][0], v[mt][r][1], sel);
+            a[mt][2 + r] = prmt(v[mt][r][2], v[mt][r][3], sel);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint2 b = *reinterpret_cast<const uint2*>(qv + n * 8 * q_stride + u * m +
+                                                          p * m2 + MMA_KSTEP * ks);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_bf16(ch[u][p][mt][n], a[mt], b.x, b.y);
+        }
+      }
     }
-    epi(p, out);
+  }
+}
+
+template <int U, int NT>
+__device__ __forceinline__ void pq_zero(float (&ch)[U][2][2][NT][4]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ch[u][p][mt][n][e] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+// The fold of one walk's chains in (component, plane) order, each sum
+// rounded on its own: acc = ch[0][0] (the first walk) or acc + ch[0][0],
+// then + ch[0][1], + ch[1][0], + ch[1][1].
+template <int U, int NT>
+__device__ __forceinline__ void pq_fold(float (&acc)[2][NT][4], const float (&ch)[U][2][2][NT][4],
+                                        bool first) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = first ? ch[0][0][mt][n][e] : __fadd_rn(acc[mt][n][e], ch[0][0][mt][n][e]);
+        s = __fadd_rn(s, ch[0][1][mt][n][e]);
+#pragma unroll
+        for (int u = 1; u < U; ++u) {
+          s = __fadd_rn(s, ch[u][0][mt][n][e]);
+          s = __fadd_rn(s, ch[u][1][mt][n][e]);
+        }
+        acc[mt][n][e] = s;
+      }
+    }
+  }
+}
+
+// Start copying `bytes` bytes (a multiple of 16) from global `src` to shared
+// `dst` with all THREADS threads (index t).
+__device__ __forceinline__ void issue_copy(char* dst, const char* __restrict__ src, int bytes,
+                                           int t) {
+  for (int i = 16 * t; i < bytes; i += 16 * THREADS) cp_async16(dst + i, src + i, true);
+}
+
+// Start copying query rows [q0, q0 + mma_q_rows) (bf16, row stride d; rows
+// past n_q zeros) into the tile at q_s (row stride d + PQ_Q_PAD) with all
+// THREADS threads (index t).
+template <int QT>
+__device__ __forceinline__ void issue_query_tile(__nv_bfloat16* q_s,
+                                                 const __nv_bfloat16* __restrict__ q, int q0,
+                                                 int n_q, int d, int t) {
+  const int qv = d / 8;  // 16-byte vectors of a row
+  for (int i = t; i < mma_q_rows<QT>() * qv; i += THREADS) {
+    const int r = i / qv;
+    const int e = (i % qv) * 8;
+    const bool valid = q0 + r < n_q;
+    cp_async16(q_s + r * (d + PQ_Q_PAD) + e,
+               valid ? q + static_cast<int64_t>(q0 + r) * d + e : q, valid);
+  }
+}
+
+// The shared address of the table at `smem`, the start of the block's
+// dynamic shared memory; a block whose shared memory is not aligned to
+// PQ_TABLE_ALIGN (the lookups' addresses take their byte 0 from the codes)
+// stops the launch.
+__device__ __forceinline__ uint32_t pq_table_at(const char* smem) {
+  const uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  if (at % PQ_TABLE_ALIGN != 0) __trap();
+  return at;
+}
+
+// mma_passes for a pq4 corpus (codes [rows][m / 2], m = d / DS; `table` the
+// level table in pq_table_bytes' layout, global memory): the same passes,
+// row_of, queries and epilogue. `smem`, the block's dynamic shared memory,
+// holds the table, then the ring, then the query tile (sweep_ring_bytes);
+// the table and the queries are copied ahead of the first slot.
+template <typename F, int J, int NS, typename RowOf, typename Epi>
+__device__ __forceinline__ void pq_passes(const uint8_t* __restrict__ corpus,
+                                          const char* __restrict__ table, int passes,
+                                          RowOf&& row_of, const __nv_bfloat16* q, int q0,
+                                          int n_q, int d, char* smem, Epi&& epi) {
+  static_assert(F::PQ, "pq_passes scores pq4 corpora");
+  constexpr int DS = F::DS;
+  constexpr int QT = 4 * J;
+  constexpr int NT = mma_q_rows<QT>() / 8;
+  constexpr int STAGE = sweep_stage_bytes<F, QT>();
+  const int t = threadIdx.x;
+  const int w = t / 32;
+  const int lane = t % 32;
+  const int m = d / DS;
+  const int m2 = m / 2;  // bytes of a row
+  char* ring = smem + pq_table_bytes<DS>(m);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(ring + NS * STAGE);
+  issue_copy(smem, table, pq_table_bytes<DS>(m), t);
+  issue_query_tile<QT>(q_s, q, q0, n_q, d, t);
+  cp_async_commit();  // the first slot's wait waits for them too
+  const uint32_t tbase = pq_lane_base<DS>(pq_table_at(smem), m, lane);
+  const int row_slots = (m2 + MMA_SLOT_BYTES - 1) / MMA_SLOT_BYTES;
+  const int items = row_slots == 1 ? 1 : pq_h<DS>() * row_slots;  // slots a pass
+  const int total = passes * items;
+  auto issue = [&](int k) {  // flat slot k = pass * items + item
+    if (k < total) {
+      const int p = k / items;
+      issue_mma_rows<true>(ring + (k % NS) * STAGE, corpus, row_of(p, 0), row_of(p, 1), m2,
+                           (k - p * items) % row_slots * MMA_SLOT_BYTES, t);
+    }
+    cp_async_commit();  // one group per slot, empty or not: the waits count them
+  };
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) issue(s);
+  int k = 0;
+  float ch[pq_u<DS>()][2][2][NT][4];
+  for (int p = 0; p < passes; ++p) {
+    const bool mine = row_of(p, w / 4) >= 0;
+    float acc[2][NT][4] = {};
+    for (int it = 0; it < items; ++it, ++k) {
+      cp_async_wait<NS - 2>();  // this thread's copies of slot k have landed
+      __syncthreads();          // everyone's have; slot k - 1 is no longer read
+      issue(k + NS - 1);
+      if (!mine) continue;
+      const int c = it % row_slots;
+      const int h0 = row_slots == 1 ? 0 : it / row_slots;
+      const int h1 = row_slots == 1 ? pq_h<DS>() : h0 + 1;
+      const uint8_t* rows =
+          reinterpret_cast<const uint8_t*>(ring + (k % NS) * STAGE) + w * 32 * MMA_SLOT_BYTES;
+      const int ksteps = min(MMA_SLOT_BYTES, m2 - c * MMA_SLOT_BYTES) / MMA_KSTEP;
+      for (int h = h0; h < h1; ++h) {
+        if (c == 0) pq_zero(ch);
+        pq_slot<DS, NT>(ch, rows, q_s, d + PQ_Q_PAD, tbase, m, h, c * MMA_SLOT_BYTES, ksteps,
+                        lane);
+        if (c == row_slots - 1) pq_fold(acc, ch, h == 0);
+      }
+    }
+    mma_epilogue<J, STAGE>(acc, ring + ((k - 1) % NS) * STAGE, mine, p, epi);
+  }
+}
+
+// The mma order's passes of a format: pq_passes for pq4 (`scales` its level
+// table), mma_passes for int8 and int4.
+template <typename F, int J, int NS, typename RowOf, typename Epi>
+__device__ __forceinline__ void quant_passes(const uint8_t* __restrict__ corpus,
+                                             const float* __restrict__ scales, int passes,
+                                             RowOf&& row_of, const __nv_bfloat16* q, int q0,
+                                             int n_q, int d, char* ring, Epi&& epi) {
+  if constexpr (F::PQ) {
+    pq_passes<F, J, NS>(corpus, reinterpret_cast<const char*>(scales), passes, row_of, q, q0,
+                        n_q, d, ring, epi);
+  } else {
+    mma_passes<F, J, NS>(corpus, scales, passes, row_of, q, q0, n_q, d, ring, epi);
   }
 }
 
 // The sweeps' scoring (K1, K5, K7a): n_groups groups from corpus row row_base,
 // two a pass, against queries [q0, q0 + 4 J) (f32 for a float corpus, bf16
-// for int8/int4), in the format's order; epi(p, live, acc) as score_passes'.
+// for int8/int4/pq4), in the format's order; epi(p, live, acc) as
+// score_passes'. `ring` holds sweep_ring_bytes<F, 4 J>(d) bytes.
 template <typename F, int J, int NS, typename Epi>
 __device__ __forceinline__ void sweep_passes(const void* corpus, const float* scales,
                                              int64_t row_base, int n_groups, const void* q,
                                              int q0, int n_q, int d, char* ring, Epi&& epi) {
   if constexpr (F::QUANT) {
-    mma_passes<F, J, NS>(
+    quant_passes<F, J, NS>(
         static_cast<const uint8_t*>(corpus), scales, (n_groups + 1) / 2,
         [=](int p, int gl) -> int64_t {
           const int g = 2 * p + gl;
@@ -1088,14 +1310,16 @@ __device__ __forceinline__ void stage_queries(float* q_s, const float* __restric
 
 // Call fn(Fmt{}) with the format of `kind` (0 float32, 1 bfloat16, 2 int8,
 // 3 packed int4 of depth d = 256 .. MAX_INT4_DIM in steps of 256; 4 +
-// log2(DS) pq4 with DS = D / m in {1, 2, 4, 8}, when kPQ);
-// cudaErrorInvalidValue for anything else. At DS = 8 pq4 keeps 16 x NQ
-// partials in registers (ptxas -v reports any spill).
+// log2(DS) pq4 with DS = D / m in {1, 2, 4, 8}, m / 2 a multiple of 16 and
+// d <= MAX_PQ_DIM, when kPQ); cudaErrorInvalidValue for anything else.
 constexpr int MAX_INT4_DIM = 2048;
+constexpr int MAX_PQ_DIM = 2048;  // the table and a query tile beside the ring
 
 template <bool kPQ = true, typename Fn>
 cudaError_t with_format(int kind, int d, Fn&& fn) {
   if (kind >= 4 && kind <= 7) {
+    const int ds = 1 << (kind - 4);
+    if (!kPQ || d % ds != 0 || (d / ds) % 32 != 0 || d > MAX_PQ_DIM) return cudaErrorInvalidValue;
     if constexpr (kPQ) {
       switch (kind) {
         case 4:

@@ -12,23 +12,21 @@
 // The maxima are masked, the scores are not (the tail masks rows by row id).
 //
 // What bounds it on the H100: the same 2 Q N D operations and corpus read as
-// K1 (stream_capture.cu; float corpora on the CUDA cores, int8 and int4 ones
-// on the tensor cores), plus the score write, 4 * Q * N bytes (128 MB at 1M
+// K1 (stream_capture.cu; float corpora on the CUDA cores, int8, int4 and pq4
+// ones on the tensor cores), plus the score write, 4 * Q * N bytes (128 MB at 1M
 // rows and Q = 32 against the f32 corpus's 4 GB; 2.7 GB at 21M rows, where
 // an int4 corpus's codes are 10.8 GB), so the operations or the corpus read
 // bound it, not the write.
 //
 // What the design does about it: K1's first launch with a store in place of
-// its capture. Float32, bfloat16, int8 and int4 corpora: one block per
-// (query tile of 4-32 queries, chunk, range of the chunk's groups), cut by
-// kernels/exact.py's search_plan, scoring through score.cuh's sweep_passes
-// (float: score_passes, a register tile of 4 rows x up to 8 queries a
-// thread; int8/int4: mma_passes, the tensor cores, the scores transposed
-// into the same layout); per pass each warp holds one group for its
-// queries, so it reduces the group's masked maximum itself and stores its
-// scores 128 consecutive bytes an instruction. pq4 corpora keep the one
-// block per (query tile of 4 or 8, chunk) walking its groups through
-// score_group, a warp's 32 rows one coalesced 128-byte store. Because every
+// its capture. Every format: one block per (query tile of 4-32 queries,
+// chunk, range of the chunk's groups), cut by kernels/exact.py's
+// search_plan, scoring through score.cuh's sweep_passes (float:
+// score_passes, a register tile of 4 rows x up to 8 queries a thread;
+// int8/int4: mma_passes, pq4: pq_passes, the tensor cores, the scores
+// transposed into the same layout); per pass each warp holds one group for
+// its queries, so it reduces the group's masked maximum itself and stores
+// its scores 128 consecutive bytes an instruction. Because every
 // score comes from score.cuh's one order for its format, the scores are
 // bitwise K1's and K2's for the same rows, and the maxima bitwise K1's
 // (before its clamp), so every impl of the exact search selects the same
@@ -39,94 +37,10 @@ using namespace kirag;
 
 namespace {
 
-constexpr unsigned FULL_MASK = 0xffffffffu;
-
-// pq4 corpora: see the header note.
-template <typename F, int QPT>
-__global__ void __launch_bounds__(THREADS)
-    score_gmax_kernel(const float* __restrict__ q, const typename F::T* __restrict__ corpus,
-                      const float* __restrict__ scales, float* __restrict__ scores,
-                      float* __restrict__ gmax, int n_q, int d, int chunk_size,
-                      int64_t valid_rows, int64_t s_chunk, int64_t s_q) {
-  using T = typename F::T;
-  constexpr int NQ = 2 * QPT;  // queries of this block
-  extern __shared__ __align__(16) float smem[];
-  const int d_pad = padded_depth(d);
-  const int g_count = chunk_size / LANES;
-  float* q_s = smem;                                          // [NQ][d_pad]
-  char* table_s = reinterpret_cast<char*>(q_s + NQ * d_pad);  // pq4's level table
-  T* tiles = reinterpret_cast<T*>(table_s + table_bytes<F>(d));  // [STAGES][LANES][stride]
-  float* red_s = reinterpret_cast<float*>(tiles + STAGES * tile_elems<T>());  // [8][QPT]
-
-  const int t = threadIdx.x;
-  const int half = t / LANES;
-  const int lane = t % LANES;
-  const int warp = t / 32;
-  const int wl = t % 32;
-  const int q0 = blockIdx.x * NQ;
-  const int nq_here = min(NQ, n_q - q0);
-  const int chunk = blockIdx.y;
-  const int64_t chunk_row0 = static_cast<int64_t>(chunk) * chunk_size;
-
-  stage_queries(q_s, q, q0, NQ, n_q, d, d_pad);
-  const float* sc = stage_table<F>(table_s, scales, d);
-  __syncthreads();
-
-  // Half h scores block queries h, h + 2, ... against row `lane` of the
-  // group; warps 0-3 are half 0, warps 4-7 half 1 (K1's layout).
-  for (int g = 0; g < g_count; ++g) {
-    const int64_t row0 = chunk_row0 + static_cast<int64_t>(g) * LANES;
-    float acc[QPT];
-    score_group<F, THREADS, QPT, STAGES>(acc, corpus, sc, row0, d, q_s + half * d_pad,
-                                         2 * d_pad, tiles, t, lane, true);
-    const bool valid = row0 + lane < valid_rows;
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      const int lq = half + 2 * j;
-      if (scores != nullptr && lq < nq_here) {
-        scores[chunk * s_chunk + (q0 + lq) * s_q + g * LANES + lane] = acc[j];
-      }
-      float v = valid ? acc[j] : FIN_MIN;
-      for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
-      if (wl == 0) red_s[warp * QPT + j] = v;
-    }
-    __syncthreads();
-    if (t < nq_here) {  // block query t lives in half t % 2, slot t / 2
-      const int h = t % 2;
-      const int j = t / 2;
-      float m = red_s[(4 * h) * QPT + j];
-      for (int w = 1; w < 4; ++w) m = fmaxf(m, red_s[(4 * h + w) * QPT + j]);
-      gmax[(static_cast<int64_t>(chunk) * g_count + g) * n_q + q0 + t] = m;
-    }
-    // red_s is rewritten only after the next group's first __syncthreads
-  }
-}
-
-template <typename F, int QPT>
-cudaError_t launch(const float* q, const void* corpus, const float* scales, float* scores,
-                   float* gmax, int n_q, int d, int num_chunks, int chunk_size,
-                   int64_t valid_rows, int64_t s_chunk, int64_t s_q, cudaStream_t stream) {
-  using T = typename F::T;
-  constexpr int NQ = 2 * QPT;
-  const size_t smem = sizeof(float) * (NQ * padded_depth(d) + 8 * QPT) + table_bytes<F>(d) +
-                      sizeof(T) * STAGES * tile_elems<T>();
-  auto kernel = score_gmax_kernel<F, QPT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the caller raises on the returned code
-    return err;
-  }
-  const dim3 grid((n_q + NQ - 1) / NQ, num_chunks);
-  kernel<<<grid, THREADS, smem, stream>>>(q, static_cast<const T*>(corpus), scales, scores,
-                                          gmax, n_q, d, chunk_size, valid_rows, s_chunk, s_q);
-  return cudaGetLastError();
-}
-
-// Float, int8 and int4 corpora: block x = (chunk * splits + split) * q_tiles
-// + query tile, as K1's capture_sweep_kernel. Shared memory: the ring.
+// Block x = (chunk * splits + split) * q_tiles + query tile, as K1's
+// capture_sweep_kernel. Shared memory: the ring (sweep_ring_bytes).
 template <typename F, int J>
-__global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(THREADS, (sweep_blocks_per_sm<F, 4 * J>()))
     score_sweep_kernel(const void* __restrict__ q, const void* __restrict__ corpus,
                        const float* __restrict__ scales, float* __restrict__ scores,
                        float* __restrict__ gmax, int n_q, int d,
@@ -176,7 +90,7 @@ cudaError_t launch_sweep(const void* q, const void* corpus, const float* scales,
                          int64_t valid_rows, int64_t s_chunk, int64_t s_q, int splits, int gpb,
                          int plan_smem, cudaStream_t stream) {
   constexpr int QT = 4 * J;
-  const size_t smem = static_cast<size_t>(SWEEP_STAGES) * sweep_stage_bytes<F, QT>();
+  const size_t smem = sweep_ring_bytes<F, QT>(d);
   if (!sweep_cut_fits(chunk_size / LANES, splits, gpb) ||
       smem != static_cast<size_t>(plan_smem)) {
     return cudaErrorInvalidValue;
@@ -199,40 +113,24 @@ cudaError_t launch_sweep(const void* q, const void* corpus, const float* scales,
 
 }  // namespace
 
-// Queries [n_q, d] (f32, or bf16 for int8 and int4 corpora); corpus
+// Queries [n_q, d] (f32 for float corpora, else bf16); corpus
 // [num_chunks * chunk_size, *] in the format of `kind` with its `scales` (as
 // kirag_stream_capture's); scores null or f32 with the strides s_chunk, s_q
 // (see the header note); gmax f32 [num_chunks, chunk_size / 128, n_q].
-// Float, int8 and int4 corpora (kind 0-3) take search_plan's cut (q_tile,
-// splits, gpb, smem, as kirag_stream_capture's), pq4 ones qpt in {2, 4}
-// queries per thread (2 * qpt queries a block). Returns the launch's
-// cudaError_t.
+// search_plan's cut (q_tile, splits, gpb, smem, as kirag_stream_capture's).
+// Returns the launch's cudaError_t.
 extern "C" int kirag_score_gmax(const void* q, const void* corpus, int kind,
                                 const float* scales, float* scores, float* gmax, int n_q, int d,
                                 int num_chunks, int chunk_size, long long valid_rows,
-                                long long s_chunk, long long s_q, int qpt, int q_tile,
-                                int splits, int gpb, int smem, void* stream) {
+                                long long s_chunk, long long s_q, int q_tile, int splits,
+                                int gpb, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_format(kind, d, [&](auto fmt) {
     using F = decltype(fmt);
-    if constexpr (F::DS == 0) {
-      return with_query_tile(q_tile, [&](auto j) {
-        return launch_sweep<F, decltype(j)::value>(q, corpus, scales, scores, gmax, n_q, d,
-                                                   num_chunks, chunk_size, valid_rows, s_chunk,
-                                                   s_q, splits, gpb, smem, s);
-      });
-    } else {
-      const float* qf = static_cast<const float*>(q);
-      switch (qpt) {
-        case 2:
-          return launch<F, 2>(qf, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
-                              valid_rows, s_chunk, s_q, s);
-        case 4:
-          return launch<F, 4>(qf, corpus, scales, scores, gmax, n_q, d, num_chunks, chunk_size,
-                              valid_rows, s_chunk, s_q, s);
-        default:
-          return cudaErrorInvalidValue;
-      }
-    }
+    return with_query_tile(q_tile, [&](auto j) {
+      return launch_sweep<F, decltype(j)::value>(q, corpus, scales, scores, gmax, n_q, d,
+                                                 num_chunks, chunk_size, valid_rows, s_chunk,
+                                                 s_q, splits, gpb, smem, s);
+    });
   });
 }

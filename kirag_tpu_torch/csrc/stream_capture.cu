@@ -17,15 +17,17 @@
 // operations. A float corpus scores in score.cuh's fma order on the CUDA
 // cores (67 GFLOP at 1M x 1024 and Q = 32, 1.0 ms at the f32 peak) against
 // 4 GB of f32 (1.24 ms at 3.35 TB/s; bf16 half); tensor cores are out for it,
-// since TF32 would round the products. An int8 or packed-int4 corpus (K4)
-// moves 4x or 8x fewer bytes, and its codes and levels are exact in bf16, so
-// it scores on the tensor cores in score.cuh's mma order: at 21M x 1024 its
-// bytes bound it up to Q = 32 (int8 6.4 ms, int4 3.4 ms), its bf16
-// operations at Q = 256 (11 TFLOP, 11.1 ms at 989 TFLOP/s), and the decode
-// of every code for each query tile sits between the two.
+// since TF32 would round the products. An int8, packed-int4 or pq4 corpus
+// (K4) moves 4x, 8x or (pq4 at m = D / 4) 32x fewer bytes, and its codes and
+// levels are exact in bf16, so it scores on the tensor cores in score.cuh's
+// mma order: at 21M x 1024 its bytes bound it up to Q = 32 (int8 6.4 ms,
+// int4 3.4 ms, pq4 0.8 ms), its bf16 operations at Q = 256 (11 TFLOP, 11.1
+// ms at 989 TFLOP/s), and the decode of every code for each query tile sits
+// between the two (pq4: a shared-memory lookup of its level per (row,
+// subspace, pair of components), D / 2 a row).
 //
-// What the design does about it, float32, bfloat16, int8 and int4 corpora
-// (two launches a call, cut by kernels/exact.py's `search_plan`):
+// What the design does about it, every format (two launches a call, cut by
+// kernels/exact.py's `search_plan`):
 //   1. capture_sweep_kernel: one block per (query tile of 4-32 queries,
 //      chunk, range of the chunk's groups), enough blocks to fill the card at
 //      any Q and corpus size. A float corpus runs score.cuh's score_passes (a
@@ -35,7 +37,9 @@
 //      32 rows x the tile's queries on mma.sync, each code decoded once for
 //      the block, 128 bytes of each row and the tile's bf16 queries a slot,
 //      the scores transposed into score_passes' layout through shared
-//      memory), so a chunk is read from HBM once for up to 32 queries.
+//      memory; pq4 runs pq_passes, the same with the level table and the
+//      query tile in shared memory and the codes looked up to bf16), so a
+//      chunk is read from HBM once for up to 32 queries.
 //      Per pass it writes the clamped group maxima and keeps, for each query,
 //      the scores of its range's top-`slots` groups in a scratch
 //      [C, splits, Q, slots, 128] (every group when slots = its groups; else
@@ -46,13 +50,8 @@
 //   2. peel_capture_kernel: one warp per (chunk, query) peels B groups from
 //      the maxima, writes gids, capmax and resid, and copies each captured
 //      group's 128 scores out of the scratch (one 16-byte vector a lane).
-// A pq4 corpus keeps the single launch of stream_capture_kernel: one
-// block per (query tile of 4 or 8, chunk), the groups walked in order
-// through score_group, the [tile, G] maxima kept in shared memory, B groups
-// peeled per query (one warp each), then those B groups re-scored to write
-// their raw scores.
-// Every score of a format comes from score.cuh's one order for it, so
-// capture, re-score and the fallback gather agree bitwise, and the strict
+// Every score of a format comes from score.cuh's one order for it, so the
+// capture and the fallback gather's re-scores agree bitwise, and the strict
 // check `kth > resid` of the tail is taken on the values it returns.
 #include <algorithm>
 
@@ -69,162 +68,6 @@ __device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// pq4 corpora: see the header note.
-template <typename F, int QPT>
-__global__ void __launch_bounds__(THREADS)
-    stream_capture_kernel(const float* __restrict__ q, const typename F::T* __restrict__ corpus,
-                          const float* __restrict__ scales,
-                          float* __restrict__ gmax, float* __restrict__ capture,
-                          int* __restrict__ gids, float* __restrict__ capmax,
-                          float* __restrict__ resid, int n_q, int d, int chunk_size,
-                          int b, int64_t valid_rows) {
-  using T = typename F::T;
-  constexpr int NQ = 2 * QPT;  // queries of this block
-  extern __shared__ __align__(16) float smem[];
-  const int d_pad = padded_depth(d);
-  const int g_count = chunk_size / LANES;
-  float* q_s = smem;                                     // [NQ][d_pad]
-  char* table_s = reinterpret_cast<char*>(q_s + NQ * d_pad);  // pq4's level table
-  T* tiles = reinterpret_cast<T*>(table_s + table_bytes<F>(d));  // [STAGES][LANES][stride]
-  float* gmax_s = reinterpret_cast<float*>(tiles + STAGES * tile_elems<T>());  // [NQ][g]
-  float* red_s = gmax_s + NQ * g_count;                  // [8 warps][QPT]
-  int* sel_s = reinterpret_cast<int*>(red_s + 8 * QPT);  // [NQ][b]
-
-  const int t = threadIdx.x;
-  const int half = t / LANES;
-  const int lane = t % LANES;
-  const int warp = t / 32;
-  const int wl = t % 32;
-  const int q0 = blockIdx.x * NQ;
-  const int nq_here = min(NQ, n_q - q0);
-  const int chunk = blockIdx.y;
-  const int64_t chunk_row0 = static_cast<int64_t>(chunk) * chunk_size;
-
-  stage_queries(q_s, q, q0, NQ, n_q, d, d_pad);
-  const float* sc = stage_table<F>(table_s, scales, d);
-  __syncthreads();
-
-  // 1. group maxima. Half h scores block queries h, h + 2, ... against row
-  //    `lane` of the group; warps 0-3 are half 0, warps 4-7 half 1.
-  for (int g = 0; g < g_count; ++g) {
-    const int64_t row0 = chunk_row0 + static_cast<int64_t>(g) * LANES;
-    float acc[QPT];
-    score_group<F, THREADS, QPT, STAGES>(acc, corpus, sc, row0, d, q_s + half * d_pad,
-                                         2 * d_pad, tiles, t, lane, true);
-    const bool valid = row0 + lane < valid_rows;
-#pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      float v = valid ? acc[j] : FIN_MIN;
-      for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
-      if (wl == 0) red_s[warp * QPT + j] = v;
-    }
-    __syncthreads();
-    if (t < NQ) {  // block query t lives in half t % 2, slot t / 2
-      const int h = t % 2;
-      const int j = t / 2;
-      float m = red_s[(4 * h) * QPT + j];
-      for (int w = 1; w < 4; ++w) m = fmaxf(m, red_s[(4 * h + w) * QPT + j]);
-      gmax_s[t * g_count + g] = fmaxf(m, FIN_MIN);
-    }
-    // red_s is rewritten only after the next group's first __syncthreads
-  }
-  __syncthreads();
-
-  for (int i = t; i < g_count * nq_here; i += THREADS) {
-    const int g = i / nq_here;
-    const int lq = i % nq_here;
-    gmax[(static_cast<int64_t>(chunk) * g_count + g) * n_q + q0 + lq] =
-        gmax_s[lq * g_count + g];
-  }
-  __syncthreads();
-
-  // 2. peel the top-b groups of each query, one warp per query. Peeled
-  //    entries become -inf; every live entry is >= FIN_MIN, so the marker
-  //    never ties one, and what is left afterwards is the residual.
-  for (int lq = warp; lq < nq_here; lq += THREADS / 32) {
-    float* row = gmax_s + lq * g_count;
-    for (int bi = 0; bi < b; ++bi) {
-      float bv = -CUDART_INF_F;
-      int bidx = g_count;
-      for (int g = wl; g < g_count; g += 32) {
-        const float v = row[g];
-        if (beats(v, g, bv, bidx)) {
-          bv = v;
-          bidx = g;
-        }
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(FULL_MASK, bv, o);
-        const int oi = __shfl_xor_sync(FULL_MASK, bidx, o);
-        if (beats(ov, oi, bv, bidx)) {
-          bv = ov;
-          bidx = oi;
-        }
-      }
-      if (wl == 0) {  // every lane holds the same winner
-        sel_s[lq * b + bi] = bidx;
-        const int64_t o = (static_cast<int64_t>(chunk) * b + bi) * n_q + q0 + lq;
-        gids[o] = chunk * g_count + bidx;
-        capmax[o] = bv;
-        row[bidx] = -CUDART_INF_F;
-      }
-      __syncwarp();
-    }
-    float r = -CUDART_INF_F;
-    for (int g = wl; g < g_count; g += 32) r = fmaxf(r, row[g]);
-    for (int o = 16; o > 0; o >>= 1) r = fmaxf(r, __shfl_xor_sync(FULL_MASK, r, o));
-    if (wl == 0) resid[static_cast<int64_t>(chunk) * n_q + q0 + lq] = r;
-  }
-  __syncthreads();
-
-  // 3. re-score the captured groups, one (query, group) pair per half, each
-  //    half streaming through its own half of the tiles
-  const int npairs = nq_here * b;
-  T* my_tiles = tiles + half * (STAGES / 2) * tile_elems<T>();
-  for (int p0 = 0; p0 < npairs; p0 += 2) {
-    const int p = p0 + half;
-    const bool active = p < npairs;
-    const int lq = active ? p / b : 0;
-    const int bi = active ? p % b : 0;
-    const int64_t row0 = chunk_row0 + static_cast<int64_t>(sel_s[lq * b + bi]) * LANES;
-    float acc[1];
-    score_group<F, LANES, 1, STAGES / 2>(acc, corpus, sc, row0, d, q_s + lq * d_pad, 0,
-                                         my_tiles, lane, lane, active);
-    if (active) {
-      capture[(static_cast<int64_t>(chunk) * n_q + q0 + lq) * (static_cast<int64_t>(b) * LANES) +
-              bi * LANES + lane] = acc[0];
-    }
-  }
-}
-
-template <typename F, int QPT>
-cudaError_t launch(const float* q, const void* corpus, const float* scales, float* gmax,
-                   float* capture, int* gids, float* capmax, float* resid, int n_q, int d,
-                   int num_chunks, int chunk_size, int b, int64_t valid_rows,
-                   cudaStream_t stream) {
-  using T = typename F::T;
-  constexpr int NQ = 2 * QPT;
-  const int d_pad = padded_depth(d);
-  const int g_count = chunk_size / LANES;
-  const size_t smem = sizeof(float) * (NQ * d_pad + NQ * g_count + 8 * QPT) +
-                      table_bytes<F>(d) + sizeof(T) * STAGES * tile_elems<T>() +
-                      sizeof(int) * NQ * b;
-  auto kernel = stream_capture_kernel<F, QPT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the caller raises on the returned code
-    return err;
-  }
-  const dim3 grid((n_q + NQ - 1) / NQ, num_chunks);
-  kernel<<<grid, THREADS, smem, stream>>>(q, static_cast<const T*>(corpus), scales, gmax,
-                                          capture, gids, capmax, resid, n_q, d, chunk_size, b,
-                                          valid_rows);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------ float, int8 and int4 corpora: two launches
-
 // The worst of n held groups by the peel's order: the smallest maximum,
 // ties to the higher group id.
 __device__ __forceinline__ int worst_slot(const float* v, const int* g, int n) {
@@ -237,16 +80,16 @@ __device__ __forceinline__ int worst_slot(const float* v, const int* g, int n) {
 
 // Launch 1 (see the header note). Block x = (chunk * splits + split) * q_tiles
 // + query tile; the range `split` holds the chunk's groups [split * gpb,
-// min((split + 1) * gpb, G)). Shared memory: the ring, then the pass's
-// maxima [2][QT], slots [2][QT] and, when slots < gpb, the held maxima
-// [QT][slots], their group ids [QT][slots] and the worst slot [QT].
-// Blocks an SM that the launch bounds promise: at bf16 and 32 queries the
-// capture's epilogue and the unpacked rows need more than two blocks' 128
-// registers a thread, and ptxas would spill, so that instantiation runs one
-// block an SM.
+// min((split + 1) * gpb, G)). Shared memory: the ring (sweep_ring_bytes),
+// then the pass's maxima [2][QT], slots [2][QT] and, when slots < gpb, the
+// held maxima [QT][slots], their group ids [QT][slots] and the worst slot
+// [QT]. Blocks an SM that the launch bounds promise: at bf16 and 32 queries
+// the capture's epilogue and the unpacked rows need more than two blocks'
+// 128 registers a thread, and ptxas would spill, so that instantiation runs
+// one block an SM, as pq4 does (sweep_blocks_per_sm).
 template <typename F, int J>
 constexpr int capture_blocks_per_sm() {
-  return std::is_same<F, BF16>::value && J == 8 ? 1 : SWEEP_BLOCKS_PER_SM;
+  return std::is_same<F, BF16>::value && J == 8 ? 1 : sweep_blocks_per_sm<F, 4 * J>();
 }
 
 template <typename F, int J>
@@ -266,7 +109,7 @@ __global__ void __launch_bounds__(THREADS, (capture_blocks_per_sm<F, J>()))
   // What only the epilogue reads is worked out there, so that it holds no
   // register through the fma loop.
   auto epilogue = [&](int p, int live, auto& acc) {
-    float* red_s = reinterpret_cast<float*>(smem_raw + NS * sweep_stage_bytes<F, QT>());
+    float* red_s = reinterpret_cast<float*>(smem_raw + sweep_ring_bytes<F, QT>(d));
     int* slot_s = reinterpret_cast<int*>(red_s + 2 * QT);
     float* held_v = reinterpret_cast<float*>(slot_s + 2 * QT);
     int* held_g = reinterpret_cast<int*>(held_v + QT * slots);
@@ -430,8 +273,7 @@ cudaError_t launch_sweep(const void* q, const void* corpus, const float* scales,
   constexpr int QT = 4 * J;
   const int g_count = chunk_size / LANES;
   const size_t smem =
-      static_cast<size_t>(SWEEP_STAGES) * sweep_stage_bytes<F, QT>() +
-      sizeof(float) * 2 * QT + sizeof(int) * 2 * QT +
+      static_cast<size_t>(sweep_ring_bytes<F, QT>(d)) + sizeof(float) * 2 * QT + sizeof(int) * 2 * QT +
       (slots < gpb ? (sizeof(float) + sizeof(int)) * QT * slots + sizeof(int) * QT : 0);
   if (!sweep_cut_fits(g_count, splits, gpb) || slots != std::min(b, gpb) ||
       (slots < gpb && scratch_gid == nullptr) || smem != static_cast<size_t>(plan_smem)) {
@@ -469,52 +311,34 @@ cudaError_t launch_sweep(const void* q, const void* corpus, const float* scales,
 
 }  // namespace
 
-// Queries [n_q, d], f32 for float32, bfloat16 and pq4 corpora and bf16 for
-// int8 and int4 ones; corpus [num_chunks * chunk_size, *] in the format of
-// `kind` (0 float32 [., d], 1 bfloat16 [., d], 2 int8 [., d] with f32 row
-// scales [rows], 3 packed int4 [., d / 2] with f32 block scales
-// [rows, d / 128], 4 + log2(d / m) 4-bit PQ codes [., m / 2] with the bf16
-// level table [m][16][d / m] (score.cuh); `scales` is null for 0 and 1);
-// outputs as in the header note.
-// Float, int8 and int4 corpora (0-3) take search_plan's cut: q_tile in {4, 8,
-// 16, 32} queries a block, each chunk's G groups in `splits` ranges of
-// `gpb`, `slots` = min(b, gpb), and the scratch f32 [num_chunks * splits,
-// n_q, slots, 128] with, when slots < gpb, its group ids int32 [num_chunks *
+// Queries [n_q, d], f32 for float32 and bfloat16 corpora and bf16 for the
+// others; corpus [num_chunks * chunk_size, *] in the format of `kind` (0
+// float32 [., d], 1 bfloat16 [., d], 2 int8 [., d] with f32 row scales
+// [rows], 3 packed int4 [., d / 2] with f32 block scales [rows, d / 128], 4 +
+// log2(d / m) 4-bit PQ codes [., m / 2] with the bf16 level table in
+// score.cuh's pq_table_bytes layout; `scales` is null for 0 and 1); outputs
+// as in the header note. search_plan's cut: q_tile in {4, 8, 16, 32}
+// queries a block, each chunk's G groups in `splits` ranges of `gpb`,
+// `slots` = min(b, gpb), and the scratch f32 [num_chunks * splits, n_q,
+// slots, 128] with, when slots < gpb, its group ids int32 [num_chunks *
 // splits, n_q, slots] (else null), and `smem` the plan's shared memory of a
 // sweep block; a cut that does not cover the call, or whose `smem` is not
-// the launch's own, is refused. pq4 corpora take qpt in {2, 4} queries per
-// thread (2 * qpt queries a block) and no scratch. Returns the first launch
-// error.
+// the launch's own, is refused. Returns the first launch error.
 extern "C" int kirag_stream_capture(const void* q, const void* corpus, int kind,
                                     const float* scales, float* gmax, float* capture, int* gids,
                                     float* capmax, float* resid, float* scratch,
                                     int* scratch_gid, int n_q, int d, int num_chunks,
-                                    int chunk_size, int b, long long valid_rows, int qpt,
-                                    int q_tile, int splits, int gpb, int slots, int smem,
-                                    void* stream) {
+                                    int chunk_size, int b, long long valid_rows, int q_tile,
+                                    int splits, int gpb, int slots, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_format(kind, d, [&](auto fmt) {
     using F = decltype(fmt);
-    if constexpr (F::DS == 0) {
-      return with_query_tile(q_tile, [&](auto j) {
-        return launch_sweep<F, decltype(j)::value>(q, corpus, scales, gmax, capture, gids,
-                                                   capmax, resid, scratch, scratch_gid, n_q, d,
-                                                   num_chunks, chunk_size, b, valid_rows,
-                                                   splits, gpb, slots, smem, s);
-      });
-    } else {
-      const float* qf = static_cast<const float*>(q);
-      switch (qpt) {
-        case 2:
-          return launch<F, 2>(qf, corpus, scales, gmax, capture, gids, capmax, resid, n_q, d,
-                              num_chunks, chunk_size, b, valid_rows, s);
-        case 4:
-          return launch<F, 4>(qf, corpus, scales, gmax, capture, gids, capmax, resid, n_q, d,
-                              num_chunks, chunk_size, b, valid_rows, s);
-        default:
-          return cudaErrorInvalidValue;
-      }
-    }
+    return with_query_tile(q_tile, [&](auto j) {
+      return launch_sweep<F, decltype(j)::value>(q, corpus, scales, gmax, capture, gids, capmax,
+                                                 resid, scratch, scratch_gid, n_q, d, num_chunks,
+                                                 chunk_size, b, valid_rows, splits, gpb, slots,
+                                                 smem, s);
+    });
   });
 }
 

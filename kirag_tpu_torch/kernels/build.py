@@ -100,8 +100,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.kirag_stream_capture.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr,  # q, corpus, kind, scales, 5 outputs
-        ptr, ptr,                                     # scratch, its group ids (float corpora)
-        i32, i32, i32, i32, i32, i64, i32,            # n_q .. valid_rows, qpt
+        ptr, ptr,                                     # scratch, its group ids
+        i32, i32, i32, i32, i32, i64,                 # n_q .. valid_rows
         i32, i32, i32, i32, i32, ptr]                 # q_tile, splits, gpb, slots, smem, stream
     lib.kirag_stream_capture.restype = i32
     lib.kirag_gather_groups.argtypes = [
@@ -110,7 +110,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kirag_score_gmax.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr,      # q, corpus, kind, scales, scores (or null), gmax
         i32, i32, i32, i32, i64, i64, i64,  # n_q, d, num_chunks, chunk_size, valid, strides
-        i32, i32, i32, i32, i32, ptr]      # qpt, q_tile, splits, gpb, smem, stream
+        i32, i32, i32, i32, ptr]           # q_tile, splits, gpb, smem, stream
     lib.kirag_score_gmax.restype = i32
     for name in ("kirag_score_gather", "kirag_cap_assemble"):
         fn = getattr(lib, name)

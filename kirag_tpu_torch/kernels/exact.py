@@ -24,11 +24,12 @@ a quantized corpus (K1, K2, K7a).
 
 The scoring kernels take a float32 or bfloat16 corpus, or a quantized one
 (K4, the in-kernel dequant of ``kirag_tpu.ops.pallas_exact._chunk_scores``),
-named by ``quant``. Float32, bfloat16 and pq4 corpora score in
-``csrc/score.cuh``'s fma order on the CUDA cores, int8 and int4 ones in its
-mma order on the tensor cores (codes decoded exactly to bf16; every kernel
-the same instruction over the same k-steps, so K1, K2, K5 and K7a agree
-bitwise for each format):
+named by ``quant``. Float32 and bfloat16 corpora score in
+``csrc/score.cuh``'s fma order on the CUDA cores, int8, int4 and pq4 ones in
+its mma order on the tensor cores (codes decoded exactly to bf16, pq4's
+through its level table in shared memory; every kernel the same instruction
+over the same k-steps, so K1, K2, K5 and K7a agree bitwise for each
+format):
 
 - ``"int8"``: int8 codes [N, D] and f32 row scales [N];
 - ``"int4"``: packed uint8 [N, D/2] (byte j: dim j in the low nibble, dim
@@ -128,14 +129,14 @@ def check_corpus(corpus: torch.Tensor, scales: Optional[torch.Tensor], quant: st
 
 
 MAX_INT4_DIM = 2048  # csrc/score.cuh's MAX_INT4_DIM: int4 D = 256 .. 2048 in steps of 256
-MAX_PQ_DIM = 2048    # pq4: the table ([m][16][D/m] bf16, 32 bytes a dim) in shared memory
+MAX_PQ_DIM = 2048    # pq4: the level table and a query tile beside the ring in shared memory
 PQ_DS = (1, 2, 4, 8)  # pq4's D / m that with_format instantiates
 
 
 def pq_kernel_geometry_error(d: int, m: int) -> Optional[str]:
     """Why the CUDA kernels cannot score a pq4 corpus of depth d with m
     subquantizers, or None when they can: D / m in PQ_DS, m / 2 a multiple of
-    16 (16-byte code reads), D at most MAX_PQ_DIM."""
+    16 (whole k-steps of 16 bytes), D at most MAX_PQ_DIM."""
     if m < 2 or d % m or d // m not in PQ_DS or (m // 2) % 16 or d > MAX_PQ_DIM:
         return (f"the pq4 kernels take D / m in {PQ_DS}, m / 2 % 16 == 0 and D <= "
                 f"{MAX_PQ_DIM}, got D={d}, m={m}")
@@ -162,38 +163,74 @@ def _check_kernel_operands(corpus, scales, quant: str) -> None:
 
 
 # the pq4 kernels' copy of each level table, made at its first launch and
-# kept while the table lives and is not written
+# kept while the table lives and is not written (with the m it was made for)
 _PQ_TABLES = WeakTensorKeyDictionary()
 
 
+def pq_table_geometry(ds: int) -> Tuple[int, int, int, int, int]:
+    """csrc/score.cuh's pq4 table layout at D / m = ds: (U components an
+    entry holds, H entries a (subspace, code), EB bytes an entry, W values
+    of t sharing a 128-byte slot, and Q / m: the bytes of one t // W, per
+    subquantizer)."""
+    u = 1 if ds == 1 else 2
+    h = ds // u
+    eb = 2 * u
+    w = 128 // (16 * eb)
+    return u, h, eb, w, 32 * h
+
+
+def pq_table_bytes(d: int, m: int) -> int:
+    """Bytes of the kernels' level table of depth d with m subquantizers
+    (32 D)."""
+    u, h, eb, w, q_per_m = pq_table_geometry(d // m)
+    return 4 // w * q_per_m * m
+
+
+def pq_table_offsets(d: int, m: int, s, h, n):
+    """The byte of entry h of subspace s and code n in the kernels' table
+    (csrc/score.cuh): with t = s // 4 % 4, e = s % 4, s' = s // 16,
+    ``(t // W) Q + ((4 s' + e) H + h) 128 + (t % W) 16 EB + n EB``."""
+    _, hh, eb, w, q_per_m = pq_table_geometry(d // m)
+    t, e, s16 = s // 4 % 4, s % 4, s // 16
+    return (t // w) * q_per_m * m + ((4 * s16 + e) * hh + h) * 128 + (t % w) * 16 * eb + n * eb
+
+
 def _pq_kernel_table(scales: torch.Tensor, m: int) -> torch.Tensor:
-    """The [16, D] level table rounded to bf16 and laid out [m][16][D/m]
-    (csrc/score.cuh's table_bytes), built once per table."""
+    """The [16, D] level table rounded to bf16 in csrc/score.cuh's pq4 layout
+    (bf16 [pq_table_bytes / 2]): entry h of subspace s and code n
+    (:func:`pq_table_offsets`) holds ``L[n, (U h + u) m + s]`` at its bf16 u;
+    built once per table and m."""
     hit = _PQ_TABLES.get(scales)
-    if hit is not None and hit[0] == scales._version:
-        return hit[1]
-    ds = scales.shape[1] // m
-    table = scales.to(torch.bfloat16).view(PQ_LEVELS, ds, m).permute(2, 0, 1).contiguous()
-    _PQ_TABLES[scales] = (scales._version, table)
+    if hit is not None and hit[:2] == (scales._version, m):
+        return hit[2]
+    d = scales.shape[1]
+    u, h = pq_table_geometry(d // m)[:2]
+    dev = scales.device
+    s = torch.arange(m, device=dev).view(m, 1, 1, 1)
+    hh = torch.arange(h, device=dev).view(1, h, 1, 1)
+    n = torch.arange(PQ_LEVELS, device=dev).view(1, 1, PQ_LEVELS, 1)
+    uu = torch.arange(u, device=dev).view(1, 1, 1, u)
+    byte = pq_table_offsets(d, m, s, hh, n) + 2 * uu
+    table = torch.zeros(pq_table_bytes(d, m) // 2, dtype=torch.bfloat16, device=dev)
+    table[(byte // 2).reshape(-1)] = scales.to(torch.bfloat16)[n, (hh * u + uu) * m + s].reshape(-1)
+    _PQ_TABLES[scales] = (scales._version, m, table)
     return table
 
 
 def _kernel_args(queries, corpus, scales, quant: str):
-    """The kernel's queries (f32; for a quantized corpus rounded to bf16
-    first, as the reference does, and kept bf16 for int8 and int4, whose
-    kernels multiply them on the tensor cores), format code and scales (pq4:
-    the kernels' copy of the level table, :func:`_pq_kernel_table`)."""
-    if quant in ("none", "int8", "int4"):  # the sweeps copy the queries 16 bytes at a time
-        dtype = torch.float32 if quant == "none" else torch.bfloat16
-        q = queries.to(dtype).contiguous()
-        q = q if q.data_ptr() % 16 == 0 else q.clone()
-        return q, _KIND[corpus.dtype if quant == "none" else quant], scales
-    q = queries.to(torch.bfloat16).to(torch.float32).contiguous()
+    """The kernel's queries (f32 for a float corpus; for a quantized one
+    rounded to bf16 once, as the reference does, for the tensor cores),
+    format code and scales (pq4: the kernels' copy of the level table,
+    :func:`_pq_kernel_table`). The kernels copy the queries 16 bytes at a
+    time."""
+    dtype = torch.float32 if quant == "none" else torch.bfloat16
+    q = queries.to(dtype).contiguous()
+    q = q if q.data_ptr() % 16 == 0 else q.clone()
     if quant == "pq4":
         m = 2 * corpus.shape[1]
         ds = scales.shape[1] // m
         return q, _KIND[quant] + ds.bit_length() - 1, _pq_kernel_table(scales, m)
-    return q, _KIND[quant], scales
+    return q, _KIND[corpus.dtype if quant == "none" else quant], scales
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -250,36 +287,47 @@ def quant_scores(queries: torch.Tensor, corpus: torch.Tensor,
     return out
 
 
+def _probe_rows(codes: torch.Tensor, scales: torch.Tensor, quant: str):
+    """A probe's codes and scales as one corpus of T * 32 rows (pq4's level
+    table belongs to every tile and stays whole)."""
+    rows = codes.reshape(codes.shape[0] * 32, -1)
+    if quant == "pq4":
+        return rows, scales
+    return rows, scales.reshape(rows.shape[0], *scales.shape[2:])
+
+
 def score_probe(codes: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
                 quant: str) -> torch.Tensor:
     """The mma order alone, for the card's tests of it (``csrc/gather_groups.cu``'s
-    ``score_probe_kernel``: one warp a tile, the sweeps' ``mma_slot_fold``).
+    ``score_probe_kernel``, int8/int4, and ``pq_probe_kernel``, pq4: one warp
+    a tile, the sweeps' slot routines ``mma_slot_fold`` and ``pq_slot``).
 
-    ``codes`` [T, 32, *] in ``quant``'s format ("int8" or "int4") with
-    ``scales`` [T, 32] or [T, 32, D/128], ``queries`` [T, 8, D] -> f32
-    [T, 32, 8]: tile t's 32 rows (the A operand's two m16 tiles) against its
-    8 queries (one n8 tile), so a test can put one (row, query) pair at
-    every place of the fragments. A diagnostic on no search path: it counts
-    no launch. On CPU tensors it runs :func:`score_probe_plain`.
+    ``codes`` [T, 32, *] in ``quant``'s format ("int8", "int4" or "pq4") with
+    ``scales`` [T, 32] or [T, 32, D/128] (pq4: the [16, D] level table of
+    every tile), ``queries`` [T, 8, D] -> f32 [T, 32, 8]: tile t's 32 rows
+    (the A operand's two m16 tiles) against its 8 queries (one n8 tile), so a
+    test can put one (row, query) pair at every place of the fragments. A
+    diagnostic on no search path: it counts no launch. On CPU tensors it
+    runs :func:`score_probe_plain`.
     """
-    if quant not in ("int8", "int4") or codes.dim() != 3 or codes.shape[1] != 32:
-        raise ValueError(f"score_probe takes int8 or int4 codes [T, 32, *], got {quant} "
+    if quant not in ("int8", "int4", "pq4") or codes.dim() != 3 or codes.shape[1] != 32:
+        raise ValueError(f"score_probe takes int8, int4 or pq4 codes [T, 32, *], got {quant} "
                          f"{tuple(codes.shape)}")
     tiles = codes.shape[0]
     d = queries.shape[-1]
-    check_corpus(codes.reshape(tiles * 32, -1), scales.reshape(tiles * 32, *scales.shape[2:]),
-                 quant)
-    if tuple(queries.shape) != (tiles, 8, d) or _corpus_dim(codes[0], None, quant) != d:
+    rows, rscales = _probe_rows(codes, scales, quant)
+    check_corpus(rows, rscales, quant)
+    if tuple(queries.shape) != (tiles, 8, d) or _corpus_dim(rows, rscales, quant) != d:
         raise ValueError(f"queries {tuple(queries.shape)} do not match codes "
                          f"{tuple(codes.shape)}")
     if on_cpu(codes, scales, queries):
         return score_probe_plain(codes, scales, queries, quant)
-    _check_kernel_operands(codes.reshape(tiles * 32, -1), scales, quant)
+    _check_kernel_operands(rows, rscales, quant)
     lib = load_library()
-    q, kind, _ = _kernel_args(queries.reshape(tiles * 8, d), codes, scales, quant)
+    q, kind, operand = _kernel_args(queries.reshape(tiles * 8, d), rows, scales, quant)
     out = torch.empty((tiles, 32, 8), dtype=torch.float32, device=codes.device)
     with torch.cuda.device(codes.device):
-        err = lib.kirag_score_probe(codes.data_ptr(), kind, scales.data_ptr(), q.data_ptr(),
+        err = lib.kirag_score_probe(codes.data_ptr(), kind, operand.data_ptr(), q.data_ptr(),
                                     out.data_ptr(), tiles, d,
                                     torch.cuda.current_stream(codes.device).cuda_stream)
     raise_on(err, lib, "score_probe")
@@ -290,21 +338,23 @@ def score_probe_plain(codes: torch.Tensor, scales: torch.Tensor, queries: torch.
                       quant: str) -> torch.Tensor:
     """Plain PyTorch version of :func:`score_probe`: :func:`quant_scores`
     of each tile."""
-    return torch.stack([quant_scores(queries[t], codes[t], scales[t], quant).T
+    return torch.stack([quant_scores(queries[t], codes[t],
+                                     scales if quant == "pq4" else scales[t], quant).T
                         for t in range(codes.shape[0])])
 
 
 # ------------------------------------------------------------- search_plan
 #
-# How a K1, K5 or K7a call over a float32, bfloat16, int8 or packed-int4
-# corpus is cut (csrc/score.cuh's sweep_passes: score_passes for float rows,
-# mma_passes for int8 and int4; pq4 corpora keep one block per (query tile,
-# chunk), :func:`score_group_qpt`). K5 is cut as one chunk of all the
-# corpus's groups, as K7a with no store.
+# How a K1, K5 or K7a call is cut (csrc/score.cuh's sweep_passes:
+# score_passes for float rows, mma_passes for int8 and int4, pq_passes for
+# pq4). K5 is cut as one chunk of all the corpus's groups, as K7a with no
+# store.
 
 SMS = 132                  # the H100's streaming multiprocessors
 BLOCKS_PER_SM = 2          # score.cuh's SWEEP_BLOCKS_PER_SM; K1's bf16 32-query sweep
                            # runs 1, where half the ranges time the same (PERF.md §6)
+PQ_TWO_BLOCKS_MAX_QT = 8   # score.cuh's: pq4 sweeps run two blocks an SM up to this
+                           # query tile (where two blocks' shared memory fits), else one
 SMEM_PER_SM = 233472       # 228 KB of shared memory an SM,
 SMEM_PER_BLOCK = 232448    # 227 KB of it at most a block,
 SMEM_RESERVED = 1024       # and 1 KB the hardware keeps per block
@@ -313,16 +363,32 @@ PASS_ROWS = 256            # corpus rows a pass: two groups
 ROW_BYTES = 128            # bytes of each row a ring slot holds (32 f32, 64 bf16 columns;
                            # 128 int8 dims, or 128 dims of each int4 plane)
 MMA_SLOT_DIMS = 128        # int8/int4: the bf16 query dims of a slot (score.cuh)
+PQ_Q_PAD = 16              # pq4: bf16 padding of a query row in the block's tile
 STAGES = 2                 # ring slots (score.cuh's SWEEP_STAGES)
 FILL = 0.9                 # the share of the last wave of blocks the cut fills
 MAX_SCRATCH = 8            # K1's scratch holds at most 8x the capture's groups,
 MAX_HELD_SMEM = 64 * 1024  # and a block tracks its best groups in at most 64 KB
 
 
+def pq_stage_bytes(q_tile: int) -> int:
+    """score.cuh's sweep_stage_bytes for pq4: 128 bytes of each pass row,
+    or the transpose of the tile's scores where that is more."""
+    return max(PASS_ROWS * ROW_BYTES, PASS_ROWS * (q_tile + 1) * 4)
+
+
+def sweep_blocks_per_sm(q_tile: int, smem: int, pq: Optional[Tuple[int, int]] = None) -> int:
+    """Blocks an SM of a sweep of ``q_tile`` queries and ``smem`` bytes of
+    shared memory: BLOCKS_PER_SM; for pq4 two up to PQ_TWO_BLOCKS_MAX_QT
+    queries where two blocks' shared memory fits an SM, else one."""
+    if pq is None:
+        return BLOCKS_PER_SM
+    two = q_tile <= PQ_TWO_BLOCKS_MAX_QT and 2 * (smem + SMEM_RESERVED) <= SMEM_PER_SM
+    return 2 if two else 1
+
+
 @dataclasses.dataclass(frozen=True)
 class SearchPlan:
-    """The cut of one K1, K5 or K7a call over a float, int8 or int4 corpus,
-    passed whole to the kernel,
+    """The cut of one K1, K5 or K7a call, passed whole to the kernel,
     which refuses a cut that does not cover its call: ``q_tiles`` tiles of
     ``q_tile`` queries times, for each chunk, ``splits`` ranges of
     ``groups_per_block`` groups (the last may hold fewer), one block each. K1
@@ -346,21 +412,28 @@ class SearchPlan:
         return 0 < self.slots < self.groups_per_block
 
 
-def _sweep_smem(elem_bytes: int, q_tile: int, b: int, slots: int, gpb: int) -> int:
+def _sweep_smem(elem_bytes: int, q_tile: int, b: int, slots: int, gpb: int,
+                pq: Optional[Tuple[int, int]] = None) -> int:
     """The shared memory of one sweep block (capture_sweep_kernel with b > 0,
     score_sweep_kernel and group_max_sweep_kernel with b == 0: the ring
-    alone, since K5 peels in registers). ``elem_bytes`` 1 is an int8 or
-    packed-int4 corpus: a slot's queries are bf16, whole n8 tiles of them,
-    for both int4 planes at a tile of one n8 tile (score.cuh's
-    mma_stage_bytes)."""
-    if elem_bytes == 1:
-        q_rows = -(-q_tile // 8) * 8
+    alone, since K5 peels in registers; score.cuh's sweep_ring_bytes).
+    ``elem_bytes`` 1 is an int8 or packed-int4 corpus: a slot's queries are
+    bf16, whole n8 tiles of them, for both int4 planes at a tile of one n8
+    tile (score.cuh's mma_stage_bytes); with ``pq`` = (D, m) a pq4 corpus: a
+    slot holds the codes alone (:func:`pq_stage_bytes`), the level table lies
+    ahead of the ring and the query tile's whole n8 tiles of bf16 rows (D +
+    PQ_Q_PAD a row) behind it."""
+    q_rows = -(-q_tile // 8) * 8
+    if pq is not None:
+        smem = (pq_table_bytes(*pq) + STAGES * pq_stage_bytes(q_tile)
+                + q_rows * (pq[0] + PQ_Q_PAD) * 2)
+    elif elem_bytes == 1:
         planes = 2 if q_tile <= 8 else 1
-        stage = PASS_ROWS * (ROW_BYTES + 16) + planes * q_rows * (MMA_SLOT_DIMS + 16) * 2
+        smem = STAGES * (PASS_ROWS * (ROW_BYTES + 16)
+                         + planes * q_rows * (MMA_SLOT_DIMS + 16) * 2)
     else:
         cols = ROW_BYTES // elem_bytes                    # score.cuh's sweep_cols
-        stage = PASS_ROWS * (ROW_BYTES + 16) + q_tile * (cols + 4) * 4
-    smem = STAGES * stage                                # the ring
+        smem = STAGES * (PASS_ROWS * (ROW_BYTES + 16) + q_tile * (cols + 4) * 4)
     if b:
         smem += 4 * 4 * q_tile                           # the pass's maxima and slots
         if slots < gpb:
@@ -370,34 +443,41 @@ def _sweep_smem(elem_bytes: int, q_tile: int, b: int, slots: int, gpb: int) -> i
 
 @functools.lru_cache(maxsize=4096)
 def search_plan(n_q: int, num_chunks: int, groups_per_chunk: int, elem_bytes: int,
-                b: int = 0) -> SearchPlan:
+                b: int = 0, pq: Optional[Tuple[int, int]] = None) -> SearchPlan:
     """The cut of a float32 (``elem_bytes`` 4), bfloat16 (2), int8 or
     packed-int4 (1) K1 call with capture budget ``b``, or K7a or K5 call
     (``b`` 0; K5 one chunk), over ``num_chunks`` chunks of
-    ``groups_per_chunk`` groups and ``n_q`` queries.
+    ``groups_per_chunk`` groups and ``n_q`` queries; ``pq`` = (D, m) for a
+    pq4 corpus (``elem_bytes`` 1).
 
     The query tile is the smallest of 4, 8, 16, 32 that holds the queries
-    (32 beyond), halved while even one group a block would leave SMs idle.
+    (32 beyond), halved while even one group a block would leave SMs idle
+    (pq4: also while its block's shared memory passes ``SMEM_PER_BLOCK``).
     The chunk's groups are then split over 1, 2, 4, ... ranges until the
-    blocks fill ``FILL`` of their last wave (``SMS * BLOCKS_PER_SM`` blocks
-    a wave) or a range is one group, unless K1's scratch would pass
-    ``MAX_SCRATCH`` times its capture; K1 splits further where tracking a
-    range's best groups would take more than ``MAX_HELD_SMEM``."""
+    blocks fill ``FILL`` of their last wave (``SMS`` times
+    :func:`sweep_blocks_per_sm` blocks a wave) or a range is one group, unless K1's
+    scratch would pass ``MAX_SCRATCH`` times its capture; K1 splits further
+    where tracking a range's best groups would take more than
+    ``MAX_HELD_SMEM``, or (pq4) a block more than ``SMEM_PER_BLOCK``."""
     g = groups_per_chunk
-    if n_q < 1 or num_chunks < 1 or g < 1 or elem_bytes not in (1, 2, 4) or not 0 <= b <= g:
+    if (n_q < 1 or num_chunks < 1 or g < 1 or elem_bytes not in (1, 2, 4) or not 0 <= b <= g
+            or (pq is not None and (elem_bytes != 1 or pq_kernel_geometry_error(*pq)))):
         raise ValueError(f"no search plan for Q={n_q}, {num_chunks} chunks of {g} groups, "
-                         f"{elem_bytes}-byte rows, b={b}")
+                         f"{elem_bytes}-byte rows, b={b}, pq={pq}")
     q_tile = next((t for t in QUERY_TILES if t >= n_q), QUERY_TILES[-1])
     while q_tile > QUERY_TILES[0] and -(-n_q // q_tile) * num_chunks * g < SMS:
         q_tile //= 2
+    while (pq is not None and q_tile > QUERY_TILES[0]
+           and _sweep_smem(1, q_tile, b, 0, 0, pq) > SMEM_PER_BLOCK):
+        q_tile //= 2
     q_tiles = -(-n_q // q_tile)
+    wave = SMS * sweep_blocks_per_sm(q_tile, _sweep_smem(1, q_tile, b, 0, 0, pq), pq)
 
     def cut(s: int):
         gpb = -(-g // s)
         return -(-g // gpb), gpb, (min(b, gpb) if b else 0)
 
     def filled(blocks: int) -> float:
-        wave = SMS * BLOCKS_PER_SM
         return blocks / (-(-blocks // wave) * wave)
 
     splits, gpb, slots = cut(1)
@@ -406,27 +486,20 @@ def search_plan(n_q: int, num_chunks: int, groups_per_chunk: int, elem_bytes: in
         if b and nxt[0] * nxt[2] > MAX_SCRATCH * b:
             break
         splits, gpb, slots = nxt
-    while b and slots < gpb and 8 * q_tile * slots > MAX_HELD_SMEM:
+    while b and slots < gpb and (8 * q_tile * slots > MAX_HELD_SMEM or _sweep_smem(
+            elem_bytes, q_tile, b, slots, gpb, pq) > SMEM_PER_BLOCK):
         splits, gpb, slots = cut(2 * splits)
     return SearchPlan(q_tile, q_tiles, splits, gpb, slots,
-                      _sweep_smem(elem_bytes, q_tile, b, slots, gpb),
+                      _sweep_smem(elem_bytes, q_tile, b, slots, gpb, pq),
                       q_tiles * num_chunks * splits)
 
 
-def score_group_qpt(n_q: int) -> int:
-    """Queries per thread of the kernels that score through score.cuh's
-    score_group with a query tile of 2 * qpt (the pq4 K1/K7a, one block per
-    (query tile, chunk)): 4 queries a block for Q <= 8, else 8."""
-    return 2 if n_q <= 8 else 4
-
-
-def _sweep_plan(n_q: int, num_chunks: int, groups: int, corpus, quant: str,
-                b: int = 0) -> Optional[SearchPlan]:
-    """search_plan's cut of a K1 (b > 0), K7a or K5 call, or None for a pq4
-    corpus (score_group's grid)."""
-    if quant == "pq4":
-        return None
-    return search_plan(n_q, num_chunks, groups, corpus.element_size(), b)
+def corpus_plan(n_q: int, num_chunks: int, groups: int, corpus: torch.Tensor,
+                scales: Optional[torch.Tensor], quant: str, b: int = 0) -> SearchPlan:
+    """search_plan's cut of a K1 (b > 0) or K7a call over ``corpus`` stored
+    in ``quant``'s format."""
+    pq = (scales.shape[1], 2 * corpus.shape[1]) if quant == "pq4" else None
+    return search_plan(n_q, num_chunks, groups, corpus.element_size(), b, pq)
 
 
 # ------------------------------------------------------------ stream_capture
@@ -479,22 +552,19 @@ def stream_capture(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
     gids = torch.empty((num_chunks, b, n_q), dtype=torch.int32, device=dev)
     capmax = torch.empty((num_chunks, b, n_q), dtype=torch.float32, device=dev)
     resid = torch.empty((num_chunks, 1, n_q), dtype=torch.float32, device=dev)
-    scratch = held = None
-    cut = (0, 0, 0, 0, 0)
-    p = _sweep_plan(n_q, num_chunks, groups_per_chunk, corpus, quant, b)
-    if p is not None:  # the sweep: search_plan's cut, the capture from a scratch
-        scratch = torch.empty((num_chunks * p.splits, n_q, p.slots, LANES),
-                              dtype=torch.float32, device=dev)
-        if p.tracks_best:
-            held = torch.empty((num_chunks * p.splits, n_q, p.slots), dtype=torch.int32,
-                               device=dev)
-        cut = (p.q_tile, p.splits, p.groups_per_block, p.slots, p.smem)
+    # search_plan's cut; the capture is copied from the ranges' scratch
+    p = corpus_plan(n_q, num_chunks, groups_per_chunk, corpus, scales, quant, b)
+    scratch = torch.empty((num_chunks * p.splits, n_q, p.slots, LANES), dtype=torch.float32,
+                          device=dev)
+    held = None
+    if p.tracks_best:
+        held = torch.empty((num_chunks * p.splits, n_q, p.slots), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.kirag_stream_capture(
             q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand),
             gmax.data_ptr(), capture.data_ptr(), gids.data_ptr(), capmax.data_ptr(),
-            resid.data_ptr(), _ptr(scratch), _ptr(held), n_q, d, num_chunks, chunk_size, b,
-            int(valid_rows), score_group_qpt(n_q), *cut,
+            resid.data_ptr(), scratch.data_ptr(), _ptr(held), n_q, d, num_chunks, chunk_size, b,
+            int(valid_rows), p.q_tile, p.splits, p.groups_per_block, p.slots, p.smem,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib, "stream_capture")
     count_launch(_launch_name("stream_capture", quant))
@@ -641,15 +711,13 @@ def score_gmax(queries: torch.Tensor, corpus: torch.Tensor, valid_rows: int,
     elif store == "row":
         scores = torch.empty((n_q, n), dtype=torch.float32, device=dev)
         s_chunk, s_q = chunk_size, n
-    cut = (0, 0, 0, 0)
-    p = _sweep_plan(n_q, num_chunks, groups_per_chunk, corpus, quant)
-    if p is not None:
-        cut = (p.q_tile, p.splits, p.groups_per_block, p.smem)
+    p = corpus_plan(n_q, num_chunks, groups_per_chunk, corpus, scales, quant)
     with torch.cuda.device(dev):
         err = lib.kirag_score_gmax(
             q.data_ptr(), corpus.data_ptr(), kind, _ptr(operand), _ptr(scores),
             gmax.data_ptr(), n_q, d, num_chunks, chunk_size, int(valid_rows), s_chunk, s_q,
-            score_group_qpt(n_q), *cut, torch.cuda.current_stream(dev).cuda_stream)
+            p.q_tile, p.splits, p.groups_per_block, p.smem,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib, "score_gmax")
     count_launch(_launch_name("score_gmax", quant))
     return scores, gmax

@@ -446,7 +446,7 @@ def test_pq4_kernels_bitwise_equal_plain_on_integer_data(cuda_device, d, m):
 @pytest.mark.parametrize("m", [128, 256, 512])
 def test_pq4_kernels_match_plain_on_random_data(cuda_device, m):
     """Normal levels and unit queries: f32 sums in two orders, within 1e-6
-    of the largest score."""
+    of the largest score (K1, K2 and K7a)."""
     g = torch.Generator(device=cuda_device).manual_seed(8)
     d = 1024
     c, table = pq4_corpus(16384, d, m, g, cuda_device, integer=False)
@@ -462,6 +462,12 @@ def test_pq4_kernels_match_plain_on_random_data(cuda_device, m):
     gsel = torch.sort(hier_topk(got[0].reshape(-1, 8).T, 50)[1], dim=-1).values
     diff = gather_groups(q, c, gsel, table, "pq4") - gather_groups_plain(q, c, gsel, table, "pq4")
     assert float(diff.abs().max()) <= 1e-6 * scale
+    for store in ("chunk", "none"):  # K7a, the same order
+        k7 = score_gmax(q, c, 16000, 2048, store, table, "pq4")
+        k7_plain = score_gmax_plain(q, c, 16000, 2048, store, table, "pq4")
+        assert float((k7[1] - k7_plain[1]).abs().max()) <= 1e-6 * scale
+        if store == "chunk":
+            assert float((k7[0] - k7_plain[0]).abs().max()) <= 1e-6 * scale
 
 
 @pytest.mark.cuda
@@ -475,6 +481,108 @@ def test_pq4_kernels_refuse_geometries_they_do_not_take(cuda_device, d, m):
         stream_capture(q, codes, 512, 256, 1, table, "pq4")
     with pytest.raises(ValueError, match="no pq4"):
         group_max(q, codes, 1, table, "pq4")
+
+
+PQ_REL = 1e-6  # random levels: a share of the largest score (f32 sums in two orders)
+PQ_MMA_GEOMETRIES = [(1024, 128), (1024, 256), (1024, 512), (2048, 256), (2048, 2048)]
+
+
+def pq_rel(m):
+    """PQ_REL, for chains of m / 2 dims: the mma truncates each k-step's
+    sum, so a chain's error grows with its m / 32 k-steps; PQ_REL holds to
+    m = 512 (16 k-steps), four times it at m = 2048 (the card gave 1.3e-6
+    of the largest score there)."""
+    return PQ_REL * max(1, m // 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", PQ_MMA_GEOMETRIES)
+def test_pq4_mma_order_is_the_same_at_every_place_of_the_fragments(cuda_device, d, m):
+    """pq4's mma order: one (row, query) pair of random codes, levels and
+    query at each of the 32 x 8 places of a probe tile (every other row and
+    query random and different in each tile) gives one set of bits, within
+    PQ_REL of the largest plain score, and the same bits in K1's maxima,
+    K7a's and K2's re-score (the query at column 0), which place it
+    elsewhere."""
+    from kirag_tpu_torch.kernels.exact import score_probe, score_probe_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    tiles = 32 * 8
+    codes = torch.randint(0, 256, (tiles, 32, m // 2), generator=g, device=cuda_device).to(
+        torch.uint8)
+    table = torch.randn(16, d, generator=g, device=cuda_device) / math.sqrt(d)
+    queries = torch.nn.functional.normalize(
+        torch.randn(tiles, 8, d, generator=g, device=cuda_device), dim=-1)
+    t = torch.arange(tiles, device=cuda_device)
+    m_of, n_of = t // 8, t % 8
+    row, query = codes[0, 0].clone(), queries[0, 0].clone()
+    codes[t, m_of], queries[t, n_of] = row, query
+    out = score_probe(codes, table, queries, "pq4")
+    plain = score_probe_plain(codes, table, queries, "pq4")
+    torch.cuda.synchronize()
+    pair = out[t, m_of, n_of]
+    assert torch.equal(pair, pair[:1].expand(tiles)), pair.unique()
+    assert float((out - plain).abs().max()) <= pq_rel(m) * float(plain.abs().max())
+    c = row.expand(128, m // 2).contiguous()
+    q = query.expand(3, d).contiguous()
+    k1 = stream_capture(q, c, 128, 128, 1, table, "pq4")[0]
+    k7 = score_gmax(q, c, 128, 128, "chunk", table, "pq4")
+    cand = gather_groups(q, c, torch.zeros((3, 1), dtype=torch.int32, device=cuda_device),
+                         table, "pq4")
+    assert torch.equal(k1.reshape(3), pair[:3]) and torch.equal(k7[1], k1)
+    assert torch.equal(k7[0].reshape(3, 128), pair[:1].expand(3, 128))
+    assert torch.equal(cand.reshape(3, 128), pair[:1].expand(3, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", [(1024, 256), (1024, 128), (1024, 512), (2048, 1024)])
+def test_pq4_kernels_agree_bitwise_on_random_data(cuda_device, d, m):
+    """Random codes and levels, unit queries (sums round, so only one order
+    gives the same bits), valid_rows mid-group, many chunks: K1's capture
+    bitwise K2's re-scores, K7a's maxima bitwise K1's and its scores of the
+    captured groups bitwise K2's, a second launch bitwise the first."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    n, chunk, b = 32768, 2048, 4
+    c, table = pq4_corpus(n, d, m, g, cuda_device, integer=False)
+    valid, n_c = n - 70, n // chunk
+    for n_q in (1, 8, 9, 32, 33):
+        q = torch.nn.functional.normalize(
+            torch.randn(n_q, d, generator=g, device=cuda_device), dim=-1)
+        k1 = stream_capture(q, c, valid, chunk, b, table, "pq4")
+        assert all(torch.equal(x, y)
+                   for x, y in zip(k1, stream_capture(q, c, valid, chunk, b, table, "pq4")))
+        gmax, capture, gids = k1[:3]
+        gsel = gids.permute(2, 0, 1).reshape(n_q, -1)
+        cand = gather_groups(q, c, gsel, table, "pq4")
+        assert torch.equal(cand, capture.view(n_c, n_q, b, 128).transpose(0, 1)
+                           .reshape(n_q, -1, 128)), n_q
+        scores, k7 = score_gmax(q, c, valid, chunk, "chunk", table, "pq4")
+        assert torch.equal(k7, gmax), n_q
+        assert torch.equal(score_gather(scores, gsel), cand), n_q
+
+
+@pytest.mark.cuda
+def test_pq4_calls_start_the_sweep_kernels(cuda_device):
+    """One pq4 call of K1 starts capture_sweep_kernel and
+    peel_capture_kernel, of K2 gather_mma_kernel, of K7a
+    score_sweep_kernel, and nothing else (chip_smoke.py's count, in a
+    process of its own, int8 and int4 beside them)."""
+    import json
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c",
+                           "import chip_smoke; chip_smoke.quant_kernels_a_call()"],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = {"stream_capture_pq4": ("capture_sweep_kernel", "peel_capture_kernel"),
+            "gather_groups_pq4": ("gather_mma_kernel",),
+            "score_gmax_pq4": ("score_sweep_kernel",)}
+    for name, kernels in want.items():
+        assert len(out[name]) == len(kernels), out
+        assert all(k in got for k, got in zip(kernels, out[name])), out
 
 
 def k5_corpus(fmt, n, d, g, device):

@@ -226,10 +226,25 @@ def test_kernel_plain_versions_keep_the_table_whole(rng):
         stream_capture(qt, ct, 1000, 512, 2, st[:8], "pq4")
 
 
+def kernel_table_levels(table: torch.Tensor, m: int, ds: int) -> np.ndarray:
+    """The kernels' table (csrc/score.cuh's pq4 layout) read back as the
+    [m, 16, D/m] codebook values it holds: entry h of subspace s and code n
+    at byte ``pq_table_offsets(D, m, s, h, n)``, component U h + u at its
+    bf16 u."""
+    from kirag_tpu_torch.kernels.exact import pq_table_geometry, pq_table_offsets
+
+    u, h = pq_table_geometry(ds)[:2]
+    flat = table.float().numpy()
+    out = np.empty((m, 16, ds), dtype=np.float32)
+    for s, hh, n, uu in np.ndindex(m, h, 16, u):
+        out[s, n, u * hh + uu] = flat[pq_table_offsets(m * ds, m, s, hh, n) // 2 + uu]
+    return out
+
+
 def test_kernel_table_is_built_once_per_table(rng):
-    """The kernels' copy of the level table (bf16, [m][16][D/m]) is made at
-    the first launch and reused while the table is not written; padding
-    and row views leave the table whole."""
+    """The kernels' copy of the level table (bf16 in csrc/score.cuh's pq4
+    layout) is made at the first launch and reused while the table is not
+    written; padding and row views leave the table whole."""
     from kirag_tpu_torch.kernels.exact import _pq_kernel_table, pad_rows, row_scales
 
     codes, codebooks = integer_pq(rng, 256, 128, 32)
@@ -237,11 +252,11 @@ def test_kernel_table_is_built_once_per_table(rng):
     first = _pq_kernel_table(table, 32)
     assert _pq_kernel_table(table, 32) is first
     want = codebooks.astype(ml_dtypes.bfloat16).astype(np.float32)       # [m, 16, D/m]
-    np.testing.assert_array_equal(first.float().numpy(), want)
+    np.testing.assert_array_equal(kernel_table_levels(first, 32, 4), want)
     table.mul_(2)
     again = _pq_kernel_table(table, 32)
     assert again is not first
-    np.testing.assert_array_equal(again.float().numpy(), 2 * want)
+    np.testing.assert_array_equal(kernel_table_levels(again, 32, 4), 2 * want)
     ct = torch.from_numpy(codes)
     padded, same = pad_rows(ct, table, 384, "pq4")
     assert padded.shape == (384, 16) and same is table and not padded[256:].any()

@@ -1,16 +1,16 @@
-"""Time the int8/int4 search kernels of a tree of this repository on the card.
+"""Time the int8/int4/pq4 search kernels of a tree of this repository on the card.
 
-K1 (``stream_capture``), K2 (``gather_groups``), K5 (``group_max``, W = 1)
-and K7a (``score_gmax``, chunk-major store) over seeded random codes and
-scales made on the card (the same in every process): 1,015,808 x 1024 rows
-at Q = 8, 16, 32, 256 and the DPR corpus's 21,015,324 x 1024 (on the
-16,384-row chunk grid) at Q = 8, 32, 256, each time beside its bound (the
-bytes read once at 3.35 TB/s, or 2 Q N D operations at the bf16 989
-TFLOP/s). Times are ``chip_smoke.cuda_ms``'s: CUDA events around one call,
-the card kept busy while the host enqueues it, median of 10 (21M: 5; 21M at
-Q = 256: 3).
+K1 (``stream_capture``), K2 (``gather_groups``), K5 (``group_max``, W = 1;
+not pq4) and K7a (``score_gmax``, chunk-major store) over seeded random
+codes and scales (pq4: m = 256 codes and a [16, 1024] level table) made on
+the card (the same in every process): 1,015,808 x 1024 rows at Q = 8, 16,
+32, 256 and the DPR corpus's 21,015,324 x 1024 (on the 16,384-row chunk
+grid) at Q = 8, 32, 256, each time beside its bound (the bytes read once
+at 3.35 TB/s, or 2 Q N D operations at the bf16 989 TFLOP/s). Times are
+``chip_smoke.cuda_ms``'s: CUDA events around one call, the card kept busy
+while the host enqueues it, median of 10 (21M: 5; 21M at Q = 256: 3).
 
-    python tools/time_quantized_kernels.py time TREE LABEL OUT.json [k1,k2,k5,k7a]
+    python tools/time_quantized_kernels.py time TREE LABEL OUT.json [k1,k2,k5,k7a] [int8,int4,pq4]
 
 imports TREE's ``kirag_tpu_torch`` (so an older tree unpacked with ``git
 archive`` is timed by its own kernels, built into its own build directory);
@@ -20,8 +20,10 @@ one process a tree, and two trees compared in turns in one call on one card.
 
 copies this tree's ``kirag_tpu_torch`` to DEST with one of VARIANTS
 applied: other ring depths and occupancies, int4 in two walks, a fuller
-unroll, and diagnostics that are wrong on purpose (no decode, no mma, no
-copies, no compute) to split a time into its parts. Time it with ``time``.
+unroll, pq4's table with every t on the same banks and its sweeps at one
+block an SM, and diagnostics that are wrong on purpose (no decode, no mma,
+no copies, no compute; pq4: no table lookup, no copies, no compute) to
+split a time into its parts. Time it with ``time``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ CHUNK, K, D = 16384, 100, 1024
 DPR_ROWS = 21_015_324
 SIZES = {"1M": (62 * CHUNK, 62 * CHUNK - 4192),
          "21M": (-(-DPR_ROWS // CHUNK) * CHUNK, DPR_ROWS)}
+FORMATS = ("int8", "int4", "pq4")
+PQ_M = 256
 QUERIES = {"1M": (8, 16, 32, 256), "21M": (8, 32, 256)}
 HBM_BYTES_S, BF16_FLOP_S = 3.35e12, 989e12
 
@@ -86,6 +90,21 @@ VARIANTS = {
                     "slot_queries(k, 0),")],
     "no_copies": [(SCORE, "    if (k < total) {\n      const int p = k / n_slots;",
                    "    if (k < total && n_q < 0) {\n      const int p = k / n_slots;")],
+    # pq4: every t on the same banks (W = 1: a correct layout that clashes),
+    # one block an SM at every query tile, and wrong-on-purpose diagnostics
+    # (no table lookup, no compute, no copies)
+    "pq_shared_banks": [(SCORE, "constexpr int pq_ways() { return 128 / (16 * pq_entry_bytes<DS>()); }",
+                         "constexpr int pq_ways() { return 1; }"),
+                        (EXACT, "    w = 128 // (16 * eb)", "    w = 1")],
+    "pq_one_block": [(SCORE, "constexpr int PQ_TWO_BLOCKS_MAX_QT = 8;",
+                      "constexpr int PQ_TWO_BLOCKS_MAX_QT = 0;"),
+                     (EXACT, "PQ_TWO_BLOCKS_MAX_QT = 8   #", "PQ_TWO_BLOCKS_MAX_QT = 0   #")],
+    "pq_no_lookup": [(SCORE, "            v[mt][r][e] = lds_entry<EB>(prmt(x, tp, 0x7650u | e) + (4 * ks + e) * H * 128);",
+                      "            v[mt][r][e] = prmt(x, tp, 0x7650u | e) + (4 * ks + e) * H * 128;")],
+    "pq_no_compute": [(SCORE, "        pq_slot<DS, NT>(ch, rows,",
+                       "        if (n_q < 0) pq_slot<DS, NT>(ch, rows,")],
+    "pq_no_copies": [(SCORE, "    if (k < total) {\n      const int p = k / items;",
+                      "    if (k < total && n_q < 0) {\n      const int p = k / items;")],
 }
 
 
@@ -103,7 +122,8 @@ def make_variant(name: str, dest: str) -> None:
         path.write_text(text.replace(old, new))
 
 
-def time_tree(tree: str, label: str, out_path: str, kernels=("k1", "k2", "k5", "k7a")) -> dict:
+def time_tree(tree: str, label: str, out_path: str, kernels=("k1", "k2", "k5", "k7a"),
+              formats=FORMATS) -> dict:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -135,13 +155,17 @@ def time_tree(tree: str, label: str, out_path: str, kernels=("k1", "k2", "k5", "
            "power": chip_smoke.nvidia_smi("name,power.limit")}
     g = torch.Generator(device=dev).manual_seed(123)
     queries = torch.nn.functional.normalize(torch.randn(256, D, generator=g, device=dev), dim=-1)
-    for quant in ("int8", "int4"):
+    for quant in formats:
         for size, (n, valid) in SIZES.items():
             gen = torch.Generator(device=dev).manual_seed(7)
             if quant == "int8":
                 codes = torch.randint(-127, 128, (n, D), generator=gen, device=dev,
                                       dtype=torch.int8)
                 scales = torch.rand(n, generator=gen, device=dev) * 0.01
+            elif quant == "pq4":  # scales: the level table of every row
+                codes = torch.randint(0, 256, (n, PQ_M // 2), generator=gen, device=dev,
+                                      dtype=torch.uint8)
+                scales = torch.randn(16, D, generator=gen, device=dev) / D ** 0.5
             else:
                 codes = torch.randint(0, 256, (n, D // 2), generator=gen, device=dev,
                                       dtype=torch.uint8)
@@ -164,11 +188,16 @@ def time_tree(tree: str, label: str, out_path: str, kernels=("k1", "k2", "k5", "
                     cand = gather_groups(q, codes, gsel, scales, quant)
                     r["k2"] = chip_smoke.cuda_ms(
                         lambda: gather_groups(q, codes, gsel, scales, quant), reps)
-                    row = codes.shape[1] * codes.element_size() + scales[0].numel() * 4
-                    r["k2_bound"] = bound(int(torch.unique(gsel).numel()) * 128 * row
-                                          + nbytes(q, gsel, cand), 2 * gsel.numel() * 128 * D)
+                    row = codes.shape[1] * codes.element_size()
+                    shared = nbytes(q, gsel, cand)
+                    if quant == "pq4":
+                        shared += nbytes(scales)
+                    else:
+                        row += scales[0].numel() * 4
+                    r["k2_bound"] = bound(int(torch.unique(gsel).numel()) * 128 * row + shared,
+                                          2 * gsel.numel() * 128 * D)
                     del cand
-                if "k5" in kernels:
+                if "k5" in kernels and quant != "pq4":
                     k5 = group_max(q, codes, 1, scales, quant)
                     r["k5"] = chip_smoke.cuda_ms(lambda: group_max(q, codes, 1, scales, quant),
                                                  reps)
@@ -195,7 +224,8 @@ if __name__ == "__main__":
     if len(sys.argv) >= 5 and sys.argv[1] == "time":
         time_tree(sys.argv[2], sys.argv[3], sys.argv[4],
                   tuple(sys.argv[5].split(",")) if len(sys.argv) > 5 else ("k1", "k2", "k5",
-                                                                            "k7a"))
+                                                                            "k7a"),
+                  tuple(sys.argv[6].split(",")) if len(sys.argv) > 6 else FORMATS)
     elif len(sys.argv) == 4 and sys.argv[1] == "variant":
         make_variant(sys.argv[2], sys.argv[3])
     else:
