@@ -13,7 +13,8 @@ weights at E5-large and Llama-3-8B-Instruct width:
   -> exact search, once over a float32 and once over a bfloat16 index: 400
   requests from 4 threads, then requests of 1, 8 and 32 texts alone, each
   served batch's capture flag and result held against the plain versions;
-  K1 and K2 compared with their plain versions again and timed;
+  K1 and K2 compared with their plain versions again and timed (K2 also on
+  phase 6's built index, where the queries share most groups);
 - the offline index build (phase 6): a 16,384-passage DPR-format TSV through
   ``compute_corpus_embeddings`` (bf16, batch 128, buckets of 128, 256 and 512
   tokens, every encoder layer through the flash attention kernel K3) and
@@ -75,7 +76,8 @@ weights at E5-large and Llama-3-8B-Instruct width:
 - the exact-search variants (phase 15): K7a (every score and the group
   maxima, stored chunk-major, row-major or not at all), K7b and K8 (group
   copies, on int64 and int32 indices, one device kernel a call by
-  torch.profiler) and K9 (merge's running window) held against their plain
+  torch.profiler) and K9 (merge's running window, with the count of
+  queries that took the reference's steps) held against their plain
   versions in five formats (K7a's maxima bitwise K1's); every
   ``(impl, select)`` of ``exact_topk_mips`` over phase 4's 1,000,000 rows
   as float32, bfloat16, int8, int4 and PQ indexes at Q = 8, 32, 256,
@@ -85,10 +87,11 @@ weights at E5-large and Llama-3-8B-Instruct width:
   ``"twopass"`` and ``select="merge"`` over the DPR corpus's int4 codes,
   equal to the capdom search, with K7a, K7b, K8 and K9 timed.
 
-Every phase raises on failure. The last lines of standard output are the
-card's name and power limit, one JSON object with each kernel's launches,
-error, times and bound, and the result line ``{"ok": true, "device":
-{...}}``. Without a CUDA device it exits with code 2 and prints no result.
+Every phase raises on failure. The last lines of standard output are K2's
+main-path launches by shape, the card's name and power limit, one JSON
+object with each kernel's launches, error, times and bound, and the result
+line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits with
+code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -211,6 +214,30 @@ def bound(n_bytes: float, n_ops: float, ops_s: float):
     rate, or the operations at their peak rate, whichever is longer."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# K2's launches in the main-path runs, by the shape its wrapper names
+# (format, Q, k, the corpus's groups), added up by main_path_counts()
+K2_SHAPES: dict = {}
+
+
+def shapes_of(*formats) -> dict:
+    """K2_SHAPES' entries of these formats, the most launched first."""
+    return dict(sorted(((k, n) for k, n in K2_SHAPES.items() if k.split()[0] in formats),
+                       key=lambda kv: -kv[1]))
+
+
+def main_path_counts() -> dict:
+    """``launch_counts()`` at the end of a main-path run (the runs whose
+    launches the kernels line counts), K2's launches by shape added to
+    K2_SHAPES."""
+    from kirag_tpu_torch.kernels import launch_counts, launch_shapes
+
+    for name, by in launch_shapes().items():
+        if name.startswith("gather_groups"):
+            for shape, n in by.items():
+                K2_SHAPES[shape] = K2_SHAPES.get(shape, 0) + n
+    return launch_counts()
 
 
 def check_topk_close(vals, idx, ref_vals, ref_idx, what: str) -> None:
@@ -442,7 +469,7 @@ def serve(label, encoder, collator, index, texts, text_rows, power,
     versions. ``mode`` is the retriever's ``search_mode`` (the engine keeps
     ``mode=None``); for an l2 index each text's own row must lie within
     ``self_tol`` (squared distance)."""
-    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.kernels import reset_launch_counts
     from kirag_tpu_torch.retrieval import DenseRetriever
     from kirag_tpu_torch.serving import RetrievalEngine
 
@@ -480,7 +507,7 @@ def serve(label, encoder, collator, index, texts, text_rows, power,
     for n in (1, 8, 32):
         requests.append(list(range(n)))
         results[len(requests) - 1] = engine.search(texts[:n], topk=K)
-    counts = launch_counts()
+    counts = main_path_counts()
     engine.close()
     quant = index.compression
     # K2 runs when a search re-dispatches: padded batches do on an inner-product
@@ -1049,10 +1076,10 @@ def index_build(work: Path, dev, gen, config, power, err) -> dict:
     asked = retriever([corpus[r]["passage"] for r in rows[:3]], topk=10)
     torch.cuda.synchronize()
     retrieve_s = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = main_path_counts()
 
     # -- K1 and K2 against their plain versions at this index's shapes
-    index_kernels("built index", index, gen, power, err, query_counts=(8, 64))
+    k2_built = index_kernels("built index", index, gen, power, err, query_counts=(8, 64))
 
     # -- the path ran through every kernel, and its outputs are right
     lengths = [t for t, _ in timed[0].batches]
@@ -1152,8 +1179,9 @@ def index_build(work: Path, dev, gen, config, power, err) -> dict:
                 f"attention path, pooled cosine >= {cos:.7f}, max abs diff {diff:.3g}")
     del f32
     profile_encoder(encoder, batches, power)
-    return {"launches": counts, "flash": flash, "tsv": tsv, "model_dir": model_dir,
-            "index_dir": index_dir, "shard_dir": shard_dir, "stored": stored, "ids": ids}
+    return {"launches": counts, "flash": flash, "k2": k2_built, "tsv": tsv,
+            "model_dir": model_dir, "index_dir": index_dir, "shard_dir": shard_dir,
+            "stored": stored, "ids": ids}
 
 
 # ----------------------------------------------------------------- phase 7
@@ -1654,7 +1682,7 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
     import pickle
 
     from kirag_tpu_torch.cli import retrieve as retrieve_cli
-    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.kernels import reset_launch_counts
 
     fixtures = runpy.run_path(str(Path(__file__).resolve().parent / "tests"
                                   / "fixtures_realtext.py"))
@@ -1703,7 +1731,7 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
             wall = time.perf_counter() - t0
         finally:
             retrieve_cli.setup_kirag_model = setup
-        counts = launch_counts()
+        counts = main_path_counts()
         results = json.loads(Path(path).read_text())
         if len(results) != n_q or not all(
                 r["ctxs"] and "paths" in r and all(c["id"] in index_ids for c in r["ctxs"])
@@ -2123,7 +2151,7 @@ def train_cli(work: Path, model_dir: Path, dev, power) -> dict:
     the saved encoder read back by load_encoder, finite losses and each K3
     kernel's launches against the count the batches' buckets call for."""
     from kirag_tpu_torch.cli import train_aligner
-    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.kernels import reset_launch_counts
     from kirag_tpu_torch.models import load_encoder
     from kirag_tpu_torch.training import aligner
 
@@ -2159,7 +2187,7 @@ def train_cli(work: Path, model_dir: Path, dev, power) -> dict:
     finally:
         aligner.AlignerTrainer.training_step, aligner.AlignerTrainer._score_batch = (step_fn,
                                                                                      score_fn)
-    counts = launch_counts()
+    counts = main_path_counts()
 
     trainer = seen.pop("trainer")
     layers = trainer.model.config.num_hidden_layers
@@ -2634,7 +2662,7 @@ def quantized_cli(work: Path, built: dict, dev) -> dict:
     neighbours)."""
     from kirag_tpu_torch.cli import build_index
     from kirag_tpu_torch.index import TorchIndexer
-    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.kernels import reset_launch_counts
     from kirag_tpu_torch.ops import exact_topk_mips, quantize_rows_int4, quantize_rows_int8
 
     stored, ids = built["stored"], built["ids"]
@@ -2653,7 +2681,7 @@ def quantized_cli(work: Path, built: dict, dev) -> dict:
         found = index.search_knn(stored[rows], top_docs=10)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = main_path_counts()
         codes, scales, n = index._device_corpus, index._device_scales, len(stored)
         want = (quantize_rows_int8 if quant == "int8" else quantize_rows_int4)(stored)
         if not (cfg["compression"] == index.compression == quant
@@ -2729,7 +2757,7 @@ def dpr_search(quant: str, codes, scales, queries, sample, power, err) -> dict:
     stored rows, the results of a query the same at every Q; K1 and K2
     timed at each Q, their plain versions at Q = 8, where the search is also
     held against the plain search."""
-    from kirag_tpu_torch.kernels import (gather_groups, gather_groups_plain, launch_counts,
+    from kirag_tpu_torch.kernels import (gather_groups, gather_groups_plain,
                                          reset_launch_counts, stream_capture,
                                          stream_capture_plain)
     from kirag_tpu_torch.ops import exact_topk_mips, hier_topk
@@ -2749,7 +2777,7 @@ def dpr_search(quant: str, codes, scales, queries, sample, power, err) -> dict:
         results[n_q] = (vals, idx)
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = main_path_counts()
     vals, idx = results[DPR_QUERIES[-1]]
     if not torch.equal(idx[:DPR_SELF, 0], sample[:DPR_SELF]):
         raise AssertionError(f"{quant}: a stored row did not find itself at top-1")
@@ -3193,7 +3221,7 @@ def approx_cli(work: Path, built: dict, decoded: dict, run_a: dict, dev, power) 
     from kirag_tpu_torch.cli import build_index, retrieval_eval
     from kirag_tpu_torch.cli import retrieve as retrieve_cli
     from kirag_tpu_torch.index import TorchIndexer
-    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.kernels import reset_launch_counts
 
     index_dir = build_index.main(["--embeddings_dir", built["shard_dir"], "--embedding_size",
                                   str(DIM), "--shuffle_rows", "--shuffle_seed", "3",
@@ -3233,7 +3261,7 @@ def approx_cli(work: Path, built: dict, decoded: dict, run_a: dict, dev, power) 
     path = retrieve_cli.main(argv, tokenizer=HashTokenizer(), llm_tokenizer=ByteLevelTokenizer(),
                              aligner_tokenizer=HashTokenizer(), llm=llm)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = main_path_counts()
     results = json.loads(Path(path).read_text())
     if not (len(results) == 1 and results[0]["ctxs"] and "paths" in results[0]
             and all(c["id"] in set(meta) for c in results[0]["ctxs"])
@@ -3262,7 +3290,7 @@ def dpr_approx(quant: str, codes, scales, queries, sample, same_codes_idx, power
     query at every Q), the stored rows' self-hits, recall@10/@100 against
     the exact search over the same codes; K5 timed at each Q and W beside its
     bound, its plain version at Q = 8, W = 1."""
-    from kirag_tpu_torch.kernels import group_max, group_max_plain, launch_counts
+    from kirag_tpu_torch.kernels import group_max, group_max_plain
     from kirag_tpu_torch.kernels import reset_launch_counts
     from kirag_tpu_torch.ops import approx_topk_mips
 
@@ -3288,7 +3316,7 @@ def dpr_approx(quant: str, codes, scales, queries, sample, same_codes_idx, power
         recalls[w] = {k: recall(idx_by_w[w], same_codes_idx, k) for k in (10, K)}
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = main_path_counts()
     if launches[name] == 0:
         raise AssertionError(f"{quant}: K5 was not launched: {launches}")
     log(f"  {quant} approx search, W = 1, 2 at Q = {DPR_QUERIES}: {search_s:.2f} s in all "
@@ -3628,7 +3656,7 @@ def pq_cli(work: Path, built: dict, decoded: dict, dev, power) -> dict:
     question with phase 9's LLM."""
     from kirag_tpu_torch.cli import retrieve as retrieve_cli
     from kirag_tpu_torch.index import TorchIndexer
-    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.kernels import reset_launch_counts
 
     index = TorchIndexer(DIM, device=dev, compression="pq", n_subquantizers=PQ_M)
     index.index_data(built["ids"], built["stored"])
@@ -3654,7 +3682,7 @@ def pq_cli(work: Path, built: dict, decoded: dict, dev, power) -> dict:
     path = retrieve_cli.main(argv, tokenizer=HashTokenizer(), llm_tokenizer=ByteLevelTokenizer(),
                              aligner_tokenizer=HashTokenizer(), llm=llm)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = main_path_counts()
     results = json.loads(Path(path).read_text())
     ids = set(built["ids"])
     if not (len(results) == 1 and results[0]["ctxs"] and "paths" in results[0]
@@ -3922,7 +3950,7 @@ def check_variant_kernels(dev, gen, err) -> dict:
         for data in ("integer", "random"):
             c, s, quant = variant_corpus(fmt, n, gen, dev, data == "integer")
             name = "score_gmax" if quant == "none" else f"score_gmax_{quant}"
-            data_err = 0.0
+            data_err, through_reference = 0.0, 0
             for n_q in (8, 16, 32):
                 what = f"{data} {fmt} Q={n_q}"
                 if data == "integer":
@@ -3961,17 +3989,20 @@ def check_variant_kernels(dev, gen, err) -> dict:
                     raise AssertionError(f"{what}: K8 differs from plain")
                 check_copy_kernels(scores, gsel, k1[1], cpos, b, what)
                 total = n // 128
-                merged = window_merge(*k1[2:], k1[1], br, total)
+                paths = torch.empty(n_q, dtype=torch.int32, device=dev)
+                merged = window_merge(*k1[2:], k1[1], br, total, paths=paths)
                 for part, x, y in zip(("win", "wkey", "wgid", "lost"), merged,
                                       window_merge_plain(*k1[2:], k1[1], br, total)):
                     if not torch.equal(x, y):
                         raise AssertionError(f"{what}: K9 {part} differs from plain")
+                through_reference += int(paths.sum())
                 del scores, k1, cand, merged
             log(f"  {data} {fmt}, Q = 8/16/32: K7a (chunk-major, row-major, no store) maxima "
                 f"bitwise K1's, scores {'bitwise' if data == 'integer' else 'within ATOL of'} "
                 f"plain (largest error {data_err:.3g}); K7b bitwise plain and K2's re-scores; "
                 f"K7b and K8 bitwise plain on int64 and int32 indices, out-of-range ones "
-                f"included; K9 (win, wkey, wgid, lost; br={br}, bc={b}) bitwise plain")
+                f"included; K9 (win, wkey, wgid, lost; br={br}, bc={b}) bitwise plain, "
+                f"{through_reference} of the 56 queries through the reference's steps")
             del c, s
     for name in ("score_gather", "cap_assemble", "window_merge"):
         err[name] = 0.0
@@ -4048,6 +4079,10 @@ def k7_times(q, corpus, scales, quant, valid, reps=10, plain_reps=10, library=Fa
             lambda: window_merge_plain(*k1[2:], k1[1], br, total), None,
             merge_bound(k1, window_merge(*k1[2:], k1[1], br, total)))
     t = {"br": br, "bc": b}
+    if "window_merge" in names:  # the queries that took the reference's steps
+        paths = torch.empty(n_q, dtype=torch.int32, device=q.device)
+        window_merge(*k1[2:], k1[1], br, total, paths=paths)
+        t["window_merge_reference_queries"] = int(paths.sum())
     if "score_gmax" in names:
         t["plan"] = plan_text(n_q, corpus, 0, scales, quant)
     for name in names:
@@ -4067,6 +4102,9 @@ def log_k7_times(power, what: str, t: dict, reps: int) -> None:
         plain = f" vs plain {t[name + '_plain']:.3f} ms" if name + "_plain" in t else ""
         lib = f", library {t[name + '_library']:.3f} ms" if name + "_library" in t else ""
         same = ", bitwise plain" if name in ("score_gather", "cap_assemble") else ""
+        if name == "window_merge":
+            same = (f", {t['window_merge_reference_queries']} of the queries through the "
+                    "reference's steps")
         return (f"{name} {t[name]:.3f} ms{plain}{lib} (bound {t[name + '_bound'][0]:.4f} ms, "
                 f"{t[name + '_bound'][1]}{same})")
     plan = f"; K7a's {t['plan']}" if "plan" in t else ""
@@ -4084,7 +4122,7 @@ def check_variants(dev, host_rows, gen, power) -> dict:
     launches of the variant runs, the times by format and the float32
     copies' times by Q."""
     from kirag_tpu_torch.index import TorchIndexer
-    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.kernels import reset_launch_counts
 
     launches, times, copies = {}, {}, {}
     q_all = unit_rows(VARIANT_QUERIES[-1], gen, dev)
@@ -4105,7 +4143,7 @@ def check_variants(dev, host_rows, gen, power) -> dict:
         variants_search(q, corpus, search, f"{fmt} 1M")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = main_path_counts()
         launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
         log(f"  {fmt} index ({len(corpus)} x {DIM} on the grid), Q = {VARIANT_QUERIES}: all "
             f"{len(VARIANTS)} variants bitwise equal to stream/capdom in values and ids "
@@ -4152,7 +4190,7 @@ def dpr_variants(codes, scales, queries, capdom: dict, power) -> dict:
     and "twopass" at Q = 8, 32 and select="merge" at Q = 8, 32, 256, each
     equal to the indexer's capdom search of the same queries (phase 11 d);
     then K7a, K7b, K8 and K9 timed at each Q (K7a's plain version at Q = 8)."""
-    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.kernels import reset_launch_counts
     from kirag_tpu_torch.ops import exact_topk_mips
 
     search = dict(chunk_size=CHUNK, valid_rows=DPR_ROWS, scales=scales, quant="int4")
@@ -4167,7 +4205,7 @@ def dpr_variants(codes, scales, queries, capdom: dict, power) -> dict:
                 raise AssertionError(f"int4 DPR Q={n_q}: {impl}/{select} differs from capdom")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = main_path_counts()
     log(f"  int4 {DPR_ROWS} x {DIM}: " + ", ".join(
         f"{impl}/{select} at Q = {qs}" for impl, select, qs in DPR_VARIANTS)
         + f" bitwise equal to the capdom search ({wall:.2f} s, host clock); launches "
@@ -4394,6 +4432,18 @@ def main() -> int:
                          if k == "stream_capture" else "; library_ms: an index gather of the "
                          "selected groups' rows and a batched product")}
                for k, (src, rep) in sources.items()]
+    k2_times = {"float32 1M": timed["float32 index"], "bfloat16 1M": timed["bfloat16 index"],
+                "float32 built index (16,384 rows)": built["k2"]}
+    kernels[1]["at"] += ("; by_q: the float indexes at each Q; launches_by_shape: the main "
+                         "path's float32 and bfloat16 calls by format, Q, k and the corpus's "
+                         "groups")
+    kernels[1]["by_q"] = {
+        where: {str(n_q): {"ms": t1["gather_groups"], "plain_ms": t1["gather_groups_plain"],
+                           "bound_ms": t1["gather_groups_bound"][0],
+                           "bound_by": t1["gather_groups_bound"][1],
+                           "library_ms": t1["gather_groups_library"]}
+                for n_q, t1 in by.items()} for where, by in k2_times.items()}
+    kernels[1]["launches_by_shape"] = shapes_of("float32", "bfloat16")
     k3 = built["flash"][(torch.bfloat16, 512, "segments")]
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": "kirag_tpu_torch/csrc/flash_attention.cu",
@@ -4472,6 +4522,8 @@ def main() -> int:
                          for n_q in DPR_QUERIES},
                 "recall_at_10": dpr[quant]["recall"][10],
                 "recall_at_100": dpr[quant]["recall"][K]})
+            if key == "k2":
+                kernels[-1]["launches_by_shape"] = shapes_of(quant)
             if quant == "pq4":  # the served 1M index, Q = 8, 16, 32
                 kernels[-1]["at"] += (f"; by_q_1m: the served {N_ROWS}-row PQ index; "
                                       "mma_order: the position probe's pair and error")
@@ -4555,7 +4607,8 @@ def main() -> int:
                 "row ids made beforehand, contiguous); by_q_21m: the int4 DPR corpus"),
                ("window_merge", "window_merge", t_1m["float32"], at_1m.format("float32")
                 + f"; K1's capture, br={t_1m['float32']['br']}; library_ms: "
-                + no_lib["window_merge"] + "; by_q_21m: the int4 DPR corpus")]
+                + no_lib["window_merge"] + "; by_q_21m: the int4 DPR corpus; "
+                "reference_queries: the queries that took the reference's steps")]
     for name, kernel, t, at in k7_rows:
         src, rep = K7_SOURCES[kernel]
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4573,6 +4626,10 @@ def main() -> int:
             row["by_q"] = {q: v for q, v in by_q.items() if q != str(DPR_QUERIES[0])}
         elif kernel != "score_gmax":
             row["by_q_21m"] = by_q
+        if kernel == "window_merge":  # the queries that took the reference's steps
+            row["reference_queries"] = t["window_merge_reference_queries"]
+            for n_q, v in by_q.items():
+                v["reference_queries"] = t_dpr[int(n_q)]["window_merge_reference_queries"]
         if kernel in copy_kernels:  # K7b, K8: every Q on the float32 index, one kernel a call
             row["at"] += "; by_q_1m: the float32 index at each Q"
             row["by_q_1m"] = {
@@ -4591,6 +4648,7 @@ def main() -> int:
         f"(in-search fallback) and hier re-dispatched {hier_s['redispatched']} of "
         f"{hier_s['searches']}")
     phase("done")
+    log(f"  K2's main-path launches by shape (format, Q, k, the corpus's groups): {K2_SHAPES}")
     log(power)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

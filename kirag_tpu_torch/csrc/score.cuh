@@ -10,20 +10,18 @@
 // order, whichever kernel, block, warp or thread computes it. There are two
 // orders, one for float corpora, one for int8, packed-int4 and pq4 ones.
 //
-// The fma order (float32, bfloat16), score_group() and score_passes():
+// The fma order (float32, bfloat16), score_passes():
 //
 //     s = +0.0f;  for d = 0 .. D-1 ascending:  s = fma(q[d], c[d], s)
 //
 // with q and c converted to f32 first (bf16 -> f32 is exact, so every product
-// is the exact product of the stored values). score_group stages rows through
-// shared memory one [128 rows x KD columns] tile at a time (cp.async, several
-// tiles in flight), columns past D are staged as zeros (fma(0, 0, s) == s),
-// and each thread walks its tile row in column order. score_passes (the float
-// sweeps of K1, K5 and K7a) holds a register tile of PASS_R rows x J queries
-// a thread and stages queries and rows together, 128 bytes of each row at a
-// time; only which thread computes which pairs changes, every pair runs the
-// chain above over the same padded_depth(d) columns, so score_passes and
-// score_group (K2) give the same bits. Tensor cores are out for these
+// is the exact product of the stored values), over the padded_depth(d)
+// columns: columns past D are staged as zeros (fma(0, 0, s) == s). A thread
+// holds a register tile of PASS_R rows x J queries and the block stages rows
+// and queries together, 128 bytes of each row at a time; only which thread
+// computes which pairs changes between the float sweeps of K1, K5 and K7a and
+// K2's re-score (gather_groups.cu), every pair runs the chain above over the
+// same columns, so they give the same bits. Tensor cores are out for these
 // formats: TF32 would round the products.
 //
 // The mma order (int8, packed int4 and pq4: K4, the in-kernel dequant of the
@@ -79,9 +77,8 @@
 namespace kirag {
 
 constexpr int LANES = 128;          // rows per group (the TPU kernels' lane width)
-constexpr int KD = 32;              // stored columns of one staged corpus tile
-constexpr int THREADS = 256;        // two halves of 128 threads, one row per thread
-constexpr int STAGES = 4;           // corpus tiles a block keeps in flight
+constexpr int KD = 32;              // the fma order's column granule (padded_depth)
+constexpr int THREADS = 256;        // a sweep block: 8 warps
 constexpr int INT4_BLOCK = 128;     // dims per int4 scale
 constexpr float FIN_MIN = -1e30f;   // finite mask value of the reference kernels
 
@@ -105,29 +102,6 @@ using I4 = Fmt<uint8_t, 0, true>;
 template <int DS>
 using PQ4 = Fmt<uint8_t, DS>;
 
-// Unpack one 16-byte vector of corpus values into f32.
-__device__ __forceinline__ void unpack(const uint4& raw, const float*, float* out) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void unpack(const uint4& raw, const __nv_bfloat16*, float* out) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // little endian: the lower half is the earlier value
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-// Corpus tiles live in shared memory as raw values, [LANES rows][KD + one
-// 16-byte vector of padding] so that the per-row 16-byte reads of a warp hit
-// distinct banks. A block keeps STAGES of them in flight.
-template <typename T>
-__host__ __device__ constexpr int tile_stride() { return KD + 16 / static_cast<int>(sizeof(T)); }
-template <typename T>
-__host__ __device__ constexpr int tile_elems() { return LANES * tile_stride<T>(); }
-
 // One 16-byte asynchronous copy global -> shared; zero-filled when !valid.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -137,110 +111,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Start copying corpus rows [row0, row0 + LANES) x stored columns [c0, c0 + KD)
-// into `tile`; w is the stored width of a row. The NT threads of the caller's
-// group (index t) issue 16-byte copies, neighbouring threads on neighbouring
-// vectors of a row (coalesced). Needs w a multiple of one vector and a
-// 16-byte aligned corpus, so that a vector never straddles the end of a row
-// (the wrappers check both); vectors past w are zeros.
-template <typename T, int NT>
-__device__ __forceinline__ void issue_tile(T* tile, const T* __restrict__ corpus, int64_t row0,
-                                           int w, int c0, int t) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = KD / VEC;
-  constexpr int PER = LANES * VPR / NT;
-#pragma unroll
-  for (int m = 0; m < PER; ++m) {
-    const int i = t + m * NT;
-    const int r = i / VPR;
-    const int v = (i % VPR) * VEC;
-    const bool valid = c0 + v < w;
-    const T* src = valid ? corpus + (row0 + r) * static_cast<int64_t>(w) + c0 + v : corpus;
-    cp_async16(tile + r * tile_stride<T>() + v, src, valid);
-  }
-}
-
-// The tile pipeline of score_group: tiles_begin starts the first NS - 1
-// copies; tiles_next(it) waits for tile `it`, starts the copy of tile
-// it + NS - 1 into the slot that tile it - 1 left, and returns this thread's
-// row of tile it. Both synchronise the block.
-template <typename T, int NT, int NS>
-__device__ __forceinline__ void tiles_begin(T* tiles, const T* __restrict__ corpus, int64_t row0,
-                                            int w, int n_tiles, int t, bool active) {
-  __syncthreads();  // the previous call may still be reading these tiles
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (active && s < n_tiles) {
-      issue_tile<T, NT>(tiles + s * tile_elems<T>(), corpus, row0, w, s * KD, t);
-    }
-    cp_async_commit();  // one group per tile slot, empty or not: the waits count them
-  }
-}
-template <typename T, int NT, int NS>
-__device__ __forceinline__ const T* tiles_next(T* tiles, const T* __restrict__ corpus,
-                                               int64_t row0, int w, int n_tiles, int it, int t,
-                                               int lane, bool active) {
-  cp_async_wait<NS - 2>();  // this thread's copies of tile `it` have landed
-  __syncthreads();          // everyone's have; tile it - 1 is no longer read
-  const int next = it + NS - 1;
-  if (active && next < n_tiles) {
-    issue_tile<T, NT>(tiles + (next % NS) * tile_elems<T>(), corpus, row0, w, next * KD, t);
-  }
-  cp_async_commit();
-  return tiles + (it % NS) * tile_elems<T>() + lane * tile_stride<T>();
-}
-
-// Advance NQ running scores by one staged tile: acc[j] takes the fma of
-// q[j * q_stride + d0 + c] and trow[c] for c = 0 .. KD-1 in order. `q` points
-// at f32 query rows in shared memory (16-byte aligned, zero-padded to a
-// multiple of KD); `trow` at this thread's row of the staged tile.
-template <int NQ, typename T>
-__device__ __forceinline__ void fma_tile(float (&acc)[NQ], const float* q, int q_stride,
-                                         int d0, const T* trow) {
-  constexpr int VEC = 16 / sizeof(T);
-#pragma unroll
-  for (int c = 0; c < KD; c += VEC) {
-    float cv[VEC];
-    unpack(*reinterpret_cast<const uint4*>(trow + c), trow, cv);
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-#pragma unroll
-      for (int e = 0; e < VEC; e += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(q + j * q_stride + d0 + c + e);
-        acc[j] = __fmaf_rn(qv.x, cv[e], acc[j]);
-        acc[j] = __fmaf_rn(qv.y, cv[e + 1], acc[j]);
-        acc[j] = __fmaf_rn(qv.z, cv[e + 2], acc[j]);
-        acc[j] = __fmaf_rn(qv.w, cv[e + 3], acc[j]);
-      }
-    }
-  }
-}
-
-// The fma order's routine for float32 and bfloat16 corpora. Scores the 128
-// rows [row0, row0 + 128) against NQ query rows (q, q + q_stride, ...) of
-// depth d: on return acc[j] holds the score of query j and row row0 + lane.
-// The NT threads of the calling group (index t within it) stream the rows through NS
-// tiles at `tiles`, so that NS - 1 tiles are being copied while one is
-// multiplied. Every thread of the block must call it the same number of times
-// (it synchronises the block); groups that have nothing to score pass
-// active = false.
-template <typename F, int NT, int NQ, int NS>
-__device__ __forceinline__ void score_group(float (&acc)[NQ],
-                                            const typename F::T* __restrict__ corpus,
-                                            int64_t row0, int d, const float* q, int q_stride,
-                                            typename F::T* tiles, int t, int lane, bool active) {
-  using T = typename F::T;
-  static_assert(!F::QUANT, "int8, int4 and pq4 corpora score in the mma order");
-  const int n_tiles = padded_depth(d) / KD;
-#pragma unroll
-  for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
-  tiles_begin<T, NT, NS>(tiles, corpus, row0, d, n_tiles, t, active);
-  for (int it = 0; it < n_tiles; ++it) {
-    const T* trow = tiles_next<T, NT, NS>(tiles, corpus, row0, d, n_tiles, it, t, lane, active);
-    if (active) fma_tile<NQ>(acc, q, q_stride, it * KD, trow);
-  }
-}
 
 // ------------------------------------------------ float corpora: score_passes
 //
@@ -387,7 +257,7 @@ __device__ __forceinline__ void fma_pass_tile(float (&acc)[PASS_R][J], const cha
 // row_base on (row stride d), against queries [q0, q0 + 4 J) (f32, row
 // stride d; rows past n_q score as zero queries), two groups a pass, through
 // an NS-slot cp.async ring at `ring` that runs on across passes. Each pair
-// takes the padded_depth(d) columns of score_group, no more: a slot's second
+// takes the padded_depth(d) columns and no more: a slot's second
 // half of 32 columns is skipped where it lies past them. After each pass,
 // epi(p, live, acc) gets the pass index, its live groups (1 or 2) and the
 // thread's scores, acc[i][j] for row 32 i + lane of the pass's group w / 4 and
@@ -1294,17 +1164,6 @@ cudaError_t with_query_tile(int q_tile, Fn&& fn) {
       return fn(std::integral_constant<int, 8>{});
     default:
       return cudaErrorInvalidValue;
-  }
-}
-
-// Copy `nq` query rows (f32, row stride d) into shared memory as [nq][d_pad]
-// with zero padding; rows at or past n_q (the ragged last tile) are zero.
-__device__ __forceinline__ void stage_queries(float* q_s, const float* __restrict__ q,
-                                              int q0, int nq, int n_q, int d, int d_pad) {
-  for (int i = threadIdx.x; i < nq * d_pad; i += blockDim.x) {
-    const int j = i / d_pad;
-    const int c = i % d_pad;
-    q_s[i] = (q0 + j < n_q && c < d) ? q[static_cast<int64_t>(q0 + j) * d + c] : 0.f;
   }
 }
 

@@ -11,7 +11,7 @@ from kirag_tpu_torch.kernels.attention import (
     flash_attention_reference,
 )
 from kirag_tpu_torch.kernels.build import build, load_library
-from kirag_tpu_torch.kernels.common import launch_counts, reset_launch_counts
+from kirag_tpu_torch.kernels.common import launch_counts, launch_shapes, reset_launch_counts
 from kirag_tpu_torch.kernels.exact import (
     cap_assemble,
     cap_assemble_plain,
@@ -49,6 +49,7 @@ __all__ = [
     "int4_matmul",
     "int4_matmul_plain",
     "launch_counts",
+    "launch_shapes",
     "pq_kernel_geometry_error",
     "quant_scores",
     "reset_launch_counts",

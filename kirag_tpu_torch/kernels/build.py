@@ -120,7 +120,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
     lib.kirag_window_merge.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # gids, capmax, resid, capture, 4 outputs
-        i32, i32, i32, i32, i32, ptr]            # n_c, bc, n_q, br, total_groups, stream
+        i32, i32, i32, i32, i32,                 # n_c, bc, n_q, br, total_groups
+        i32, ptr, ptr]                           # segments, paths (or null), stream
     lib.kirag_window_merge.restype = i32
     lib.kirag_group_max.argtypes = [
         ptr, ptr, i32, ptr, ptr, ptr,  # q, corpus, kind, scales, gmax, gidx

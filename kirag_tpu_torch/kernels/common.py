@@ -8,7 +8,7 @@ nowhere else, so a run can show which kernels its path went through.
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -23,6 +23,7 @@ _launches: Dict[str, int] = {"stream_capture": 0, "gather_groups": 0,
                              "group_max": 0, "group_max_int8": 0, "group_max_int4": 0,
                              "flash_attention": 0, "flash_attention_bwd_dkv": 0,
                              "flash_attention_bwd_dq": 0, "int4_matmul": 0}
+_shapes: Dict[str, Dict[str, int]] = {}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -30,15 +31,26 @@ def launch_counts() -> Dict[str, int]:
         return dict(_launches)
 
 
+def launch_shapes() -> Dict[str, Dict[str, int]]:
+    """The launches since the last reset by kernel and by the shape its
+    wrapper named (the wrappers that name one)."""
+    with _counts_lock:
+        return {name: dict(by) for name, by in _shapes.items()}
+
+
 def reset_launch_counts() -> None:
     with _counts_lock:
         for name in _launches:
             _launches[name] = 0
+        _shapes.clear()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, shape: Optional[str] = None) -> None:
     with _counts_lock:
         _launches[name] += 1
+        if shape is not None:
+            by = _shapes.setdefault(name, {})
+            by[shape] = by.get(shape, 0) + 1
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

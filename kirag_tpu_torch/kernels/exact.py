@@ -645,7 +645,9 @@ def gather_groups(queries: torch.Tensor, corpus: torch.Tensor, gsel: torch.Tenso
             cand.data_ptr(), n_q, d, k, corpus.shape[0],
             torch.cuda.current_stream(corpus.device).cuda_stream)
     raise_on(err, lib, "gather_groups")
-    count_launch(_launch_name("gather_groups", quant))
+    dtype = str(corpus.dtype)[6:] if quant == "none" else quant
+    count_launch(_launch_name("gather_groups", quant),
+                 f"{dtype} Q={n_q} k={k} groups={corpus.shape[0] // LANES}")
     return cand
 
 
@@ -872,7 +874,32 @@ def cap_assemble_plain(cpos: torch.Tensor, capture: torch.Tensor, b: int) -> tor
 # -------------------------------------------------------------- window_merge
 
 
-MAX_MERGE_SMEM = 200 * 1024  # csrc/window_merge.cu's MAX_SMEM: one query's window
+MAX_MERGE_SMEM = 232448    # csrc/window_merge.cu's MAX_SMEM: a block's shared memory
+MERGE_MAX_SEGMENTS = 32    # its MAX_SEGMENTS: a warp a segment, one block a query
+MERGE_LANE_BC = 32         # its MAX_LANE_BC: above this capture budget, the reference's steps
+
+
+def merge_smem_bytes(br: int, bc: int, segments: int) -> int:
+    """csrc/window_merge.cu's ``smem_bytes``: the block's head, the final
+    order's positions, and each warp's two window lists (16 bytes an item)
+    and a step's winners (or, if larger, the reference's slots)."""
+    region = max(segments * (32 * br + 640), 4 * (3 * br + 8 * bc))
+    return 4 * (4 + MERGE_MAX_SEGMENTS) + -(-4 * br // 16) * 16 + region
+
+
+def merge_segments(n_c: int, bc: int, br: int, n_q: int = 1) -> int:
+    """K9's segments (warps) a query: one a chunk after the first, up to 32
+    and as many as shared memory holds (each warp sweeps its chunks twice;
+    composing the segments' windows takes log2 S merges); at most 16 when
+    the queries' blocks outnumber the SMs, so that two blocks share an SM;
+    1 when ``bc`` is above 32 (the kernel then runs the reference's steps).
+    PERF.md §6 has the times behind the rule."""
+    if bc > MERGE_LANE_BC:
+        return 1
+    s = min(MERGE_MAX_SEGMENTS if n_q <= SMS else MERGE_MAX_SEGMENTS // 2, max(1, n_c - 1))
+    while s > 1 and merge_smem_bytes(br, bc, s) > MAX_MERGE_SMEM:
+        s -= 1
+    return s
 
 
 def _check_merge(gids, capmax, resid, capture, br: int, total_groups: int):
@@ -896,32 +923,53 @@ def _check_merge(gids, capmax, resid, capture, br: int, total_groups: int):
     return n_c, bc, n_q
 
 
+def _check_segments(segments: int, n_c: int, bc: int) -> None:
+    top = 1 if bc > MERGE_LANE_BC else min(MERGE_MAX_SEGMENTS, max(1, n_c - 1))
+    if not 1 <= segments <= top:
+        raise ValueError(f"{segments} segments: the kernel takes 1..{top} at C={n_c}, bc={bc}")
+
+
 def window_merge(gids: torch.Tensor, capmax: torch.Tensor, resid: torch.Tensor,
-                 capture: torch.Tensor, br: int, total_groups: int
-                 ) -> Tuple[torch.Tensor, ...]:
+                 capture: torch.Tensor, br: int, total_groups: int,
+                 segments: Optional[int] = None,
+                 paths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """The running top-``br`` group window of ``select="merge"`` (K9).
 
     Takes K1's capdom outputs (``gids``, ``capmax`` [C, bc, Q], ``resid``
     [C, 1, Q], ``capture`` [C, Q, bc * 128]), which are per chunk what
-    ``kirag_tpu.ops.pallas_exact._merge_kernel`` peels, and sweeps the
-    chunks in order as that kernel does: chunk 0 fills slots 0..bc-1 (the
-    rest empty: key -inf, gid -(slot + 1)); each later chunk peels the
-    window's bc worst slots (ascending key, ties to the lower slot), ranks
-    the 2 * bc union by (key desc, gid asc), and writes the j-th surviving
-    new group into the j-th ejected slot. Returns ``(win [Q, br, 128] f32,
-    wkey [Q, br] f32, wgid [Q, br] int32, lost [C, 1, Q] f32)``: the window
-    sorted by gid ascending, empty slots given the gid ``total_groups +
-    slot`` and zero scores, keys clamped to FIN_MIN; ``lost[c]`` the larger
-    of chunk c's residual and the best key the merge ejected (chunk 0: its
-    residual).
+    ``kirag_tpu.ops.pallas_exact._merge_kernel`` peels, and computes that
+    kernel's chunk-by-chunk merge: chunk 0 fills slots 0..bc-1 (the rest
+    empty: key -inf, gid -(slot + 1)); each later chunk peels the window's bc
+    worst slots (ascending key, ties to the lower slot), ranks the 2 * bc
+    union by (key desc, gid asc), and writes the j-th surviving new group
+    into the j-th ejected slot. Returns ``(win [Q, br, 128] f32, wkey [Q, br]
+    f32, wgid [Q, br] int32, lost [C, 1, Q] f32)``: the window sorted by gid
+    ascending, empty slots given the gid ``total_groups + slot`` and zero
+    scores, keys clamped to FIN_MIN; ``lost[c]`` the larger of chunk c's
+    residual and the best key the merge ejected (chunk 0: its residual).
+
+    The kernel splits the chunks into ``segments`` (default
+    :func:`merge_segments`) whose windows compose (csrc/window_merge.cu);
+    the result does not depend on the count. ``paths``, an int32 [Q] tensor
+    on the card, receives 1 for each query that took the reference's steps
+    (a tie the segments cannot settle, or bc above 32) and 0 for the others.
     """
-    _check_merge(gids, capmax, resid, capture, br, total_groups)
+    n_c, bc, n_q = _check_merge(gids, capmax, resid, capture, br, total_groups)
+    if segments is not None:
+        _check_segments(segments, n_c, bc)
+    if paths is not None and (paths.shape != (n_q,) or paths.dtype != torch.int32
+                              or paths.device != capmax.device or not paths.is_contiguous()):
+        raise ValueError(f"paths must be int32 [{n_q}] beside the inputs")
     if on_cpu(gids, capmax, resid, capture):
+        if paths is not None:
+            raise ValueError("paths reports the kernel's forms; the plain version has one")
         return window_merge_plain(gids, capmax, resid, capture, br, total_groups)
-    n_c, bc, n_q = capmax.shape
-    if 4 * (4 * br + 7 * bc) > MAX_MERGE_SMEM:
-        raise ValueError(f"the window of br={br} groups (capture budget {bc}) does not fit "
-                         f"the kernel's {MAX_MERGE_SMEM} bytes of shared memory")
+    if segments is None:
+        segments = merge_segments(n_c, bc, br, n_q)
+    if merge_smem_bytes(br, bc, segments) > MAX_MERGE_SMEM:
+        raise ValueError(f"the window of br={br} groups (capture budget {bc}) in {segments} "
+                         f"segments does not fit the kernel's {MAX_MERGE_SMEM} bytes of shared "
+                         "memory")
     lib = load_library()
     dev = capmax.device
     win = torch.empty((n_q, br, LANES), dtype=torch.float32, device=dev)
@@ -932,7 +980,8 @@ def window_merge(gids: torch.Tensor, capmax: torch.Tensor, resid: torch.Tensor,
         err = lib.kirag_window_merge(
             gids.data_ptr(), capmax.data_ptr(), resid.data_ptr(), capture.data_ptr(),
             win.data_ptr(), wkey.data_ptr(), wgid.data_ptr(), lost.data_ptr(),
-            n_c, bc, n_q, br, total_groups, torch.cuda.current_stream(dev).cuda_stream)
+            n_c, bc, n_q, br, total_groups, segments, _ptr(paths),
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib, "window_merge")
     count_launch("window_merge")
     return win, wkey, wgid, lost

@@ -1347,6 +1347,132 @@ def test_window_merge_bitwise_equal_plain(cuda_device, n_c, b, br, n_q):
             assert torch.equal(x, y)
 
 
+def k1_like(n_c, bc, n_q, groups, keys, g, device):
+    """K1-shaped capdom outputs made directly: each chunk's bc distinct groups
+    of its gid range with keys in descending order (the peel's), a residual at
+    or below the last, random payload. ``keys``: "random", "ties" (all 1),
+    "integer" (-2..2: ties across the peel's edge), "masked" (integers, a
+    third of them -inf)."""
+    shape = (n_c, bc, n_q)
+    if keys == "random":
+        v = torch.randn(shape, generator=g, device=device)
+    elif keys == "ties":
+        v = torch.ones(shape, device=device)
+    else:
+        v = torch.randint(-2, 3, shape, generator=g, device=device).float()
+        if keys == "masked":
+            v[torch.rand(shape, generator=g, device=device) < 0.3] = float("-inf")
+    capmax = v.sort(dim=1, descending=True).values.contiguous()
+    local = torch.rand(n_c, groups, n_q, generator=g, device=device).argsort(dim=1)[:, :bc]
+    gids = (local + torch.arange(n_c, device=device).view(-1, 1, 1) * groups).to(torch.int32)
+    drop = torch.randint(0, 2, (n_c, 1, n_q), generator=g, device=device)
+    resid = (capmax[:, -1:, :] - drop).contiguous()
+    capture = torch.randn(n_c, n_q, bc * 128, generator=g, device=device)
+    return gids.contiguous(), capmax, resid, capture
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [8, 256])
+@pytest.mark.parametrize("keys", ["random", "ties", "integer", "masked"])
+@pytest.mark.parametrize("n_c,bc,segment_counts", [(1283, 8, (None, 3, 5, 32)),
+                                                   (10, 8, (None, 3, 9)), (4, 40, (None,))])
+def test_window_merge_segments_bitwise_equal_plain(cuda_device, n_c, bc, segment_counts, keys,
+                                                   n_q):
+    """K9 at the DPR corpus's geometry (C = 1283 chunks, bc = 8, br = 104),
+    with empty slots left (C = 10: 80 groups for 104 slots) and at bc = 40
+    (the reference's steps for every query): win, wkey, wgid and lost
+    bitwise the plain version's at the plan's segment count and at counts
+    that do not divide C - 1. Random and all-tied keys take the segments;
+    integer keys (ties across the peel's edge) send queries to the
+    reference's steps (``paths``). One launch a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(29)
+    br, groups = 104, 128
+    gids, capmax, resid, capture = k1_like(n_c, bc, n_q, groups, keys, g, cuda_device)
+    total = n_c * groups
+    want = window_merge_plain(gids, capmax, resid, capture, br, total)
+    for segments in segment_counts:
+        paths = torch.full((n_q,), -1, dtype=torch.int32, device=cuda_device)
+        reset_launch_counts()
+        got = window_merge(gids, capmax, resid, capture, br, total, segments=segments,
+                           paths=paths)
+        assert launch_counts()["window_merge"] == 1
+        for part, x, y in zip(("win", "wkey", "wgid", "lost"), got, want):
+            assert torch.equal(x, y), (segments, part)
+        assert bool(((paths == 0) | (paths == 1)).all())
+        if bc > 32:
+            assert bool(paths.all())
+        elif keys in ("random", "ties"):
+            assert not bool(paths.any()), segments
+        elif keys == "integer" and n_c > 100:
+            assert bool(paths.any()), segments
+
+
+@pytest.mark.cuda
+def test_window_merge_refuses_a_window_that_does_not_fit(cuda_device):
+    """A window of 10,000 groups does not fit the block's shared memory: the
+    wrapper raises (no fallback) and launches nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(30)
+    gids, capmax, resid, capture = k1_like(4, 8, 2, 128, "random", g, cuda_device)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        window_merge(gids, capmax, resid, capture, 10000, 4 * 128)
+    assert launch_counts()["window_merge"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 100, 101])
+@pytest.mark.parametrize("d", [200, 1024, 1040])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_gather_shares_groups_bitwise(cuda_device, dtype, d, k):
+    """K2 on float corpora scores each selected group once for all the
+    queries that chose it: 70 queries over 256 groups, 40 of them one common
+    set (tiles of 32 and 8), 20 random sets (shared by few or none), 10 with
+    ids outside the corpus (-1, 256, 2**30) and repeats in a row. Bitwise
+    the plain version on integer data, one launch a call; on random rows K1's
+    capture of repeated queries bitwise K2's re-score of its groups."""
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    n, groups, n_q = 32768, 256, 70
+    c = torch.randint(-2, 3, (n, d), generator=g, device=cuda_device).to(dtype)
+    q = torch.randint(-2, 3, (n_q, d), generator=g, device=cuda_device).to(dtype)
+    order = torch.rand(21, groups, generator=g, device=cuda_device).argsort(dim=1)[:, :k]
+    gsel = torch.empty(n_q, k, dtype=torch.int64, device=cuda_device)
+    gsel[:40] = order[0]
+    gsel[40:60] = order[1:]
+    gsel[60:] = torch.randint(-1, groups + 1, (10, k), generator=g, device=cuda_device)
+    gsel[60:, 0] = 2 ** 30
+    reset_launch_counts()
+    cand = gather_groups(q, c, gsel)
+    assert launch_counts()["gather_groups"] == 1
+    assert torch.equal(cand, gather_groups_plain(q, c, gsel))
+    assert not cand[60:, 0].any()
+    chunk, b = 2048, 8
+    cr = unit_rows(n, d, g, cuda_device, dtype)
+    qr = unit_rows(n_q, d, g, cuda_device, dtype)
+    qr[10:50] = qr[10]
+    _, capture, gids, _, _ = stream_capture(qr, cr, n, chunk, b)
+    captured = gids.permute(2, 0, 1).reshape(n_q, -1)
+    assert torch.equal(gather_groups(qr, cr, captured),
+                       capture.view(n // chunk, n_q, b, 128).transpose(0, 1)
+                       .reshape(n_q, -1, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_gather_over_many_windows(cuda_device, dtype):
+    """660 queries x 101 slots on 128 groups: 21 windows of 32 queries, each
+    group's pairs in a window scored once (tiles of up to 32), ids outside
+    the corpus zeros; bitwise plain on integer data, one launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(37)
+    n, d, n_q, k = 16384, 200, 660, 101
+    c = torch.randint(-2, 3, (n, d), generator=g, device=cuda_device).to(dtype)
+    q = torch.randint(-2, 3, (n_q, d), generator=g, device=cuda_device).to(dtype)
+    gsel = torch.randint(-1, n // 128 + 1, (n_q, k), generator=g, device=cuda_device)
+    reset_launch_counts()
+    cand = gather_groups(q, c, gsel)
+    assert launch_counts()["gather_groups"] == 1
+    assert torch.equal(cand, gather_groups_plain(q, c, gsel))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["float32", "int4", "pq4"])
 def test_every_variant_on_the_card_equals_capdom(cuda_device, fmt):
