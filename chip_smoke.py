@@ -28,7 +28,13 @@ weights at E5-large and Llama-3-8B-Instruct width:
   held against the same run through K6's plain version, with ``load_llama``
   reading a full-width 2-layer checkpoint; then
   ``kirag_tpu_torch.cli.retrieve`` over phase 6's index and encoder with that
-  LLM handed in, timed by stage;
+  LLM handed in, timed by stage; and the evaluation pipeline around it
+  (phase 16) with the same LLM: ``cli/construct_kg_corpus`` over 8
+  documents, the int8 KV cache (its quantizer on the card bitwise the CPU's,
+  16 decode steps held against the bf16 cache, both caches' bytes and step
+  times, ``cli/retrieve --llm_kv_quant_bits 8`` as run E), ``cli/qa_eval``
+  over run E's results (the reader's ids through K6 against the plain
+  formulation's) and ``TripleSelector.retrieve`` with its option step;
 - the Aligner's contrastive training (phase 10): K3's two backward kernels
   held against their plain version and timed beside the backward of
   ``scaled_dot_product_attention``; a training step's gradients through the
@@ -1496,17 +1502,7 @@ def llm_decode(work: Path, dev, power) -> dict:
     if not step1_err <= tol:
         raise AssertionError(f"first decode step: K6 logits differ from plain by "
                              f"{step1_err} > {tol}")
-    top2 = np.sort(plain_logits, axis=-1)[..., -2:]
-    margins = top2[..., 1] - top2[..., 0]                       # [rows, steps]
-    agree = []
-    for row in range(LLM_ROWS):
-        close = np.nonzero(margins[row] < tol)[0]
-        upto = int(close[0]) + 1 if len(close) else LLM_NEW_TOKENS
-        if not np.array_equal(got_ids[row, :upto], plain_ids[row, :upto]):
-            raise AssertionError(f"row {row}: ids differ from the plain run before the "
-                                 f"first near-tie (step {upto})")
-        agree.append(int(np.argmin(got_ids[row] == plain_ids[row]))
-                     if not np.array_equal(got_ids[row], plain_ids[row]) else LLM_NEW_TOKENS)
+    agree = near_tie_agreement(got_ids, plain_ids, plain_logits, tol, "K6 against plain")
     log(f"  greedy {LLM_NEW_TOKENS} tokens, {LLM_ROWS} rows of {list(LLM_PROMPTS)} prompt "
         f"tokens (bucket {backend._bucket(max(LLM_PROMPTS))}): {k6_run} K6 launches = "
         f"{per_step} x {steps} decode steps; first decode step's logits within "
@@ -1670,6 +1666,85 @@ class TimedRetriever:
         return getattr(self.retriever, name)
 
 
+def phase9_llm(decoded: dict) -> tuple:
+    """The first KIRAG_LAYERS layers of phase 8's NF4 Llama, as a loaded
+    ``(params, config)`` pair."""
+    return ({**decoded["params"], "layers": decoded["params"]["layers"][:KIRAG_LAYERS]},
+            dataclasses.replace(decoded["config"], num_hidden_layers=KIRAG_LAYERS))
+
+
+def retrieve_run(work: Path, built: dict, llm, run: str, n_q: int, cache: Path, power,
+                 extra=()) -> dict:
+    """One run of kirag_tpu_torch.cli.retrieve.main over phase 6's index and
+    encoder (retriever and Aligner) with ``llm`` handed in, its stages timed;
+    held to phase 9's checks: ``ctxs`` and ``paths`` for every question,
+    every id in the index, and K1, K2, K3 and K6 launched."""
+    import pickle
+
+    from kirag_tpu_torch.cli import retrieve as retrieve_cli
+    from kirag_tpu_torch.kernels import reset_launch_counts
+
+    with open(Path(built["index_dir"]) / "index_meta.pkl", "rb") as f:
+        index_ids = set(pickle.load(f))
+    setup = retrieve_cli.setup_kirag_model
+    timer = StageTimer()
+
+    def instrumented(*args, **kwargs):
+        kirag = setup(*args, **kwargs)
+        kirag.retriever = TimedRetriever(kirag.retriever, timer)
+        kg_llm = kirag.kg_generator.generator
+        kg_llm.generate_texts = timer.wrap("KG decode", kg_llm.generate_texts)
+        kirag.filter_candidate_triples = timer.wrap("Aligner rescoring",
+                                                    kirag.filter_candidate_triples)
+        kirag._decode_constructor = timer.wrap("constructor decode", kirag._decode_constructor)
+        return kirag
+
+    argv = [*kirag_argv(work, built, cache), "--num_queries", str(n_q), "--save_dir", str(work),
+            "--name", f"kirag_{run}", "--save_file", "results.json", *extra]
+    retrieve_cli.setup_kirag_model = instrumented
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        path = retrieve_cli.main(argv, tokenizer=HashTokenizer(),
+                                 llm_tokenizer=ByteLevelTokenizer(),
+                                 aligner_tokenizer=HashTokenizer(), llm=llm)
+        wall = time.perf_counter() - t0
+    finally:
+        retrieve_cli.setup_kirag_model = setup
+    counts = main_path_counts()
+    results = json.loads(Path(path).read_text())
+    if len(results) != n_q or not all(
+            r["ctxs"] and "paths" in r and all(c["id"] in index_ids for c in r["ctxs"])
+            for r in results):
+        raise AssertionError(f"run {run}: results lack ctxs or paths, or hold ids "
+                             "outside the index")
+    idle = [k for k in ("stream_capture", "gather_groups", "flash_attention", "int4_matmul")
+            if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"run {run}: kernels of the path were not launched: {idle}")
+    stages = dict(timer.seconds)
+    stages["rest (load, examplar ranking, host)"] = wall - sum(stages.values())
+    n_triples = sum(len(p) for r in results for p in r["paths"] if p and p[0])
+    log(f"  run {run}: {n_q} questions, {len(results[0]['ctxs'])} ctxs for the first, "
+        f"every ctxs id in the index; {n_triples} chain steps parsed; launches {counts}")
+    log(f"  [{power}] run {run}: {wall:.2f} s, {3600 * n_q / wall:.2f} questions/hour; "
+        + ", ".join(f"{k} {v:.2f} s ({100 * v / wall:.1f}%)" for k, v in stages.items()))
+    return {"wall": wall, "stages": stages, "launches": counts, "path": path}
+
+
+def kirag_argv(work: Path, built: dict, cache: Path) -> list:
+    """cli/retrieve's arguments over phase 6's TSV, index and E5 npz (the
+    retriever and the Aligner) and the smoke's questions."""
+    return ["--dataset", "hotpotqa", "--query_file", str(work / "questions.json"),
+            "--corpus", "wikipedia", "--corpus_path", str(built["tsv"]), "--index_folder",
+            str(built["index_dir"]), "--embedding_size", str(DIM),
+            "--retriever_model_name_or_path", str(built["model_dir"]), "--llm",
+            "Meta-Llama-3-8B-Instruct", "--llm_quant_bits", "4", "--aligner_model", "e5",
+            "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns", "2",
+            "--topk", "10", "--num_beams", "1", "--concurrent_questions", "1",
+            "--cached_kg_triples_file", str(cache)]
+
+
 def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
     """Phase 9, KiRAG through kirag_tpu_torch.cli.retrieve.main: phase 6's
     DPR TSV, index and E5 npz (as retriever and Aligner), the first
@@ -1681,75 +1756,16 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
     Aligner rescoring and the constructor run too."""
     import pickle
 
-    from kirag_tpu_torch.cli import retrieve as retrieve_cli
-    from kirag_tpu_torch.kernels import reset_launch_counts
-
     fixtures = runpy.run_path(str(Path(__file__).resolve().parent / "tests"
                                   / "fixtures_realtext.py"))
     questions = [{"id": f"q{i}", "question": r["question"], "answers": [r["gold"]]}
                  for i, r in enumerate(fixtures["REALTEXT_QA"][:KIRAG_QUESTIONS])]
     (work / "questions.json").write_text(json.dumps(questions))
-    with open(Path(built["index_dir"]) / "index_meta.pkl", "rb") as f:
-        index_ids = set(pickle.load(f))
     cache = work / "kg_cache.pkl"
-    llm = ({**decoded["params"], "layers": decoded["params"]["layers"][:KIRAG_LAYERS]},
-           dataclasses.replace(decoded["config"], num_hidden_layers=KIRAG_LAYERS))
-    setup = retrieve_cli.setup_kirag_model
+    llm = phase9_llm(decoded)
     runs = {}
     for run, n_q in (("A", KIRAG_QUESTIONS), ("B", KIRAG_CACHED)):
-        timer = StageTimer()
-
-        def instrumented(*args, **kwargs):
-            kirag = setup(*args, **kwargs)
-            kirag.retriever = TimedRetriever(kirag.retriever, timer)
-            kg_llm = kirag.kg_generator.generator
-            kg_llm.generate_texts = timer.wrap("KG decode", kg_llm.generate_texts)
-            kirag.filter_candidate_triples = timer.wrap("Aligner rescoring",
-                                                        kirag.filter_candidate_triples)
-            kirag._decode_constructor = timer.wrap("constructor decode",
-                                                   kirag._decode_constructor)
-            return kirag
-
-        argv = ["--dataset", "hotpotqa", "--query_file", str(work / "questions.json"),
-                "--num_queries", str(n_q), "--corpus", "wikipedia", "--corpus_path",
-                str(built["tsv"]), "--index_folder", str(built["index_dir"]),
-                "--embedding_size", str(DIM), "--retriever_model_name_or_path",
-                str(built["model_dir"]), "--llm", "Meta-Llama-3-8B-Instruct",
-                "--llm_quant_bits", "4", "--aligner_model", "e5",
-                "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns", "2",
-                "--topk", "10", "--num_beams", "1", "--concurrent_questions", "1",
-                "--cached_kg_triples_file", str(cache), "--save_dir", str(work),
-                "--name", f"kirag_{run}", "--save_file", "results.json"]
-        retrieve_cli.setup_kirag_model = instrumented
-        reset_launch_counts()
-        try:
-            t0 = time.perf_counter()
-            path = retrieve_cli.main(argv, tokenizer=HashTokenizer(),
-                                     llm_tokenizer=ByteLevelTokenizer(),
-                                     aligner_tokenizer=HashTokenizer(),
-                                     llm=llm)
-            wall = time.perf_counter() - t0
-        finally:
-            retrieve_cli.setup_kirag_model = setup
-        counts = main_path_counts()
-        results = json.loads(Path(path).read_text())
-        if len(results) != n_q or not all(
-                r["ctxs"] and "paths" in r and all(c["id"] in index_ids for c in r["ctxs"])
-                for r in results):
-            raise AssertionError(f"run {run}: results lack ctxs or paths, or hold ids "
-                                 "outside the index")
-        idle = [k for k in ("stream_capture", "gather_groups", "flash_attention", "int4_matmul")
-                if counts[k] == 0]
-        if idle:
-            raise AssertionError(f"run {run}: kernels of the path were not launched: {idle}")
-        stages = dict(timer.seconds)
-        stages["rest (load, examplar ranking, host)"] = wall - sum(stages.values())
-        n_triples = sum(len(p) for r in results for p in r["paths"] if p and p[0])
-        log(f"  run {run}: {n_q} questions, {len(results[0]['ctxs'])} ctxs for the first, "
-            f"every ctxs id in the index; {n_triples} chain steps parsed; launches {counts}")
-        log(f"  [{power}] run {run}: {wall:.2f} s, {3600 * n_q / wall:.2f} questions/hour; "
-            + ", ".join(f"{k} {v:.2f} s ({100 * v / wall:.1f}%)" for k, v in stages.items()))
-        runs[run] = {"wall": wall, "stages": stages, "launches": counts, "path": path}
+        runs[run] = retrieve_run(work, built, llm, run, n_q, cache, power)
         if run == "A":  # seed the cache: one triple per cached passage, its own words
             with open(cache, "rb") as f:
                 cached = pickle.load(f)
@@ -1763,6 +1779,332 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
             runs["B"]["stages"].get("constructor decode")):
         raise AssertionError("run B did not reach the Aligner and the constructor")
     return runs
+
+
+# ---------------------------------------------------------------- phase 16
+
+KG_CORPUS_DOCS = 8   # (a): documents 0-7 of phase 6's TSV, 2 batches of 4
+KV_STEPS = 16        # (b): decode steps held int8 against the bf16 cache
+KV_TIMED_STEPS = 64  # (b): decode steps a timed run, two runs with each cache
+QA_K = 3             # (c): contexts a question
+SELECTOR_BEAMS = 2   # (d)
+
+
+def kv_cache_bytes(state: dict) -> int:
+    return sum(nbytes(*(c.values() if isinstance(c, dict) else (c,)))
+               for c in state["k"] + state["v"])
+
+
+def kg_corpus(work: Path, built: dict, llm, power) -> dict:
+    """Phase 16 (a): ``cli/construct_kg_corpus`` over documents 0-7 of phase
+    6's TSV with the 4-layer NF4 Llama handed in; the cache read back by the
+    port's KGGenerator holds those 8 ids; K6 launched."""
+    import types
+
+    from kirag_tpu_torch.cli import construct_kg_corpus
+    from kirag_tpu_torch.data import CORPUS_MAP
+    from kirag_tpu_torch.kernels import reset_launch_counts
+    from kirag_tpu_torch.kg import KGGenerator
+
+    cache = work / "kg_corpus.pkl"
+    argv = ["--corpus", "wikipedia", "--corpus_path", str(built["tsv"]), "--dataset",
+            "hotpotqa", "--llm", "Meta-Llama-3-8B-Instruct", "--cached_kg_triples_file",
+            str(cache), "--batch_size", "4", "--save_every", "1", "--start", "0", "--end",
+            str(KG_CORPUS_DOCS)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    path = construct_kg_corpus.main(argv, llm_tokenizer=ByteLevelTokenizer(), llm=llm)
+    wall = time.perf_counter() - t0
+    counts = main_path_counts()
+    reader = KGGenerator(types.SimpleNamespace(tokenizer=ByteLevelTokenizer()))
+    reader.load_cached_kg_triples(path)
+    corpus = CORPUS_MAP["wikipedia"](corpus_path=str(built["tsv"]))
+    want = [corpus.data[i]["id"] for i in range(KG_CORPUS_DOCS)]
+    if sorted(reader.cached_kg_triples) != sorted(want) or counts["int4_matmul"] == 0:
+        raise AssertionError(f"construct_kg_corpus: cached ids {sorted(reader.cached_kg_triples)}"
+                             f" (want {sorted(want)}), {counts['int4_matmul']} K6 launches")
+    n_triples = sum(len(d.get("triples", [])) for d in reader.cached_kg_triples.values())
+    log(f"  (a) construct_kg_corpus, documents 0-{KG_CORPUS_DOCS - 1}, batch 4, saved every "
+        f"batch: the cache read back holds those {KG_CORPUS_DOCS} ids ({n_triples} triples "
+        f"parsed); {counts['int4_matmul']} K6 launches")
+    log(f"  [{power}] (a) {wall:.2f} s, {wall / KG_CORPUS_DOCS:.2f} s a document "
+        f"({KIRAG_LAYERS} of 32 layers, 512 new tokens a batch)")
+    return {"wall": wall, "launches": counts}
+
+
+def near_tie_agreement(got_ids, ref_ids, ref_logits, tol: float, what: str) -> list:
+    """Ids equal to the reference run's up to each row's first step whose
+    top-2 margin is under ``tol``; returns the tokens each row agrees for."""
+    top2 = np.sort(ref_logits, axis=-1)[..., -2:]
+    margins = top2[..., 1] - top2[..., 0]
+    agree = []
+    for row in range(len(ref_ids)):
+        close = np.nonzero(margins[row] < tol)[0]
+        upto = int(close[0]) + 1 if len(close) else ref_ids.shape[1]
+        if not np.array_equal(got_ids[row, :upto], ref_ids[row, :upto]):
+            raise AssertionError(f"{what}, row {row}: ids differ before the first near-tie "
+                                 f"(step {upto})")
+        same = got_ids[row] == ref_ids[row]
+        agree.append(int(np.argmin(same)) if not same.all() else ref_ids.shape[1])
+    return agree
+
+
+def int8_kv(llm, power) -> dict:
+    """Phase 16 (b), the int8 KV cache on the 4-layer NF4 model with phase 8's
+    prompts: ``_kv_quantize`` on the card bitwise the CPU's on the model's
+    keys and values; 16 decode steps with kv_quant_bits=8 held against the
+    bf16 cache (the prefill's and the first step's logits within LOGIT_TOL,
+    ids equal up to each row's first near-tie); both caches' bytes and
+    decode ms a step."""
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.models import llm as llm_mod
+
+    params, config = llm
+    ids, mask = left_padded_prompts(LLM_PROMPTS, config.vocab_size, SEED)
+    _, _, state = llm_mod.prefill_decode(params, ids, mask, config, 1, torch.bfloat16, EOS_ID)
+    values = 0
+    for cache in state["k"] + state["v"]:
+        q, scale = llm_mod._kv_quantize(cache)
+        q_cpu, scale_cpu = llm_mod._kv_quantize(cache.cpu())
+        if not (torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(), scale_cpu)):
+            raise AssertionError("_kv_quantize on the card differs from the CPU's")
+        values += cache.numel()
+    del state
+    log(f"  (b) _kv_quantize on the card bitwise the CPU's: codes and scales of {values:,} "
+        f"bf16 keys and values ({KIRAG_LAYERS} layers, {LLM_ROWS} rows of {list(LLM_PROMPTS)} "
+        "prompt tokens)")
+    runs, backends = {}, {}
+    for label, bits in (("bf16", None), ("int8", 8)):
+        backend = backends[label] = llm_mod.TorchLlamaBackend(
+            params, dataclasses.replace(config, kv_quant_bits=bits), eos_token_id=EOS_ID)
+        reset_launch_counts()
+        got_ids, logits = backend.greedy(ids, mask, KV_STEPS + 1)
+        runs[label] = {"ids": got_ids, "logits": logits, "k6": launch_counts()["int4_matmul"],
+                       "step_ms": []}
+    for label in ("bf16", "int8", "int8", "bf16"):  # decode timed in turns
+        _, _, st = backends[label].greedy_start(ids, mask, KV_TIMED_STEPS + 1,
+                                                return_logits=False)
+        runs[label]["bytes"] = kv_cache_bytes(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backends[label].greedy_resume(st, KV_TIMED_STEPS, return_logits=False)
+        torch.cuda.synchronize()
+        runs[label]["step_ms"].append((time.perf_counter() - t0) * 1e3 / KV_TIMED_STEPS)
+        del st
+    ref, got = runs["bf16"], runs["int8"]
+    per_step = 7 * KIRAG_LAYERS + 1
+    if not (got["k6"] == ref["k6"] == per_step * KV_STEPS and np.isfinite(got["logits"]).all()):
+        raise AssertionError(f"int8 cache: K6 launches {got['k6']} / {ref['k6']} (want "
+                             f"{per_step * KV_STEPS}), or logits not finite")
+    # the prefill stores the cache but attends the prompt's own K/V unquantized;
+    # its products' sums run in f32 where the bf16 cache's run in a bf16 GEMM
+    tol = LOGIT_TOL * float(np.abs(ref["logits"][:, 1]).max())
+    prefill_gap, step1_gap = (float(np.abs(got["logits"][:, i] - ref["logits"][:, i]).max())
+                              for i in (0, 1))
+    if not (prefill_gap <= tol and step1_gap <= tol):
+        raise AssertionError(f"int8 cache: prefill / first decode step's logits {prefill_gap} / "
+                             f"{step1_gap} from the bf16 cache's > {tol}")
+    agree = near_tie_agreement(got["ids"], ref["ids"], ref["logits"], tol, "int8 cache")
+    upto = min(agree)
+    gap = float(np.abs(got["logits"][:, 1:upto] - ref["logits"][:, 1:upto]).max()) if upto > 1 \
+        else step1_gap
+    log(f"  (b) {KV_STEPS} decode steps, int8 cache against bf16: prefill logits within "
+        f"{prefill_gap:.4g}, first step's within {step1_gap:.4g} (tolerance {tol:.4g} = "
+        f"{LOGIT_TOL} x max |logit|), "
+        f"largest gap while every row agrees {gap:.4g}; ids equal for {agree} tokens a row (each "
+        f"up to its first near-tie at least); {got['k6']} K6 launches each way")
+    slots = KV_TIMED_STEPS + 1 + backends["bf16"]._bucket(max(LLM_PROMPTS))
+    log(f"  [{power}] (b) KV cache at {LLM_ROWS} rows x {slots} slots, {KIRAG_LAYERS} layers: "
+        f"bf16 {ref['bytes'] / 1e6:.1f} MB, int8 {got['bytes'] / 1e6:.1f} MB "
+        f"({got['bytes'] / ref['bytes']:.3f}x); decode ms a step with the bf16 cache "
+        f"{' / '.join(f'{t:.3f}' for t in ref['step_ms'])}, with int8 "
+        f"{' / '.join(f'{t:.3f}' for t in got['step_ms'])} (host clock over {KV_TIMED_STEPS} "
+        "steps a run, run in turns bf16, int8, int8, bf16)")
+    return {"step_ms": {k: v["step_ms"] for k, v in runs.items()},
+            "bytes": {k: v["bytes"] for k, v in runs.items()}, "step1_gap": step1_gap,
+            "agree": agree}
+
+
+def int8_retrieve(work: Path, built: dict, llm, cache: Path, power) -> dict:
+    """Phase 16 (b), run E: cli/retrieve with --llm_kv_quant_bits 8 over a
+    copy of run B's KG cache, held to phase 9's checks; the int8 cache
+    written (``_kv_quantize`` called)."""
+    from kirag_tpu_torch.models import llm as llm_mod
+
+    cache_e = work / "kg_cache_E.pkl"
+    shutil.copyfile(cache, cache_e)
+    quantize, calls = llm_mod._kv_quantize, []
+    llm_mod._kv_quantize = lambda x: calls.append(1) or quantize(x)
+    try:
+        run = retrieve_run(work, built, llm, "E", KIRAG_CACHED, cache_e, power,
+                           extra=("--llm_kv_quant_bits", "8"))
+    finally:
+        llm_mod._kv_quantize = quantize
+    if not calls:
+        raise AssertionError("run E: the int8 KV cache was never written")
+    log(f"  run E wrote the int8 cache {len(calls)} times (prefills and decode steps x layers "
+        "x K/V)")
+    return run
+
+
+def qa_eval_run(run_e: dict, llm, power) -> dict:
+    """Phase 16 (c): cli/qa_eval over run E's results at --k 3 with the 4-layer
+    NF4 reader; a prediction for every question, EM and F1 printed; the
+    reader's ids through K6 equal to those through int4_impl="parity" up to
+    each row's first near-tie; K6 launched."""
+    import io
+
+    from kirag_tpu_torch.cli import qa_eval
+    from kirag_tpu_torch.evaluation import ems, f1_score
+    from kirag_tpu_torch.kernels import reset_launch_counts
+
+    argv = ["--save_file", run_e["path"], "--reader", "Meta-Llama-3-8B-Instruct", "--k",
+            str(QA_K)]
+    reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        em, f1 = qa_eval.main(argv, llm_tokenizer=ByteLevelTokenizer(), llm=llm)
+    wall = time.perf_counter() - t0
+    counts = main_path_counts()
+    report = out.getvalue()
+    for line in report.splitlines():
+        log("  " + line)
+    if not (">>>> EM: " in report and ">>>> F1: " in report and counts["int4_matmul"] > 0):
+        raise AssertionError(f"qa_eval: no EM/F1 in its report, or {counts['int4_matmul']} K6 "
+                             "launches")
+    args = qa_eval.setup_parser(argv)
+    data = json.loads(Path(run_e["path"]).read_text())
+    readers = {impl: qa_eval.build_reader(args, ByteLevelTokenizer(), (
+        llm[0], dataclasses.replace(llm[1], int4_impl=impl))) for impl in ("kernel", "parity")}
+    questions = [ex["question"] for ex in data]
+    contexts = []
+    for ex in data:  # as qa_eval.evaluate builds them
+        texts = [(c, c.get("text") or " ".join(c.get("sentences", []))) for c in ex["ctxs"][:QA_K]]
+        contexts.append(["title: {}, text: {}".format(c["title"], t) if "title" in c else t
+                         for c, t in texts])
+    gen = {}
+    for impl, reader in readers.items():
+        gen[impl] = reader.generator_generate(*reader.get_generator_inputs(questions, contexts))
+    (k6_ids, _), (plain_ids, plain_logits) = gen["kernel"], gen["parity"]
+    tol = LOGIT_TOL * float(np.abs(plain_logits).max())
+    agree = near_tie_agreement(k6_ids, plain_ids, plain_logits, tol, "qa_eval reader")
+    reader = readers["kernel"]
+    preds = reader.parse_generated_answers(
+        reader.tokenizer.batch_decode(k6_ids, skip_special_tokens=True))
+    golds = [ex["answers"] if isinstance(ex["answers"], list) else [ex["answers"]]
+             for ex in data]
+    em_again = float(np.mean([float(ems(p, g)) for p, g in zip(preds, golds)]))
+    f1_again = float(np.mean([f1_score(p, g[0])[0] for p, g in zip(preds, golds)]))
+    if not (len(preds) == len(data) and all(isinstance(p, str) for p in preds)
+            and (em_again, f1_again) == (em, f1)):
+        raise AssertionError(f"qa_eval: {len(preds)} predictions for {len(data)} questions, or "
+                             f"EM/F1 {em_again}/{f1_again} of the held run differ from "
+                             f"{em}/{f1}")
+    log(f"  (c) qa_eval over run E's {len(data)} questions at k={QA_K}: a prediction each "
+        f"({preds!r}), EM {em:.5f} F1 {f1:.5f}; the reader's ids through K6 equal to "
+        f"int4_impl='parity''s for {agree} of {k6_ids.shape[1]} tokens a row (each up to its "
+        f"first near-tie at least, tolerance {tol:.4g}); {counts['int4_matmul']} K6 launches")
+    log(f"  [{power}] (c) {wall:.2f} s")
+    return {"wall": wall, "launches": counts, "em": em, "f1": f1}
+
+
+def selector_run(work: Path, built: dict, llm, cache: Path, power) -> dict:
+    """Phase 16 (d): TripleSelector.retrieve for one question, num_beams=2,
+    over phase 6's retriever and Aligner and a copy of run B's KG cache, so
+    that candidates exist and the option step runs; two of the question's
+    first-turn documents are taken out of the loaded cache, so that the KG
+    generator runs on them too (its examplar ranking encodes 256-token
+    buckets through K3): chains returned; K1, K2, K3 and K6 launched; each
+    generated row that holds an option token has option probabilities
+    summing to 1 within 1e-6, every other row NaN, and one such row at least.
+    Where no row of an option step holds a digit (the random model seldom
+    emits one), its first row's first token is set to an option's, so that
+    the probabilities over the card's logits and the beam's expansion run."""
+    from kirag_tpu_torch.cli import retrieve as retrieve_cli
+    from kirag_tpu_torch.kernels import reset_launch_counts
+    from kirag_tpu_torch.pipeline import TripleSelector
+
+    cache_d = work / "kg_cache_selector.pkl"
+    shutil.copyfile(cache, cache_d)
+    args = retrieve_cli.setup_parser([*kirag_argv(work, built, cache_d), "--save_file", "x"])
+    retriever, _ = retrieve_cli.setup_retriever_model(args, HashTokenizer())
+    kirag = retrieve_cli.setup_kirag_model(args, retriever, ByteLevelTokenizer(),
+                                           HashTokenizer(), llm)
+    selector = TripleSelector(
+        retriever=kirag.retriever, kg_generator=kirag.kg_generator,
+        constructor=kirag.constructor, aligner=kirag.aligner, examplar_type=args.dataset,
+        num_turns=args.num_turns, topk=args.topk,
+        num_candidate_triples=args.num_candidate_triples)
+    probes = []
+    option_probs = selector.get_option_tokens_probs
+
+    def recorded(token_ids, token_logits, num_options):
+        # the random model seldom emits a digit: where no row holds an option
+        # token, the first row's first token is set to option "1" (or "0"),
+        # so that the probabilities over the card's logits at that position
+        # and the beam's expansion run
+        option_map = selector.get_option_token_id_to_option_map(num_options)
+        token_ids = np.array(token_ids)
+        forced = not any(int(t) in option_map for t in token_ids.ravel())
+        if forced:
+            want = "1" if num_options > 1 else "0"
+            token_ids[0, 0] = next(t for t, o in option_map.items() if o == want)
+        options, probs = option_probs(token_ids, token_logits, num_options)
+        probes.append((token_ids, option_map, probs, forced))
+        return options, probs
+
+    selector.get_option_tokens_probs = recorded
+    question = json.loads((work / "questions.json").read_text())[0]["question"]
+    first_turn = [d["id"] for d in retriever([question], topk=args.topk)[0]]
+    for doc_id in first_turn[:2]:
+        del selector.kg_generator.cached_kg_triples[doc_id]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    chains, doc_scores = selector.retrieve(question, num_beams=SELECTOR_BEAMS)
+    wall = time.perf_counter() - t0
+    counts = main_path_counts()
+    idle = [k for k in ("stream_capture", "gather_groups", "flash_attention", "int4_matmul")
+            if counts[k] == 0]
+    if not chains or not doc_scores or not probes or idle:
+        raise AssertionError(f"TripleSelector: {len(chains)} chains, {len(doc_scores)} "
+                             f"documents, {len(probes)} option steps; kernels not launched: "
+                             f"{idle}")
+    rows = with_option = 0
+    for token_ids, option_map, probs, _ in probes:
+        for row, p in zip(token_ids, probs):
+            rows += 1
+            if any(int(t) in option_map for t in row):
+                with_option += 1
+                if not abs(float(p.astype(np.float64).sum()) - 1.0) <= 1e-6:
+                    raise AssertionError(f"TripleSelector: option probabilities sum to {p.sum()}")
+            elif not np.isnan(p).all():
+                raise AssertionError("TripleSelector: a row without an option token is not NaN")
+    if with_option == 0:
+        raise AssertionError("TripleSelector: no row held an option token, so no option "
+                             "probabilities were checked")
+    extended = sum(1 for c in chains if c["triples"])
+    log(f"  (d) TripleSelector.retrieve, num_beams={SELECTOR_BEAMS}: {len(chains)} chains "
+        f"({extended} extended by a triple), {len(doc_scores)} documents scored; "
+        f"{len(probes)} option steps ({sum(p[3] for p in probes)} with option \"1\" set in "
+        f"the first row) over {rows} rows, {with_option} holding an option token "
+        f"(probabilities summing to 1 within 1e-6), the rest NaN; launches {counts}")
+    log(f"  [{power}] (d) {wall:.2f} s")
+    return {"wall": wall, "launches": counts}
+
+
+def eval_pipeline(work: Path, built: dict, decoded: dict, power) -> dict:
+    """Phase 16: the evaluation pipeline around the KiRAG loop with the first
+    KIRAG_LAYERS layers of phase 8's NF4 Llama: (a) construct_kg_corpus, (b)
+    the int8 KV cache and run E, (c) qa_eval over run E, (d) the
+    TripleSelector over run B's cache."""
+    llm = phase9_llm(decoded)
+    cache = work / "kg_cache.pkl"
+    out = {"kg": kg_corpus(work, built, llm, power), "kv": int8_kv(llm, power)}
+    out["E"] = int8_retrieve(work, built, llm, cache, power)
+    out["qa"] = qa_eval_run(out["E"], llm, power)
+    out["selector"] = selector_run(work, built, llm, cache, power)
+    return out
 
 
 # ---------------------------------------------------------------- phase 10
@@ -4330,6 +4672,9 @@ def main() -> int:
         phase("phase 9: KiRAG through kirag_tpu_torch.cli.retrieve (the phase 6 index, the "
             "phase 8 LLM)")
         kirag = kirag_cli(work, built, decoded, power)
+        phase("phase 16: the evaluation pipeline (construct_kg_corpus, the int8 KV cache and "
+              "run E, qa_eval, the TripleSelector) with phase 9's LLM")
+        evaluated = eval_pipeline(work, built, decoded, power)
         phase("phase 12 (c): build_index --shuffle_rows, then cli/retrieve --search_mode approx "
               "(run C, beside phase 9 while its LLM is on the card) and cli/retrieval_eval")
         approx_run = approx_cli(work, built, decoded, kirag["A"], dev, power)
@@ -4399,8 +4744,8 @@ def main() -> int:
     # index build's largest bucket; K6's at gate_proj, NF4, 4 rows (a decode
     # step's largest per-layer projection at the Generator's batch); K3's
     # backward kernels' at the aligner's bf16 query batch. Launches: every
-    # main-path run (phases 4, 6, 8, 9, 10's CLI run, 11 b-d, 12 b-d, 13 and
-    # 14 c-d), not the comparisons.
+    # main-path run (phases 4, 6, 8, 9, 10's CLI run, 11 b-d, 12 b-d, 13,
+    # 14 c-d and 16's four runs), not the comparisons.
     paths = [s["launches"] for s in served.values()] + [built["launches"]] + [
         r["launches"] for r in kirag.values()] + [trained["launches"]] + [
         s["launches"] for s in served_q.values()] + [
@@ -4409,7 +4754,8 @@ def main() -> int:
         approx_run["launches"], served_pq["served"]["launches"], pq_run["launches"]] + [
         dpr[q]["approx"]["launches"] for q in QUANTS] + [
         variants["launches"], dpr["int4"]["variants"]["launches"]] + [
-        s["launches"] for s in served_v.values()]
+        s["launches"] for s in served_v.values()] + [
+        evaluated[run]["launches"] for run in ("kg", "E", "qa", "selector")]
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     launches["int4_matmul"] += decoded["launches"]
     idle = [k for k, n in launches.items() if n == 0]

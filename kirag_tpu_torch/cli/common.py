@@ -59,6 +59,17 @@ def build_tokenizer(args):
     return tokenizer
 
 
+def build_llm_tokenizer(path: str):
+    """An LLM's HuggingFace tokenizer (needs ``transformers``), its pad token
+    set to eos where it has none."""
+    from transformers import AutoTokenizer
+
+    tokenizer = AutoTokenizer.from_pretrained(path)
+    if tokenizer.pad_token is None:
+        tokenizer.pad_token = tokenizer.eos_token
+    return tokenizer
+
+
 def build_encoder(args, device=None):
     """The encoder named by the arguments, on ``device`` (default: the GPU)."""
     from kirag_tpu_torch.models.encoders import RETRIEVER_NAME_TO_ENCODER, load_encoder

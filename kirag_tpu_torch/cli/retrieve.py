@@ -21,6 +21,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 from typing import Optional, Sequence
@@ -34,6 +35,7 @@ from kirag_tpu_torch.cli.common import (
     build_collator,
     build_corpus,
     build_encoder,
+    build_llm_tokenizer,
     build_tokenizer,
     check_single_device,
 )
@@ -70,7 +72,8 @@ def setup_parser(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="weight-only LLM quantization: 8 (per-channel int8) or 4 "
                              "(block-64 NF4, the reference's 4-bit format)")
     parser.add_argument("--llm_kv_quant_bits", type=int, default=None, choices=[8],
-                        help="int8 KV cache (not ported yet)")
+                        help="int8 KV cache (per-token, per-KV-head scales): about half the "
+                             "cache's bytes; not composable with --draft_llm")
     parser.add_argument("--llm_prefix_cache_groups", type=int, default=0,
                         help="prefix KV cache slots; 0 disables (other values are not "
                              "ported yet)")
@@ -108,8 +111,6 @@ def check_ported(args) -> None:
     check_single_device(args)
     if args.draft_llm:
         raise _not_ported("--draft_llm (speculative decoding)", "speculative decoding")
-    if args.llm_kv_quant_bits is not None:
-        raise _not_ported("--llm_kv_quant_bits (the int8 KV cache)", "LLM decode")
     if args.llm_prefix_cache_groups > 0:
         raise _not_ported("--llm_prefix_cache_groups (the prefix KV pool)",
                           "utilities and prefix-KV")
@@ -133,28 +134,35 @@ def setup_retriever_model(args, tokenizer=None, device=None):
 
 
 def load_llm_tokenizer(args):
-    """The LLM's HuggingFace tokenizer (needs ``transformers``), its pad token
-    set to eos where it has none."""
-    from transformers import AutoTokenizer
+    """The LLM's HuggingFace tokenizer (``--llm_tokenizer``, else ``--llm``)."""
+    return build_llm_tokenizer(args.llm_tokenizer or args.llm)
 
-    tokenizer = AutoTokenizer.from_pretrained(args.llm_tokenizer or args.llm)
-    if tokenizer.pad_token is None:
-        tokenizer.pad_token = tokenizer.eos_token
-    return tokenizer
+
+def load_llm(args, llm=None, device=None):
+    """The ``(params, config)`` pair of ``--llm`` in bf16 (or ``llm``, a loaded
+    pair), its config given ``--llm_kv_quant_bits`` where set."""
+    from kirag_tpu_torch.models.llm import load_llama
+
+    if llm is None:
+        return load_llama(args.llm, compute_dtype=torch.bfloat16, int8_weights=args.llm_int8,
+                          quant_bits=args.llm_quant_bits, kv_quant_bits=args.llm_kv_quant_bits,
+                          device=device)
+    params, config = llm
+    if args.llm_kv_quant_bits is not None:
+        config = dataclasses.replace(config, kv_quant_bits=args.llm_kv_quant_bits)
+    return params, config
 
 
 def setup_llm_generator(args, llm_tokenizer=None, llm=None, device=None):
     """The constructor and KG Generators over one TorchLlamaBackend. ``llm``:
     a loaded ``(params, config)`` pair used instead of reading ``--llm``
-    (whose name still picks the chat family)."""
+    (whose name still picks the chat family); ``--llm_kv_quant_bits``
+    applies to it too."""
     from kirag_tpu_torch.generation.interface import Generator
-    from kirag_tpu_torch.models.llm import TorchLlamaBackend, load_llama
+    from kirag_tpu_torch.models.llm import TorchLlamaBackend
 
     tokenizer = llm_tokenizer if llm_tokenizer is not None else load_llm_tokenizer(args)
-    if llm is None:
-        llm = load_llama(args.llm, compute_dtype=torch.bfloat16, int8_weights=args.llm_int8,
-                         quant_bits=args.llm_quant_bits, device=device)
-    params, config = llm
+    params, config = load_llm(args, llm, device)
     backend = TorchLlamaBackend(params, config, eos_token_id=tokenizer.eos_token_id,
                                 prefix_cache_groups=args.llm_prefix_cache_groups)
     constructor = Generator(tokenizer, backend, model_name=args.llm,

@@ -1,3 +1,4 @@
+from kirag_tpu_torch.generation.answer import AnswerGenerator
 from kirag_tpu_torch.generation.chat import CHAT_FAMILIES, render_chat
 from kirag_tpu_torch.generation.interface import GenerationOutput, Generator
 from kirag_tpu_torch.generation.stub import StubBackend, make_stub_generator
@@ -9,4 +10,5 @@ __all__ = [
     "CHAT_FAMILIES",
     "StubBackend",
     "make_stub_generator",
+    "AnswerGenerator",
 ]

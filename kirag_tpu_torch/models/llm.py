@@ -10,9 +10,10 @@ dict of tensors in the reference's layout: kernels ``[in, out]``, int8
 [16] for NF4).
 
 Decode: prefill, then one step per generated token in a Python loop (the
-reference's ``lax.scan``) over a preallocated KV cache in the compute dtype.
-The cache, its mask and positions are updated in place; a state handed to
-:func:`resume_decode` is consumed by it. With 4-bit weights and
+reference's ``lax.scan``) over a preallocated KV cache, in the compute dtype
+or, with ``config.kv_quant_bits == 8``, int8 codes with one f32 scale per
+(token, KV head). The cache, its mask and positions are updated in place;
+a state handed to :func:`resume_decode` is consumed by it. With 4-bit weights and
 ``config.int4_impl == "kernel"``, every projection of a step with at most 32
 rows goes through the hand-written kernel :func:`~kirag_tpu_torch.kernels.qmm.int4_matmul`
 (K6); prefill (more rows) takes the "parity" formulation in plain PyTorch, as
@@ -66,7 +67,8 @@ class LlamaConfig:
     # reference's XLA ones) or "kernel" (K6 for steps of <= 32 rows, the
     # reference's "pallas"); load_llama picks "kernel" on the GPU
     int4_impl: str = "parity"
-    # int8 KV cache: not ported (ROADMAP.md §A: LLM decode)
+    # 8: the decode KV cache stored as int8 codes with an f32 scale per
+    # (token, KV head) (``_kv_quantize``); None: in the compute dtype
     kv_quant_bits: Optional[int] = None
     # Gemma-2 extensions (model_type == "gemma2")
     model_type: str = "llama"
@@ -120,9 +122,8 @@ def _not_ported(what: str, entry: str) -> NotImplementedError:
 
 
 def _check_config(config: LlamaConfig) -> None:
-    if config.kv_quant_bits is not None:
-        raise _not_ported(f"kv_quant_bits={config.kv_quant_bits} (the int8 KV cache)",
-                          "LLM decode")
+    if config.kv_quant_bits not in (None, 8):
+        raise ValueError(f"kv_quant_bits must be None or 8, got {config.kv_quant_bits}")
     if config.int4_impl not in ("parity", "blockdot", "kernel"):
         raise KeyError(f"int4_impl must be parity|blockdot|kernel, got {config.int4_impl!r}")
 
@@ -442,16 +443,52 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
 
 
-def _cache_alloc(bsz: int, t_cache: int, nkv: int, hd: int, dtype, device=None) -> torch.Tensor:
-    """Zeroed KV cache for one layer, [B, T, nkv, hd] in the compute dtype."""
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the head dim: [..., hd] -> (int8 [..., hd], f32
+    scale [...]), the scale ``max|x| / 127`` and the codes ``round(x /
+    max(scale, 1e-12))`` clipped to +-127 (halves to even). Both divisions
+    take a tensor divisor, so they round once on the card too."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1) / torch.full((), 127.0, device=x.device)
+    q = torch.round(xf / torch.clamp(scale, min=1e-12)[..., None])
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def _cache_alloc(bsz: int, t_cache: int, nkv: int, hd: int, dtype,
+                 kv_bits: Optional[int] = None, device=None):
+    """Zeroed KV cache for one layer: [B, T, nkv, hd] in the compute dtype, or
+    with ``kv_bits == 8`` the quantized form {"q": int8 [B, T, nkv, hd],
+    "s": f32 [B, T, nkv]}. Other values of ``kv_bits`` are refused by
+    :func:`_check_config`, which every forward runs."""
+    if kv_bits == 8:
+        return {"q": torch.zeros(bsz, t_cache, nkv, hd, dtype=torch.int8, device=device),
+                "s": torch.zeros(bsz, t_cache, nkv, dtype=torch.float32, device=device)}
     return torch.zeros(bsz, t_cache, nkv, hd, dtype=dtype, device=device)
 
 
-def _cache_write(cache: torch.Tensor, new: torch.Tensor, *idx) -> torch.Tensor:
-    """Write K/V rows into the cache at ``idx`` (leading batch/token axes),
-    in place; returns the cache."""
+def _cache_write(cache, new: torch.Tensor, *idx):
+    """Write compute-dtype K/V rows into the cache at ``idx`` (leading
+    batch/token axes, which a quantized cache's scales share), in place;
+    returns the cache."""
+    if isinstance(cache, dict):
+        q, s = _kv_quantize(new)
+        cache["q"][idx] = q
+        cache["s"][idx] = s
+        return cache
     cache[idx] = new.to(cache.dtype)
     return cache
+
+
+def _probs(logits, valid, config: LlamaConfig, hd: int) -> torch.Tensor:
+    """f32 softmax of [B, nh, t, T] logits: scaled, soft-capped (gemma2),
+    invalid slots masked with the most negative f32."""
+    scale = config.query_pre_attn_scalar if config.query_pre_attn_scalar else hd
+    logits = logits / math.sqrt(scale)
+    if config.attn_logit_softcapping:
+        cap = config.attn_logit_softcapping
+        logits = cap * torch.tanh(logits / cap)
+    logits = torch.where(valid, logits, torch.finfo(torch.float32).min)
+    return torch.softmax(logits, dim=-1)
 
 
 def _attend(q5, keys, values, valid, config: LlamaConfig, x_dtype) -> torch.Tensor:
@@ -461,27 +498,51 @@ def _attend(q5, keys, values, valid, config: LlamaConfig, x_dtype) -> torch.Tens
     bsz, t_new, nkv, group, hd = q5.shape
     logits = torch.einsum("bqngd,bknd->bngqk", q5.to(torch.float32),
                           keys.to(torch.float32)).reshape(bsz, nkv * group, t_new, -1)
-    scale = config.query_pre_attn_scalar if config.query_pre_attn_scalar else hd
-    logits = logits / math.sqrt(scale)
-    if config.attn_logit_softcapping:
-        cap = config.attn_logit_softcapping
-        logits = cap * torch.tanh(logits / cap)
-    logits = torch.where(valid, logits, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(x_dtype)
+    probs = _probs(logits, valid, config, hd).to(x_dtype)
     p5 = probs.reshape(bsz, nkv, group, t_new, -1)
     return torch.einsum("bngqk,bknd->bqngd", p5, values).reshape(bsz, t_new, nkv * group * hd)
+
+
+def _attend_quantized(q5, k_cache, v_cache, k, v, valid, config: LlamaConfig, x_dtype
+                      ) -> torch.Tensor:
+    """:func:`_attend` over an int8 cache and the new tokens' K/V, with the
+    reference's arithmetic: the cache slots and the new slots are scored
+    apart and concatenated; the raw codes, cast to the compute dtype, are
+    contracted in f32 and each slot's K scale multiplies its logits after
+    the contraction; each slot's V scale is folded into the probabilities,
+    which are cast to the compute dtype before the product with the raw
+    codes. The dequantized cache never exists. The codes (at most 127 in
+    magnitude) convert exactly to the compute dtype, so they go to f32 in one
+    step."""
+    bsz, t_q, nkv, group, hd = q5.shape
+    t_cache = k_cache["q"].shape[1]
+    t_all = t_cache + k.shape[1]
+    f32 = torch.float32
+    qf = q5.to(f32)
+    lg_c = torch.einsum("bqngd,bknd->bngqk", qf, k_cache["q"].to(f32))
+    lg_c = lg_c * k_cache["s"].transpose(1, 2)[:, :, None, None, :]
+    lg_n = torch.einsum("bqngd,bknd->bngqk", qf, k.to(f32))
+    logits = torch.cat([lg_c, lg_n], dim=-1).reshape(bsz, nkv * group, t_q, t_all)
+    p5 = _probs(logits, valid, config, hd).reshape(bsz, nkv, group, t_q, t_all)
+    pc = p5[..., :t_cache] * v_cache["s"].transpose(1, 2)[:, :, None, None, :]
+    ctx = torch.einsum("bngqk,bknd->bqngd", pc.to(x_dtype).to(f32),
+                       v_cache["q"].to(f32))
+    ctx = ctx + torch.einsum("bngqk,bknd->bqngd", p5[..., t_cache:].to(x_dtype).to(f32),
+                             v.to(f32))
+    return ctx.to(x_dtype).reshape(bsz, t_q, nkv * group * hd)
 
 
 def _attention_block(x, layer_p, config: LlamaConfig, positions, k_cache, v_cache,
                      cache_mask, new_mask, cache_positions=None, sliding=False):
     """Attend new tokens (x) against cache+self. Returns (out, new_k, new_v).
 
-    k_cache/v_cache: [B, T_cache, n_kv, hd]; ``cache_mask`` [B, T_cache] marks
-    written cache slots, ``new_mask`` [B, T_new] valid (non-pad) new tokens.
-    New tokens attend cache slots per cache_mask and each other causally AND
-    per new_mask. GQA splits the query-head axis (kv head n serves query
-    heads [n*group, (n+1)*group)); the cache is never repeated. Long inputs
-    run PREFILL_QUERY_CHUNK queries at a time.
+    k_cache/v_cache: [B, T_cache, n_kv, hd], or the int8 form of
+    :func:`_cache_alloc`; ``cache_mask`` [B, T_cache] marks written cache
+    slots, ``new_mask`` [B, T_new] valid (non-pad) new tokens. New tokens
+    attend cache slots per cache_mask and each other causally AND per
+    new_mask. GQA splits the query-head axis (kv head n serves query heads
+    [n*group, (n+1)*group)); the cache is never repeated. Long inputs run
+    PREFILL_QUERY_CHUNK queries at a time.
     """
     bsz, t_new, _ = x.shape
     nh, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
@@ -491,9 +552,17 @@ def _attention_block(x, layer_p, config: LlamaConfig, positions, k_cache, v_cach
     q = _rope(q, positions, config.rope_theta)
     k = _rope(k, positions, config.rope_theta)
 
-    t_cache = k_cache.shape[1]
-    keys = torch.cat([k_cache, k], dim=1).to(x.dtype)
-    values = torch.cat([v_cache, v], dim=1).to(x.dtype)
+    quantized = isinstance(k_cache, dict)
+    t_cache = (k_cache["q"] if quantized else k_cache).shape[1]
+    if quantized:
+        def attend(qc, vc):
+            return _attend_quantized(qc, k_cache, v_cache, k, v, vc, config, x.dtype)
+    else:
+        keys = torch.cat([k_cache, k], dim=1).to(x.dtype)
+        values = torch.cat([v_cache, v], dim=1).to(x.dtype)
+
+        def attend(qc, vc):
+            return _attend(qc, keys, values, vc, config, x.dtype)
     q5 = q.reshape(bsz, t_new, nkv, nh // nkv, hd)
     cache_valid = cache_mask.bool()[:, None, None, :].expand(bsz, 1, t_new, t_cache)
     causal = torch.tril(torch.ones(t_new, t_new, dtype=torch.bool, device=x.device))
@@ -508,8 +577,8 @@ def _attention_block(x, layer_p, config: LlamaConfig, positions, k_cache, v_cach
         key_pos = torch.cat([cache_positions, positions], dim=1)
         delta = positions[:, :, None] - key_pos[:, None, :]
         valid = valid & (delta < config.sliding_window)[:, None, :, :]
-    ctx = torch.cat([_attend(q5[:, s:s + PREFILL_QUERY_CHUNK], keys, values,
-                             valid[:, :, s:s + PREFILL_QUERY_CHUNK], config, x.dtype)
+    ctx = torch.cat([attend(q5[:, s:s + PREFILL_QUERY_CHUNK],
+                            valid[:, :, s:s + PREFILL_QUERY_CHUNK])
                      for s in range(0, t_new, PREFILL_QUERY_CHUNK)], dim=1)
     return _dense(ctx, layer_p["o_proj"], config.int4_impl), k, v
 
@@ -586,7 +655,8 @@ def _prefill_state(params, input_ids, attention_mask, config, total_new_tokens,
     t_cache = t_prompt + total_new_tokens
     # positions: left padding -> clip(cumsum(mask) - 1, 0)
     positions = torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
-    empty = [_cache_alloc(bsz, 0, nkv, hd, compute_dtype, device) for _ in range(nl)]
+    kv_bits = config.kv_quant_bits
+    empty = [_cache_alloc(bsz, 0, nkv, hd, compute_dtype, kv_bits, device) for _ in range(nl)]
     empty_mask = torch.zeros(bsz, 0, dtype=attention_mask.dtype, device=device)
     empty_pos = torch.zeros(bsz, 0, dtype=positions.dtype, device=device)
     logits, new_ks, new_vs = llama_block_forward(
@@ -594,7 +664,7 @@ def _prefill_state(params, input_ids, attention_mask, config, total_new_tokens,
         new_mask=attention_mask, compute_dtype=compute_dtype, cache_positions=empty_pos)
 
     def alloc(new):
-        cache = _cache_alloc(bsz, t_cache, nkv, hd, compute_dtype, device)
+        cache = _cache_alloc(bsz, t_cache, nkv, hd, compute_dtype, kv_bits, device)
         return _cache_write(cache, new, slice(None), slice(0, t_prompt))
 
     next_token = torch.argmax(logits[:, -1], dim=-1)
@@ -710,8 +780,9 @@ class TorchLlamaBackend:
     reference's prompt buckets (left-pad up to a bucket, left-truncate past
     the largest). numpy in, numpy out.
 
-    Draft models (speculative decoding) and prefix-KV groups are not ported
-    and raise."""
+    ``config.kv_quant_bits == 8`` keeps the decode cache in int8. Draft
+    models (speculative decoding) and prefix-KV groups are not ported and
+    raise."""
 
     def __init__(self, params: Params, config: LlamaConfig, eos_token_id: int,
                  compute_dtype=torch.bfloat16,
@@ -863,9 +934,8 @@ def load_llama(model_name_or_path: str, compute_dtype=torch.bfloat16,
     index) or ``pytorch_model.bin``) onto ``device`` (default: the GPU),
     quantizing projections there with ``int8_weights``/``quant_bits``. The
     4-bit matmul runs K6 on the GPU (``int4_impl="kernel"``) and the "parity"
-    formulation on the CPU."""
-    if kv_quant_bits is not None:
-        raise _not_ported(f"kv_quant_bits={kv_quant_bits} (the int8 KV cache)", "LLM decode")
+    formulation on the CPU. ``kv_quant_bits=8`` stores the decode KV cache in
+    int8 (see :attr:`LlamaConfig.kv_quant_bits`)."""
     from kirag_tpu_torch.models.encoders import read_safetensors
 
     if not os.path.isdir(model_name_or_path):
@@ -899,4 +969,7 @@ def load_llama(model_name_or_path: str, compute_dtype=torch.bfloat16,
     if quant_bits == 4:
         config = dataclasses.replace(
             config, int4_impl="kernel" if device.type == "cuda" else "parity")
+    if kv_quant_bits is not None:
+        config = dataclasses.replace(config, kv_quant_bits=kv_quant_bits)
+    _check_config(config)
     return params, config

@@ -1,3 +1,4 @@
 from kirag_tpu_torch.pipeline.kirag import KiRAG
+from kirag_tpu_torch.pipeline.selector import TripleSelector
 
-__all__ = ["KiRAG"]
+__all__ = ["KiRAG", "TripleSelector"]

@@ -40,7 +40,9 @@ def test_every_module_imports_without_jax():
             "kirag_tpu_torch.training.trainer", "kirag_tpu_torch.training.aligner",
             "kirag_tpu_torch.training.loader", "kirag_tpu_torch.data.datasets",
             "kirag_tpu_torch.utils.seeding", "kirag_tpu_torch.cli.train_aligner",
-            "kirag_tpu_torch.ops.pq"} <= names
+            "kirag_tpu_torch.ops.pq", "kirag_tpu_torch.generation.answer",
+            "kirag_tpu_torch.pipeline.selector", "kirag_tpu_torch.cli.qa_eval",
+            "kirag_tpu_torch.cli.construct_kg_corpus"} <= names
 
 
 def test_no_source_imports_jax():

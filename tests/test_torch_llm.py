@@ -322,6 +322,3 @@ def test_unported_options_raise():
                               draft_config=port_config(config))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llm.TorchLlamaBackend(params, port_config(config), 0, prefix_cache_groups=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llm.TorchLlamaBackend(params, dataclasses.replace(port_config(config),
-                                                          kv_quant_bits=8), 0)
