@@ -35,6 +35,14 @@ weights at E5-large and Llama-3-8B-Instruct width:
   times, ``cli/retrieve --llm_kv_quant_bits 8`` as run E), ``cli/qa_eval``
   over run E's results (the reader's ids through K6 against the plain
   formulation's) and ``TripleSelector.retrieve`` with its option step;
+  then (phase 17) greedy speculative decoding with a seeded bf16 draft at
+  Llama-3.2-1B geometry (scripted, the draft's own argmax, segmented, with
+  logits: ids against phase 8's greedy stream, K6's launches a verify
+  round, the acceptance histogram, a draft with the int8 cache refused,
+  K6's row-count invariance), the prefix-KV pool at full width (bf16 and
+  int8 caches, seeding and reusing calls against plain greedy) and
+  ``cli/retrieve`` with ``--draft_llm`` (run F) and
+  ``--llm_prefix_cache_groups`` (run G);
 - the Aligner's contrastive training (phase 10): K3's two backward kernels
   held against their plain version and timed beside the backward of
   ``scaled_dot_product_attention``; a training step's gradients through the
@@ -1561,6 +1569,7 @@ def llm_decode(work: Path, dev, power) -> dict:
             f"{step_s * 1e3:.3f} ms step: idle {100 * idle:.1f}%")
     loaded = check_load_llama(work, dev, config, power)
     return {"params": params, "config": config, "launches": k6_run + k6_resume + k6_timed,
+            "ids": got_ids, "logits": got_logits,
             "step_ms": step_s * 1e3, "step_bound_ms": step_bound * 1e3, "prefill": prefill,
             "init_s": init_s, "profile": profiled, "load": loaded}
 
@@ -1574,6 +1583,13 @@ def llm_decode(work: Path, dev, power) -> dict:
 KIRAG_QUESTIONS = 1   # run A, the reference-shaped sequential loop
 KIRAG_CACHED = 1      # run B, over a seeded KG cache
 KIRAG_LAYERS = 4
+# turns a question, cut from 2 when phase 17 came: a second turn's new
+# documents cost a KG decode of 512 steps a batch in every run. The cached
+# runs (B, E, F, G and phase 16's selector) read a cache that lacks KIRAG_HELD
+# of the question's documents, so that their KG step, and K3 in its
+# examplar ranking, still runs (a batch of 512 steps)
+KIRAG_TURNS = 1
+KIRAG_HELD = 2
 
 
 class ByteLevelTokenizer:
@@ -1674,11 +1690,12 @@ def phase9_llm(decoded: dict) -> tuple:
 
 
 def retrieve_run(work: Path, built: dict, llm, run: str, n_q: int, cache: Path, power,
-                 extra=()) -> dict:
+                 extra=(), draft_llm=None) -> dict:
     """One run of kirag_tpu_torch.cli.retrieve.main over phase 6's index and
-    encoder (retriever and Aligner) with ``llm`` handed in, its stages timed;
-    held to phase 9's checks: ``ctxs`` and ``paths`` for every question,
-    every id in the index, and K1, K2, K3 and K6 launched."""
+    encoder (retriever and Aligner) with ``llm`` (and ``draft_llm``) handed
+    in, its stages timed; held to phase 9's checks: ``ctxs`` and ``paths``
+    for every question, every id in the index, and K1, K2, K3 and K6
+    launched. The result holds the constructor's backend."""
     import pickle
 
     from kirag_tpu_torch.cli import retrieve as retrieve_cli
@@ -1688,9 +1705,11 @@ def retrieve_run(work: Path, built: dict, llm, run: str, n_q: int, cache: Path, 
         index_ids = set(pickle.load(f))
     setup = retrieve_cli.setup_kirag_model
     timer = StageTimer()
+    built_kirag = []
 
     def instrumented(*args, **kwargs):
         kirag = setup(*args, **kwargs)
+        built_kirag.append(kirag)
         kirag.retriever = TimedRetriever(kirag.retriever, timer)
         kg_llm = kirag.kg_generator.generator
         kg_llm.generate_texts = timer.wrap("KG decode", kg_llm.generate_texts)
@@ -1707,7 +1726,8 @@ def retrieve_run(work: Path, built: dict, llm, run: str, n_q: int, cache: Path, 
         t0 = time.perf_counter()
         path = retrieve_cli.main(argv, tokenizer=HashTokenizer(),
                                  llm_tokenizer=ByteLevelTokenizer(),
-                                 aligner_tokenizer=HashTokenizer(), llm=llm)
+                                 aligner_tokenizer=HashTokenizer(), llm=llm,
+                                 draft_llm=draft_llm)
         wall = time.perf_counter() - t0
     finally:
         retrieve_cli.setup_kirag_model = setup
@@ -1729,7 +1749,8 @@ def retrieve_run(work: Path, built: dict, llm, run: str, n_q: int, cache: Path, 
         f"every ctxs id in the index; {n_triples} chain steps parsed; launches {counts}")
     log(f"  [{power}] run {run}: {wall:.2f} s, {3600 * n_q / wall:.2f} questions/hour; "
         + ", ".join(f"{k} {v:.2f} s ({100 * v / wall:.1f}%)" for k, v in stages.items()))
-    return {"wall": wall, "stages": stages, "launches": counts, "path": path}
+    return {"wall": wall, "stages": stages, "launches": counts, "path": path,
+            "backend": built_kirag[0].constructor.backend}
 
 
 def kirag_argv(work: Path, built: dict, cache: Path) -> list:
@@ -1740,9 +1761,18 @@ def kirag_argv(work: Path, built: dict, cache: Path) -> list:
             str(built["index_dir"]), "--embedding_size", str(DIM),
             "--retriever_model_name_or_path", str(built["model_dir"]), "--llm",
             "Meta-Llama-3-8B-Instruct", "--llm_quant_bits", "4", "--aligner_model", "e5",
-            "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns", "2",
-            "--topk", "10", "--num_beams", "1", "--concurrent_questions", "1",
+            "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns",
+            str(KIRAG_TURNS), "--topk", "10", "--num_beams", "1", "--concurrent_questions", "1",
             "--cached_kg_triples_file", str(cache)]
+
+
+def seed_triple(doc: dict) -> dict:
+    """One triple from the passage's own words, ``<title; first; last>``,
+    in place of what a trained KG LLM would extract (a random one extracts
+    none)."""
+    words = re.findall(r"\w+", doc.get("text") or " ".join(doc["sentences"]))
+    doc["triples"] = [{"text": f"<{doc['title']}; {words[0]}; {words[-1]}>", "sentence": 0}]
+    return doc
 
 
 def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
@@ -1753,7 +1783,9 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
     reference-shaped sequential loop, the KG cache starting empty. Run B:
     the same CLI over a KG cache of run A's documents seeded with one triple
     each from the passage's own words (the random LLM extracts none), so the
-    Aligner rescoring and the constructor run too."""
+    Aligner rescoring and the constructor run too; the cache lacks the
+    first KIRAG_HELD of run A's documents (``kg_held_out.json``), which run
+    B's KG step extracts, and so does every later copy of it."""
     import pickle
 
     fixtures = runpy.run_path(str(Path(__file__).resolve().parent / "tests"
@@ -1767,14 +1799,18 @@ def kirag_cli(work: Path, built: dict, decoded: dict, power) -> dict:
     for run, n_q in (("A", KIRAG_QUESTIONS), ("B", KIRAG_CACHED)):
         runs[run] = retrieve_run(work, built, llm, run, n_q, cache, power)
         if run == "A":  # seed the cache: one triple per cached passage, its own words
-            with open(cache, "rb") as f:
-                cached = pickle.load(f)
+            ctxs = json.loads(Path(runs[run]["path"]).read_text())[0]["ctxs"]
+            held = [c["id"] for c in ctxs[:KIRAG_HELD]]
+            (work / "kg_held_out.json").write_text(json.dumps(held))
+        with open(cache, "rb") as f:
+            cached = pickle.load(f)
+        for doc_id in held:  # run B extracted them and wrote them back
+            cached.pop(doc_id, None)
+        if run == "A":
             for doc in cached.values():
-                words = re.findall(r"\w+", doc.get("text") or " ".join(doc["sentences"]))
-                doc["triples"] = [{"text": f"<{doc['title']}; {words[0]}; {words[-1]}>",
-                                   "sentence": 0}]
-            with open(cache, "wb") as f:
-                pickle.dump(cached, f)
+                seed_triple(doc)
+        with open(cache, "wb") as f:
+            pickle.dump(cached, f)
     if not (runs["B"]["stages"].get("Aligner rescoring") and
             runs["B"]["stages"].get("constructor decode")):
         raise AssertionError("run B did not reach the Aligner and the constructor")
@@ -1832,15 +1868,18 @@ def kg_corpus(work: Path, built: dict, llm, power) -> dict:
     return {"wall": wall, "launches": counts}
 
 
-def near_tie_agreement(got_ids, ref_ids, ref_logits, tol: float, what: str) -> list:
+def near_tie_agreement(got_ids, ref_ids, ref_logits, tol: float, what: str,
+                       through_tie: bool = True) -> list:
     """Ids equal to the reference run's up to each row's first step whose
-    top-2 margin is under ``tol``; returns the tokens each row agrees for."""
+    top-2 margin is under ``tol``, that step included (``through_tie=False``:
+    excluded, where the two runs' logits may differ by up to ``tol`` from
+    the first token on); returns the tokens each row agrees for."""
     top2 = np.sort(ref_logits, axis=-1)[..., -2:]
     margins = top2[..., 1] - top2[..., 0]
     agree = []
     for row in range(len(ref_ids)):
         close = np.nonzero(margins[row] < tol)[0]
-        upto = int(close[0]) + 1 if len(close) else ref_ids.shape[1]
+        upto = int(close[0]) + through_tie if len(close) else ref_ids.shape[1]
         if not np.array_equal(got_ids[row, :upto], ref_ids[row, :upto]):
             raise AssertionError(f"{what}, row {row}: ids differ before the first near-tie "
                                  f"(step {upto})")
@@ -2057,8 +2096,8 @@ def selector_run(work: Path, built: dict, llm, cache: Path, power) -> dict:
     selector.get_option_tokens_probs = recorded
     question = json.loads((work / "questions.json").read_text())[0]["question"]
     first_turn = [d["id"] for d in retriever([question], topk=args.topk)[0]]
-    for doc_id in first_turn[:2]:
-        del selector.kg_generator.cached_kg_triples[doc_id]
+    for doc_id in first_turn[:2]:  # the cache may lack them already (KIRAG_HELD)
+        selector.kg_generator.cached_kg_triples.pop(doc_id, None)
     reset_launch_counts()
     t0 = time.perf_counter()
     chains, doc_scores = selector.retrieve(question, num_beams=SELECTOR_BEAMS)
@@ -2104,6 +2143,404 @@ def eval_pipeline(work: Path, built: dict, decoded: dict, power) -> dict:
     out["E"] = int8_retrieve(work, built, llm, cache, power)
     out["qa"] = qa_eval_run(out["E"], llm, power)
     out["selector"] = selector_run(work, built, llm, cache, power)
+    return out
+
+
+# ---------------------------------------------------------------- phase 17
+
+SPEC_GAMMA = 4        # the fed window a round: 3 proposals and the correction
+SPEC_SEGMENT = 16     # (a): greedy_resume's steps a segment
+SPEC_FLIP = 5         # (a): the script flips every 5th proposal to a wrong token
+SPEC_ACCEPT_MAX = 0.8
+PREFIX_GROUPS = 4     # (b): the pool's groups
+PREFIX_TOKENS = 2048  # (b): its slots a group
+PREFIX_SHARED = 1000  # (b): the prompt tokens the 4 rows share
+PREFIX_TAILS = (400, 300, 200, 100)   # (b): each row's own tokens after them
+PREFIX_STEPS = 16     # (b): tokens a call
+DRAFT_LAYERS_F = 2    # (c): run F's draft, cut from 16 layers
+
+
+def draft_llm_config():
+    """Llama-3.2-1B's published geometry (meta-llama/Llama-3.2-1B,
+    config.json): 16 layers x 2048, 32 heads / 8 KV, MLP 8192, vocab 128256,
+    tied embeddings, rope_theta 500000; its rope_scaling ("llama3") is in
+    neither package, so the draft runs plain RoPE."""
+    from kirag_tpu_torch.models import llm
+
+    return llm.LlamaConfig(vocab_size=128256, hidden_size=2048, num_hidden_layers=16,
+                           num_attention_heads=32, num_key_value_heads=8, intermediate_size=8192,
+                           rope_theta=500000.0, tie_word_embeddings=True,
+                           max_position_embeddings=131072)
+
+
+def acceptance(hist) -> float:
+    """Accepted proposals over the proposals judged: a round judges its
+    accepted ones and, unless it accepted all gamma - 1, the one rejected."""
+    accepted = sum(a * int(n) for a, n in enumerate(hist))
+    return accepted / max(1, accepted + int(sum(hist[:-1])))
+
+
+def k6_row_invariance(params, config, dev) -> dict:
+    """Is K6's output for a row the same bits in a 4-row call (a decode
+    step) and in a 16-row call (a verify window of gamma 4)? The plan picks
+    the tiles and the cluster, whose split of the sum fixes its order."""
+    from kirag_tpu_torch.kernels import int4_matmul
+    from kirag_tpu_torch.kernels.qmm import plan
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    layer, wide_rows = params["layers"][0], LLM_ROWS * SPEC_GAMMA
+    out = {}
+    for name, p in (("q_proj", layer["q_proj"]), ("k_proj", layer["k_proj"]),
+                    ("gate_proj", layer["gate_proj"]), ("down_proj", layer["down_proj"]),
+                    ("lm_head", params["lm_head"])):
+        half, cols = p["kernel_q4"].shape
+        cb = p.get("kernel_cb4")
+        x = torch.randn(wide_rows, 2 * half, generator=gen, device=dev).to(torch.bfloat16)
+        wide = int4_matmul(x, p["kernel_q4"], p["kernel_scale4"], codebook=cb)
+        narrow = int4_matmul(x[:LLM_ROWS], p["kernel_q4"], p["kernel_scale4"], codebook=cb)
+        diff = (wide[:LLM_ROWS].float() - narrow.float()).abs()
+        out[name] = {"bitwise": torch.equal(wide[:LLM_ROWS], narrow), "outputs": narrow.numel(),
+                     "differ": int((diff > 0).sum()), "max_diff": float(diff.max()),
+                     "plans": (plan(LLM_ROWS, half, cols, cb is not None),
+                               plan(wide_rows, half, cols, cb is not None))}
+    log(f"  (a) K6 row-count invariance, NF4, bf16 rows: a row's output in a {LLM_ROWS}-row "
+        f"call against the same row in a {wide_rows}-row call: " + "; ".join(
+            f"{n} {'bitwise' if r['bitwise'] else 'NOT bitwise'} ({r['differ']} of "
+            f"{r['outputs']} outputs differ, by up to {r['max_diff']:.3g}; "
+            f"cluster {r['plans'][0].cluster} / {r['plans'][1].cluster}, tiles "
+            f"{r['plans'][0].tiles} / {r['plans'][1].tiles})" for n, r in out.items()))
+    return out
+
+
+def spec_decode(decoded: dict, draft, power) -> dict:
+    """Phase 17 (a): greedy speculative decoding at full width, phase 8's NF4
+    Llama-3-8B target with the bf16 Llama-3.2-1B-geometry draft, phase 8's 4
+    prompts, 64 tokens, gamma 4, through TorchLlamaBackend: the draft's own
+    argmax; then a script of the target's stream with every 5th proposal
+    flipped, through greedy_start + greedy_resume in segments of 16, greedy,
+    and greedy with logits. Each script is the run before's ids: greedy as
+    the verify forward computes it, which leaves phase 8's stream at bf16
+    near-ties and shifts with the windows, so each run's script agrees with
+    its stream further than the one before. Each
+    run: ids equal to phase 8's greedy stream up to each row's first
+    near-tie, K6 launched 225 times a verify round (and nowhere else), the
+    acceptance histogram, ms per emitted token by the host clock beside
+    phase 8's greedy step; the scripted runs' acceptance at most 0.8; with
+    logits, the prefill's equal to phase 8's and the first step's within
+    LOGIT_TOL. Then a draft with the int8 cache is refused."""
+    from kirag_tpu_torch.kernels import reset_launch_counts
+    from kirag_tpu_torch.models import llm as llm_mod
+    from kirag_tpu_torch.models import speculative
+
+    params, config = decoded["params"], decoded["config"]
+    d_params, d_config = draft
+    ids, mask = left_padded_prompts(LLM_PROMPTS, config.vocab_size, SEED)
+    ref_ids, ref_logits = decoded["ids"], decoded["logits"]
+    tol = LOGIT_TOL * float(np.abs(ref_logits[:, 1]).max())
+    flip = np.arange(LLM_NEW_TOKENS)[None, :] % SPEC_FLIP == SPEC_FLIP - 1
+    backend = llm_mod.TorchLlamaBackend(params, config, eos_token_id=EOS_ID,
+                                        draft_params=d_params, draft_config=d_config,
+                                        spec_gamma=SPEC_GAMMA)
+    per_round = 7 * config.num_hidden_layers + 1
+    steps = LLM_NEW_TOKENS - 1
+    rounds, spec_round = [0], speculative._spec_round
+
+    def counted(*args, **kwargs):
+        rounds[0] += 1
+        return spec_round(*args, **kwargs)
+
+    runs, script = {}, None
+    speculative._spec_round = counted
+    try:
+        for run in ("draft argmax", "segmented", "scripted", "logits"):
+            backend.draft_script_fn = None if script is None else (lambda i, m: script)
+            hist0 = backend.spec_acc_hist.copy()
+            rounds[0] = 0
+            reset_launch_counts()
+            logits, start_s = None, None
+            t0 = time.perf_counter()
+            if run == "segmented":
+                first, _, state = backend.greedy_start(ids, mask, LLM_NEW_TOKENS,
+                                                       return_logits=False)
+                start_s = time.perf_counter() - t0  # both prefills; the ids reached the host
+                parts = [first]
+                while sum(p.shape[1] for p in parts) < LLM_NEW_TOKENS:
+                    n = min(SPEC_SEGMENT, LLM_NEW_TOKENS - sum(p.shape[1] for p in parts))
+                    part, _, state = backend.greedy_resume(state, n, return_logits=False)
+                    parts.append(part)
+                got = np.concatenate(parts, axis=1)
+                del state
+            else:
+                got, logits = backend.greedy(ids, mask, LLM_NEW_TOKENS,
+                                             return_logits=run == "logits")
+            wall = time.perf_counter() - t0
+            counts = main_path_counts()
+            hist = backend.spec_acc_hist - hist0
+            k6 = counts["int4_matmul"]
+            if k6 != per_round * rounds[0] or rounds[0] == 0:
+                raise AssertionError(f"speculative ({run}): {k6} K6 launches in {rounds[0]} "
+                                     f"verify rounds, not {per_round} a round")
+            agree = near_tie_agreement(got, ref_ids, ref_logits, tol, f"speculative ({run})")
+            rate = acceptance(hist)
+            if script is not None and not rate <= SPEC_ACCEPT_MAX:
+                raise AssertionError(f"speculative ({run}): scripted acceptance {rate} > "
+                                     f"{SPEC_ACCEPT_MAX}")
+            note = ""
+            if logits is not None:
+                step1 = float(np.abs(logits[:, 1] - ref_logits[:, 1]).max())
+                if not (np.array_equal(logits[:, 0], ref_logits[:, 0]) and step1 <= tol
+                        and np.isfinite(logits).all()):
+                    raise AssertionError(f"speculative ({run}): the prefill's logits differ "
+                                         f"from phase 8's, or the first step's by {step1} > "
+                                         f"{tol}, or not finite")
+                note = (f"; the prefill's logits equal phase 8's, the first step's within "
+                        f"{step1:.4g} (tolerance {tol:.4g})")
+            runs[run] = {"wall": wall, "start_s": start_s, "hist": hist.tolist(),
+                         "rounds": rounds[0], "k6": k6, "agree": agree, "acceptance": rate,
+                         "launches": counts}
+            scripted = " (scripted: every 5th proposal flipped)" if script is not None else ""
+            log(f"  (a) {run}{scripted}: ids equal to phase 8's greedy for {agree} tokens a "
+                f"row (each up to its first near-tie at least){note}; {rounds[0]} rounds, {k6} "
+                f"K6 launches = "
+                f"{per_round} x the verify rounds ({LLM_ROWS} x {SPEC_GAMMA} = "
+                f"{LLM_ROWS * SPEC_GAMMA} rows a verify); spec_acc_hist {hist.tolist()} "
+                f"(rounds that accepted 0..{SPEC_GAMMA - 1} drafts), acceptance {rate:.3f}, "
+                f"{LLM_ROWS * steps / rounds[0]:.2f} tokens a round")
+            # the next run's script: this run's stream, the target's greedy stream as
+            # the verify forward computes it at this run's windows
+            script = np.where(flip, (got + 1) % config.vocab_size, got)
+    finally:
+        speculative._spec_round = spec_round
+    start_s = runs["segmented"]["start_s"]
+    for run, r in runs.items():
+        r["ms_token"] = (r["wall"] - start_s) * 1e3 / steps
+        log(f"  [{power}] (a) {run}: {r['wall']:.2f} s; {r['ms_token']:.2f} ms per emitted "
+            f"position ({LLM_ROWS} tokens), {LLM_ROWS * steps / (r['wall'] - start_s):.1f} "
+            f"tokens/s (the call's host clock less the segmented run's {start_s * 1e3:.0f} ms "
+            f"greedy_start, both models' prefill, over {steps} positions); phase 8's greedy "
+            f"{decoded['step_ms']:.2f} ms a step, {LLM_ROWS * 1e3 / decoded['step_ms']:.1f} "
+            "tokens/s")
+    try:
+        llm_mod.TorchLlamaBackend(params, dataclasses.replace(config, kv_quant_bits=8),
+                                  eos_token_id=EOS_ID, draft_params=d_params,
+                                  draft_config=d_config)
+    except ValueError as e:
+        log(f"  (a) a draft with kv_quant_bits=8 refused: {e}")
+    else:
+        raise AssertionError("a draft with the int8 KV cache was not refused")
+    return {"runs": runs, "start_s": start_s}
+
+
+def prefix_pool(decoded: dict, power) -> dict:
+    """Phase 17 (b): the prefix-KV pool at full width, phase 8's NF4 Llama,
+    4 groups of 2048 slots, 4 rows of one group (a question's beams) sharing
+    1,000 prompt tokens, each with its own tail; the first call seeds the
+    pool and the second reuses it, with the bf16 cache and with
+    kv_quant_bits=8: ids equal to plain greedy's (same cache) up to each
+    row's first near-tie, the first token's logits within LOGIT_TOL; each
+    row's match_len; the pool's bytes; the prefill time of each call and of
+    the plain call (host clock to synchronize)."""
+    from kirag_tpu_torch.kernels import reset_launch_counts
+    from kirag_tpu_torch.models import llm as llm_mod
+
+    params, config = decoded["params"], decoded["config"]
+    rng = np.random.RandomState(SEED + 17)
+    shared = rng.randint(0, 128000, PREFIX_SHARED)
+    rows = [np.concatenate([shared, rng.randint(0, 128000, t)]) for t in PREFIX_TAILS]
+    width = max(len(r) for r in rows)
+    ids = np.zeros((len(rows), width), np.int32)
+    mask = np.zeros((len(rows), width), np.int32)
+    for i, r in enumerate(rows):
+        ids[i, width - len(r):], mask[i, width - len(r):] = r, 1
+    seconds, matches = {}, []
+    originals = {name: getattr(llm_mod, name) for name in
+                 ("write_prefix_pool", "_prefixed_prefill_state", "_prefill_state")}
+
+    def timed(name):
+        fn = originals[name]
+
+        def run(*args, **kwargs):
+            if name == "_prefixed_prefill_state":
+                matches.append(args[3].cpu().numpy())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    out = {"launches": []}
+    for name in originals:
+        setattr(llm_mod, name, timed(name))
+    try:
+        for label, bits in (("bf16", None), ("int8", 8)):
+            cfg = dataclasses.replace(config, kv_quant_bits=bits)
+            seconds.clear()
+            ref_ids, ref_logits = llm_mod.TorchLlamaBackend(params, cfg, EOS_ID).greedy(
+                ids, mask, PREFIX_STEPS)
+            plain_s = seconds["_prefill_state"]
+            tol = LOGIT_TOL * float(np.abs(ref_logits[:, 1]).max())
+            pooled = llm_mod.TorchLlamaBackend(params, cfg, EOS_ID,
+                                               prefix_cache_groups=PREFIX_GROUPS,
+                                               prefix_cache_tokens=PREFIX_TOKENS)
+            calls = {}
+            for call in ("seeding", "reusing"):
+                seconds.clear()
+                matches.clear()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                got, logits = pooled.greedy(ids, mask, PREFIX_STEPS, prefix_groups=["q"] * 4)
+                wall = time.perf_counter() - t0
+                out["launches"].append(main_path_counts())
+                first = float(np.abs(logits[:, 0] - ref_logits[:, 0]).max())
+                if not (first <= tol and np.isfinite(logits).all()):
+                    raise AssertionError(f"prefix pool ({label}, {call}): the first token's "
+                                         f"logits {first} from plain greedy's > {tol}")
+                # the int8 pool's prefill attends the prefix's quantized keys where
+                # the plain int8 prefill attends the prompt's own: the token at a
+                # near-tie may flip from the first one on
+                agree = near_tie_agreement(got, ref_ids, ref_logits, tol,
+                                           f"prefix pool ({label}, {call})",
+                                           through_tie=bits is None)
+                calls[call] = {"wall": wall, "write_s": seconds.get("write_prefix_pool", 0.0),
+                               "prefill_s": seconds["_prefixed_prefill_state"],
+                               "match": matches[0].tolist(), "agree": agree, "first": first,
+                               "ids": got, "logits": logits}
+            pool = pooled._prefix_pool
+            pool_bytes = sum(nbytes(*(c.values() if isinstance(c, dict) else (c,)))
+                             for c in pool["k"] + pool["v"])
+            seed, reuse = calls["seeding"], calls["reusing"]
+            if not (seed["write_s"] > 0 and reuse["write_s"] == 0
+                    and min(reuse["match"]) >= PREFIX_SHARED
+                    and np.array_equal(seed.pop("ids"), reuse.pop("ids"))
+                    and np.array_equal(seed.pop("logits"), reuse.pop("logits"))):
+                raise AssertionError(f"prefix pool ({label}): seeding wrote "
+                                     f"{seed['write_s']} s, reuse {reuse['write_s']} s, "
+                                     f"matches {reuse['match']}, or the two calls' ids or "
+                                     "logits differ")
+            log(f"  (b) {label} cache, {len(rows)} rows of {[len(r) for r in rows]} tokens "
+                f"sharing {PREFIX_SHARED}, one group: match_len a row {reuse['match']} (seeding "
+                f"call {seed['match']}); the seeding and the reusing call's ids and logits "
+                f"bitwise equal; ids equal to plain greedy's for {seed['agree']} tokens a row "
+                f"(each up to its first near-tie at least, "
+                f"{'that step included' if bits is None else 'that step excluded'}), the first "
+                f"token's logits within {seed['first']:.4g} (tolerance {tol:.4g}); pool "
+                f"{PREFIX_GROUPS} x "
+                f"{PREFIX_TOKENS} slots x {config.num_hidden_layers} layers: "
+                f"{pool_bytes / 1e9:.3f} GB")
+            log(f"  [{power}] (b) {label}: prefill (host clock to synchronize) plain "
+                f"{plain_s * 1e3:.1f} ms; seeding call {seed['write_s'] * 1e3:.1f} ms to write "
+                f"the group's {PREFIX_TOKENS} slots + {seed['prefill_s'] * 1e3:.1f} ms of "
+                f"suffixes; reusing call {reuse['prefill_s'] * 1e3:.1f} ms; whole calls of "
+                f"{PREFIX_STEPS} tokens {seed['wall']:.2f} / {reuse['wall']:.2f} s")
+            out[label] = {"plain_prefill_s": plain_s, "pool_bytes": pool_bytes, **calls}
+            del pooled, pool
+    finally:
+        for name, fn in originals.items():
+            setattr(llm_mod, name, fn)
+    return out
+
+
+def filled_kg_cache(work: Path, built: dict, run: str) -> Path:
+    """A copy of run B's KG cache (``kg_cache.pkl``) with a seeded triple
+    for every passage of phase 6's TSV that it lacks (as phase 9 seeds run
+    A's documents) but the held-out ones (``kg_held_out.json``): a run over
+    it decodes KG triples for those alone, however its stream or search
+    differs from run B's."""
+    import pickle
+
+    from kirag_tpu_torch.data import CORPUS_MAP
+
+    with open(work / "kg_cache.pkl", "rb") as f:
+        cached = pickle.load(f)
+    held = set(json.loads((work / "kg_held_out.json").read_text()))
+    for row in CORPUS_MAP["wikipedia"](corpus_path=str(built["tsv"])).data:
+        if row["id"] not in cached and row["id"] not in held:
+            cached[row["id"]] = seed_triple(dict(row))
+    path = work / f"kg_cache_{run}.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(cached, f)
+    return path
+
+
+def spec_pool_cli(work: Path, built: dict, decoded: dict, draft, power) -> dict:
+    """Phase 17 (c): run B again at phase 9's depth over copies of its KG
+    cache, held to phase 9's checks (K1, K2, K3 and K6 launched): run F with
+    ``--draft_llm --spec_gamma 4``, the draft cut to its first 2 layers and
+    handed in through ``main(draft_llm=)`` (its acceptance histogram
+    non-zero); run G with ``--llm_prefix_cache_groups 4`` and a second turn
+    (its prefix reuses printed). The copies are ``filled_kg_cache``'s, so
+    that the KG step decodes the held-out documents alone: another stream
+    than run B's (speculative or prefixed arithmetic at bf16) retrieves
+    other documents."""
+    from kirag_tpu_torch.models import llm as llm_mod
+
+    llm = phase9_llm(decoded)
+    d_params, d_config = draft
+    small = ({**d_params, "layers": d_params["layers"][:DRAFT_LAYERS_F]},
+             dataclasses.replace(d_config, num_hidden_layers=DRAFT_LAYERS_F))
+    runs = {}
+    for run in ("F", "G"):
+        cache = filled_kg_cache(work, built, run)
+        matches, prefixed = [], llm_mod.greedy_decode_prefixed
+        if run == "F":
+            extra, kw = ("--draft_llm", "Llama-3.2-1B", "--spec_gamma", str(SPEC_GAMMA)), {
+                "draft_llm": small}
+        else:  # a second turn, whose constructor call reuses the question's prefix
+            extra, kw = ("--llm_prefix_cache_groups", str(PREFIX_GROUPS), "--num_turns",
+                         str(KIRAG_TURNS + 1)), {}
+            llm_mod.greedy_decode_prefixed = (
+                lambda *a, **k: matches.append(np.asarray(a[3])) or prefixed(*a, **k))
+        try:
+            runs[run] = retrieve_run(work, built, llm, run, KIRAG_CACHED, cache, power,
+                                     extra=extra, **kw)
+        finally:
+            llm_mod.greedy_decode_prefixed = prefixed
+        backend = runs[run].pop("backend")
+        if run == "F":
+            hist = backend.spec_acc_hist.tolist()
+            if not sum(hist):
+                raise AssertionError("run F: the backend's spec_acc_hist is zero")
+            log(f"  run F: the constructor's decodes speculative, a {DRAFT_LAYERS_F}-layer "
+                f"draft; spec_acc_hist {hist}, acceptance {acceptance(hist):.3f}")
+        else:
+            if not any((m > 0).any() for m in matches[1:]):
+                raise AssertionError(f"run G: no later call reused a cached prefix "
+                                     f"({len(matches)} prefixed calls)")
+            log(f"  run G: {len(matches)} prefixed constructor calls, each row's match_len "
+                f"by call {[m.tolist() for m in matches]} (a group's first call seeds its "
+                f"slot, then reuses it); {len(backend._prefix_meta)} groups in the pool")
+    return runs
+
+
+def spec_and_pool(work: Path, built: dict, decoded: dict, dev, power) -> dict:
+    """Phase 17: speculative decoding and the prefix-KV pool, (a)-(c), with
+    phase 8's model resident and a seeded bf16 draft beside it."""
+    from kirag_tpu_torch.models import llm as llm_mod
+
+    t0 = time.perf_counter()
+    d_config = draft_llm_config()
+    d_params = llm_mod.init_llama_params(d_config, seed=SEED + 17, device=dev,
+                                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  draft: Llama-3.2-1B geometry ({d_config.num_hidden_layers} layers x "
+        f"{d_config.hidden_size}, {d_config.num_attention_heads} heads / "
+        f"{d_config.num_key_value_heads} KV, MLP {d_config.intermediate_size}, vocab "
+        f"{d_config.vocab_size}, tied embeddings, rope_theta {d_config.rope_theta:g}, plain "
+        f"RoPE: no rope_scaling in the port), seeded bf16, "
+        f"{llm_mod.param_bytes(d_params) / 1e9:.3f} GB, built in {time.perf_counter() - t0:.1f} "
+        "s")
+    draft = (d_params, d_config)
+    invariance = k6_row_invariance(decoded["params"], decoded["config"], dev)
+    out = {"k6_rows": invariance, "spec": spec_decode(decoded, draft, power),
+           "pool": prefix_pool(decoded, power)}
+    out["cli"] = spec_pool_cli(work, built, decoded, draft, power)
+    out["launches"] = ([r["launches"] for r in out["spec"]["runs"].values()]
+                       + out["pool"]["launches"] + [r["launches"] for r in out["cli"].values()])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 17: {out['seconds']:.1f} s; K6 {sum(c['int4_matmul'] for c in out['launches'])} "
+        "launches in its main-path runs")
     return out
 
 
@@ -3555,9 +3992,11 @@ def approx_cli(work: Path, built: dict, decoded: dict, run_a: dict, dev, power) 
     ``build_index --shuffle_rows --shuffle_seed 3`` over phase 6's shards,
     its layout checked against ``default_rng(3).permutation`` and reloaded;
     ``cli/retrieve --search_mode approx --approx_winners 2`` for one
-    question over it with phase 9's LLM (run C); ``cli/retrieval_eval``
-    over run C's results: answer presence, and P/R/F1@10 against run A's
-    exact-search documents as qrels (what the approximate search lost)."""
+    question over it with phase 9's LLM (run C, over ``filled_kg_cache``'s
+    copy, so that its KG step decodes the held-out documents alone);
+    ``cli/retrieval_eval`` over run C's results: answer presence, and
+    P/R/F1@10 against run A's exact-search documents as qrels (what the
+    approximate search lost)."""
     import pickle
 
     from kirag_tpu_torch.cli import build_index, retrieval_eval
@@ -3595,9 +4034,10 @@ def approx_cli(work: Path, built: dict, decoded: dict, run_a: dict, dev, power) 
             "--search_mode", "approx", "--approx_winners", "2",
             "--retriever_model_name_or_path", str(built["model_dir"]), "--llm",
             "Meta-Llama-3-8B-Instruct", "--llm_quant_bits", "4", "--aligner_model", "e5",
-            "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns", "2",
-            "--topk", "10", "--num_beams", "1", "--save_dir", str(work), "--name", "kirag_C",
-            "--save_file", "results.json"]
+            "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns",
+            str(KIRAG_TURNS), "--topk", "10", "--num_beams", "1", "--save_dir", str(work),
+            "--name", "kirag_C", "--save_file", "results.json", "--cached_kg_triples_file",
+            str(filled_kg_cache(work, built, "C"))]
     reset_launch_counts()  # run C's launches only, not the reload check's
     t0 = time.perf_counter()
     path = retrieve_cli.main(argv, tokenizer=HashTokenizer(), llm_tokenizer=ByteLevelTokenizer(),
@@ -4016,8 +4456,9 @@ def pq_cli(work: Path, built: dict, decoded: dict, dev, power) -> dict:
             "--index_folder", str(index_dir), "--embedding_size", str(DIM),
             "--retriever_model_name_or_path", str(built["model_dir"]), "--llm",
             "Meta-Llama-3-8B-Instruct", "--llm_quant_bits", "4", "--aligner_model", "e5",
-            "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns", "2",
-            "--topk", "10", "--num_beams", "1", "--save_dir", str(work), "--name", "kirag_D",
+            "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns",
+            str(KIRAG_TURNS), "--topk", "10", "--num_beams", "1", "--save_dir", str(work),
+            "--name", "kirag_D",
             "--save_file", "results.json"]
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -4675,6 +5116,9 @@ def main() -> int:
         phase("phase 16: the evaluation pipeline (construct_kg_corpus, the int8 KV cache and "
               "run E, qa_eval, the TripleSelector) with phase 9's LLM")
         evaluated = eval_pipeline(work, built, decoded, power)
+        phase("phase 17: speculative decoding and the prefix-KV pool (phase 8's model, a "
+              "Llama-3.2-1B-geometry draft; runs F and G at phase 9's depth)")
+        spec_pool = spec_and_pool(work, built, decoded, dev, power)
         phase("phase 12 (c): build_index --shuffle_rows, then cli/retrieve --search_mode approx "
               "(run C, beside phase 9 while its LLM is on the card) and cli/retrieval_eval")
         approx_run = approx_cli(work, built, decoded, kirag["A"], dev, power)
@@ -4745,7 +5189,7 @@ def main() -> int:
     # step's largest per-layer projection at the Generator's batch); K3's
     # backward kernels' at the aligner's bf16 query batch. Launches: every
     # main-path run (phases 4, 6, 8, 9, 10's CLI run, 11 b-d, 12 b-d, 13,
-    # 14 c-d and 16's four runs), not the comparisons.
+    # 14 c-d, 16's four runs and 17's), not the comparisons.
     paths = [s["launches"] for s in served.values()] + [built["launches"]] + [
         r["launches"] for r in kirag.values()] + [trained["launches"]] + [
         s["launches"] for s in served_q.values()] + [
@@ -4755,7 +5199,7 @@ def main() -> int:
         dpr[q]["approx"]["launches"] for q in QUANTS] + [
         variants["launches"], dpr["int4"]["variants"]["launches"]] + [
         s["launches"] for s in served_v.values()] + [
-        evaluated[run]["launches"] for run in ("kg", "E", "qa", "selector")]
+        evaluated[run]["launches"] for run in ("kg", "E", "qa", "selector")] + spec_pool["launches"]
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     launches["int4_matmul"] += decoded["launches"]
     idle = [k for k, n in launches.items() if n == 0]

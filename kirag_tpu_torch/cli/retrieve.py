@@ -5,8 +5,10 @@ Loads the encoder, the index and the corpus, the constructor/KG LLM
 their decode projections through the K6 kernel on the GPU) and the Aligner,
 runs ``KiRAG.retrieve`` per question (or ``retrieve_batch`` over
 ``--concurrent_questions``) and writes QA-format results (``ctxs`` +
-``paths``). Same arguments and defaults as the JAX CLI; the ones for paths
-not ported yet raise NotImplementedError naming their ROADMAP item.
+``paths``). Same arguments and defaults as the JAX CLI; ``--mesh_model``
+(not ported yet) raises NotImplementedError naming its ROADMAP item.
+``--draft_llm`` adds a bf16 draft model (greedy speculative decoding) and
+``--llm_prefix_cache_groups`` the prefix-KV pool.
 
 Usage:
   python -m kirag_tpu_torch.cli.retrieve \\
@@ -75,12 +77,12 @@ def setup_parser(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="int8 KV cache (per-token, per-KV-head scales): about half the "
                              "cache's bytes; not composable with --draft_llm")
     parser.add_argument("--llm_prefix_cache_groups", type=int, default=0,
-                        help="prefix KV cache slots; 0 disables (other values are not "
-                             "ported yet)")
+                        help="prefix KV cache slots; 0 disables")
     parser.add_argument("--llm_prefix_cache_tokens", type=int, default=2048,
                         help="cached prefix length cap per slot")
     parser.add_argument("--draft_llm", type=str, default=None,
-                        help="draft model for speculative decoding (not ported yet)")
+                        help="LOCAL path to a draft model for speculative decoding, loaded "
+                             "in bf16 (same vocab as --llm)")
     parser.add_argument("--spec_gamma", type=int, default=4,
                         help="speculative fed-window length per round")
     parser.add_argument("--llm_int8", action="store_true",
@@ -102,18 +104,9 @@ def setup_parser(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def _not_ported(what: str, entry: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A: {entry})")
-
-
 def check_ported(args) -> None:
     """Raise for the arguments of paths that the port does not have yet."""
     check_single_device(args)
-    if args.draft_llm:
-        raise _not_ported("--draft_llm (speculative decoding)", "speculative decoding")
-    if args.llm_prefix_cache_groups > 0:
-        raise _not_ported("--llm_prefix_cache_groups (the prefix KV pool)",
-                          "utilities and prefix-KV")
 
 
 def setup_retriever_model(args, tokenizer=None, device=None):
@@ -138,6 +131,18 @@ def load_llm_tokenizer(args):
     return build_llm_tokenizer(args.llm_tokenizer or args.llm)
 
 
+def load_draft_llm(args, draft_llm=None, device=None):
+    """The ``(params, config)`` pair of ``--draft_llm`` in bf16, unquantized
+    (or ``draft_llm``, a loaded pair); None without a draft."""
+    from kirag_tpu_torch.models.llm import load_llama
+
+    if draft_llm is not None:
+        return draft_llm
+    if not args.draft_llm:
+        return None
+    return load_llama(args.draft_llm, compute_dtype=torch.bfloat16, device=device)
+
+
 def load_llm(args, llm=None, device=None):
     """The ``(params, config)`` pair of ``--llm`` in bf16 (or ``llm``, a loaded
     pair), its config given ``--llm_kv_quant_bits`` where set."""
@@ -153,18 +158,22 @@ def load_llm(args, llm=None, device=None):
     return params, config
 
 
-def setup_llm_generator(args, llm_tokenizer=None, llm=None, device=None):
-    """The constructor and KG Generators over one TorchLlamaBackend. ``llm``:
-    a loaded ``(params, config)`` pair used instead of reading ``--llm``
-    (whose name still picks the chat family); ``--llm_kv_quant_bits``
-    applies to it too."""
+def setup_llm_generator(args, llm_tokenizer=None, llm=None, device=None, draft_llm=None):
+    """The constructor and KG Generators over one TorchLlamaBackend. ``llm``
+    and ``draft_llm``: loaded ``(params, config)`` pairs used instead of
+    reading ``--llm`` (whose name still picks the chat family) and
+    ``--draft_llm``; ``--llm_kv_quant_bits`` applies to ``llm`` too."""
     from kirag_tpu_torch.generation.interface import Generator
     from kirag_tpu_torch.models.llm import TorchLlamaBackend
 
     tokenizer = llm_tokenizer if llm_tokenizer is not None else load_llm_tokenizer(args)
     params, config = load_llm(args, llm, device)
+    draft_params, draft_config = load_draft_llm(args, draft_llm, device) or (None, None)
     backend = TorchLlamaBackend(params, config, eos_token_id=tokenizer.eos_token_id,
-                                prefix_cache_groups=args.llm_prefix_cache_groups)
+                                draft_params=draft_params, draft_config=draft_config,
+                                spec_gamma=args.spec_gamma,
+                                prefix_cache_groups=args.llm_prefix_cache_groups,
+                                prefix_cache_tokens=args.llm_prefix_cache_tokens)
     constructor = Generator(tokenizer, backend, model_name=args.llm,
                             max_length=4096, max_new_tokens=64, batch_size=4)
     kg_llm = Generator(tokenizer, backend, model_name=args.llm,
@@ -173,14 +182,14 @@ def setup_llm_generator(args, llm_tokenizer=None, llm=None, device=None):
 
 
 def setup_kirag_model(args, retriever, llm_tokenizer=None, aligner_tokenizer=None, llm=None,
-                      device=None):
+                      device=None, draft_llm=None):
     from kirag_tpu_torch.data import COLLATOR_MAP
     from kirag_tpu_torch.kg import KGGenerator
     from kirag_tpu_torch.models.encoders import load_encoder
     from kirag_tpu_torch.pipeline import KiRAG
     from kirag_tpu_torch.retrieval import DenseRetriever
 
-    constructor, kg_llm = setup_llm_generator(args, llm_tokenizer, llm, device)
+    constructor, kg_llm = setup_llm_generator(args, llm_tokenizer, llm, device, draft_llm)
     aligner_encoder = load_encoder(args.aligner_model_name_or_path, args.aligner_model,
                                    device=device)
     if aligner_tokenizer is None:
@@ -233,12 +242,14 @@ def retrieve(args, questions, kirag, retriever):
 
 
 def main(argv: Optional[Sequence[str]] = None, *, tokenizer=None, llm_tokenizer=None,
-         aligner_tokenizer=None, llm=None, device=None) -> str:
+         aligner_tokenizer=None, llm=None, draft_llm=None, device=None) -> str:
     """Run the CLI on ``argv`` (default: the command line). ``tokenizer``,
     ``llm_tokenizer`` and ``aligner_tokenizer`` replace the HuggingFace
-    tokenizers the arguments name; ``llm`` is a loaded ``(params, config)``
-    pair used instead of reading ``--llm``; ``device`` is the models' and the
-    index's (default: the GPU). Returns the path of the results json."""
+    tokenizers the arguments name; ``llm`` and ``draft_llm`` are loaded
+    ``(params, config)`` pairs used instead of reading ``--llm`` and
+    ``--draft_llm`` (a ``draft_llm`` turns speculative decoding on);
+    ``device`` is the models' and the index's (default: the GPU). Returns
+    the path of the results json."""
     args = setup_parser(argv)
     check_ported(args)
     checkpoint_path = os.path.join(args.save_dir, args.name)
@@ -246,7 +257,8 @@ def main(argv: Optional[Sequence[str]] = None, *, tokenizer=None, llm_tokenizer=
     setup_logger(os.path.join(checkpoint_path, "kg_adaptive_retrieve.log"))
 
     retriever, _ = setup_retriever_model(args, tokenizer, device)
-    kirag = setup_kirag_model(args, retriever, llm_tokenizer, aligner_tokenizer, llm, device)
+    kirag = setup_kirag_model(args, retriever, llm_tokenizer, aligner_tokenizer, llm, device,
+                              draft_llm)
 
     questions = load_json(args.query_file)
     if args.num_queries:

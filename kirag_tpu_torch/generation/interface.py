@@ -206,7 +206,7 @@ class Generator:
         bsz = batch_size or self.batch_size
         n = len(inputs["input_ids"])
         # prefix KV reuse: only on the plain greedy path of a backend that
-        # opts in (supports_prefix_cache, none in the port yet); the
+        # opts in (supports_prefix_cache: TorchLlamaBackend with a pool); the
         # segmented stop-word path and other backends ignore the hint
         use_prefix = (prefix_groups is not None and not stop_words
                       and getattr(self.backend, "supports_prefix_cache",

@@ -12,6 +12,18 @@ from kirag_tpu_torch.models.encoders import (
     Encoder,
     load_encoder,
 )
+from kirag_tpu_torch.models.llm import (
+    LlamaConfig,
+    TorchLlamaBackend,
+    alloc_prefix_pool,
+    greedy_decode_prefixed,
+    write_prefix_pool,
+)
+from kirag_tpu_torch.models.speculative import (
+    speculative_decode,
+    speculative_resume,
+    speculative_start,
+)
 
 __all__ = [
     "BertConfig",
@@ -24,4 +36,12 @@ __all__ = [
     "RETRIEVER_NAME_TO_ENCODER",
     "Encoder",
     "load_encoder",
+    "LlamaConfig",
+    "TorchLlamaBackend",
+    "alloc_prefix_pool",
+    "greedy_decode_prefixed",
+    "write_prefix_pool",
+    "speculative_decode",
+    "speculative_resume",
+    "speculative_start",
 ]

@@ -19,9 +19,15 @@ rows goes through the hand-written kernel :func:`~kirag_tpu_torch.kernels.qmm.in
 (K6); prefill (more rows) takes the "parity" formulation in plain PyTorch, as
 the reference does (``kirag_tpu/models/llm.py:294-314``).
 
+The prefix-KV pool (:func:`alloc_prefix_pool`, :func:`write_prefix_pool`,
+:func:`greedy_decode_prefixed`) caches shared prompt prefixes' K/V in the
+cache format; :class:`TorchLlamaBackend` reaches it through ``prefix_groups``
+and speculative decoding (:mod:`kirag_tpu_torch.models.speculative`) through
+a draft model.
+
 Entry points (:func:`init_llama_params`, :func:`llama_params_from_jax`,
-:func:`load_llama`) build on the GPU unless the caller passes
-``device="cpu"``.
+:func:`load_llama`, :func:`alloc_prefix_pool`) build on the GPU unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -115,10 +121,6 @@ def config_from_hf(hf_config) -> LlamaConfig:
         hidden_activation=("gelu_pytorch_tanh" if is_gemma2
                            else str(get("hidden_act", "silu"))),
     )
-
-
-def _not_ported(what: str, entry: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A: {entry})")
 
 
 def _check_config(config: LlamaConfig) -> None:
@@ -728,17 +730,27 @@ def greedy_decode(params: Params, input_ids, attention_mask, config: LlamaConfig
     with torch.inference_mode():
         next_token, first_logits, state = _prefill_state(
             params, ids, mask, config, max_new_tokens, compute_dtype, eos_token_id)
-        tokens, logits = [next_token], [first_logits]
-        for _ in range(max_new_tokens - 1):
-            if not return_logits and eos_token_id is not None and bool(state["done"].all()):
-                tokens.append(torch.full_like(next_token, eos_token_id))
-                continue
-            lg, state = _decode_step(params, state, config, compute_dtype, eos_token_id)
-            tokens.append(state["pending"])
-            if return_logits:
-                logits.append(lg)
-        gen_ids = torch.stack(tokens, dim=1).to(torch.int32)
-        return gen_ids, (torch.stack(logits, dim=1) if return_logits else None)
+        return _greedy_steps(params, state, first_logits, config, max_new_tokens,
+                             compute_dtype, eos_token_id, return_logits)
+
+
+def _greedy_steps(params, state, first_logits, config, max_new_tokens, compute_dtype,
+                  eos_token_id, return_logits):
+    """The decode loop after a prefill: (ids [B, max_new] int32, logits [B,
+    max_new, V] | None), the first token and its logits the prefill's.
+    Without logits the loop stops once every row is done."""
+    next_token = state["pending"]
+    tokens, logits = [next_token], [first_logits]
+    for _ in range(max_new_tokens - 1):
+        if not return_logits and eos_token_id is not None and bool(state["done"].all()):
+            tokens.append(torch.full_like(next_token, eos_token_id))
+            continue
+        lg, state = _decode_step(params, state, config, compute_dtype, eos_token_id)
+        tokens.append(state["pending"])
+        if return_logits:
+            logits.append(lg)
+    gen_ids = torch.stack(tokens, dim=1).to(torch.int32)
+    return gen_ids, (torch.stack(logits, dim=1) if return_logits else None)
 
 
 def prefill_decode(params: Params, input_ids, attention_mask, config: LlamaConfig,
@@ -772,6 +784,133 @@ def resume_decode(params: Params, state, config: LlamaConfig, n_steps: int,
     return ids, (torch.stack(logits, dim=1) if return_logits else None), state
 
 
+# ----------------------------------------------------------------- prefix KV pool
+#
+# The KiRAG constructor renders (instruction + ranked examplars + question) at
+# the head of every turn's prompt. The pool caches each group's prefix K/V
+# once, [n_groups, PB, ...] per layer in the cache format, and a later call
+# prefills only each row's suffix. Matching is by the longest common token
+# prefix with the cached ids (numpy, on the host), so a cached tail that a
+# prompt diverges from is never attended.
+
+
+def alloc_prefix_pool(config: LlamaConfig, n_groups: int, prefix_len: int,
+                      compute_dtype=torch.bfloat16, device=None):
+    """Zeroed per-layer prefix K/V pools, [n_groups, prefix_len, nkv, hd] in
+    the cache format (int8 codes and f32 scales with ``kv_quant_bits=8``),
+    on ``device`` (default: the GPU)."""
+    _check_config(config)
+    device = _entry_device(device)
+    nkv, hd, nl = config.num_key_value_heads, config.head_dim, config.num_hidden_layers
+
+    def alloc():
+        return [_cache_alloc(n_groups, prefix_len, nkv, hd, compute_dtype, config.kv_quant_bits,
+                             device) for _ in range(nl)]
+
+    with torch.inference_mode():
+        return {"k": alloc(), "v": alloc()}
+
+
+def write_prefix_pool(params: Params, pool, slot: int, prefix_ids, prefix_mask,
+                      config: LlamaConfig, compute_dtype=torch.bfloat16):
+    """Prefill one RIGHT-padded prefix ([1, PB] ids + mask, positions
+    ``clip(cumsum(mask) - 1, 0)``) and write its K/V into pool slot
+    ``slot``, in place. Returns the pool."""
+    ids, mask = _to_device(prefix_ids, prefix_mask, _params_device(params))
+    positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+    bsz = ids.shape[0]
+    nkv, hd, nl = config.num_key_value_heads, config.head_dim, config.num_hidden_layers
+    with torch.inference_mode():
+        empty = [_cache_alloc(bsz, 0, nkv, hd, compute_dtype, config.kv_quant_bits, ids.device)
+                 for _ in range(nl)]
+        _, ks, vs = llama_block_forward(
+            params, ids, positions, config, empty, empty, mask[:, :0], new_mask=mask,
+            compute_dtype=compute_dtype, cache_positions=positions[:, :0])
+        for cache, new in zip(pool["k"] + pool["v"], ks + vs):
+            _cache_write(cache, new[0], slot)
+    return pool
+
+
+def _gather_slots(pool_layer, slot_idx, width: int):
+    """The first ``width`` slots of each row's pool slot (``slot_idx`` [B])."""
+    if isinstance(pool_layer, dict):
+        return {"q": pool_layer["q"][slot_idx, :width], "s": pool_layer["s"][slot_idx, :width]}
+    return pool_layer[slot_idx, :width]
+
+
+def _prefixed_prefill_state(params, pool, slot_idx, match_len, suffix_ids, suffix_mask,
+                            config, total_new_tokens, compute_dtype, eos_token_id,
+                            prefix_window: Optional[int] = None):
+    """Prefill LEFT-padded suffixes against per-row cached prefixes.
+
+    ``slot_idx`` [B] picks each row's pool slot; ``match_len`` [B] counts
+    its valid cached slots (its longest common token prefix with the cached
+    ids: the slots past it hold another call's tail and are masked out).
+    Suffix positions are ``match_len + clip(cumsum(mask) - 1, 0)``.
+    ``prefix_window`` (>= every match_len) keeps the first ``prefix_window``
+    pool slots, so the decode cache spans about the prompt, not the pool."""
+    bsz, t_suf = suffix_ids.shape
+    first = pool["k"][0]
+    pb = (first["q"] if isinstance(first, dict) else first).shape[1]
+    if prefix_window is not None:
+        pb = min(pb, prefix_window)
+    nkv, hd = config.num_key_value_heads, config.head_dim
+    device = suffix_ids.device
+    t_cache = pb + t_suf + total_new_tokens
+    pk = [_gather_slots(p, slot_idx, pb) for p in pool["k"]]
+    pv = [_gather_slots(p, slot_idx, pb) for p in pool["v"]]
+    slots = torch.arange(pb, device=device)
+    prefix_mask = (slots[None, :] < match_len[:, None]).to(suffix_mask.dtype)
+    prefix_pos = slots[None, :].expand(bsz, pb)
+    positions = match_len[:, None] + torch.clamp(torch.cumsum(suffix_mask, dim=1) - 1, min=0)
+    logits, new_ks, new_vs = llama_block_forward(
+        params, suffix_ids, positions, config, pk, pv, prefix_mask, new_mask=suffix_mask,
+        compute_dtype=compute_dtype, cache_positions=prefix_pos)
+
+    def alloc(prefix_entry, new):
+        cache = _cache_alloc(bsz, t_cache, nkv, hd, compute_dtype, config.kv_quant_bits, device)
+        if isinstance(cache, dict):
+            cache["q"][:, :pb] = prefix_entry["q"]
+            cache["s"][:, :pb] = prefix_entry["s"]
+        else:
+            cache[:, :pb] = prefix_entry
+        return _cache_write(cache, new, slice(None), slice(pb, pb + t_suf))
+
+    next_token = torch.argmax(logits[:, -1], dim=-1)
+    done0 = (torch.zeros(bsz, dtype=torch.bool, device=device) if eos_token_id is None
+             else next_token == eos_token_id)
+    state = {
+        "k": [alloc(p, k) for p, k in zip(pk, new_ks)],
+        "v": [alloc(p, v) for p, v in zip(pv, new_vs)],
+        "cache_mask": F.pad(torch.cat([prefix_mask, suffix_mask], dim=1), (0, total_new_tokens)),
+        "cache_pos": F.pad(torch.cat([prefix_pos, positions], dim=1), (0, total_new_tokens)),
+        "pending": next_token,
+        "pos": positions[:, -1] + 1,
+        "done": done0,
+        "write_at": pb + t_suf,
+    }
+    return next_token, logits[:, -1], state
+
+
+def greedy_decode_prefixed(params: Params, pool, slot_idx, match_len, suffix_ids, suffix_mask,
+                           config: LlamaConfig, max_new_tokens: int, compute_dtype=torch.float32,
+                           eos_token_id: Optional[int] = None, return_logits: bool = True,
+                           prefix_window: Optional[int] = None):
+    """:func:`greedy_decode` against per-row cached prefixes, with its
+    output contract on the equivalent full prompts (ids equal; logits to
+    the rounding of the sums' order). ``prefix_window``: see
+    :func:`_prefixed_prefill_state`."""
+    device = _params_device(params)
+    ids, mask = _to_device(suffix_ids, suffix_mask, device)
+    slot_idx, match_len = _to_device(slot_idx, match_len, device)
+    with torch.inference_mode():
+        _, first_logits, state = _prefixed_prefill_state(
+            params, pool, slot_idx, match_len, ids, mask, config, max_new_tokens,
+            compute_dtype, eos_token_id, prefix_window=prefix_window)
+        return _greedy_steps(params, state, first_logits, config, max_new_tokens,
+                             compute_dtype, eos_token_id, return_logits)
+
+
 # ----------------------------------------------------------------- backend
 
 
@@ -780,27 +919,53 @@ class TorchLlamaBackend:
     reference's prompt buckets (left-pad up to a bucket, left-truncate past
     the largest). numpy in, numpy out.
 
-    ``config.kv_quant_bits == 8`` keeps the decode cache in int8. Draft
-    models (speculative decoding) and prefix-KV groups are not ported and
-    raise."""
+    ``config.kv_quant_bits == 8`` keeps the decode cache in int8.
+    ``draft_params``/``draft_config`` switch decoding to greedy speculative
+    decoding (:mod:`kirag_tpu_torch.models.speculative`): the draft proposes
+    ``spec_gamma - 1`` tokens a round, the target verifies them in one
+    forward, and the stream is plain greedy's. Both models share the vocab,
+    and the cache stays full-precision. Segmented decode with logits takes
+    the plain path (the speculative resume carries no logits).
+    ``prefix_cache_groups`` > 0 keeps a pool of that many prefixes'
+    K/V (``prefix_cache_tokens`` each, allocated at the first prefixed
+    call) for ``greedy(..., prefix_groups=...)``; not with a draft."""
 
     def __init__(self, params: Params, config: LlamaConfig, eos_token_id: int,
                  compute_dtype=torch.bfloat16,
                  prompt_buckets=(128, 256, 512, 1024, 2048, 4096),
                  draft_params: Optional[Params] = None,
-                 draft_config: Optional[LlamaConfig] = None, prefix_cache_groups: int = 0):
-        if draft_params is not None or draft_config is not None:
-            raise _not_ported("speculative decoding with a draft model",
-                              "speculative decoding")
-        if prefix_cache_groups:
-            raise _not_ported(f"prefix_cache_groups={prefix_cache_groups} (the prefix KV "
-                              "pool)", "utilities and prefix-KV")
+                 draft_config: Optional[LlamaConfig] = None, spec_gamma: int = 4,
+                 prefix_cache_groups: int = 0, prefix_cache_tokens: int = 2048):
         _check_config(config)
         self.params = params
         self.config = config
         self.eos_token_id = eos_token_id
         self.compute_dtype = compute_dtype
         self.prompt_buckets = prompt_buckets
+        # prefix pool: groups x tokens x 2 x nkv x hd x layers x (1-2 bytes)
+        self.prefix_cache_groups = prefix_cache_groups
+        self.prefix_cache_tokens = prefix_cache_tokens
+        self._prefix_pool = None
+        self._prefix_meta = {}      # group -> {"slot": int, "ids": np [P]}
+        self._prefix_lru = []       # groups, least recently used first
+        if draft_params is not None:
+            from kirag_tpu_torch.models.speculative import check_full_precision_cache
+
+            if draft_config is None:
+                raise ValueError("draft_params needs draft_config")
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError("draft and target must share the tokenizer/vocab")
+            _check_config(draft_config)
+            check_full_precision_cache(config, draft_config)
+        self.draft_params = draft_params
+        self.draft_config = draft_config
+        self.spec_gamma = spec_gamma
+        # spec_acc_hist[a]: (row, round) pairs that accepted exactly a drafts,
+        # summed over every call; read from the device once a call.
+        # draft_script_fn(input_ids, attention_mask) may return a [B, W]
+        # proposal script (see models.speculative._spec_round) or None
+        self.spec_acc_hist = np.zeros((spec_gamma,), np.int64)
+        self.draft_script_fn = None
 
     def _bucket(self, t: int) -> int:
         for b in self.prompt_buckets:
@@ -825,21 +990,130 @@ class TorchLlamaBackend:
         return (ids.cpu().numpy().astype(np.int32),
                 None if logits is None else logits.float().cpu().numpy())
 
+    def _spec_args(self):
+        return (self.params, self.config, self.draft_params, self.draft_config)
+
+    def _draft_script(self, input_ids, attention_mask):
+        return (None if self.draft_script_fn is None
+                else self.draft_script_fn(input_ids, attention_mask))
+
+    # -- prefix KV pool
+
+    @property
+    def supports_prefix_cache(self) -> bool:
+        # speculative decoding verifies over a fed window; prefixed reuse is
+        # the plain greedy path only, as in the reference
+        return self.prefix_cache_groups > 0 and self.draft_params is None
+
+    def _prefix_slot(self, group, row_ids: np.ndarray) -> dict:
+        """The pool slot of ``group``; a new group takes a free slot or the
+        least recently used one, seeded with ``row_ids[:prefix_cache_tokens]``."""
+        meta = self._prefix_meta.get(group)
+        if meta is None:
+            if len(self._prefix_meta) >= self.prefix_cache_groups:
+                meta = self._prefix_meta.pop(self._prefix_lru.pop(0))
+                slot = meta["slot"]
+            else:
+                slot = len(self._prefix_meta)
+            pb = self.prefix_cache_tokens
+            ids = np.asarray(row_ids[:pb], dtype=np.int32)
+            padded = np.zeros((1, pb), np.int32)
+            padded[0, :len(ids)] = ids                    # RIGHT padding
+            mask = np.zeros((1, pb), np.int32)
+            mask[0, :len(ids)] = 1
+            if self._prefix_pool is None:
+                self._prefix_pool = alloc_prefix_pool(self.config, self.prefix_cache_groups, pb,
+                                                      self.compute_dtype,
+                                                      _params_device(self.params))
+            write_prefix_pool(self.params, self._prefix_pool, slot, padded, mask, self.config,
+                              self.compute_dtype)
+            meta = {"slot": slot, "ids": ids}
+            self._prefix_meta[group] = meta
+        if group in self._prefix_lru:
+            self._prefix_lru.remove(group)
+        self._prefix_lru.append(group)
+        return meta
+
+    def _greedy_prefixed(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+                         prefix_groups, max_new_tokens: int, return_logits: bool):
+        """Each row reuses its longest common prefix with its group's cached
+        ids (none under 16 tokens) and keeps one suffix token at least, so
+        that the prefill gives logits."""
+        rows = [ids[m.astype(bool)] for ids, m in
+                zip(np.asarray(input_ids), np.asarray(attention_mask))]
+        slots, matches, suffixes = [], [], []
+        for row, group in zip(rows, prefix_groups):
+            meta = self._prefix_slot(group, row)
+            cached = meta["ids"]
+            n = min(len(row) - 1, len(cached))
+            same = row[:n] == cached[:n]
+            m = n if same.all() else int(np.argmin(same))
+            if m < 16:  # not worth a prefixed prefill
+                m = 0
+            slots.append(meta["slot"])
+            matches.append(m)
+            suffixes.append(row[m:])
+        t_suf = self._bucket(max(len(x) for x in suffixes))
+        suf_ids = np.zeros((len(rows), t_suf), np.int32)
+        suf_mask = np.zeros((len(rows), t_suf), np.int32)
+        for r, x in enumerate(suffixes):
+            x = x[-t_suf:]                                # truncate left if huge
+            suf_ids[r, t_suf - len(x):] = x               # LEFT padding
+            suf_mask[r, t_suf - len(x):] = 1
+        # the window in 256-slot steps: the decode cache spans about the
+        # prompt instead of the whole pool
+        window = min(self.prefix_cache_tokens, max(256, -(-max(matches) // 256) * 256))
+        ids, logits = greedy_decode_prefixed(
+            self.params, self._prefix_pool, np.asarray(slots), np.asarray(matches), suf_ids,
+            suf_mask, self.config, max_new_tokens, self.compute_dtype,
+            eos_token_id=self.eos_token_id, return_logits=return_logits, prefix_window=window)
+        return self._numpy(ids, logits)
+
+    # -- decoding
+
     def greedy(self, input_ids: np.ndarray, attention_mask: np.ndarray,
-               max_new_tokens: int, return_logits: bool = True
+               max_new_tokens: int, return_logits: bool = True, prefix_groups=None
                ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        if prefix_groups is not None and self.supports_prefix_cache:
+            return self._greedy_prefixed(input_ids, attention_mask, prefix_groups,
+                                         max_new_tokens, return_logits)
         input_ids, attention_mask = self._bucket_inputs(input_ids, attention_mask)
-        ids, logits = greedy_decode(self.params, input_ids, attention_mask, self.config,
-                                    max_new_tokens, self.compute_dtype,
-                                    eos_token_id=self.eos_token_id,
-                                    return_logits=return_logits)
+        if self.draft_params is not None:
+            from kirag_tpu_torch.models.speculative import speculative_decode
+
+            ids, logits, hist = speculative_decode(
+                *self._spec_args(), input_ids, attention_mask, max_new_tokens,
+                gamma=self.spec_gamma, compute_dtype=self.compute_dtype,
+                eos_token_id=self.eos_token_id, return_logits=return_logits,
+                draft_script=self._draft_script(input_ids, attention_mask), return_stats=True)
+            self.spec_acc_hist += hist.cpu().numpy()
+        else:
+            ids, logits = greedy_decode(self.params, input_ids, attention_mask, self.config,
+                                        max_new_tokens, self.compute_dtype,
+                                        eos_token_id=self.eos_token_id,
+                                        return_logits=return_logits)
         return self._numpy(ids, logits)
 
     def greedy_start(self, input_ids: np.ndarray, attention_mask: np.ndarray,
                      total_new_tokens: int, return_logits: bool = True):
         """Prefill + first token; reserves cache room for ``total_new_tokens``.
-        Returns (ids [B, 1], logits [B, 1, V] | None, device-resident state)."""
+        Returns (ids [B, 1], logits [B, 1, V] | None, device-resident state).
+        With a draft and no logits the state is the speculative tuple
+        ``(state, total_new_tokens, script, acc_hist so far)``."""
         input_ids, attention_mask = self._bucket_inputs(input_ids, attention_mask)
+        if self.draft_params is not None and not return_logits:
+            from kirag_tpu_torch.models.speculative import speculative_start
+
+            script = self._draft_script(input_ids, attention_mask)
+            ids, st = speculative_start(*self._spec_args(), input_ids, attention_mask,
+                                        total_new_tokens, gamma=self.spec_gamma,
+                                        compute_dtype=self.compute_dtype,
+                                        eos_token_id=self.eos_token_id)
+            # the state's histogram counts from the start, so each resume
+            # adds its difference to the last one seen (rounds run only in
+            # resumes)
+            return (ids.cpu().numpy(), None,
+                    (st, total_new_tokens, script, np.zeros((self.spec_gamma,), np.int64)))
         ids, logits, state = prefill_decode(self.params, input_ids, attention_mask,
                                             self.config, total_new_tokens,
                                             self.compute_dtype, eos_token_id=self.eos_token_id)
@@ -849,6 +1123,16 @@ class TorchLlamaBackend:
     def greedy_resume(self, state, n_steps: int, return_logits: bool = True):
         """Decode ``n_steps`` more tokens from a greedy_start/resume state (no
         re-prefill; the KV cache stays on the device)."""
+        if isinstance(state, tuple) and "served" in state[0]:
+            from kirag_tpu_torch.models.speculative import speculative_resume
+
+            st, total, script, hist_prev = state
+            ids, st = speculative_resume(*self._spec_args(), st, n_steps, total,
+                                         gamma=self.spec_gamma, compute_dtype=self.compute_dtype,
+                                         eos_token_id=self.eos_token_id, draft_script=script)
+            hist = st["acc_hist"].cpu().numpy()
+            self.spec_acc_hist += hist - hist_prev
+            return ids.cpu().numpy(), None, (st, total, script, hist)
         ids, logits, state = resume_decode(self.params, state, self.config, n_steps,
                                            self.compute_dtype, eos_token_id=self.eos_token_id,
                                            return_logits=return_logits)

@@ -268,13 +268,16 @@ def test_load_llama_kv_quant_matches_jax(tmp_path, quant_bits):
 
 
 def test_draft_and_prefix_pool_still_refuse(rng):
+    """With the int8 cache a draft is still refused (the reference's
+    refusal); the prefix pool is ported and takes the int8 format."""
     config, tree = jax_params("llama", "f32")
     pc = dataclasses.replace(port_config(config), **KV8)
     params = llm.llama_params_from_jax(tree, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
+    with pytest.raises(ValueError, match="full-precision KV cache"):
         llm.TorchLlamaBackend(params, pc, 0, draft_params=params, draft_config=pc)
-    with pytest.raises(NotImplementedError, match="prefix-KV"):
-        llm.TorchLlamaBackend(params, pc, 0, prefix_cache_groups=4)
+    pool = llm.alloc_prefix_pool(pc, 2, 8, torch.float32, "cpu")
+    assert pool["k"][0]["q"].dtype == torch.int8 and pool["v"][1]["s"].shape == (2, 8, 2)
+    assert llm.TorchLlamaBackend(params, pc, 0, prefix_cache_groups=4).supports_prefix_cache
 
 
 def test_retrieve_cli_int8_kv_matches_jax(cli_workspace, monkeypatch):

@@ -315,10 +315,19 @@ def test_init_llama_params_quantizes_as_it_builds():
 
 
 def test_unported_options_raise():
+    """The draft model and the prefix pool are ported: the backend takes
+    them (tests/test_torch_speculative.py and tests/test_torch_prefix_kv.py
+    hold their decodes) and refuses a draft with the int8 KV cache, as the
+    reference does."""
     config, tree = jax_params("llama", "f32")
     params = llm.llama_params_from_jax(tree, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llm.TorchLlamaBackend(params, port_config(config), 0, draft_params=params,
-                              draft_config=port_config(config))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llm.TorchLlamaBackend(params, port_config(config), 0, prefix_cache_groups=4)
+    pc = port_config(config)
+    spec = llm.TorchLlamaBackend(params, pc, 0, draft_params=params, draft_config=pc,
+                                 spec_gamma=3)
+    assert spec.draft_params is params and spec.spec_acc_hist.shape == (3,)
+    assert not spec.supports_prefix_cache
+    pooled = llm.TorchLlamaBackend(params, pc, 0, prefix_cache_groups=4)
+    assert pooled.supports_prefix_cache and pooled._prefix_pool is None  # allocated at first use
+    with pytest.raises(ValueError, match="full-precision KV cache"):
+        llm.TorchLlamaBackend(params, dataclasses.replace(pc, kv_quant_bits=8), 0,
+                              draft_params=params, draft_config=pc)

@@ -7,7 +7,8 @@
   ``Encoder.from_jax``: the same chains, documents in the same order, scores
   within 1e-5 (f32 encoders, sums in another order);
 - both packages' ``cli/retrieve.py`` on a tiny on-disk workspace give the
-  same results json.
+  same results json, also with ``--draft_llm`` and
+  ``--llm_prefix_cache_groups``.
 """
 
 import pickle
@@ -38,7 +39,7 @@ from kirag_tpu_torch.retrieval import DenseRetriever
 from kirag_tpu_torch.utils.io import hash_object
 
 from tests.helpers import make_corpus_json, make_tiny_encoder, make_tokenizer
-from tests.torch_cli_helpers import cli_workspace, run_retrieve_clis  # noqa: F401
+from tests.torch_cli_helpers import cli_workspace, run_retrieve_clis, torch_threads  # noqa: F401
 
 PKG = {
     "jax": dict(stub=jax_make_stub_generator, kg=JaxKGGenerator, kirag=JaxKiRAG,
@@ -259,10 +260,7 @@ def test_retrieve_cli_approx_and_retrieval_eval_match_jax(cli_workspace, monkeyp
     assert retrieval_eval.evaluate_answer_presence(got, 10)["Recall@10"] > 0
 
 
-@pytest.mark.parametrize("concurrent,cached", [(1, False), (2, True)])
-def test_retrieve_cli_matches_jax(cli_workspace, monkeypatch, concurrent, cached):
-    _, results = run_retrieve_clis(cli_workspace, monkeypatch, concurrent, cached)
-    got, want = results["port"], results["jax"]
+def assert_same_cli_results(got, want):
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
         assert g["paths"] == w["paths"]
@@ -272,8 +270,36 @@ def test_retrieve_cli_matches_jax(cli_workspace, monkeypatch, concurrent, cached
         assert ({k: v for k, v in g.items() if k != "ctxs"}
                 == {k: v for k, v in w.items() if k != "ctxs"})
         assert len(g["ctxs"]) > 0
+
+
+@pytest.mark.parametrize("concurrent,cached", [(1, False), (2, True)])
+def test_retrieve_cli_matches_jax(cli_workspace, monkeypatch, concurrent, cached):
+    _, results = run_retrieve_clis(cli_workspace, monkeypatch, concurrent, cached)
+    got = results["port"]
+    assert_same_cli_results(got, results["jax"])
     if cached:  # the triples ranked the documents and the constructor ran
         assert all(g["paths"] == [[""]] for g in got)
+
+
+@pytest.mark.parametrize("option", ["draft_llm", "llm_prefix_cache_groups"])
+def test_retrieve_cli_draft_and_prefix_pool_match_jax(cli_workspace, monkeypatch, option):
+    """``--draft_llm`` (the tiny Llama as its own draft) and
+    ``--llm_prefix_cache_groups 2``, over the cached KG so that the
+    constructor runs: both packages' results files agree, and the port's
+    constructor decoded through speculative decoding or the prefix pool."""
+    from kirag_tpu_torch.models import llm, speculative
+
+    ws = cli_workspace
+    value = ws["llm_dir"] if option == "draft_llm" else "2"
+    module, name = ((speculative, "speculative_decode") if option == "draft_llm"
+                    else (llm, "greedy_decode_prefixed"))
+    calls, fn = [], getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a, **k: calls.append(1) or fn(*a, **k))
+    with torch_threads(1):
+        _, results = run_retrieve_clis(ws, monkeypatch, concurrent=1, cached=True,
+                                       extra=(f"--{option}", value))
+    assert_same_cli_results(results["port"], results["jax"])
+    assert calls
 
 
 def test_retrieve_cli_refuses_what_is_not_ported(cli_workspace):
@@ -284,10 +310,8 @@ def test_retrieve_cli_refuses_what_is_not_ported(cli_workspace):
             "--retriever_model_name_or_path", ws["enc_dir"], "--llm", ws["llm_dir"],
             "--aligner_model_name_or_path", ws["enc_dir"], "--save_dir",
             str(ws["root"] / "refused"), "--save_file", "r.json"]
-    for flag in (["--draft_llm", ws["llm_dir"]], ["--llm_prefix_cache_groups", "4"],
-                 ["--mesh_model", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            retrieve.main(base + flag, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        retrieve.main(base + ["--mesh_model", "2"], device="cpu")
     if not torch.cuda.is_available():  # without device="cpu" the CLI runs on the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             retrieve.main(base)

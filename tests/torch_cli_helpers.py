@@ -6,6 +6,7 @@ import contextlib
 import json
 import os
 import pickle
+import re
 import sys
 
 import pytest
@@ -90,7 +91,7 @@ def run_retrieve_clis(ws, monkeypatch, concurrent=1, cached=False, extra=()):
     from kirag_tpu_torch.cli import retrieve
 
     paths, results = {}, {}
-    tag = "_".join([str(concurrent), *extra]).replace("--", "")
+    tag = re.sub(r"[^\w.]", "_", "_".join([str(concurrent), *extra]).replace("--", ""))
     for name in ("jax", "port"):
         argv_extra = list(extra)
         if cached:
