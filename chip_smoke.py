@@ -99,7 +99,17 @@ weights at E5-large and Llama-3-8B-Instruct width:
   ``index_select``; phase 4's server with
   ``pallas_select="merge"`` and ``"hier"``; and ``impl="single"``,
   ``"twopass"`` and ``select="merge"`` over the DPR corpus's int4 codes,
-  equal to the capdom search, with K7a, K7b, K8 and K9 timed.
+  equal to the capdom search, with K7a, K7b, K8 and K9 timed;
+- streaming search (phase 18): 2,097,152 x 1024 seeded rows (8.6 GB of
+  float32, then int8) held in pinned host memory in blocks of
+  ``max_device_rows`` = 524,288 and copied block by block into two device
+  buffers on a side stream while K1/K2 (exact) or K5 (approximate) search
+  the block before: the streamed exact search bitwise the resident one, the
+  approximate one against its plain version, the copy's GB/s, the ms a
+  search against the resident index's and the copy the searches hide, the
+  server over the streamed index (the resident ids), and the host C++
+  (``csrc/host``: the DPR TSV parser against the Python loader, the CPU flat
+  index against the card's exact search).
 
 Every phase raises on failure. The last lines of standard output are K2's
 main-path launches by shape, the card's name and power limit, one JSON
@@ -112,10 +122,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
 import re
+import resource
 import runpy
 import shutil
 import statistics
@@ -5004,6 +5016,325 @@ def dpr_variants(codes, scales, queries, capdom: dict, power) -> dict:
     return {"launches": launches, "times": times}
 
 
+# ---------------------------------------------------------------- phase 18
+
+STREAM_ROWS = 2_097_152    # seeded unit rows: 8.6 GB of float32, four blocks
+STREAM_BLOCK = 524_288     # max_device_rows
+STREAM_QUERIES = 32
+STREAM_REPS = 5
+STREAM_REQUESTS = 32       # (d): requests of 1-5 texts from 4 threads
+HOST_LINES = 100_000       # (e): passages of the seeded TSV
+HOST_ROWS = 100_000        # (e): CPUFlatIndex's rows, (a)'s first
+HOST_QUERIES = 8
+
+
+def meminfo() -> dict:
+    """MemTotal and MemAvailable of /proc/meminfo, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def stream_rows(n: int, text_emb: np.ndarray, gen, dev):
+    """(a): n seeded unit rows made on the card a block at a time and copied
+    to host memory, the texts' embeddings planted at known rows."""
+    host = np.empty((n, DIM), dtype=np.float32)
+    for start in range(0, n, STREAM_BLOCK):
+        part = unit_rows(min(STREAM_BLOCK, n - start), gen, dev)
+        host[start:start + len(part)] = part.cpu().numpy()
+    text_rows = [i * (n // len(text_emb)) + 11 for i in range(len(text_emb))]
+    host[text_rows] = text_emb
+    return host, text_rows
+
+
+def stream_times(index, queries: np.ndarray, mode: str = "exact") -> dict:
+    """STREAM_REPS streamed searches, each timed by the host clock (search_knn
+    returns host arrays, so it ends synchronised) and by the events the
+    index records around each block's copy and search: medians of the wall
+    ms, the copies' and the searches' ms, the event span from the first
+    copy's start to the last search's end, and the copy the searches hide
+    (copy + search - span)."""
+    index.stream_timing = True
+    runs = []
+    try:
+        for _ in range(STREAM_REPS):
+            t0 = time.perf_counter()
+            index.search_knn(queries, K, mode=mode)
+            wall = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            ev = index.stream_events
+            copy = [c0.elapsed_time(c1) for c0, c1, _, _ in ev]
+            search = [s0.elapsed_time(s1) for _, _, s0, s1 in ev]
+            span = ev[0][0].elapsed_time(ev[-1][3])
+            runs.append({"wall_ms": wall, "copy_ms": sum(copy), "search_ms": sum(search),
+                         "span_ms": span, "hidden_ms": sum(copy) + sum(search) - span,
+                         "later_copies_ms": sum(copy[1:]),
+                         "search_ms_per_block": sum(search) / len(search)})
+    finally:
+        index.stream_timing = False
+    out = {key: statistics.median(r[key] for r in runs) for key in runs[0]}
+    out["h2d_bytes"] = sum(nbytes(*(t for t in (b["corpus"], b["scales"]) if t is not None))
+                           for b in index._stream_blocks)
+    out["h2d_gb_s"] = out["h2d_bytes"] / out["copy_ms"] / 1e6
+    return out
+
+
+def host_ms(fn, reps: int = STREAM_REPS) -> float:
+    """Median host-clock ms of a call that ends synchronised."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def plain_index_searches():
+    """The indexer's searches through the kernels' plain versions."""
+    import kirag_tpu_torch.index.indexer as indexer
+    from kirag_tpu_torch.ops import approx_topk_mips, exact_topk_mips
+
+    saved = indexer.approx_topk_mips, indexer.exact_topk_mips
+    indexer.approx_topk_mips = functools.partial(approx_topk_mips, plain=True)
+    indexer.exact_topk_mips = functools.partial(exact_topk_mips, plain=True)
+    try:
+        yield
+    finally:
+        indexer.approx_topk_mips, indexer.exact_topk_mips = saved
+
+
+def result_arrays(results):
+    """search_knn's per-query (ids, scores) as (vals [Q, k], row ids [Q, k])."""
+    vals = torch.tensor(np.stack([s for _, s in results]))
+    idx = torch.tensor([[int(i) for i in ids] for ids, _ in results])
+    return vals, idx
+
+
+def check_streamed(label, streamed, resident, queries) -> dict:
+    """(b): the streamed exact search bitwise the resident one; the streamed
+    approximate search (W = 1) against the same streamed search through the
+    plain versions. Returns the streamed runs' launches."""
+    from kirag_tpu_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
+    exact = streamed.search_knn(queries, K)
+    approx = streamed.search_knn(queries, K, mode="approx")
+    launches = main_path_counts()
+    want = resident.search_knn(queries, K)
+    for row, ((g_ids, g_vals), (w_ids, w_vals)) in enumerate(zip(exact, want)):
+        if g_ids != w_ids or not np.array_equal(g_vals, w_vals):
+            raise AssertionError(f"{label}: query {row}'s streamed exact search differs from "
+                                 "the resident one")
+    with plain_index_searches():
+        plain = streamed.search_knn(queries, K, mode="approx")
+    check_topk_close(*result_arrays(approx), *result_arrays(plain), f"{label} approx")
+    quant = kernel_quant(streamed.compression)
+    names = (kernel_names(streamed.compression)[0], k5_name(quant))
+    if not all(launches[k] > 0 for k in names):
+        raise AssertionError(f"{label}: a kernel of the streamed path was not launched: "
+                             f"{launches}")
+    log(f"  {label}: streamed exact search (Q={len(queries)}, k={K}) bitwise the resident "
+        f"one; streamed approximate search (W=1) equal to its plain version; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def log_stream_times(label, t: dict, resident_ms: float, power) -> None:
+    log(f"  [{power}] {label}: {t['wall_ms']:.1f} ms a search (host clock; resident "
+        f"{resident_ms:.2f} ms), H2D {t['h2d_bytes'] / 1e9:.3f} GB at "
+        f"{t['h2d_gb_s']:.2f} GB/s on the copy stream ({t['copy_ms']:.1f} ms), a block's "
+        f"search {t['search_ms_per_block']:.2f} ms (events around the call), the copy hidden "
+        f"{t['hidden_ms']:.2f} of {t['copy_ms']:.1f} ms ({t['later_copies_ms']:.1f} ms after "
+        f"the first block's); event span {t['span_ms']:.1f} ms (CUDA events, medians of "
+        f"{STREAM_REPS})")
+
+
+def stream_server(encoder, collator, streamed, resident, texts, text_rows) -> dict:
+    """(d): RetrievalEngine over a DenseRetriever whose index streams;
+    STREAM_REQUESTS requests from 4 threads, every text's own row at top-1
+    and every engine batch's ids and scores equal to the resident index's."""
+    from kirag_tpu_torch.kernels import reset_launch_counts
+    from kirag_tpu_torch.retrieval import DenseRetriever
+    from kirag_tpu_torch.serving import RetrievalEngine
+
+    recorder = RecordingIndex(streamed)
+    engine = RetrievalEngine(DenseRetriever(encoder, collator, indexer=recorder, batch_size=32),
+                             max_batch=32, max_wait_ms=5.0, topk_buckets=(10, K))
+    recorder.calls.clear()
+    requests = make_requests(STREAM_REQUESTS, len(texts))
+    results, errors = {}, []
+
+    def worker(mine):
+        for r in mine:
+            try:
+                results[r] = engine.search([texts[i] for i in requests[r]], topk=K)
+            except Exception as e:  # reported below
+                errors.append(e)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(range(i, len(requests), 4),))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = main_path_counts()
+    engine.close()
+    if errors or any(t.is_alive() for t in threads) or len(results) != len(requests):
+        raise RuntimeError(f"streamed server failed: {errors}")
+    for r, request in enumerate(requests):
+        for j, row in zip(request, results[r]):
+            if row[0]["id"] != str(text_rows[j]):
+                raise AssertionError(f"streamed server: text {j}'s top-1 is {row[0]['id']}, "
+                                     f"not its own row {text_rows[j]}")
+    for q, top_docs, out, _ in recorder.calls:
+        for (g_ids, g_vals), (w_ids, w_vals) in zip(out, resident.search_knn(q, top_docs)):
+            if g_ids != w_ids or not np.array_equal(g_vals, w_vals):
+                raise AssertionError("streamed server: a batch's result differs from the "
+                                     "resident index's")
+    log(f"  (d) RetrievalEngine over the streamed float32 index: {len(requests)} requests from "
+        f"4 threads in {len(recorder.calls)} searches, {wall:.2f} s (host clock); every text's "
+        f"own row at top-1, every batch's ids and scores equal to the resident index's; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def write_host_tsv(path: Path, n: int) -> None:
+    """A seeded DPR-format TSV of n passages, with quotes, doubled quotes,
+    punctuation at the ends and short lines among them."""
+    rng = np.random.RandomState(SEED)
+    marks = ('"', "'", ".", "(", "", "", "", "")
+    lines = ["id\ttext\ttitle"]
+    for i in range(n):
+        words = [WORDS[w] for w in rng.randint(0, len(WORDS), rng.randint(4, 40))]
+        if i % 7 == 0:
+            words.insert(1, '""quoted""')
+        text = marks[i % 8] + " ".join(words) + marks[(i // 8) % 8]
+        lines.append(f"{i}\t{text}\t{marks[i % 5]}{WORDS[i % len(WORDS)].title()}")
+        if i % 1000 == 0:
+            lines.append(f"short{i}\tonly two fields")
+    path.write_text("\n".join(lines) + "\n", encoding="utf-8")
+
+
+def host_pieces(work: Path, host: np.ndarray, dev, power) -> None:
+    """(e): the port's host libraries built from csrc/host; load_psg_data's
+    C++ parser against the Python loop on a seeded HOST_LINES-passage TSV;
+    CPUFlatIndex over (a)'s first HOST_ROWS rows against the card's resident
+    exact search of the same rows."""
+    from kirag_tpu_torch.data.corpus import load_psg_data
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.index.native import CPUFlatIndex
+    from kirag_tpu_torch.kernels.build import HOST_FLAGS, build_host
+
+    built = {name: build_host(name) for name in ("tsv_corpus", "flat_index")}
+    compilers = {name: info.log.splitlines()[0] if info.log else "cached"
+                 for name, info in built.items()}
+    log("  (e) " + " ".join(HOST_FLAGS) + ": " + ", ".join(
+        f"{info.path.name} {info.seconds:.1f} s ({compilers[name]})"
+        for name, info in built.items()))
+    path = work / "host_passages.tsv"
+    write_host_tsv(path, HOST_LINES)
+    t0 = time.perf_counter()
+    native = load_psg_data(str(path), native=True)
+    t1 = time.perf_counter()
+    python = load_psg_data(str(path), native=False)
+    t2 = time.perf_counter()
+    if len(native) != HOST_LINES or list(native) != python:
+        raise AssertionError("load_psg_data: the C++ parser's rows differ from the Python loop's")
+    rows = host[:HOST_ROWS]
+    queries = rows[:: HOST_ROWS // HOST_QUERIES][:HOST_QUERIES]
+    flat = CPUFlatIndex(DIM)
+    flat.index_data(range(HOST_ROWS), rows)
+    t3 = time.perf_counter()
+    got = flat.search_knn(queries, K)
+    t4 = time.perf_counter()
+    card = TorchIndexer(DIM, device=dev, pallas_chunk_size=CHUNK)
+    card.index_data(range(HOST_ROWS), rows)
+    want = card.search_knn(queries, K)
+    check_topk_close(*result_arrays(got), *result_arrays(want), "CPUFlatIndex vs the card")
+    if [ids[0] for ids, _ in got] != [str(i * (HOST_ROWS // HOST_QUERIES))
+                                       for i in range(HOST_QUERIES)]:
+        raise AssertionError("CPUFlatIndex: a query's own row is not its top-1")
+    same = sum(g == w for (g, _), (w, _) in zip(got, want))
+    log(f"  (e) load_psg_data over {HOST_LINES} passages: the C++ parser's rows equal the "
+        f"Python loop's ({(t1 - t0) * 1e3:.0f} against {(t2 - t1) * 1e3:.0f} ms, host clock); "
+        f"CPUFlatIndex over {HOST_ROWS} x {DIM}: {same} of {HOST_QUERIES} queries' top-{K} ids "
+        f"equal to the card's resident exact search, the rest at near-ties, values within "
+        f"{ATOL} (add {(t3 - t2) * 1e3:.0f} ms, search {(t4 - t3) * 1e3:.0f} ms, host clock) "
+        f"[{power}]")
+
+
+def streaming(work: Path, encoder, collator, text_emb, texts, dev, gen, power) -> dict:
+    """Phase 18: a corpus several times ``max_device_rows`` streamed through
+    K1, K2 and K5 block by block from pinned host memory. (a) sizing, (b)
+    streamed against resident (bitwise) and approximate against plain, (c)
+    times, (d) the server over the streamed index, (e) the host C++.
+    Returns the streamed runs' launches."""
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.kernels import reset_launch_counts
+
+    t_phase = time.perf_counter()
+    mem = meminfo()
+    rows = STREAM_ROWS
+    while mem["MemAvailable"] < 3 * rows * DIM * 4 and rows > 2 * STREAM_BLOCK:
+        rows //= 2
+        log(f"  (a) MemAvailable {mem['MemAvailable'] / 2**30:.1f} GiB is below 3x the "
+            f"index's bytes: rows cut to {rows}")
+    memlock = resource.getrlimit(resource.RLIMIT_MEMLOCK)
+    log(f"  (a) host: MemTotal {mem['MemTotal'] / 2**30:.1f} GiB, MemAvailable "
+        f"{mem['MemAvailable'] / 2**30:.1f} GiB; RLIMIT_MEMLOCK (soft, hard) {memlock}; "
+        f"{rows} x {DIM} float32 rows ({rows * DIM * 4 / 1e9:.2f} GB), max_device_rows "
+        f"{STREAM_BLOCK} ({-(-rows // STREAM_BLOCK)} blocks)")
+    host, text_rows = stream_rows(rows, text_emb, gen, dev)
+    queries = host[text_rows[:STREAM_QUERIES]]
+    ids = range(rows)
+    launches = []
+    for compression in ("none", "int8"):
+        label = f"{'float32' if compression == 'none' else compression} streamed index"
+        kw = dict(device=dev, compression=compression, pallas_chunk_size=CHUNK)
+        streamed = TorchIndexer(DIM, max_device_rows=STREAM_BLOCK, **kw)
+        streamed.index_data(ids, host)
+        t0 = time.perf_counter()
+        streamed._prepare_stream_blocks()
+        prep = time.perf_counter() - t0
+        pinned = sum(nbytes(*(t for t in (b["corpus"], b["scales"]) if t is not None))
+                     for b in streamed._stream_blocks)
+        if not all(b["corpus"].is_pinned() for b in streamed._stream_blocks):
+            raise AssertionError(f"{label}: a block is not in pinned memory")
+        resident = TorchIndexer(DIM, **kw)
+        resident.index_data(ids, host)
+        resident.to_device()
+        log(f"  (b) {label}: {len(streamed._stream_blocks)} blocks of {STREAM_BLOCK} rows "
+            f"prepared in {prep:.1f} s (host clock), {pinned / 1e9:.3f} GB pinned")
+        launches.append(check_streamed(label, streamed, resident, queries))
+        reset_launch_counts()
+        exact_t = stream_times(streamed, queries)
+        approx_t = stream_times(streamed, queries, mode="approx")
+        launches.append(main_path_counts())
+        log(f"  (c) {label}: {STREAM_REPS} exact and {STREAM_REPS} approximate searches, "
+            f"launches { {k: v for k, v in launches[-1].items() if v} }")
+        resident_ms = host_ms(lambda: resident.search_knn(queries, K))
+        log_stream_times(f"(c) {label}, exact", exact_t, resident_ms, power)
+        log_stream_times(f"(c) {label}, approximate (W=1)", approx_t,
+                         host_ms(lambda: resident.search_knn(queries, K, mode="approx")), power)
+        if compression == "none":
+            launches.append(stream_server(encoder, collator, streamed, resident, texts,
+                                          text_rows))
+        del streamed, resident
+        torch.cuda.empty_cache()
+    host_pieces(work, host, dev, power)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 18: {seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this needs an NVIDIA GPU", file=sys.stderr)
@@ -5171,6 +5502,9 @@ def main() -> int:
         phase("phase 15 (c): the retrieval server with pallas_select='merge' and 'hier'")
         served_v = serve_variants(dev, encoder, collator, host_rows, texts, text_rows, power)
         phase15_s = time.perf_counter() - t15
+        phase(f"phase 18: streaming search, {STREAM_ROWS} x {DIM} rows through the card "
+              f"{STREAM_BLOCK} at a time from pinned host memory; the host C++")
+        streamed = streaming(work, encoder, collator, text_emb, texts, dev, gen, power)
         del encoder, model, host_rows
         torch.cuda.empty_cache()
         phase("phase 11 (c): build_index --compression int4 and int8 over phase 6's shards")
@@ -5189,7 +5523,8 @@ def main() -> int:
     # step's largest per-layer projection at the Generator's batch); K3's
     # backward kernels' at the aligner's bf16 query batch. Launches: every
     # main-path run (phases 4, 6, 8, 9, 10's CLI run, 11 b-d, 12 b-d, 13,
-    # 14 c-d, 16's four runs and 17's), not the comparisons.
+    # 14 c-d, 16's four runs, 17's and 18's streamed searches), not the
+    # comparisons.
     paths = [s["launches"] for s in served.values()] + [built["launches"]] + [
         r["launches"] for r in kirag.values()] + [trained["launches"]] + [
         s["launches"] for s in served_q.values()] + [
@@ -5199,7 +5534,8 @@ def main() -> int:
         dpr[q]["approx"]["launches"] for q in QUANTS] + [
         variants["launches"], dpr["int4"]["variants"]["launches"]] + [
         s["launches"] for s in served_v.values()] + [
-        evaluated[run]["launches"] for run in ("kg", "E", "qa", "selector")] + spec_pool["launches"]
+        evaluated[run]["launches"] for run in ("kg", "E", "qa", "selector")] + spec_pool[
+        "launches"] + streamed["launches"]
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     launches["int4_matmul"] += decoded["launches"]
     idle = [k for k, n in launches.items() if n == 0]

@@ -28,8 +28,6 @@ import logging
 import os
 from typing import Optional, Sequence
 
-import torch
-
 from kirag_tpu_torch.cli.common import (
     add_corpus_args,
     add_encoder_args,
@@ -134,24 +132,25 @@ def load_llm_tokenizer(args):
 def load_draft_llm(args, draft_llm=None, device=None):
     """The ``(params, config)`` pair of ``--draft_llm`` in bf16, unquantized
     (or ``draft_llm``, a loaded pair); None without a draft."""
-    from kirag_tpu_torch.models.llm import load_llama
+    from kirag_tpu_torch.models.registry import load_llm_params
 
     if draft_llm is not None:
         return draft_llm
     if not args.draft_llm:
         return None
-    return load_llama(args.draft_llm, compute_dtype=torch.bfloat16, device=device)
+    return load_llm_params(args.draft_llm, device=device)
 
 
 def load_llm(args, llm=None, device=None):
     """The ``(params, config)`` pair of ``--llm`` in bf16 (or ``llm``, a loaded
-    pair), its config given ``--llm_kv_quant_bits`` where set."""
-    from kirag_tpu_torch.models.llm import load_llama
+    pair), its config given ``--llm_kv_quant_bits`` where set: the loader of
+    :func:`kirag_tpu_torch.models.registry.load_llm`."""
+    from kirag_tpu_torch.models.registry import load_llm_params
 
     if llm is None:
-        return load_llama(args.llm, compute_dtype=torch.bfloat16, int8_weights=args.llm_int8,
-                          quant_bits=args.llm_quant_bits, kv_quant_bits=args.llm_kv_quant_bits,
-                          device=device)
+        return load_llm_params(args.llm, int8_weights=args.llm_int8,
+                               quant_bits=args.llm_quant_bits,
+                               kv_quant_bits=args.llm_kv_quant_bits, device=device)
     params, config = llm
     if args.llm_kv_quant_bits is not None:
         config = dataclasses.replace(config, kv_quant_bits=args.llm_kv_quant_bits)

@@ -1,5 +1,7 @@
 """Passage corpora: the DPR Wikipedia TSV and the multi-hop QA JSON corpora
-(port of :mod:`kirag_tpu.data.corpus` with its Python TSV loader).
+(port of :mod:`kirag_tpu.data.corpus`). The TSV loads through the C++ parser
+(:mod:`kirag_tpu_torch.data.native_tsv`) where it builds, else the Python
+loop.
 
 Every corpus exposes id <-> index maps, ``get_document``, ``doc_to_str`` and
 indexable items ``{"index", "passage_id", "passage"}``, the passage rendered
@@ -8,11 +10,14 @@ as ``"{title_prefix} {title}, {passage_prefix} {passage}"``.
 
 from __future__ import annotations
 
+import logging
 import os
 import string
 from typing import Dict, Iterator, List, Optional
 
 from kirag_tpu_torch.utils.io import load_json
+
+logger = logging.getLogger(__name__)
 
 # override via env or constructor
 DEFAULT_CORPUS_PATHS = {
@@ -37,9 +42,26 @@ def _clean(text: str) -> str:
     return text.replace('""', '"')
 
 
-def load_psg_data(path: str) -> List[dict]:
+def load_psg_data(path: str, native: Optional[bool] = None):
     """Load a DPR passage TSV (``id \\t text \\t title``), skipping its header
-    row and lines of fewer than three fields."""
+    row and lines of fewer than three fields; text and title lose one
+    punctuation character at each end, and doubled quotes become one.
+
+    ``native=None`` tries the C++ parser (packed blobs behind lazy dict
+    views, :class:`~kirag_tpu_torch.data.native_tsv.TsvPassages`; no per-row
+    Python objects at 21M rows) and takes the Python loop where it does not
+    build; ``native=True`` requires the parser, ``native=False`` takes the
+    loop. Both give the same rows.
+    """
+    if native is None or native:
+        try:
+            from kirag_tpu_torch.data.native_tsv import load_psg_data_native
+
+            return load_psg_data_native(path)
+        except Exception as e:  # no g++, or the build failed
+            if native:
+                raise
+            logger.info(f"native tsv parser unavailable ({e}); using the Python loader")
     data = []
     with open(path, encoding="utf-8", mode="r") as fin:
         for line in fin:

@@ -32,6 +32,17 @@ queries with a ``1 / alpha`` column (see :meth:`_l2_augment`).
 they are placed or written (the id map moves with them), which approximate
 search needs on corpora whose similar rows sit together.
 
+``max_device_rows`` streams a corpus of more rows than that through the
+device at search time instead of placing it (a float32 DPR index, 86 GB, on
+an 80 GB card): the rows are cut into blocks of ``max_device_rows`` rounded
+down to a multiple of 8 (the last one zero-padded), each held in host memory
+in its device format (int8/int4 quantized a block at a time) and, on a GPU,
+pinned. A search copies block after block into one of two device buffers
+on a side stream, the copy of block i + 1 overlapping the search of block
+i, runs the exact search (in its checked mode) or the approximate search on
+each, and merges the blocks' top-k by value, then global row id. PQ does
+not stream (its codes are 32x smaller and stay on the device).
+
 The on-disk format (``serialize``/``deserialize_from``: raw f32 shards, the
 metric, compression and ``pq_m`` in the config, ``pq_codebooks.npy``) is the
 reference's, so an index written by ``TPUIndexer`` loads here and back.
@@ -140,9 +151,6 @@ class TorchIndexer:
                                               n_bits if faiss_pq_request else 4)
         if mesh is not None:
             raise _not_ported("a sharded index over a device mesh", "multi-GPU index")
-        if max_device_rows is not None:
-            raise _not_ported("streaming corpora larger than device memory",
-                              "streaming search")
         if pallas_select not in ("hier", "flat", "capdom", "merge"):
             raise KeyError(f"pallas_select must be hier|flat|capdom|merge, got {pallas_select}")
         if exact_impl not in ("auto", "kernel", "plain"):
@@ -184,6 +192,16 @@ class TorchIndexer:
         self._device_rows: int = 0
         # searches whose capture flag was False and that ran the checked search
         self.redispatches = 0
+        # streaming: rows beyond max_device_rows pass through the device in
+        # blocks at search time (None: the whole corpus is placed)
+        self.max_device_rows = max_device_rows
+        self._stream_blocks: Optional[List[dict]] = None
+        self._stream_buffers: Optional[List[dict]] = None
+        # set stream_timing to record CUDA events around each block's copy
+        # and search in stream_events: [(copy start, copy end, search start,
+        # search end), ...] for the last streamed search
+        self.stream_timing = False
+        self.stream_events: List[tuple] = []
 
     # -- build ---------------------------------------------------------------
 
@@ -206,6 +224,7 @@ class TorchIndexer:
         new_ids = np.asarray([str(i) for i in ids], dtype=object)
         self.index_id_to_db_id = np.concatenate([self.index_id_to_db_id, new_ids])
         self._device_corpus = self._device_scales = None
+        self._drop_stream_blocks()
         self._shuffled = False  # appended rows join the next shuffle
         logger.info(f"Total data indexed {len(self.index_id_to_db_id)}")
 
@@ -383,6 +402,175 @@ class TorchIndexer:
         self._device_scales = scales
         self._device_rows = n
 
+    # -- streaming (corpora larger than device memory) ---------------------------
+
+    def _use_streaming(self) -> bool:
+        return self.max_device_rows is not None and len(self) > self.max_device_rows
+
+    def _rows_per_block(self) -> int:
+        return max(8, (self.max_device_rows // 8) * 8)
+
+    def _drop_stream_blocks(self) -> None:
+        self._stream_blocks = self._stream_buffers = None
+
+    def _stream_block(self, start: int, rows_per_block: int) -> dict:
+        """One block in its device format, in host memory (pinned when the
+        index's device is a GPU): ``{"corpus", "scales", "start", "valid"}``.
+        Rows past ``valid`` are zero rows, quantized with the block as the
+        reference quantizes them; int8/int4 are quantized on the device,
+        ``_HOST_BLOCK`` rows at a time."""
+        rows = self._host_rows(start, min(start + rows_per_block, len(self)))
+        if self.metric == "l2":
+            rows = self._l2_augment(rows)
+        if not rows.flags.writeable:  # mmap'd shard: torch wants writable memory
+            rows = rows.copy()
+        valid, aug = rows.shape
+        rows = torch.from_numpy(rows)
+        d = self._device_width()
+        if self.compression == "int8":
+            shapes = ((rows_per_block, d), torch.int8), ((rows_per_block,), torch.float32)
+        elif self.compression == "int4":
+            shapes = (((rows_per_block, d // 2), torch.uint8),
+                      ((rows_per_block, d // INT4_BLOCK), torch.float32))
+        else:
+            shapes = ((rows_per_block, d), self.device_dtype), None
+        pin = self.device.type == "cuda"
+        corpus, scales = (None if shape is None else
+                          torch.zeros(shape[0], dtype=shape[1], pin_memory=pin)
+                          for shape in shapes)
+        if pin and not (corpus.is_pinned() and (scales is None or scales.is_pinned())):
+            raise RuntimeError("a streamed block's host memory could not be pinned")
+        cols = slice(0, aug)  # l2: the zero columns past it stay zero
+        if self.compression == "none":
+            corpus[:valid, cols] = rows
+            return {"corpus": corpus, "scales": None, "start": start, "valid": valid}
+        for lo in range(0, rows_per_block, _HOST_BLOCK):
+            part = slice(lo, min(lo + _HOST_BLOCK, rows_per_block))
+            x = torch.zeros((part.stop - lo, aug), dtype=torch.float32, device=self.device)
+            x[:max(min(valid - lo, len(x)), 0)] = rows[part].to(self.device)
+            if self.compression == "int8":
+                q, s = quantize_rows_int8_torch(x)
+                corpus[part, cols], scales[part] = q.cpu(), s.cpu()
+            else:
+                q, s = quantize_rows_int4_torch(x)
+                corpus[part], scales[part] = q.cpu(), s.cpu()
+        return {"corpus": corpus, "scales": scales, "start": start, "valid": valid}
+
+    def _prepare_stream_blocks(self) -> None:
+        """Cut the corpus (shuffled first under ``shuffle_rows``, l2 alpha
+        fitted) into blocks of ``max_device_rows`` rounded down to a multiple
+        of 8, once; every search reuses them."""
+        if self._stream_blocks is not None:
+            return
+        self._maybe_shuffle()
+        self._fit_l2_alpha()
+        rows_per_block = self._rows_per_block()
+        self._stream_blocks = [self._stream_block(start, rows_per_block)
+                               for start in range(0, len(self), rows_per_block)]
+
+    def _buffer_rows(self, rows_per_block: int) -> int:
+        """Rows of a device buffer: a block padded to whole 128-row groups,
+        and for the kernel search of a block of at least one chunk to the
+        chunk grid, so that no search pads a copy."""
+        unit = LANES
+        if self._use_kernels() and rows_per_block >= self.pallas_chunk_size:
+            unit = self.pallas_chunk_size
+        return -(-rows_per_block // unit) * unit
+
+    def _device_blocks(self):
+        """Yield ``(block, corpus, scales)`` for every block, in order, its
+        rows in device memory. On a GPU two buffers take turns: the copy of
+        block i + 1 is enqueued on a side stream before block i is handed out,
+        the search waits for its own block's copy, and a buffer is written
+        again only after the search that read it. Nothing falls back: a
+        failed copy raises."""
+        blocks = self._stream_blocks
+        if self.device.type != "cuda":
+            for blk in blocks:
+                yield blk, blk["corpus"], blk["scales"]
+            return
+        if self._stream_buffers is None:
+            n = self._buffer_rows(len(blocks[0]["corpus"]))
+            self._stream_buffers = [
+                {key: None if blocks[0][key] is None else
+                 torch.zeros((n, *blocks[0][key].shape[1:]), dtype=blocks[0][key].dtype,
+                             device=self.device) for key in ("corpus", "scales")}
+                for _ in range(2)]
+        compute = torch.cuda.current_stream(self.device)
+        copy = torch.cuda.Stream(self.device)
+        copy.wait_stream(compute)  # the queries and any earlier use of the buffers
+        timing = self.stream_timing
+        copied = [torch.cuda.Event(enable_timing=timing) for _ in blocks]
+        freed = [torch.cuda.Event() for _ in blocks]
+        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] if timing else None
+                 for _ in blocks]
+
+        def enqueue_copy(i: int) -> None:
+            buf, blk = self._stream_buffers[i % 2], blocks[i]
+            with torch.cuda.stream(copy):
+                if i >= 2:
+                    copy.wait_event(freed[i - 2])
+                if timing:
+                    marks[i][0].record(copy)
+                for key in ("corpus", "scales"):
+                    if blk[key] is not None:
+                        buf[key][:len(blk[key])].copy_(blk[key], non_blocking=True)
+                copied[i].record(copy)
+
+        enqueue_copy(0)
+        for i, blk in enumerate(blocks):
+            if i + 1 < len(blocks):
+                enqueue_copy(i + 1)
+            compute.wait_event(copied[i])
+            if timing:
+                marks[i][1].record(compute)
+            buf = self._stream_buffers[i % 2]
+            yield blk, buf["corpus"], buf["scales"]
+            if timing:
+                marks[i][2].record(compute)
+            freed[i].record(compute)
+        if timing:
+            self.stream_events = [(m[0], c, m[1], m[2]) for c, m in zip(copied, marks)]
+
+    def _block_search(self, queries: torch.Tensor, corpus: torch.Tensor,
+                      scales: Optional[torch.Tensor], valid: int, k: int, mode: str):
+        """One block's top-k, its row ids local to the block."""
+        rows_per_block = self._rows_per_block()
+        if mode == "approx":
+            n = -(-rows_per_block // LANES) * LANES  # whole groups, not the chunk padding
+            return approx_topk_mips(queries, corpus[:n], k, valid_rows=valid,
+                                    scales=None if scales is None else scales[:n],
+                                    winners_per_group=self.approx_winners)
+        if self._use_kernels():
+            # the checked search (on_miss="fallback"), as the reference streams
+            return exact_topk_mips(queries, corpus, k, chunk_size=self.pallas_chunk_size,
+                                   valid_rows=valid, select=self.pallas_select, scales=scales)
+        corpus = corpus[:rows_per_block]
+        kw = dict(chunk_size=min(self.chunk_size, rows_per_block), valid_rows=valid)
+        if self.compression == "int8":
+            return topk_mips_int8(queries, corpus, scales[:rows_per_block], k, **kw)
+        if self.compression == "int4":
+            return topk_mips_int4(queries, corpus, scales[:rows_per_block], k, **kw)
+        return topk_mips(queries, corpus, k, **kw)
+
+    def _streaming_search(self, queries: torch.Tensor, k: int,
+                          mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Search block after block and merge: by value descending, then
+        global row id ascending (the reference's ``np.lexsort((idx, -vals))``),
+        on the device with stable sorts."""
+        self._prepare_stream_blocks()
+        k_eff = min(k, len(self))
+        vals, idx = [], []
+        for blk, corpus, scales in self._device_blocks():
+            v, i = self._block_search(queries, corpus, scales, blk["valid"], k_eff, mode)
+            vals.append(v)
+            idx.append(i + blk["start"])
+        vals, idx = torch.cat(vals, dim=1), torch.cat(idx, dim=1)
+        by_row = torch.argsort(idx, dim=1, stable=True)
+        vals, idx = vals.gather(1, by_row), idx.gather(1, by_row)
+        by_val = torch.argsort(-vals, dim=1, stable=True)[:, :k_eff]
+        return vals.gather(1, by_val), idx.gather(1, by_val)
+
     # -- search ----------------------------------------------------------------
 
     def _search_queries(self, queries: torch.Tensor) -> torch.Tensor:
@@ -461,8 +649,14 @@ class TorchIndexer:
             raise ValueError(f"mode must be exact|approx, got {mode!r}")
         if len(self) == 0:
             raise RuntimeError("search_knn on an empty index; call index_data first")
-        if self._device_corpus is None:
-            self.to_device()
+        streaming = self._use_streaming()
+        if streaming:  # never the whole corpus on the device
+            self._prepare_stream_blocks()  # fits the l2 alpha before the queries
+            search = self._streaming_search
+        else:
+            if self._device_corpus is None:
+                self.to_device()
+            search = self._run_mips
         query_vectors = np.asarray(query_vectors, dtype=np.float32)
         if query_vectors.ndim == 1:
             query_vectors = query_vectors[None]
@@ -476,7 +670,7 @@ class TorchIndexer:
                 q = np.pad(q, ((0, q_pad - len(q)), (0, 0)))
             qt = torch.from_numpy(np.ascontiguousarray(q)).to(device=self.device,
                                                               dtype=self.device_dtype)
-            vals, idx = self._run_mips(self._search_queries(qt), k, mode)
+            vals, idx = search(self._search_queries(qt), k, mode)
             if self.metric == "l2":  # ||q||^2 - 2 (q.c - 0.5 ||c||^2)
                 vals = (qt.to(torch.float32) ** 2).sum(dim=1, keepdim=True) - 2.0 * vals
             vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
@@ -557,3 +751,4 @@ class TorchIndexer:
             raise ValueError(f"id map holds {len(self.index_id_to_db_id)} ids for "
                              f"{n_rows} rows")
         self._device_corpus = self._device_scales = None
+        self._drop_stream_blocks()

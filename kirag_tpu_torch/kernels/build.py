@@ -7,6 +7,10 @@ is loaded through ``ctypes``. Nothing is built at import time: the first
 launch builds the library into ``kirag_tpu_torch/kernels/build/`` (listed in
 ``.gitignore``), named by a hash of the sources and flags, so an edit to any
 source rebuilds and an unchanged tree reuses the file.
+
+The host C++ under ``kirag_tpu_torch/csrc/host`` (the DPR TSV parser and
+the CPU flat index) is built the same way by :func:`build_host`, one
+``g++`` shared library a source, into the same directory.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+HOST_DIR = CSRC_DIR / "host"
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-fopenmp", "-std=c++17")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +74,7 @@ def library_path() -> Path:
 def _run(cmd) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+        raise RuntimeError(f"{Path(cmd[0]).name} failed with code {proc.returncode}:\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     return proc.stdout + proc.stderr
 
@@ -94,6 +100,72 @@ def build() -> BuildInfo:
         for path in (*objects, tmp):
             path.unlink(missing_ok=True)
     return BuildInfo(out, time.perf_counter() - t0, "".join(logs))
+
+
+def _cpu_flags() -> bytes:
+    """The host CPU's feature flags: ``-march=native`` builds for them, so a
+    library built on another CPU is not reused."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            return next((line for line in f if line.startswith(b"flags")), b"")
+    except OSError:
+        return b""
+
+
+def host_library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    digest.update((HOST_DIR / f"{name}.cpp").read_bytes())
+    digest.update(_cpu_flags())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _host_compilers() -> list:
+    """The C++ compilers to try, in order: ``$CXX``, then g++ on the PATH (a
+    ``$CXX`` may lack OpenMP's runtime, which ``-fopenmp`` needs)."""
+    return list(dict.fromkeys(c for c in (os.environ.get("CXX"), shutil.which("g++")) if c))
+
+
+def build_host(name: str) -> BuildInfo:
+    """Compile ``csrc/host/<name>.cpp`` with HOST_FLAGS by the first of
+    :func:`_host_compilers` that builds it, unless a build of that exact
+    source exists; raises with every compiler's messages when none does."""
+    src = HOST_DIR / f"{name}.cpp"
+    if not src.exists():
+        raise FileNotFoundError(f"host source missing: {src}")
+    out = host_library_path(name)
+    if out.exists():
+        return BuildInfo(out, 0.0, "")
+    compilers = _host_compilers()
+    if not compilers:
+        raise RuntimeError("g++ not found: the host libraries are built with a C++ compiler "
+                           "(set CXX)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    errors = []
+    try:
+        for cxx in compilers:
+            try:
+                log = _run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)])
+            except (RuntimeError, OSError) as e:  # refused the flags, or not runnable
+                errors.append(f"{cxx}: {e}")
+                continue
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+            return BuildInfo(out, time.perf_counter() - t0, f"{cxx}\n{log}")
+    finally:
+        tmp.unlink(missing_ok=True)
+    raise RuntimeError("no C++ compiler built " + src.name + ":\n" + "\n".join(errors))
+
+
+_host_libs: dict = {}
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The host library ``name``, built on first use (once per process)."""
+    with _lock:
+        if name not in _host_libs:
+            _host_libs[name] = ctypes.CDLL(str(build_host(name).path))
+    return _host_libs[name]
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -28,7 +28,10 @@ def _pad_rows(arrays: Dict[str, np.ndarray], target: int) -> Dict[str, np.ndarra
 
 class DenseRetriever:
     def __init__(self, encoder, collator, indexer=None, corpus=None,
-                 batch_size: int = 32, search_mode: str = "exact"):
+                 batch_size: int = 32, temperature: Union[float, str] = 1.0,
+                 search_mode: str = "exact"):
+        """``temperature`` divides :meth:`score`'s logits: a number, or
+        "sqrt" for the square root of the embedding width."""
         if search_mode not in ("exact", "approx"):
             raise ValueError(f"search_mode must be exact|approx, got {search_mode!r}")
         self.encoder = encoder
@@ -36,6 +39,7 @@ class DenseRetriever:
         self.indexer = indexer
         self.corpus = corpus
         self.batch_size = batch_size
+        self.temperature = temperature
         self.search_mode = search_mode
 
     # -- embedding ------------------------------------------------------------
@@ -66,6 +70,32 @@ class DenseRetriever:
         return self._embed_texts(documents, self.collator.encode_doc, max_length)
 
     # -- scoring ---------------------------------------------------------------
+
+    @staticmethod
+    def compute_logits(query_embeddings: np.ndarray, doc_embeddings: np.ndarray) -> np.ndarray:
+        """Similarities dispatched on the shapes: [d] x [d] -> scalar,
+        [d] x [m, d] -> [m], [n, d] x [n, m, d] -> [n, m] (each query against
+        its own documents), [n, d] x [m, d] -> [n, m]."""
+        q, d = np.asarray(query_embeddings), np.asarray(doc_embeddings)
+        if q.ndim == 1 and d.ndim == 1:
+            return np.einsum("d,d->", q, d)
+        if q.ndim == 1 and d.ndim == 2:
+            return np.einsum("d,md->m", q, d)
+        if q.ndim == 2 and d.ndim == 3:
+            if len(q) != len(d):
+                raise ValueError(f"{len(q)} queries for {len(d)} document sets")
+            return np.einsum("nd,nmd->nm", q, d)
+        if q.ndim == 2 and d.ndim == 2:
+            return np.einsum("nd,md->nm", q, d)
+        raise ValueError(f"Invalid embedding shapes: {q.shape} vs {d.shape}")
+
+    def score(self, query_embeddings: np.ndarray, doc_embeddings: np.ndarray) -> np.ndarray:
+        """:meth:`compute_logits` divided by the temperature ("sqrt": by the
+        square root of the embedding width)."""
+        logits = self.compute_logits(query_embeddings, doc_embeddings)
+        if self.temperature == "sqrt":
+            return logits / np.sqrt(np.asarray(query_embeddings).shape[-1])
+        return logits / self.temperature
 
     def encode_score_rank(self, queries: List[str], documents: List[str], k: int,
                           query_maxlength: Optional[int] = None,

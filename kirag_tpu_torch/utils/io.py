@@ -1,5 +1,5 @@
-"""JSON / JSONL reading and writing and stable object hashing (port of
-``load_json``, ``save_json`` and ``hash_object`` from :mod:`kirag_tpu.utils.io`).
+"""JSON / JSONL and TSV reading and writing and stable object hashing (port
+of :mod:`kirag_tpu.utils.io`).
 
 ``hash_object`` hashes a canonical JSON serialization with blake2b and writes
 it in base 58, so the KiRAG loop's triple ids are the reference's, stable
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import hashlib
 import json
-from typing import Any
+from typing import Any, Iterable, List, Sequence, Tuple
 
 _B58_ALPHABET = "123456789ABCDEFGHJKLMNPQRSTUVWXYZabcdefghijkmnopqrstuvwxyz"
 
@@ -65,4 +65,20 @@ def save_json(data: Any, path: str, type: str = "json", use_indent: bool = False
         else:
             for item in data:
                 fout.write(json.dumps(item) + "\n")
+    return path
+
+
+def load_tsv(path: str) -> List[Tuple[str, ...]]:
+    """Every line of a TSV file as a tuple of its tab-separated fields (the
+    newline dropped, no header skipped)."""
+    with open(path, encoding="utf-8") as fin:
+        return [tuple(line.rstrip("\n").split("\t")) for line in fin]
+
+
+def save_tsv(data: Iterable[Sequence[Any]], path: str) -> str:
+    """Write each item as a tab-separated line, floats as ``%.6f``."""
+    with open(path, "w", encoding="utf-8") as fout:
+        for item in data:
+            fout.write("\t".join(f"{x:.6f}" if isinstance(x, float) else str(x)
+                                  for x in item) + "\n")
     return path

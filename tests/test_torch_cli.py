@@ -128,7 +128,9 @@ def test_psg_loader_and_corpora_match_jax(tmp_path):
         "2\tplain text of w4\t(Beta)\n"
         "3\tonly two fields\n"
         "4\t.leading and trailing!\tGamma,\n", encoding="utf-8")
-    assert load_psg_data(str(tsv)) == jax_load_psg_data(str(tsv), native=False)
+    # native=None: the C++ parser's lazy rows, as the reference's default
+    assert list(load_psg_data(str(tsv))) == jax_load_psg_data(str(tsv), native=False)
+    assert load_psg_data(str(tsv), native=False) == jax_load_psg_data(str(tsv), native=False)
     kwargs = {"title_prefix": "title:", "passage_prefix": "text:"}
     corpus_json, _ = make_corpus_json(tmp_path, n=6)
     for name, path in (("wikipedia", str(tsv)), ("hotpotqa", corpus_json),

@@ -42,7 +42,8 @@ def test_every_module_imports_without_jax():
             "kirag_tpu_torch.utils.seeding", "kirag_tpu_torch.cli.train_aligner",
             "kirag_tpu_torch.ops.pq", "kirag_tpu_torch.generation.answer",
             "kirag_tpu_torch.pipeline.selector", "kirag_tpu_torch.cli.qa_eval",
-            "kirag_tpu_torch.cli.construct_kg_corpus"} <= names
+            "kirag_tpu_torch.cli.construct_kg_corpus", "kirag_tpu_torch.data.native_tsv",
+            "kirag_tpu_torch.index.native", "kirag_tpu_torch.models.registry"} <= names
 
 
 def test_no_source_imports_jax():

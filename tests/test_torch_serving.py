@@ -130,8 +130,11 @@ def test_unported_options_raise():
         assert TorchIndexer(8, device="cpu", pallas_select=select).pallas_select == select
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TorchIndexer(8, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchIndexer(8, device="cpu", max_device_rows=64)
+    # streaming is ported (tests/test_torch_streaming.py); with PQ it is
+    # refused, as the reference refuses it
+    assert TorchIndexer(8, device="cpu", max_device_rows=64).max_device_rows == 64
+    with pytest.raises(ValueError, match="streaming"):
+        TorchIndexer(8, device="cpu", compression="pq", max_device_rows=64)
     # product quantization is ported: both requests build a PQ index
     assert TorchIndexer(8, device="cpu", n_subquantizers=8).compression == "pq"
     assert TorchIndexer(8, device="cpu", compression="pq").pq_m == 2

@@ -277,3 +277,38 @@ def test_kv_quant_cache_refused(models):
     with pytest.raises(ValueError, match="tokenizer/vocab"):
         llm.TorchLlamaBackend(tp, cp, 0, draft_params=dp,
                               draft_config=dataclasses.replace(dcp, vocab_size=64))
+
+
+@pytest.mark.parametrize("past", [0, 1, 6])
+def test_resume_at_and_past_the_reserved_budget(models, past):
+    """``speculative_start`` reserves a budget of B tokens. At the budget
+    both packages serve greedy's stream. Past it the reference's
+    ``while_loop`` runs on and JAX drops the writes that leave the reserved
+    cache and stream buffer: one past the budget its stream here is still
+    greedy's, but from B + gamma on it pads with 0 where greedy goes on, so
+    a resume past the budget gives no stream contract. The port refuses
+    every resume past the budget instead."""
+    ids, mask = prompts()
+    budget, gamma = 10, 4
+    total = budget + past
+    greedy_ids, _ = port_greedy(models, ids, mask, total, return_logits=False)
+    served = {}
+    for pkg, mod in (("jax", jax_spec), ("port", speculative)):
+        args = pair(models, pkg, "other")
+        first, st = mod.speculative_start(*args, ids, mask, budget, gamma=gamma)
+        if pkg == "port" and past:
+            with pytest.raises(ValueError, match="passes the budget of 10"):
+                mod.speculative_resume(*args, st, total - 1, total, gamma=gamma)
+            continue
+        seg, _ = mod.speculative_resume(*args, st, total - 1, total, gamma=gamma)
+        served[pkg] = np.concatenate([np.asarray(first), np.asarray(seg)], axis=1)
+    if past == 0:
+        np.testing.assert_array_equal(served["port"], served["jax"])
+        np.testing.assert_array_equal(served["port"], greedy_ids)
+    elif past == 1:
+        np.testing.assert_array_equal(served["jax"], greedy_ids)
+    else:  # the reference's stream buffer ends at column B + gamma
+        np.testing.assert_array_equal(served["jax"][:, :budget + gamma],
+                                      greedy_ids[:, :budget + gamma])
+        assert (served["jax"][:, budget + gamma:] == 0).all()
+        assert (greedy_ids[:, budget + gamma:] != 0).any()
