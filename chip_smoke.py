@@ -109,7 +109,18 @@ weights at E5-large and Llama-3-8B-Instruct width:
   search against the resident index's and the copy the searches hide, the
   server over the streamed index (the resident ids), and the host C++
   (``csrc/host``: the DPR TSV parser against the Python loader, the CPU flat
-  index against the card's exact search).
+  index against the card's exact search);
+- the T5 reader backend (phase 19): a seeded state dict at Flan-T5-XL's
+  published geometry (24 + 24 layers x 2048, gated-gelu, untied lm_head)
+  under HF's names, converted by ``convert_hf_t5_state_dict``; 4 prompts of
+  300-512 tokens through ``TorchT5Backend`` in bf16 (ids the argmax of their
+  logits, a row made to finish early emitting eos, against float32 compute
+  up to each row's first near-tie; encoder and decoder-step times), the
+  port at 2 + 2 layers on the card against the CPU, ``qa_eval.evaluate``
+  over phase 16's run E with an ``AnswerGenerator`` over T5, the bf16 call
+  inside ``utils.tracing.trace``/``annotate`` with a ``StepTimer``, and the
+  host utilities (``preprocessing.odqa.main``, ``WandbTracker`` over a
+  stub). No kernel of the port is on this path.
 
 Every phase raises on failure. The last lines of standard output are K2's
 main-path launches by shape, the card's name and power limit, one JSON
@@ -5335,6 +5346,508 @@ def streaming(work: Path, encoder, collator, text_emb, texts, dev, gen, power) -
     return {"launches": launches, "seconds": seconds}
 
 
+# ----------------------------------------------------------------- phase 19
+
+# google/flan-t5-xl config.json, the standard public T5 reader: seeded
+# weights at its full width and depth (about 2.85 B parameters, 5.7 GB bf16)
+FLAN_T5_XL = {"vocab_size": 32128, "d_model": 2048, "d_kv": 64, "d_ff": 5120,
+              "num_layers": 24, "num_decoder_layers": 24, "num_heads": 32,
+              "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+              "feed_forward_proj": "gated-gelu", "tie_word_embeddings": False,
+              "decoder_start_token_id": 0, "eos_token_id": 1, "pad_token_id": 0,
+              "layer_norm_epsilon": 1e-6}
+T5_EOS = 1
+T5_PROMPTS = (512, 447, 371, 300)  # (a): tokens a row, right-padded to the 512 bucket
+T5_NEW_TOKENS = 32                 # (a) and (c): AnswerGenerator's max_new_tokens
+T5_SMALL_LAYERS = 2                # (b): the card against the CPU at 2 + 2 layers
+T5_SMALL_PROMPTS = (128, 128)      # (b)
+T5_SMALL_STEPS = 8                 # (b)
+T5_EARLY_STEP = 4                  # (a): the step at which a row is made to finish
+T5_TIMED_POSITIONS = (1, 16, 32)   # (a): decoder steps timed over this many positions
+T5_QUEUE_CYCLES = 200_000_000      # (a): a spin of about 100 ms before each timed call
+T5_TOP_OPS = 8                     # (d): the trace's device operations listed
+TRACE_KERNEL_CAT = "kernel"        # (d): the Chrome trace's category of CUDA kernels
+
+
+def t5_state_dict(cfg: dict, gen: torch.Generator, dev, dtype=torch.bfloat16) -> dict:
+    """Seeded weights under HF T5's names on ``dev``, at HF's init scales
+    (`T5PreTrainedModel._init_weights`, factor 1: unit embeddings, q at
+    (d_model d_kv)^-1/2, k/v/wi and the relative-position biases at
+    d_model^-1/2, o at (heads d_kv)^-1/2, wo at d_ff^-1/2) but the untied
+    lm_head at d_model^-1/2 (unit-scale logits); norms 1 + 0.1 N(0, 1) in
+    float32, every other tensor in ``dtype``."""
+    d, inner, ff = cfg["d_model"], cfg["d_kv"] * cfg["num_heads"], cfg["d_ff"]
+
+    def normal(*shape, std):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    def norm():
+        return 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+
+    sd = {"shared.weight": normal(cfg["vocab_size"], d, std=1.0)}
+    if not cfg["tie_word_embeddings"]:
+        sd["lm_head.weight"] = normal(cfg["vocab_size"], d, std=d ** -0.5)
+    gated = cfg["feed_forward_proj"].startswith("gated")
+    for stack, n_layers in (("encoder", cfg["num_layers"]),
+                            ("decoder", cfg["num_decoder_layers"])):
+        for i in range(n_layers):
+            p = f"{stack}.block.{i}.layer"
+            attns = ["0.SelfAttention"] + (["1.EncDecAttention"] if stack == "decoder" else [])
+            for attn in attns:
+                sd[f"{p}.{attn}.q.weight"] = normal(inner, d, std=(d * cfg["d_kv"]) ** -0.5)
+                for name in "kv":
+                    sd[f"{p}.{attn}.{name}.weight"] = normal(inner, d, std=d ** -0.5)
+                sd[f"{p}.{attn}.o.weight"] = normal(d, inner, std=inner ** -0.5)
+                sd[f"{p}.{attn.split('.')[0]}.layer_norm.weight"] = norm()
+            ffp = f"{p}.{len(attns)}"
+            for name in (("wi_0", "wi_1") if gated else ("wi",)):
+                sd[f"{ffp}.DenseReluDense.{name}.weight"] = normal(ff, d, std=d ** -0.5)
+            sd[f"{ffp}.DenseReluDense.wo.weight"] = normal(d, ff, std=ff ** -0.5)
+            sd[f"{ffp}.layer_norm.weight"] = norm()
+        sd[f"{stack}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = normal(
+            cfg["relative_attention_num_buckets"], cfg["num_heads"], std=d ** -0.5)
+        sd[f"{stack}.final_layer_norm.weight"] = norm()
+    return sd
+
+
+class T5StandInTokenizer(ByteLevelTokenizer):
+    """Stand-in for T5's sentencepiece vocabulary (not in the repository):
+    pad 0, eos 1, unk 2, ids 3-258 the UTF-8 bytes, every other id below
+    32,128 one fixed word of WORDS. ``add_special_tokens`` appends eos, as
+    T5's tokenizer does. Callable as the Generator calls a HuggingFace
+    tokenizer."""
+
+    SPECIAL = {"<pad>": 0, "</s>": 1, "<unk>": 2}
+    OFFSET = 3
+    eos_token_id = T5_EOS
+    pad_token_id = 0
+
+    def encode(self, text: str, add_special_tokens: bool = True):
+        ids = [b + self.OFFSET for b in text.encode()]
+        return ids + [self.eos_token_id] if add_special_tokens else ids
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        out, run = [], bytearray()
+        for i in (int(i) for i in ids):
+            if self.OFFSET <= i < self.OFFSET + 256:
+                run.append(i - self.OFFSET)
+                continue
+            out.append(run.decode(errors="replace"))
+            run = bytearray()
+            if i in self.names:
+                out.append("" if skip_special_tokens else self.names[i])
+            else:
+                out.append(" " + WORDS[i % len(WORDS)])
+        out.append(run.decode(errors="replace"))
+        return "".join(out)
+
+
+def right_padded_prompts(lengths, vocab: int, seed: int):
+    rng = np.random.RandomState(seed)
+    ids = np.zeros((len(lengths), max(lengths)), np.int32)
+    mask = np.zeros_like(ids)
+    for i, n in enumerate(lengths):
+        ids[i, :n] = rng.randint(T5StandInTokenizer.OFFSET, vocab, n)
+        mask[i, :n] = 1
+    return ids, mask
+
+
+def t5_step_ms(fn, reps: int = 5) -> float:
+    """Median device ms of ``fn`` by CUDA events, a spin of T5_QUEUE_CYCLES
+    before each call keeping the card busy while the host enqueues it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(T5_QUEUE_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_argmax_and_eos(ids: np.ndarray, logits: np.ndarray, eos: int, what: str) -> None:
+    """Every id is its step's argmax until the row's first eos, and eos
+    after it."""
+    for row in range(len(ids)):
+        hit = np.nonzero(ids[row] == eos)[0]
+        upto = int(hit[0]) + 1 if len(hit) else ids.shape[1]
+        if not (np.array_equal(ids[row, :upto], np.argmax(logits[row, :upto], axis=-1))
+                and (ids[row, upto:] == eos).all()):
+            raise AssertionError(f"{what}, row {row}: an id is not its step's argmax, or a "
+                                 "finished row did not emit eos")
+
+
+def t5_generation(params, config, dev, power) -> dict:
+    """Phase 19 (a): TorchT5Backend at Flan-T5-XL width, bf16, 4 right-padded
+    prompts of 300-512 tokens, 32 new tokens: ids the argmax of their
+    logits; a row made to finish early emits eos; against the same weights
+    at float32 compute up to each row's first near-tie; encoder ms, a
+    decoder step's ms and the call's wall time."""
+    from kirag_tpu_torch.models import t5
+
+    backend = t5.TorchT5Backend(params, config, eos_token_id=T5_EOS, device=dev)
+    ids, mask = right_padded_prompts(T5_PROMPTS, config.vocab_size, SEED)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_ids, got_logits = backend.greedy(ids, mask, T5_NEW_TOKENS)
+        walls.append(time.perf_counter() - t0)
+    if not (got_ids.shape == (len(T5_PROMPTS), T5_NEW_TOKENS)
+            and got_logits.shape == (*got_ids.shape, config.vocab_size)
+            and np.isfinite(got_logits).all()):
+        raise AssertionError(f"T5 bf16: ids {got_ids.shape}, logits {got_logits.shape} or "
+                             "not finite")
+    check_argmax_and_eos(got_ids, got_logits, T5_EOS, "T5 bf16")
+    # a row made to finish early: eos := the token row 0 emits at T5_EARLY_STEP
+    early = int(got_ids[0, T5_EARLY_STEP])
+    first = int(np.argmax(got_ids[0] == early))
+    e_ids, e_logits = t5.t5_greedy_decode(params, ids, mask, config, T5_NEW_TOKENS,
+                                          torch.bfloat16, eos_token_id=early)
+    e_ids, e_logits = e_ids.cpu().numpy(), e_logits.cpu().numpy()
+    check_argmax_and_eos(e_ids, e_logits, early, "T5 bf16, early eos")
+    for row in range(len(e_ids)):
+        hit = np.nonzero(got_ids[row] == early)[0]
+        upto = int(hit[0]) + 1 if len(hit) else T5_NEW_TOKENS
+        if not np.array_equal(e_ids[row, :upto], got_ids[row, :upto]):
+            raise AssertionError(f"T5 early eos, row {row}: ids differ from the first run "
+                                 "before the row finished")
+    if not (e_ids[0, first:] == early).all():
+        raise AssertionError("T5 early eos: row 0 did not finish")
+    # the same weights at float32 compute (each kernel cast to f32 per product)
+    f32_ids, f32_logits = t5.t5_greedy_decode(params, ids, mask, config, T5_NEW_TOKENS,
+                                              torch.float32, eos_token_id=T5_EOS)
+    f32_ids, f32_logits = f32_ids.cpu().numpy(), f32_logits.cpu().numpy()
+    tol = LOGIT_TOL * float(np.abs(f32_logits[:, 0]).max())
+    step0_gap = float(np.abs(got_logits[:, 0] - f32_logits[:, 0]).max())
+    if not step0_gap <= tol:
+        raise AssertionError(f"T5 bf16 against f32: the first step's logits differ by "
+                             f"{step0_gap} > {tol}")
+    agree = near_tie_agreement(got_ids, f32_ids, f32_logits, tol, "T5 bf16 against f32",
+                               through_tie=False)
+    margins = np.diff(np.sort(f32_logits, axis=-1)[..., -2:], axis=-1)[..., 0]
+    log(f"  (a) Flan-T5-XL geometry ({config.num_layers} + {config.num_decoder_layers} layers "
+        f"x {config.d_model}, {config.num_heads} heads x {config.d_kv}, d_ff {config.d_ff} "
+        f"{config.feed_forward_proj}, vocab {config.vocab_size}, untied lm_head), bf16: "
+        f"{len(T5_PROMPTS)} prompts of {list(T5_PROMPTS)} tokens (bucket "
+        f"{next(b for b in backend.prompt_buckets if b >= ids.shape[1])}), {T5_NEW_TOKENS} "
+        "new tokens; every id its step's "
+        f"argmax; eos := row 0's token at step {T5_EARLY_STEP} ({early}) finished row 0 at "
+        f"step {first} and it emitted eos after; against f32 compute: first step's logits "
+        f"within {step0_gap:.4g} (tolerance {tol:.4g} = {LOGIT_TOL} x max |logit|), ids equal "
+        f"for {agree} tokens a row (each up to its first near-tie, {int((margins < tol).sum())} "
+        f"of {margins.size} steps near-ties)")
+
+    ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)
+    mask_t = torch.as_tensor(mask, dtype=torch.long, device=dev)
+    enc_ms = t5_step_ms(lambda: t5.t5_encode(params, ids_t, mask_t, config, torch.bfloat16))
+    with torch.inference_mode():
+        enc = t5.t5_encode(params, ids_t, mask_t, config, torch.bfloat16)
+        enc_valid = mask_t.to(torch.bool)[:, None, None, :]
+        self_bias, causal = t5._decoder_masks(params, T5_NEW_TOKENS, config)
+        dec = torch.as_tensor(np.concatenate([np.zeros((len(ids), 1), np.int64), got_ids], 1),
+                              device=dev)
+
+        def step(n):
+            x = t5._decoder_hidden(params, dec[:, :n], enc, enc_valid, config, torch.bfloat16,
+                                   self_bias[:, :, :n, :n], causal[:, :, :n, :n])
+            return t5._logits(params, x[:, n - 1], config)
+
+        step_ms = {n: t5_step_ms(functools.partial(step, n)) for n in T5_TIMED_POSITIONS}
+    log(f"  [{power}] (a) encoder {enc_ms:.3f} ms ({len(ids)} x {ids.shape[1]} tokens); a "
+        "decoder step over " + ", ".join(f"{n} positions {ms:.3f} ms" for n, ms in
+                                          step_ms.items())
+        + " (CUDA events around one call after a 100 ms spin, median of 5); the call "
+        f"({T5_NEW_TOKENS} steps, host clock to the host read): "
+        + " / ".join(f"{w * 1e3:.1f}" for w in walls)
+        + f" ms, {walls[-1] * 1e3 / T5_NEW_TOKENS:.2f} ms a step")
+    return {"ids": got_ids, "logits": got_logits, "wall_s": walls, "encoder_ms": enc_ms,
+            "step_ms": step_ms, "agree": agree, "backend": backend, "inputs": (ids, mask)}
+
+
+def t5_card_vs_cpu(dev, power) -> None:
+    """Phase 19 (b): at Flan-T5-XL width but 2 + 2 layers, the port at
+    float32 on the card and on the CPU, the same seeded weights, 2 prompts
+    of 128 tokens, 8 steps: ids equal, logits within 1e-4 of the largest."""
+    from kirag_tpu_torch.models import t5
+
+    cfg = {**FLAN_T5_XL, "num_layers": T5_SMALL_LAYERS, "num_decoder_layers": T5_SMALL_LAYERS}
+    config = t5.config_from_hf(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    card = t5.convert_hf_t5_state_dict(t5_state_dict(cfg, gen, dev, torch.float32), config)
+    host = t5._map_tree(lambda x: x.cpu(), card)
+    ids, mask = right_padded_prompts(T5_SMALL_PROMPTS, config.vocab_size, SEED + 1)
+    out = {}
+    for where, params, device in (("card", card, dev), ("cpu", host, "cpu")):
+        backend = t5.TorchT5Backend(params, config, eos_token_id=T5_EOS,
+                                    compute_dtype=torch.float32, device=device)
+        t0 = time.perf_counter()
+        out[where] = (*backend.greedy(ids, mask, T5_SMALL_STEPS), time.perf_counter() - t0)
+    (c_ids, c_logits, c_s), (h_ids, h_logits, h_s) = out["card"], out["cpu"]
+    gap = float(np.abs(c_logits - h_logits).max())
+    tol = ATOL * float(np.abs(h_logits).max())
+    if not (np.array_equal(c_ids, h_ids) and gap <= tol):
+        raise AssertionError(f"T5 f32, card against CPU: ids equal {np.array_equal(c_ids, h_ids)}"
+                             f", logits {gap} > {tol}")
+    log(f"  [{power}] (b) {T5_SMALL_LAYERS} + {T5_SMALL_LAYERS} layers at Flan-T5-XL width, "
+        f"f32, {len(ids)} prompts of {T5_SMALL_PROMPTS[0]} tokens, {T5_SMALL_STEPS} steps: ids "
+        f"equal on the card and the CPU, logits within {gap:.3g} (tolerance {tol:.3g} = {ATOL} "
+        f"x max |logit|); card {c_s:.2f} s, CPU {h_s:.2f} s (host clock)")
+
+
+def t5_reader(run_e_path: str, backend, power) -> dict:
+    """Phase 19 (c): qa_eval.evaluate over run E's results at k = QA_K with
+    an AnswerGenerator(is_chat=False) over (a)'s TorchT5Backend: a prediction
+    for every question, EM and F1."""
+    from kirag_tpu_torch.cli.qa_eval import evaluate
+    from kirag_tpu_torch.generation import AnswerGenerator
+
+    data = json.loads(Path(run_e_path).read_text())
+    reader = AnswerGenerator(T5StandInTokenizer(), backend, model_name="flan-t5-xl",
+                             is_chat=False, max_new_tokens=T5_NEW_TOKENS, batch_size=4)
+    t0 = time.perf_counter()
+    em, f1, preds = evaluate(data, reader, QA_K, batch_size=4)
+    wall = time.perf_counter() - t0
+    if not (len(preds) == len(data) and all(isinstance(p, str) for p in preds)
+            and np.isfinite([em, f1]).all()):
+        raise AssertionError(f"T5 reader: {len(preds)} predictions for {len(data)} questions, "
+                             f"or EM/F1 {em}/{f1}")
+    log(f"  [{power}] (c) qa_eval.evaluate over run E's {len(data)} questions at k={QA_K}, "
+        f"AnswerGenerator(is_chat=False) over TorchT5Backend (Flan-T5-XL geometry, bf16): a "
+        f"prediction each ({[p[:40] for p in preds]!r}), EM {em:.5f} F1 {f1:.5f}; {wall:.2f} s")
+    return {"em": em, "f1": f1, "wall": wall}
+
+
+def kernels_by_range(events, kernels, names) -> dict:
+    """Each kernel of a Chrome trace attributed to the ``names`` span (a
+    ``record_function`` range on the host) in which it was launched (its
+    launch found by correlation id; a CPU op by its own start): {name:
+    [kernels, device us]}."""
+    import bisect
+
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation" and e.get("name") in names)
+    starts = [r[0] for r in ranges]
+    out = {name: [0, 0.0] for name in names}
+    for k in kernels:
+        ts = launched.get(k.get("args", {}).get("correlation"), k["ts"])
+        i = bisect.bisect_right(starts, ts) - 1
+        if i >= 0 and ts <= ranges[i][1]:
+            out[ranges[i][2]][0] += 1
+            out[ranges[i][2]][1] += k.get("dur", 0.0)
+    return out
+
+
+def t5_traced(work: Path, generated: dict, power) -> dict:
+    """Phase 19 (d): (a)'s bf16 call inside the port's trace() and
+    annotate("t5.greedy"), the encoder and each decoder step inside an
+    annotate span and a StepTimer step: the Chrome trace holds the span and
+    CUDA kernels; the top device operations by time, each span's kernels
+    and device time, and the timer's summary."""
+    from kirag_tpu_torch.models import t5
+    from kirag_tpu_torch.utils.tracing import StepTimer, annotate, trace
+
+    timer = StepTimer(log_file=str(work / "t5_steps.jsonl"))
+    encode, hidden = t5.t5_encode, t5._decoder_hidden
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            out = []
+            with annotate(name), timer.step(name, block=out):
+                out.append(fn(*args, **kwargs))
+            return out[0]
+        return run
+
+    t5.t5_encode = timed("t5.encode", encode)
+    t5._decoder_hidden = timed("t5.decoder_step", hidden)
+    ids, mask = generated["inputs"]
+    try:
+        t0 = time.perf_counter()
+        with trace(str(work / "t5_trace")) as log_dir:
+            profile_lead_in()
+            with annotate("t5.greedy"):
+                got_ids, _ = generated["backend"].greedy(ids, mask, T5_NEW_TOKENS)
+        traced_s = time.perf_counter() - t0
+    finally:
+        t5.t5_encode, t5._decoder_hidden = encode, hidden
+        timer.close()
+    if not np.array_equal(got_ids, generated["ids"]):
+        raise AssertionError("T5 traced call: ids differ from (a)'s")
+    paths = sorted(Path(log_dir).glob("*.pt.trace.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"trace(): {len(paths)} Chrome traces under {log_dir}")
+    size = paths[0].stat().st_size
+    events = json.loads(paths[0].read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == "t5.greedy"
+             and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events
+               if e.get("cat") == TRACE_KERNEL_CAT and SPIN_KERNEL not in e["name"]]
+    if not (spans and kernels):
+        raise AssertionError(f"the Chrome trace holds {len(spans)} t5.greedy spans and "
+                             f"{len(kernels)} CUDA kernels")
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0.0)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:T5_TOP_OPS]
+    parts = kernels_by_range(events, kernels, ("t5.encode", "t5.decoder_step"))
+    summary = timer.summary()
+    steps = summary["t5.decoder_step"]
+    lines = (work / "t5_steps.jsonl").read_text().splitlines()
+    if not (summary["t5.encode"]["count"] == 1 and steps["count"] == T5_NEW_TOKENS
+            and len(lines) == 1 + T5_NEW_TOKENS and parts["t5.decoder_step"][0] > 0):
+        raise AssertionError(f"StepTimer: {summary}, {len(lines)} JSONL lines; kernels by "
+                             f"span {parts}")
+    span_ms = spans[0]["dur"] / 1e3
+    (enc_n, enc_us), (dec_n, dec_us) = parts["t5.encode"], parts["t5.decoder_step"]
+    log(f"  [{power}] (d) trace(): {paths[0].name}, {size / 1e6:.1f} MB, {len(events)} events, "
+        f"the t5.greedy span {span_ms:.1f} ms, {len(kernels)} CUDA kernels busy "
+        f"{busy / 1e3:.1f} ms, idle {100 * (1 - busy / 1e3 / span_ms):.1f}% of the span (the "
+        f"StepTimer waits on every step); the encoder {enc_n} kernels {enc_us / 1e3:.2f} ms, a "
+        f"decoder step {dec_n / T5_NEW_TOKENS:.0f} kernels {dec_us / 1e3 / T5_NEW_TOKENS:.3f} "
+        f"ms of device time (mean of {T5_NEW_TOKENS}); the traced call {traced_s:.2f} s with "
+        "the trace's export; top device operations: " + "; ".join(
+            f"{name[:60]} {us / 1e3:.2f} ms ({100 * us / busy:.1f}%)" for name, us in top))
+    log(f"  [{power}] (d) StepTimer: encoder {summary['t5.encode']['mean_s'] * 1e3:.2f} ms; "
+        f"{steps['count']} decoder steps mean {steps['mean_s'] * 1e3:.2f} ms, p50 "
+        f"{steps['p50_s'] * 1e3:.2f}, p95 {steps['p95_s'] * 1e3:.2f}, total "
+        f"{steps['total_s'] * 1e3:.1f} ms (host clock, each step waited on, profiled)")
+    return {"busy_ms": busy / 1e3, "span_ms": span_ms, "top": top, "summary": summary,
+            "encoder_kernels": enc_n, "encoder_device_ms": enc_us / 1e3,
+            "step_kernels": dec_n / T5_NEW_TOKENS,
+            "step_device_ms": dec_us / 1e3 / T5_NEW_TOKENS}
+
+
+def t5_host_checks(work: Path, dev) -> None:
+    """Phase 19 (e): preprocessing.odqa.main over tiny synthetic 2wiki files
+    writes the five outputs and is_comparison_map.pkl, which read back; a
+    WandbTracker over a stub module records a trainer step's record."""
+    import pickle
+
+    from kirag_tpu_torch.preprocessing import odqa
+    from kirag_tpu_torch.training.trainer import BaseTrainer, TrainerConfig
+    from kirag_tpu_torch.utils.wandb_tracker import WandbTracker
+
+    raw, out = work / "odqa_raw", work / "odqa"
+    raw.mkdir()
+
+    def example(qid, a, b, kind):
+        return {"_id": qid, "question": f"Which came first, {a} or {b}?", "answer": a,
+                "type": kind, "context": [[t, [f"{t} opened in {1900 + len(t)}.", "It grew."]]
+                                          for t in (a, b)],
+                "supporting_facts": [[a, 0], [b, 1]]}
+
+    train = [example(f"q{i}", f"Town {i}", f"Town {i + 1}",
+                     "comparison" if i % 2 else "bridge") for i in range(6)]
+    (raw / "train.json").write_text(json.dumps(train))
+    (raw / "dev.json").write_text(json.dumps([example("d0", "Town 2", "City 0", "comparison")]))
+    (raw / "test.json").write_text(json.dumps([]))
+    odqa.main(["--dataset", "2wikimultihopqa", "--raw_dir", str(raw), "--save_dir", str(out),
+               "--num_dev_data", "2"])
+    corpus = json.loads((out / "corpus.json").read_text())
+    qrels = (out / "qrels.tsv").read_text().splitlines()
+    splits = [json.loads((out / f"{s}_qa_pairs.json").read_text()) for s in ("train", "dev",
+                                                                            "test")]
+    with open(out / "is_comparison_map.pkl", "rb") as f:
+        cmp_map = pickle.load(f)
+    if not (len(corpus) == 8 and len(qrels) == 14 and [len(s) for s in splits] == [4, 2, 1]
+            and cmp_map["q1"] and not cmp_map["q0"] and len(cmp_map) == 7):
+        raise AssertionError(f"odqa: {len(corpus)} docs, {len(qrels)} qrels, splits "
+                             f"{[len(s) for s in splits]}, map {cmp_map}")
+
+    class Stub:
+        def __init__(self):
+            self.calls = []
+
+        def init(self, **kw):
+            self.calls.append(("init", kw))
+
+        def log(self, metrics, step=None):
+            self.calls.append(("log", metrics, step))
+
+        def finish(self):
+            self.calls.append(("finish",))
+
+    class Regression(BaseTrainer):
+        def loss_fn(self, model, batch):
+            return torch.mean((model(batch["x"]) - batch["y"]) ** 2)
+
+    class OneBatch(list):
+        def set_epoch(self, epoch):
+            pass
+
+    rng = np.random.RandomState(SEED)
+    stub = Stub()
+    tracker = WandbTracker(project="kirag-smoke", config={"lr": 1e-2}, wandb_module=stub)
+    trainer = Regression(torch.nn.Linear(8, 1, device=dev),
+                         TrainerConfig(learning_rate=1e-2, num_train_epochs=1, log_steps=1,
+                                       save_dir=str(work / "wandb_run")),
+                         OneBatch([{"x": rng.standard_normal((4, 8)).astype(np.float32),
+                                    "y": rng.standard_normal((4, 1)).astype(np.float32)}]),
+                         trackers=[tracker])
+    trainer.train()
+    tracker.finish()
+    logs = [c for c in stub.calls if c[0] == "log"]
+    if not (len(logs) == 1 and logs[0][2] == 1 and np.isfinite(logs[0][1]["loss"])
+            and stub.calls[-1] == ("finish",)):
+        raise AssertionError(f"WandbTracker: {stub.calls}")
+    log(f"  (e) odqa.main (2wikimultihopqa): {len(corpus)} docs, {len(qrels)} qrels, splits "
+        f"{[len(s) for s in splits]}, is_comparison_map.pkl of {len(cmp_map)} read back; "
+        f"WandbTracker over a stub: init, one step's record ({sorted(logs[0][1])} at step "
+        f"{logs[0][2]}) from the port's trainer on the card, finish")
+
+
+def t5_phase(work: Path, run_e_path: str, dev, power) -> dict:
+    """Phase 19: the T5 reader backend at Flan-T5-XL width (seeded weights
+    built on the card under HF's names, through convert_hf_t5_state_dict),
+    (a)-(e); no kernel of the port is on its path."""
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.models import t5
+
+    t_phase = time.perf_counter()
+    config = t5.config_from_hf(FLAN_T5_XL)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = t5_state_dict(FLAN_T5_XL, gen, dev)
+    params = t5.convert_hf_t5_state_dict(sd, config)
+    del sd
+    params = t5.cast_t5_params(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    leaves = []
+    t5._map_tree(leaves.append, params)
+    log(f"  seeded Flan-T5-XL state dict under HF's names (google/flan-t5-xl config.json) "
+        f"built on the card and converted in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(x.numel() for x in leaves) / 1e9:.3f} B parameters, "
+        f"{sum(x.numel() * x.element_size() for x in leaves) / 1e9:.3f} GB; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB while building")
+    reset_launch_counts()
+    generated = t5_generation(params, config, dev, power)
+    t5_card_vs_cpu(dev, power)
+    reader = t5_reader(run_e_path, generated["backend"], power)
+    traced = t5_traced(work, generated, power)
+    launched = {k: v for k, v in launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"phase 19 launched kernels of the port: {launched}")
+    t5_host_checks(work, dev)
+    del params, generated["backend"]
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 19: {seconds:.1f} s; no kernel of the port launched (the T5 path is "
+        "cuBLAS and PyTorch's own kernels)")
+    return {"seconds": seconds, "reader": reader, "traced": traced,
+            "encoder_ms": generated["encoder_ms"], "step_ms": generated["step_ms"],
+            "wall_s": generated["wall_s"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this needs an NVIDIA GPU", file=sys.stderr)
@@ -5458,6 +5971,9 @@ def main() -> int:
         pq_run = pq_cli(work, built, decoded, dev, power)
         del decoded["params"]
         torch.cuda.empty_cache()
+        phase("phase 19: the T5 reader backend at Flan-T5-XL width (seeded, bf16), card "
+              "against CPU, the reader over run E, tracing, the host utilities")
+        t5_phase(work, evaluated["E"]["path"], dev, power)
 
         phase("phase 10: Aligner training (E5-large geometry, f32 weights, bf16 compute)")
         trained = aligner_training(work, built, dev, gen, power)

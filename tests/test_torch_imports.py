@@ -43,7 +43,10 @@ def test_every_module_imports_without_jax():
             "kirag_tpu_torch.ops.pq", "kirag_tpu_torch.generation.answer",
             "kirag_tpu_torch.pipeline.selector", "kirag_tpu_torch.cli.qa_eval",
             "kirag_tpu_torch.cli.construct_kg_corpus", "kirag_tpu_torch.data.native_tsv",
-            "kirag_tpu_torch.index.native", "kirag_tpu_torch.models.registry"} <= names
+            "kirag_tpu_torch.index.native", "kirag_tpu_torch.models.registry",
+            "kirag_tpu_torch.models.t5", "kirag_tpu_torch.utils.tracing",
+            "kirag_tpu_torch.utils.wandb_tracker", "kirag_tpu_torch.preprocessing",
+            "kirag_tpu_torch.preprocessing.odqa"} <= names
 
 
 def test_no_source_imports_jax():
