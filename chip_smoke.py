@@ -133,7 +133,24 @@ weights at E5-large and Llama-3-8B-Instruct width:
   layers (f32) against the unsharded decode; (c) ``torchrun`` of one rank
   running ``cli/retrieve --mesh_data 1`` with run A's arguments (through
   this script's ``--mesh-retrieve``, which hands in phase 9's tokenizers
-  and LLM), its ``--save_file`` equal to run A's.
+  and LLM), its ``--save_file`` equal to run A's;
+- training over a mesh (phase 21, after phase 20): (a) NCCL at world size 1
+  in this process, ``AlignerTrainer(mesh=create_mesh(1, 1),
+  batch_sharding="data")`` at E5-large (bf16 over f32 weights, remat dots,
+  phase 10 (d)'s batch) bitwise the unsharded trainer for 3 micro steps, and
+  ``Encoder.shard_params`` over the 1 x 1 mesh bitwise the unsharded
+  encoder; (b) two spawned ranks on the one card over gloo at E5-large
+  width with 4 of its 24 layers: DP (2, 1) and TP (1, 2) steps at f32 and
+  bf16 (and TP at remat dots) against rank 0's unsharded step, a TP
+  checkpoint resumed bitwise and read by an unsharded trainer,
+  ``save_encoder`` under TP read back, ``Encoder.shard_params`` over (1, 2)
+  against the unsharded encoder, K3's three kernels on each rank's 8 heads;
+  (c) ``torchrun`` of one rank running ``cli/train_aligner --mesh_data 1``
+  with phase 10 (c)'s arguments (through this script's ``--train-mesh``),
+  its losses and saved encoder against phase 10 (c)'s (bitwise up to the
+  first update at a non-zero rate; after it within what two runs of the
+  same CLI in one process differ by: PyTorch's backward sums its repeated
+  indices in an order of its own each run).
 
 Every phase raises on failure. The last lines of standard output are K2's
 main-path launches by shape, the card's name and power limit, one JSON
@@ -2608,8 +2625,9 @@ REMAT_TOL = 1e-6
 GRAD_QUERIES = 8  # the gradient check's batch: 8 queries and their 32 docs
 # (d) the geometry of benchmarks/bench_train.py, the JAX package's training
 # benchmark: 32 queries x 256 tokens, 4 docs each (1 positive, 3 negatives)
-# x 64 tokens, bf16 compute over f32 master weights, 20 steps on one batch
-TRAIN_QUERIES, DOCS_PER_QUERY, TRAIN_Q_LEN, TRAIN_D_LEN, TRAIN_STEPS = 32, 4, 256, 64, 20
+# x 64 tokens, bf16 compute over f32 master weights, 8 steps on one batch
+# (enough for the loss to fall; phase 21 has the time that more would take)
+TRAIN_QUERIES, DOCS_PER_QUERY, TRAIN_Q_LEN, TRAIN_D_LEN, TRAIN_STEPS = 32, 4, 256, 64, 8
 # (c) the CLI's data: 64 training examples (8 micro batches of 8 at the
 # defaults: 4 updates at accumulation 2), 8 dev examples, 14 hard negatives each
 CLI_TRAIN, CLI_DEV, CLI_NEG_TITLES = 64, 8, 7
@@ -3054,7 +3072,7 @@ def train_cli(work: Path, model_dir: Path, dev, power) -> dict:
         f"{statistics.median(seen['step_s']) * 1e3:.1f} ms (median, host clock to the loss "
         f"on the host), first {seen['step_s'][0] * 1e3:.1f} ms")
     del trainer, trained, loaded
-    return {"launches": counts, "wall": wall, "losses": seen["losses"],
+    return {"launches": counts, "wall": wall, "losses": seen["losses"], "metric": metric,
             "step_ms": statistics.median(seen["step_s"]) * 1e3}
 
 
@@ -3105,7 +3123,7 @@ def train_timing(work: Path, model, power, query_bwd_ms: tuple) -> dict:
     """(d) AlignerTrainer.training_step at benchmarks/bench_train.py's
     geometry and optimizer (lr 2e-5 warming up over 1,000 of 10,000
     updates), bf16 compute over f32 master weights, two-call and packed
-    (docs 4 to a 256-token row through K3), each remat mode: 20 steps on
+    (docs 4 to a 256-token row through K3), each remat mode: TRAIN_STEPS on
     one batch from the same weights, whose loss must fall; ms per step, peak
     memory, model-FLOPs per second against 989 TFLOP/s; K3's backward
     kernels' device time a step, as their launches a step (counted) times
@@ -4471,7 +4489,8 @@ def pq_cli(work: Path, built: dict, decoded: dict, dev, power) -> dict:
     phase 6's embeddings as a PQ index (``TorchIndexer(compression="pq")``
     -> ``serialize``; the CLI's ``build_index`` has no PQ choice, as in the
     reference), then ``cli/retrieve --index_folder`` over it for one
-    question with phase 9's LLM."""
+    question with phase 9's LLM, over ``filled_kg_cache``'s copy of run B's
+    cache (the LLM decodes KG triples for the held-out documents only)."""
     from kirag_tpu_torch.cli import retrieve as retrieve_cli
     from kirag_tpu_torch.index import TorchIndexer
     from kirag_tpu_torch.kernels import reset_launch_counts
@@ -4494,8 +4513,8 @@ def pq_cli(work: Path, built: dict, decoded: dict, dev, power) -> dict:
             "Meta-Llama-3-8B-Instruct", "--llm_quant_bits", "4", "--aligner_model", "e5",
             "--aligner_model_name_or_path", str(built["model_dir"]), "--num_turns",
             str(KIRAG_TURNS), "--topk", "10", "--num_beams", "1", "--save_dir", str(work),
-            "--name", "kirag_D",
-            "--save_file", "results.json"]
+            "--name", "kirag_D", "--save_file", "results.json", "--cached_kg_triples_file",
+            str(filled_kg_cache(work, built, "D"))]
     reset_launch_counts()
     t0 = time.perf_counter()
     path = retrieve_cli.main(argv, tokenizer=HashTokenizer(), llm_tokenizer=ByteLevelTokenizer(),
@@ -6279,6 +6298,514 @@ def mesh_phase(work: Path, host_rows: np.ndarray, built: dict, run_a: dict, dev,
     return {"launches": [nccl["launches"], *ranks, retrieved], "nccl": nccl}
 
 
+# ---------------------------------------------------------------- phase 21
+
+TRAIN_MESH_STEPS = 3         # (a): micro steps of each trainer
+TRAIN_MESH_LAYERS = 4        # (b): of E5-large's 24 (the collectives go through the host)
+TRAIN_MESH_TEXTS = 32        # (a), (b): phase 6's first passages, the 128-token bucket
+TRAIN_MESH_TIMEOUT = 240     # s: (b)'s and (c)'s processes
+TP_EMB_TOL, TP_EMB_COS = 1e-5, 0.999  # (b): Encoder.shard_params, f32 / bf16
+# (c) against phase 10 (c), where not bitwise: the losses' relative gap, and
+# each weight within 2 x train_aligner's rate (2e-5) for each of the run's
+# three updates at a non-zero rate (the first update of the warmup is at 0)
+CLI_LOSS_TOL, CLI_PARAM_TOL = 1e-3, 2 * 2e-5 * 3
+
+
+def phase6_passages(built: dict, n: int) -> dict:
+    """The first ``n`` passages of phase 6's TSV, tokenized as the index
+    build tokenized them (numpy ids and mask)."""
+    from kirag_tpu_torch.data import E5Collator
+
+    lines = Path(built["tsv"]).read_text(encoding="utf-8").splitlines()[1:n + 1]
+    texts = [line.split("\t")[1] for line in lines]
+    return E5Collator(HashTokenizer(), query_maxlength=64, doc_maxlength=512).encode_doc(texts)
+
+
+def whole_grads(trainer) -> list:
+    """Wrap ``trainer.optimizer._apply`` so that each update's gradient (the
+    flat vector the optimizer applies: summed over the data axis) is kept in
+    the returned list as the whole model's tensors, gathered over the model
+    axis, in parameter order."""
+    seen = []
+    apply = trainer.optimizer._apply
+
+    def recording(g):
+        pieces = g.split([p.numel() for p in trainer.params])
+        seen.append([trainer._whole(n, x.view_as(p))
+                     for n, x, p in zip(trainer.names, pieces, trainer.params)])
+        return apply(g)
+
+    trainer.optimizer._apply = recording
+    return seen
+
+
+def timed_step(trainer, batch) -> tuple:
+    """(the step's statistics, its host ms to a synchronized end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = trainer.training_step(batch)
+    torch.cuda.synchronize()
+    return stats, 1e3 * (time.perf_counter() - t0)
+
+
+def train_mesh_nccl(work: Path, built: dict, dev, power) -> dict:
+    """Phase 21 (a): NCCL at world size 1 in this process.
+    ``AlignerTrainer(mesh=create_mesh(1, 1), batch_sharding="data")`` at
+    E5-large (phase 6's weights, bf16 compute over f32 weights, remat dots,
+    phase 10 (d)'s batch) takes TRAIN_MESH_STEPS micro steps against the
+    unsharded trainer from the same weights, both under
+    ``torch.use_deterministic_algorithms``: losses and parameters bitwise;
+    then ``Encoder.shard_params`` over the 1 x 1 mesh bitwise the unsharded
+    encoder on phase 6's passages. The NCCL group is destroyed at the end."""
+    import copy
+
+    import torch.distributed as dist
+
+    from kirag_tpu_torch.kernels import reset_launch_counts
+    from kirag_tpu_torch.models import Encoder, load_encoder
+    from kirag_tpu_torch.parallel import create_mesh
+    from kirag_tpu_torch.training import AlignerTrainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    batch = train_batch(TRAIN_QUERIES, np.random.RandomState(SEED + 12), padded=False)
+    passages = phase6_passages(built, TRAIN_MESH_TEXTS)
+    weights = load_encoder(str(built["model_dir"]), "e5", device=dev).model  # f32
+
+    def run(mesh, name):
+        model = copy.deepcopy(weights)
+        trainer = AlignerTrainer(model, TrainerConfig(max_steps=10_000,
+                                                      save_dir=str(work / name)),
+                                 [batch], compute_dtype=torch.bfloat16, remat="dots",
+                                 mesh=mesh, batch_sharding=None if mesh is None else "data")
+        # PyTorch's embedding backward would otherwise sum a repeated index's
+        # rows in an order of its own each run (phase 10 (b))
+        with deterministic_algorithms():
+            steps = [timed_step(trainer, batch) for _ in range(TRAIN_MESH_STEPS)]
+        return steps, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def embed(mesh):
+        encoder = Encoder(copy.deepcopy(weights), "e5", compute_dtype=torch.bfloat16)
+        if mesh is not None:
+            encoder.shard_params(mesh)
+        return encoder(passages["input_ids"], passages["attention_mask"])
+
+    want, want_emb = run(None, "unsharded"), embed(None)
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.FileStore(str(work / "nccl"), 1), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = create_mesh(1, 1)
+        reset_launch_counts()
+        got = run(mesh, "mesh")
+        counts = main_path_counts()
+        got_emb = embed(mesh)
+    finally:
+        dist.destroy_process_group()
+    del weights
+    torch.cuda.empty_cache()
+    losses = [s["loss"] for s, _ in got[0]]
+    if losses != [s["loss"] for s, _ in want[0]]:
+        raise AssertionError(f"(a) losses over the 1 x 1 mesh {losses} are not the unsharded "
+                             f"trainer's {[s['loss'] for s, _ in want[0]]}")
+    moved = [k for k in want[1] if not torch.equal(got[1][k], want[1][k])]
+    if moved:
+        raise AssertionError(f"(a) parameters after {TRAIN_MESH_STEPS} steps differ from the "
+                             f"unsharded trainer's: {moved[:5]}")
+    if not torch.equal(got_emb, want_emb):
+        raise AssertionError("(a) Encoder.shard_params over a 1 x 1 mesh is not bitwise the "
+                             "unsharded encoder")
+    if min(counts[k] for k in K3_NAMES) == 0:
+        raise AssertionError(f"(a) K3 launches {[counts[k] for k in K3_NAMES]}")
+    ms = [t for _, t in got[0]]
+    log(f"  (a) NCCL, world size 1: AlignerTrainer(mesh=create_mesh(1, 1), batch_sharding="
+        f"'data') at E5-large (24 layers x 1024, bf16 compute over f32 weights, remat dots, "
+        f"deterministic algorithms, "
+        f"{TRAIN_QUERIES} queries x {TRAIN_Q_LEN} + {TRAIN_QUERIES * DOCS_PER_QUERY} docs x "
+        f"{TRAIN_D_LEN}), {TRAIN_MESH_STEPS} micro steps: losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + " and every parameter bitwise the unsharded "
+        f"trainer's; Encoder.shard_params over the 1 x 1 mesh bitwise the unsharded encoder on "
+        f"phase 6's first {TRAIN_MESH_TEXTS} passages; K3 launches "
+        f"{[counts[k] for k in K3_NAMES]}")
+    log(f"  [{power}] (a) a step over the mesh {statistics.median(ms[1:]):.1f} ms, unsharded "
+        f"{statistics.median([t for _, t in want[0]][1:]):.1f} ms (host clock, synchronized; "
+        f"median of steps 2-{TRAIN_MESH_STEPS}); {time.perf_counter() - t0:.1f} s")
+    return {"launches": counts, "losses": losses, "ms": ms}
+
+
+def train_mesh_rank(rank: int, store: str, out: str, spec: dict) -> None:
+    """Phase 21 (b), one of MESH_RANKS processes on the one card over gloo
+    (spawned; loads the library the parent built): writes what
+    :func:`train_mesh_rank_work` returns, or the traceback, to ``out``."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        result = train_mesh_rank_work(rank, store, spec)
+    except BaseException:
+        result = {"error": traceback.format_exc()}
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+
+
+def train_mesh_rank_work(rank: int, store: str, spec: dict) -> dict:
+    """Every rank makes the same seeded E5-large-width encoder of
+    TRAIN_MESH_LAYERS layers on the card and the same global batch (phase 10
+    (b)'s GRAD_QUERIES padded queries and their docs). Rank 0 takes the
+    unsharded trainer's step at f32 and bf16; then every rank takes DP
+    (2, 1) and TP (1, 2) steps at f32 and bf16 and TP at remat dots, whose
+    gradients (summed over the data axis, gathered over the model axis)
+    rank 0 holds to the unsharded ones; a TP checkpoint at step 2 resumed,
+    read by an unsharded trainer, and ``save_encoder`` under TP read back;
+    and ``Encoder.shard_params`` over (1, 2) against the unsharded encoder
+    on phase 6's passages. The kernels' launches are the mesh runs' only."""
+    import copy
+
+    import torch.distributed as dist
+
+    from kirag_tpu_torch.kernels import launch_counts, load_library, reset_launch_counts
+    from kirag_tpu_torch.models import BertConfig, BertModel, Encoder, load_encoder
+    from kirag_tpu_torch.models.bert import gather_state_dict
+    from kirag_tpu_torch.parallel import create_mesh, distributed_init
+    from kirag_tpu_torch.training import AlignerTrainer, TrainerConfig
+
+    t0, wall0 = time.perf_counter(), time.time()
+    torch.set_num_threads(2)  # beside (c) on the host's cores
+    dev = distributed_init(num_processes=MESH_RANKS, process_id=rank, backend="gloo",
+                           init_method=f"file://{store}", timeout_s=TRAIN_MESH_TIMEOUT / 2)
+    load_library()
+    work = Path(spec["work"])
+    config = BertConfig(num_hidden_layers=TRAIN_MESH_LAYERS)
+    base = BertModel(config, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED + 21))
+    batch = train_batch(GRAD_QUERIES, np.random.RandomState(SEED + 21), True)
+    names = [n for n, _ in base.named_parameters()]
+    counts, checks, ms = dict.fromkeys(K3_NAMES, 0), {}, {}
+    whole_bytes = sum(p.numel() * p.element_size() for p in base.parameters())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+
+    def add_counts():
+        for k, n in launch_counts().items():
+            counts[k] = counts.get(k, 0) + n
+
+    def trainer(mesh_shape, dtype, remat=False, name="run"):
+        mesh = None if mesh_shape is None else create_mesh(*mesh_shape)
+        return AlignerTrainer(copy.deepcopy(base),
+                              TrainerConfig(max_steps=100, save_dir=str(work / name)),
+                              [batch], compute_dtype=dtype, remat=remat, mesh=mesh,
+                              batch_sharding=None if mesh is None else "data")
+
+    ref = {}
+    if rank == 0:
+        for dtype in (torch.float32, torch.bfloat16):
+            t = trainer(None, dtype, name="unsharded")
+            seen = whole_grads(t)
+            ref[dtype] = (t.training_step(batch)["loss"], seen[0])
+            del t
+    # the TP f32 run goes on to the checkpoint below
+    runs = [((2, 1), torch.float32, False), ((2, 1), torch.bfloat16, False),
+            ((1, 2), torch.bfloat16, False), ((1, 2), torch.float32, "dots"),
+            ((1, 2), torch.float32, False)]
+    for mesh_shape, dtype, remat in runs:
+        t = trainer(mesh_shape, dtype, remat, name="tp_ckpt")
+        seen = whole_grads(t)
+        reset_launch_counts()
+        stats, step_ms = timed_step(t, batch)
+        add_counts()
+        label = f"{'DP' if mesh_shape[0] > 1 else 'TP'} {mesh_shape} {str(dtype)[6:]}" + (
+            f" remat {remat}" if remat else "")
+        if rank == 0:
+            want_loss, want = ref[dtype]
+            loss = stats["loss"]
+            if dtype == torch.float32:
+                gap = grad_gap(seen[0], want, names)
+                ok = gap[0] <= GRAD_TOL_F32 and abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+            else:
+                gap = grad_cosine(seen[0], want, names)
+                ok = gap[0] >= GRAD_COS_BF16 and abs(loss - want_loss) <= 1e-2 * abs(want_loss)
+            if not ok:
+                raise AssertionError(f"(b) {label}: loss {loss} against unsharded {want_loss}; "
+                                     f"gradient {gap[1]} at {gap[0]}")
+            checks[label] = (loss, want_loss, gap)
+        ms[label] = step_ms
+    heads = config.num_attention_heads // t.tp.size
+    tp_bytes = sum(p.numel() * p.element_size() for p in t.model.parameters())
+    del t.optimizer._apply, seen  # the class's own: no more recording
+    torch.cuda.empty_cache()
+
+    # the TP f32 run: checkpoint at step 2, step 3 resumed bitwise; read unsharded
+    reset_launch_counts()
+    _, ms["TP (1, 2) float32, step 2"] = timed_step(t, batch)
+    at_2 = {k: v.clone() for k, v in gather_state_dict(t.model).items()}
+    t.save_checkpoint()
+    third, ms["TP (1, 2) float32, step 3"] = timed_step(t, batch)
+    at_3 = gather_state_dict(t.model)
+    t.save_encoder(str(work / "tp_encoder"))
+    resumed = trainer((1, 2), torch.float32, name="tp_ckpt")
+    if not (resumed.resume_training() and resumed.step == 2):
+        raise AssertionError("(b) no TP checkpoint at step 2 to resume from")
+    again = resumed.training_step(batch)
+    add_counts()
+    again_3 = gather_state_dict(resumed.model)
+    if again["loss"] != third["loss"] or any(not torch.equal(again_3[k], at_3[k]) for k in at_3):
+        raise AssertionError(f"(b) step 3 resumed from the TP checkpoint: loss {again['loss']} "
+                             f"against {third['loss']}, or parameters not bitwise")
+    if rank == 0:
+        loaded = trainer(None, torch.float32, name="tp_ckpt")
+        if not (loaded.resume_training() and all(
+                torch.equal(loaded.model.state_dict()[k], at_2[k]) for k in at_2)):
+            raise AssertionError("(b) the TP checkpoint read by an unsharded trainer is not "
+                                 "the gathered state at step 2")
+        saved = load_encoder(str(work / "tp_encoder"), device=dev).model.state_dict()
+        if saved.keys() != at_3.keys() or any(not torch.equal(saved[k], at_3[k]) for k in at_3):
+            raise AssertionError("(b) save_encoder under TP, read back, is not the gathered "
+                                 "model")
+        checks["resumed_loss"] = again["loss"]
+    del t, resumed
+    torch.cuda.empty_cache()
+
+    # Encoder.shard_params over (1, 2) on phase 6's passages
+    ids, mask = spec["passages"]["input_ids"], spec["passages"]["attention_mask"]
+    for dtype in (torch.float32, torch.bfloat16):
+        reset_launch_counts()
+        got = Encoder(copy.deepcopy(base), "e5", compute_dtype=dtype).shard_params(
+            create_mesh(1, 2))(ids, mask)
+        add_counts()
+        if rank == 0:
+            want = Encoder(copy.deepcopy(base), "e5", compute_dtype=dtype)(ids, mask)
+            if dtype == torch.float32:
+                err = float((got - want).abs().max()) / float(want.abs().max())
+                ok = err <= TP_EMB_TOL
+            else:
+                err = float(torch.sum(got * want, dim=-1).min())
+                ok = err >= TP_EMB_COS
+            if not ok:
+                raise AssertionError(f"(b) Encoder.shard_params (1, 2) {dtype}: {err}")
+            checks[f"encoder {str(dtype)[6:]}"] = err
+    dist.barrier()
+    dist.destroy_process_group()
+    return {"rank": rank, "counts": counts, "checks": checks, "ms": ms, "heads": heads,
+            "bytes": (whole_bytes, tp_bytes), "device": str(dev),
+            "setup_s": t1 - t0, "seconds": time.perf_counter() - t1,
+            "wall": (wall0, time.time())}
+
+
+def train_mesh_gloo_start(work: Path, built: dict) -> list:
+    """Phase 21 (b)'s start: MESH_RANKS spawned ranks on the one card over
+    gloo (:func:`train_mesh_rank_work`), in the background. Returns the
+    processes."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    spec = {"work": str(work), "passages": phase6_passages(built, TRAIN_MESH_TEXTS)}
+    store = str((work / "gloo_train").resolve())
+    procs = [ctx.Process(target=train_mesh_rank,
+                         args=(r, store, str(work / f"train_rank_{r}.pkl"), spec))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def train_mesh_gloo_check(procs: list, work: Path, started: float, power) -> dict:
+    """Phase 21 (b)'s end: every rank's checks passed and K3's kernels ran
+    on each. Returns the ranks' main-path launches."""
+    import pickle
+
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, TRAIN_MESH_TIMEOUT - (time.perf_counter() - started)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for r in range(MESH_RANKS):
+        out = work / f"train_rank_{r}.pkl"
+        if out.exists():
+            with open(out, "rb") as f:
+                ranks.append(pickle.load(f))
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors or len(ranks) < MESH_RANKS or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"(b): rank exit codes {[p.exitcode for p in procs]} (None: "
+                             f"killed after {TRAIN_MESH_TIMEOUT} s)\n" + "\n".join(errors))
+    idle = [(r["rank"], k) for r in ranks for k in K3_NAMES if r["counts"][k] == 0]
+    if idle:
+        raise AssertionError(f"(b): K3 kernels not launched: {idle}")
+    r0 = ranks[0]
+    c = r0["checks"]
+    log(f"  (b) {MESH_RANKS} ranks on one card over gloo (each process's tensors on "
+        f"{r0['device']}; gloo copies every collective through host memory): E5-large width "
+        f"(1024, 16 heads), {TRAIN_MESH_LAYERS} of 24 layers, {GRAD_QUERIES} padded queries "
+        f"x {TRAIN_Q_LEN} and {GRAD_QUERIES * DOCS_PER_QUERY} docs x {TRAIN_D_LEN}; against "
+        "rank 0's unsharded step on the same global batch: " + "; ".join(
+            f"{label} loss {v[0]:.6f} ({v[1]:.6f}), worst gradient {v[2][1]} "
+            + (f"cosine {v[2][0]:.6f}" if "bfloat16" in label else f"within {v[2][0]:.3g}")
+            for label, v in c.items() if label.startswith(("DP", "TP")))
+        + f" (f32 tolerance {GRAD_TOL_F32} of each norm, bf16 cosine >= {GRAD_COS_BF16})")
+    log(f"  (b) TP checkpoint at step 2: step 3 resumed bitwise the uninterrupted one (loss "
+        f"{c['resumed_loss']:.6f}), the checkpoint read by an unsharded trainer equal to the "
+        f"gathered state, save_encoder under TP read back equal; Encoder.shard_params (1, 2) "
+        f"on phase 6's first {TRAIN_MESH_TEXTS} passages: f32 within "
+        f"{c['encoder float32']:.3g} of the largest magnitude (tolerance {TP_EMB_TOL}), bf16 "
+        f"cosine >= {c['encoder bfloat16']:.6f} ({TP_EMB_COS}); K3 [forward, dK/dV, dQ] "
+        f"launches a rank {[[r['counts'][k] for k in K3_NAMES] for r in ranks]} on "
+        f"{r0['heads']} of 16 heads; each TP rank holds {r0['bytes'][1] / 1e9:.3f} of "
+        f"{r0['bytes'][0] / 1e9:.3f} GB of parameters")
+    log(f"  [{power}] (b) rank 0, one step (host clock, synchronized; gloo through the host, "
+        "so these say nothing of NCCL or NVLink; beside (c)): " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in r0["ms"].items())
+        + f"; its ranks' work {r0['seconds']:.1f} s after {r0['setup_s']:.1f} s of set-up")
+    return {"launches": [r["counts"] for r in ranks], "ms": r0["ms"],
+            "wall": (min(r["wall"][0] for r in ranks), max(r["wall"][1] for r in ranks))}
+
+
+def train_mesh_cli(spec_path: str) -> int:
+    """Phase 21 (c), under torchrun: ``kirag_tpu_torch.cli.train_aligner.main``
+    with phase 10 (c)'s arguments and ``--mesh_data 1``, each micro step's
+    loss recorded; writes them, the result and the launches to the spec's
+    ``out``."""
+    from kirag_tpu_torch.cli import train_aligner
+    from kirag_tpu_torch.kernels import load_library, reset_launch_counts
+    from kirag_tpu_torch.training import aligner
+
+    spec = json.loads(Path(spec_path).read_text())
+    t0, wall0 = time.perf_counter(), time.time()
+    load_library()
+    losses = []
+    step_fn = aligner.AlignerTrainer.training_step
+
+    def step(self, collated):
+        stats = step_fn(self, collated)
+        losses.append(stats["loss"])
+        return stats
+
+    aligner.AlignerTrainer.training_step = step
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    result = train_aligner.main(spec["argv"], tokenizer=HashTokenizer())
+    Path(spec["out"]).write_text(json.dumps({
+        "result": result, "losses": losses, "counts": main_path_counts(),
+        "run_s": time.perf_counter() - t1, "setup_s": t1 - t0,
+        "world": os.environ.get("WORLD_SIZE"), "wall": (wall0, time.time())}))
+    return 0
+
+
+def train_mesh_torchrun(work: Path, built: dict):
+    """Phase 21 (c)'s start: ``torchrun --standalone --nproc_per_node 1`` of
+    this script's ``--train-mesh`` (:func:`train_mesh_cli`), in the
+    background, with phase 10 (c)'s arguments and ``--mesh_data 1``. Returns
+    the process and its spec."""
+    argv = ["--retriever_model_name_or_path", str(built["model_dir"]), "--data_folders",
+            str(work / "aligner_data" / "hotpotqa"), "--num_train_epochs", "1",
+            "--save_dir", str(work / "train_mesh"), "--name", "run", "--mesh_data", "1"]
+    spec = {"argv": argv, "out": str(work / "train_mesh_out.json"),
+            "log": str(work / "train_torchrun.log")}
+    (work / "train_mesh.json").write_text(json.dumps(spec))
+    with open(spec["log"], "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", str(Path(__file__).resolve()), "--train-mesh", str(work / "train_mesh.json")],
+            stdout=log_file, stderr=subprocess.STDOUT, cwd=str(Path(__file__).resolve().parent))
+    return proc, spec
+
+
+def train_mesh_torchrun_check(proc, spec: dict, cli: dict, work: Path, started: float,
+                              power) -> dict:
+    """Phase 21 (c)'s end: the run's losses and saved encoder against phase
+    10 (c)'s (bitwise expected). Returns its main-path launches."""
+    with np.load(work / "aligner" / "run" / "encoder" / "params.npz") as b:
+        want_params = {k: b[k] for k in b.files}  # read while the run goes on
+    try:
+        proc.wait(timeout=max(1.0, TRAIN_MESH_TIMEOUT - (time.perf_counter() - started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"(c): torchrun still running after {TRAIN_MESH_TIMEOUT} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"(c): torchrun exited {proc.returncode}:\n"
+                             + Path(spec["log"]).read_text()[-3000:])
+    out = json.loads(Path(spec["out"]).read_text())
+    got, want = out["losses"], cli["losses"]
+    with np.load(Path(out["result"]["encoder_dir"]) / "params.npz") as a:
+        got_params = {k: a[k] for k in a.files}
+    if got_params.keys() != want_params.keys():
+        raise AssertionError(f"(c): the saved encoder's leaves {sorted(got_params)[:5]} ... "
+                             "are not phase 10 (c)'s")
+    param_gap = max(float(np.abs(got_params[k] - v).max()) for k, v in want_params.items())
+    same = param_gap == 0
+    first = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y), None)
+    loss_gap = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    # bitwise is expected; a difference must stay within what Adam makes of
+    # the gradients' last bits (PyTorch's embedding backward sums a repeated
+    # index's rows in an order that changes from run to run, phase 10 (b)):
+    # each element moves at most 2 x the rate a non-zero update
+    if not (len(got) == len(want) and loss_gap <= CLI_LOSS_TOL
+            and param_gap <= CLI_PARAM_TOL):
+        raise AssertionError(f"(c): losses {got} against phase 10 (c)'s {want} (relative gap "
+                             f"{loss_gap} > {CLI_LOSS_TOL}?), the saved encoder within "
+                             f"{param_gap} (> {CLI_PARAM_TOL}?)")
+    if first is None and same:
+        same_text = "losses and the saved encoder bitwise phase 10 (c)'s"
+    else:
+        same_text = (f"losses bitwise phase 10 (c)'s up to micro step {first or len(got)}, then "
+                     f"within "
+                     f"{loss_gap:.3g} of them (tolerance {CLI_LOSS_TOL}); the saved encoder "
+                     f"within {param_gap:.3g} of phase 10 (c)'s (tolerance {CLI_PARAM_TOL}); "
+                     f"dev MRR {out['result']['final_metric']:.4f} against {cli['metric']:.4f}")
+    idle = [k for k in K3_NAMES if out["counts"][k] == 0]
+    if idle:
+        raise AssertionError(f"(c): kernels of the path were not launched: {idle}")
+    log(f"  (c) torchrun --standalone --nproc_per_node 1 (WORLD_SIZE {out['world']}) of "
+        f"cli/train_aligner --mesh_data 1 with phase 10 (c)'s arguments: {len(got)} micro "
+        f"steps, {same_text}; K3 launches {[out['counts'][k] for k in K3_NAMES]}")
+    log(f"  [{power}] (c) the run {out['run_s']:.1f} s after {out['setup_s']:.1f} s of set-up, "
+        f"beside (a) and (b)")
+    return {"launches": out["counts"], "wall": out["wall"]}
+
+
+def train_mesh_phase(work: Path, built: dict, cli: dict, dev, power) -> dict:
+    """Phase 21, training over a mesh: (c) starts in the background, (a) runs
+    here, then (b)'s ranks; (b) and (c) are checked last. Returns each run's
+    main-path launches."""
+    started, wall0 = time.perf_counter(), time.time()
+    mesh_dir = work / "train_mesh_phase"
+    mesh_dir.mkdir()
+    proc, spec = train_mesh_torchrun(work, built)
+    ranks = []
+    try:
+        # (a) while (c) starts; (b)'s spawns after it, so that the three
+        # processes' start-ups do not share the host's cores at once
+        nccl = train_mesh_nccl(mesh_dir, built, dev, power)
+        a_end = time.time()
+        ranks = train_mesh_gloo_start(mesh_dir, built)
+        gloo = train_mesh_gloo_check(ranks, mesh_dir, started, power)
+        cli_run = train_mesh_torchrun_check(proc, spec, cli, work, started, power)
+    finally:
+        for p in ranks:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - started
+
+    def span(w):
+        return f"{w[0] - wall0:.1f}-{w[1] - wall0:.1f} s"
+
+    log(f"  phase 21 in all {seconds:.1f} s: (a) 0.0-{a_end - wall0:.1f} s, (b)'s ranks "
+        f"{span(gloo['wall'])} and (c)'s run {span(cli_run['wall'])} into the phase (host "
+        "clock)")
+    return {"launches": [nccl["launches"], *gloo["launches"], cli_run["launches"]],
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this needs an NVIDIA GPU", file=sys.stderr)
@@ -6455,6 +6982,10 @@ def main() -> int:
         phase(f"phase 20: the mesh (NCCL at world size 1; {MESH_RANKS} ranks on the card over "
               "gloo with sharded searches and Llama TP; torchrun of cli/retrieve --mesh_data 1)")
         meshed = mesh_phase(work, host_rows, built, kirag["A"], dev, gen, power)
+        phase(f"phase 21: training over a mesh (NCCL at world size 1; {MESH_RANKS} ranks on the "
+              "card over gloo with DP and TP steps at E5-large width; torchrun of "
+              "cli/train_aligner --mesh_data 1)")
+        train_meshed = train_mesh_phase(work, built, trained["cli"], dev, power)
         del encoder, model, host_rows
         torch.cuda.empty_cache()
         phase("phase 11 (c): build_index --compression int4 and int8 over phase 6's shards")
@@ -6485,7 +7016,7 @@ def main() -> int:
         variants["launches"], dpr["int4"]["variants"]["launches"]] + [
         s["launches"] for s in served_v.values()] + [
         evaluated[run]["launches"] for run in ("kg", "E", "qa", "selector")] + spec_pool[
-        "launches"] + streamed["launches"] + meshed["launches"]
+        "launches"] + streamed["launches"] + meshed["launches"] + train_meshed["launches"]
     launches = {k: sum(c[k] for c in paths) for k in paths[0]}
     launches["int4_matmul"] += decoded["launches"]
     idle = [k for k, n in launches.items() if n == 0]
@@ -6735,4 +7266,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-retrieve"]:  # phase 20 (c)'s rank, under torchrun
         sys.exit(mesh_retrieve(sys.argv[2]))
+    if sys.argv[1:2] == ["--train-mesh"]:  # phase 21 (c)'s rank, under torchrun
+        sys.exit(train_mesh_cli(sys.argv[2]))
     sys.exit(main())

@@ -33,10 +33,12 @@ def add_corpus_args(parser: argparse.ArgumentParser) -> None:
 
 def add_mesh_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--mesh_data", type=int, default=None,
-                        help="data-axis size: the ranks the index's rows shard over "
-                             "(default: every rank that --mesh_model leaves)")
+                        help="data-axis size: the ranks the index's rows (and a training "
+                             "batch's rows) shard over (default: every rank that "
+                             "--mesh_model leaves)")
     parser.add_argument("--mesh_model", type=int, default=1,
-                        help="model (TP) axis size; the index is replicated over it")
+                        help="model (TP) axis size: the ranks the encoder's weights shard "
+                             "over; the index is replicated over it")
 
 
 def build_mesh(args):
@@ -53,12 +55,13 @@ def build_mesh(args):
     return create_mesh(data=args.mesh_data, model=args.mesh_model)
 
 
-def check_single_device(args) -> None:
-    """Raise for a mesh: this CLI runs on one GPU (its mesh is not ported yet)."""
-    if args.mesh_model != 1 or args.mesh_data not in (None, 1):
-        raise NotImplementedError(
-            f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model}: a device mesh "
-            "is not ported yet (ROADMAP.md §A 16: multi-GPU search and training)")
+def rank_device(mesh, device=None):
+    """An entry point's device under ``mesh``: ``device`` when given, else
+    the rank's GPU (``distributed_init`` made it current) over a mesh on a
+    GPU machine, else None (the entry point's own default)."""
+    if device is None and mesh is not None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def build_tokenizer(args):

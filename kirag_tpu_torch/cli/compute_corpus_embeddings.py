@@ -8,10 +8,19 @@ and ``passage_ids`` (object array) of ``--num_passage_per_index_file`` rows
 each. The encoder runs on the GPU; on the card every batch whose bucket
 length is a multiple of 128 goes through the flash attention kernel.
 
+``--mesh_data`` and ``--mesh_model`` build a device mesh over the ranks
+torchrun starts, one GPU a rank (NCCL): as in the JAX CLI, a model axis of
+more than one rank shards the encoder's weights (tensor parallelism) and the
+data axis replicates the work; every rank runs the whole loop and only the
+mesh's first rank writes the shards. ``--process_index``/``--process_count``
+split the corpus between separate jobs, as before.
+
 Usage:
   python -m kirag_tpu_torch.cli.compute_corpus_embeddings \\
     --retriever_model_name_or_path /ckpts/e5-large-v2 \\
     --corpus 2wikimultihopqa --save_dir out --name e5_2wiki
+  torchrun --nproc_per_node 2 -m kirag_tpu_torch.cli.compute_corpus_embeddings \\
+    --mesh_model 2 ...
 """
 
 from __future__ import annotations
@@ -31,8 +40,9 @@ from kirag_tpu_torch.cli.common import (
     build_collator,
     build_corpus,
     build_encoder,
+    build_mesh,
     build_tokenizer,
-    check_single_device,
+    rank_device,
 )
 from kirag_tpu_torch.utils.logging import setup_logger
 
@@ -55,8 +65,12 @@ def setup_parser(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def cal_doc_embeddings(args, encoder, collator, corpus, save_path: str) -> None:
-    os.makedirs(save_path, exist_ok=True)
+def cal_doc_embeddings(args, encoder, collator, corpus, save_path: str,
+                       writer: bool = True) -> None:
+    """Embed this process's slice of ``corpus`` and write its shards (only
+    where ``writer``: under a mesh every rank embeds, the first writes)."""
+    if writer:
+        os.makedirs(save_path, exist_ok=True)
     batch_size = args.per_device_batch_size
     shard_rows = args.num_passage_per_index_file
 
@@ -83,8 +97,9 @@ def cal_doc_embeddings(args, encoder, collator, corpus, save_path: str) -> None:
         if done - shard_start >= shard_rows or done == hi:
             emb_arr = np.concatenate(buf_emb, axis=0)
             shard_file = os.path.join(save_path, f"corpus_embeddings_{shard_start}_{done}.npz")
-            np.savez(shard_file, embeddings=emb_arr,
-                     passage_ids=np.asarray(buf_ids, dtype=object))
+            if writer:
+                np.savez(shard_file, embeddings=emb_arr,
+                         passage_ids=np.asarray(buf_ids, dtype=object))
             logger.info(f"wrote {shard_file} ({len(emb_arr)} rows, "
                         f"{(done - lo) / max(time.time() - t0, 1e-9):.1f} psg/s cumulative)")
             buf_emb, buf_ids, shard_start = [], [], done
@@ -93,19 +108,25 @@ def cal_doc_embeddings(args, encoder, collator, corpus, save_path: str) -> None:
 def main(argv: Optional[Sequence[str]] = None, *, tokenizer=None, device=None) -> str:
     """Run the CLI on ``argv`` (default: the command line). ``tokenizer``
     replaces the HF tokenizer the arguments name; ``device`` is the
-    encoder's (default: the GPU). Returns the shard directory."""
+    encoder's (default: the GPU, over a mesh the rank's own). Returns the
+    shard directory, which only the mesh's first rank writes."""
     args = setup_parser(argv)
-    check_single_device(args)
+    mesh = build_mesh(args)
+    device = rank_device(mesh, device)
+    writer = mesh is None or mesh.rank == 0
     save_path = os.path.join(args.save_dir, args.name)
-    os.makedirs(save_path, exist_ok=True)
-    setup_logger(os.path.join(save_path, "compute_corpus_embeddings.log"))
+    if writer:
+        os.makedirs(save_path, exist_ok=True)
+        setup_logger(os.path.join(save_path, "compute_corpus_embeddings.log"))
 
     tokenizer = tokenizer if tokenizer is not None else build_tokenizer(args)
     encoder = build_encoder(args, device=device)
+    if mesh is not None and mesh.size("model") > 1:
+        encoder.shard_params(mesh)
     collator = build_collator(args, tokenizer)
     corpus = build_corpus(args)
     logger.info(f"embedding {len(corpus)} passages ...")
-    cal_doc_embeddings(args, encoder, collator, corpus, save_path)
+    cal_doc_embeddings(args, encoder, collator, corpus, save_path, writer)
     return save_path
 
 

@@ -34,8 +34,6 @@ import logging
 import os
 from typing import Optional, Sequence
 
-import torch
-
 from kirag_tpu_torch.cli.common import (
     add_corpus_args,
     add_encoder_args,
@@ -46,6 +44,7 @@ from kirag_tpu_torch.cli.common import (
     build_llm_tokenizer,
     build_mesh,
     build_tokenizer,
+    rank_device,
 )
 from kirag_tpu_torch.kg.triples import sent_tokenize
 from kirag_tpu_torch.utils.io import load_json, save_json
@@ -255,8 +254,7 @@ def main(argv: Optional[Sequence[str]] = None, *, tokenizer=None, llm_tokenizer=
     mesh's first rank writes."""
     args = setup_parser(argv)
     mesh = build_mesh(args)
-    if device is None and mesh is not None and torch.cuda.is_available():
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = rank_device(mesh, device)
     writer = mesh is None or mesh.rank == 0
     checkpoint_path = os.path.join(args.save_dir, args.name)
     if writer:

@@ -4,15 +4,24 @@
 The reference's defaults: lr 2e-5, weight decay 0.01, accumulation 2, clip
 1.0, 10 epochs, warmup 0.1, batch 8 examples of 2 positive chains and 10
 negatives each, temperature 0.01, query/doc max lengths 256/64, bf16
-compute over f32 master weights, ``--remat dots``. One GPU: a mesh of more
-devices raises (ROADMAP.md §A 16). The encoder is loaded in f32 whatever
-``--compute_dtype`` says; the compute dtype is the forward's.
+compute over f32 master weights, ``--remat dots``. The encoder is loaded
+in f32 whatever ``--compute_dtype`` says; the compute dtype is the
+forward's.
+
+``--mesh_data`` and ``--mesh_model`` build a device mesh over the ranks
+torchrun starts, one GPU a rank (NCCL): each batch's rows shard over the
+data axis (``--per_device_batch_size`` is the global batch, as in the JAX
+CLI) and a model axis of more than one rank shards the encoder's weights.
+Every rank runs the loop; only the mesh's first rank writes the checkpoints,
+the metrics and the saved encoder.
 
 Usage:
   python -m kirag_tpu_torch.cli.train_aligner \\
     --retriever_model_name_or_path /ckpts/e5-large-v2 \\
     --data_folders data/hotpotqa data/2wikimultihopqa \\
     --save_dir checkpoint --name aligner
+  torchrun --nproc_per_node 4 -m kirag_tpu_torch.cli.train_aligner \\
+    --mesh_data 2 --mesh_model 2 ...
 """
 
 from __future__ import annotations
@@ -28,8 +37,9 @@ from kirag_tpu_torch.cli.common import (
     add_encoder_args,
     add_mesh_args,
     build_collator,
+    build_mesh,
     build_tokenizer,
-    check_single_device,
+    rank_device,
 )
 from kirag_tpu_torch.utils.logging import setup_logger
 
@@ -71,13 +81,16 @@ def main(argv: Optional[Sequence[str]] = None, *, tokenizer=None,
          device=None) -> Dict[str, Any]:
     """Run the CLI on ``argv`` (default: the command line). ``tokenizer``
     replaces the HF tokenizer the arguments name; ``device`` is the
-    trainer's (default: the GPU). Returns the trainer's result (final eval
-    metric, steps) and ``encoder_dir``, where the trained encoder is saved."""
+    trainer's (default: the GPU, over a mesh the rank's own). Returns the
+    trainer's result (final eval metric, steps) and ``encoder_dir``, where
+    the trained encoder is saved (by the mesh's first rank)."""
     args = setup_parser(argv)
-    check_single_device(args)
+    mesh = build_mesh(args)
+    device = rank_device(mesh, device)
+    writer = mesh is None or mesh.rank == 0
     save_dir = os.path.join(args.save_dir, args.name)
     os.makedirs(save_dir, exist_ok=True)
-    setup_logger(os.path.join(save_dir, "train_aligner.log"))
+    setup_logger(os.path.join(save_dir, "train_aligner.log"), process_index=0 if writer else 1)
 
     from kirag_tpu_torch.data import KGChainRetrieverSeqSampleDataset
     from kirag_tpu_torch.models.encoders import RETRIEVER_NAME_TO_ENCODER, load_encoder
@@ -113,7 +126,8 @@ def main(argv: Optional[Sequence[str]] = None, *, tokenizer=None,
     trainer = AlignerTrainer(
         encoder.model, config, train_loader, eval_loader, encoder_type=encoder_type,
         temperature=args.temperature, compute_dtype=dtype,
-        remat={"none": False, "full": True}.get(args.remat, "dots"))
+        remat={"none": False, "full": True}.get(args.remat, "dots"), mesh=mesh,
+        batch_sharding=None if mesh is None else "data")
     result = trainer.train(resume=args.resume)
     logger.info(f"training done: {result}")
     encoder_dir = os.path.join(save_dir, "encoder")

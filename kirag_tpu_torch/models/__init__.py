@@ -4,7 +4,9 @@ from kirag_tpu_torch.models.bert import (
     bert_encode,
     config_from_hf,
     convert_hf_state_dict,
+    param_shardings,
     params_from_jax,
+    shard_bert_model,
 )
 from kirag_tpu_torch.models.encoders import (
     ENCODER_POOLING,
@@ -31,7 +33,9 @@ __all__ = [
     "bert_encode",
     "config_from_hf",
     "convert_hf_state_dict",
+    "param_shardings",
     "params_from_jax",
+    "shard_bert_model",
     "ENCODER_POOLING",
     "RETRIEVER_NAME_TO_ENCODER",
     "Encoder",

@@ -16,6 +16,16 @@ f32. Attention has the reference's two paths:
 64 (the reference's TPU gate read as "on the card"), else ``"xla"``.
 Parameters are kept in f32; linear layers cast their weights to the
 activation dtype when called (a no-op once :class:`Encoder` has cast them).
+
+Tensor parallelism (:func:`shard_bert_model`, the reference's Megatron layout
+of :func:`param_shardings`): over a mesh's model axis of M ranks, query,
+key, value and the MLP's intermediate projection are column-parallel (each
+rank nh/M heads and I/M columns), the attention output and the MLP output
+row-parallel (each rank a partial product over its input range, summed over
+the axis, then the replicated bias added once); embeddings, LayerNorms and
+the pooler replicate. A fused QKV shard is ``[q_r; k_r; v_r]``, each h/M
+rows. Every rank returns the same full hidden states; a forward (and a
+backward) over a sharded model is a collective of the model axis.
 """
 
 from __future__ import annotations
@@ -30,6 +40,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from kirag_tpu_torch.kernels.attention import flash_attention
+from kirag_tpu_torch.parallel.mesh import (
+    TensorParallel,
+    all_gather_list,
+    copy_to_model,
+    reduce_from_model,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +69,21 @@ class BertConfig:
 
 def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+def _to_model(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """The input of a column-parallel projection (its gradient summed over
+    the model axis)."""
+    return x if tp is None else copy_to_model(x, tp.mesh, tp.axis)
+
+
+def _row_dense(x: torch.Tensor, lin: nn.Linear, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """A row-parallel projection: the ranks' partial products summed, then
+    the replicated bias added once."""
+    if tp is None:
+        return _dense(x, lin)
+    partial = F.linear(x, lin.weight.to(x.dtype))
+    return reduce_from_model(partial, tp.mesh, tp.axis) + lin.bias.to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -95,15 +126,20 @@ class Attention(nn.Module):
         self.output_layer_norm = LayerNorm(h, config.layer_norm_eps, device=device)
 
     def forward(self, x: torch.Tensor, mask_bias: Optional[torch.Tensor] = None,
-                segment_ids: Optional[torch.Tensor] = None, impl: str = "xla") -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None, impl: str = "xla",
+                tp: Optional[TensorParallel] = None) -> torch.Tensor:
         """``impl="xla"`` takes the additive ``mask_bias``, ``"flash"`` the
-        [B, T] ``segment_ids``."""
-        b, t, h = x.shape
-        nh, hd = self.config.num_attention_heads, self.config.head_dim
+        [B, T] ``segment_ids``; over ``tp`` this rank's heads only."""
+        b, t, _ = x.shape
+        nh = self.config.num_attention_heads // (1 if tp is None else tp.size)
+        hd = self.config.head_dim
+        h = nh * hd
+        x_in = _to_model(x, tp)
         if self.config.fused_qkv:
-            q, k, v = _dense(x, self.qkv).split(h, dim=-1)
+            q, k, v = _dense(x_in, self.qkv).split(h, dim=-1)
         else:
-            q, k, v = (_dense(x, self.query), _dense(x, self.key), _dense(x, self.value))
+            q, k, v = (_dense(x_in, self.query), _dense(x_in, self.key),
+                       _dense(x_in, self.value))
         q = q.view(b, t, nh, hd)
         k = k.view(b, t, nh, hd)
         v = v.view(b, t, nh, hd)
@@ -111,13 +147,13 @@ class Attention(nn.Module):
             # [b, nh, t, hd] views of the projection: the kernel reads them by strides
             ctx = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                   segment_ids, 1.0 / math.sqrt(hd))
-            return _dense(ctx.transpose(1, 2).reshape(b, t, h), self.output)
+            return _row_dense(ctx.transpose(1, 2).reshape(b, t, h), self.output, tp)
         # [b, nh, t, t] logits and softmax in f32
         logits = torch.einsum("bqnd,bknd->bnqk", q.to(torch.float32), k.to(torch.float32))
         logits = logits / math.sqrt(hd) + mask_bias
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         ctx = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, t, h)
-        return _dense(ctx, self.output)
+        return _row_dense(ctx, self.output, tp)
 
 
 class Mlp(nn.Module):
@@ -136,11 +172,12 @@ class Layer(nn.Module):
         self.mlp = Mlp(config, device=device)
 
     def forward(self, x: torch.Tensor, mask_bias: Optional[torch.Tensor],
-                segment_ids: Optional[torch.Tensor], impl: str) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor], impl: str,
+                tp: Optional[TensorParallel] = None) -> torch.Tensor:
         x = self.attention.output_layer_norm(x + self.attention(x, mask_bias, segment_ids,
-                                                                impl))
-        inter = F.gelu(_dense(x, self.mlp.intermediate).to(torch.float32))
-        mlp_out = _dense(inter.to(x.dtype), self.mlp.output)
+                                                                impl, tp))
+        inter = F.gelu(_dense(_to_model(x, tp), self.mlp.intermediate).to(torch.float32))
+        mlp_out = _row_dense(inter.to(x.dtype), self.mlp.output, tp)
         return self.mlp.output_layer_norm(x + mlp_out)
 
 
@@ -148,18 +185,38 @@ class BertModel(nn.Module):
     """The transformer stack; ``forward`` returns last_hidden_state [B, T, H].
 
     ``generator`` seeds the random init (normal(0, 0.02) weights, zero
-    biases, unit LayerNorm), the structure of ``init_bert_params``.
+    biases, unit LayerNorm), the structure of ``init_bert_params``. ``tp``
+    is the model axis a rank-local model of :func:`shard_bert_model` is
+    sharded over (None: the whole model).
     """
 
     def __init__(self, config: BertConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
+        self.tp: Optional[TensorParallel] = None
         self.embeddings = Embeddings(config, device=device)
         self.layers = nn.ModuleList(Layer(config, device=device)
                                     for _ in range(config.num_hidden_layers))
         self.pooler = nn.Linear(config.hidden_size, config.hidden_size, device=device)
         self.init_weights(generator)
+
+    def shard_dims(self) -> Dict[str, Optional[int]]:
+        """Each parameter's dim sharded over ``tp`` (None: replicated; every
+        one None for a whole model)."""
+        if self.tp is None or self.tp.size == 1:
+            return {name: None for name, _ in self.named_parameters()}
+        return state_dict_shardings(self.config)
+
+    def cut_shard(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole model's tensor ``name`` (a view)."""
+        dim = self.shard_dims()[name]
+        return whole if dim is None else cut_shard(name, whole, dim, self.tp.size,
+                                                   self.tp.index)
+
+    def join_shards(self, name: str, shards) -> torch.Tensor:
+        """The whole tensor ``name`` from every rank's shard, in rank order."""
+        return join_shards(name, shards, self.shard_dims()[name])
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
@@ -201,8 +258,10 @@ class BertModel(nn.Module):
             else:
                 same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
                 mask_bias = torch.where(same, 0.0, neg)
+        # a model axis of one rank runs the unsharded forward
+        tp = self.tp if self.tp is not None and self.tp.size > 1 else None
         for layer in self.layers:
-            x = layer(x, mask_bias, seg, impl)
+            x = layer(x, mask_bias, seg, impl, tp)
         return x
 
 
@@ -225,6 +284,135 @@ def bert_encode(model: BertModel, input_ids: torch.Tensor, attention_mask: torch
     ``attention_impl``: "xla", "flash" or "auto" (see the module docstring)."""
     return model(input_ids, attention_mask, token_type_ids, compute_dtype, attention_impl,
                  position_ids, segment_ids)
+
+
+def param_shardings(config: BertConfig) -> Dict[str, Any]:
+    """The reference's tensor-parallel layout (port of
+    ``kirag_tpu.models.bert.param_shardings``), as the dim of each leaf of
+    its parameter pytree that shards over the model axis (None: replicated),
+    as :func:`~kirag_tpu_torch.models.llm.llama_param_shardings` gives it:
+    column-parallel kernels [in, out] (query, key, value, intermediate) on
+    dim 1 and their biases on 0; row-parallel kernels (the attention and MLP
+    outputs) on dim 0, their biases replicated; LayerNorms, embeddings and
+    the pooler replicated."""
+    col = {"kernel": 1, "bias": 0}
+    row = {"kernel": 0, "bias": None}
+    ln = {"scale": None, "bias": None}
+    layer = {"attention": {"query": col, "key": col, "value": col, "output": row,
+                           "output_layer_norm": ln},
+             "mlp": {"intermediate": col, "output": row, "output_layer_norm": ln}}
+    return {"embeddings": {"word_embeddings": None, "position_embeddings": None,
+                           "token_type_embeddings": None, "layer_norm": ln},
+            "layers": [layer] * config.num_hidden_layers,
+            "pooler": {"kernel": None, "bias": None}}
+
+
+def state_dict_shardings(config: BertConfig) -> Dict[str, Optional[int]]:
+    """:func:`param_shardings` by the names of :class:`BertModel`'s state
+    dict: ``nn.Linear`` weights are [out, in], so a column-parallel weight
+    shards on dim 0 and a row-parallel one on dim 1. A fused ``qkv`` takes
+    the query's spec (q, k and v shard alike)."""
+    specs = param_shardings(config)
+    dims: Dict[str, Optional[int]] = {}
+
+    def linear(name: str, spec) -> None:
+        dims[f"{name}.weight"] = None if spec["kernel"] is None else 1 - spec["kernel"]
+        dims[f"{name}.bias"] = spec["bias"]
+
+    def norm(name: str, spec) -> None:
+        dims[f"{name}.weight"], dims[f"{name}.bias"] = spec["scale"], spec["bias"]
+
+    emb = specs["embeddings"]
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        dims[f"embeddings.{name}.weight"] = emb[name]
+    norm("embeddings.layer_norm", emb["layer_norm"])
+    for i, layer in enumerate(specs["layers"]):
+        att, pre = layer["attention"], f"layers.{i}.attention"
+        if config.fused_qkv:
+            linear(f"{pre}.qkv", att["query"])
+        else:
+            for n in ("query", "key", "value"):
+                linear(f"{pre}.{n}", att[n])
+        linear(f"{pre}.output", att["output"])
+        norm(f"{pre}.output_layer_norm", att["output_layer_norm"])
+        mlp, pre = layer["mlp"], f"layers.{i}.mlp"
+        linear(f"{pre}.intermediate", mlp["intermediate"])
+        linear(f"{pre}.output", mlp["output"])
+        norm(f"{pre}.output_layer_norm", mlp["output_layer_norm"])
+    linear("pooler", specs["pooler"])
+    return dims
+
+
+def _fused(name: str) -> bool:
+    return name.rsplit(".", 2)[-2] == "qkv"
+
+
+def cut_shard(name: str, tensor: torch.Tensor, dim: Optional[int], size: int,
+              index: int) -> torch.Tensor:
+    """Shard ``index`` of ``size`` of a state-dict tensor along ``dim`` (a
+    view; None: the tensor). A fused ``qkv`` leaf takes the rows
+    ``[q_r; k_r; v_r]``, its rank's rows of each third."""
+    if dim is None:
+        return tensor
+    if _fused(name):
+        thirds = tensor.unflatten(0, (3, -1))
+        n = thirds.shape[1] // size
+        return thirds.narrow(1, index * n, n).flatten(0, 1)
+    n = tensor.shape[dim] // size
+    return tensor.narrow(dim, index * n, n)
+
+
+def join_shards(name: str, shards, dim: Optional[int]) -> torch.Tensor:
+    """The inverse of :func:`cut_shard` over every rank's shard, in rank
+    order."""
+    if dim is None:
+        return shards[0]
+    if _fused(name):
+        return torch.cat([s.unflatten(0, (3, -1)) for s in shards], dim=1).flatten(0, 1)
+    return torch.cat(list(shards), dim=dim)
+
+
+def check_tensor_parallel(config: BertConfig, size: int) -> None:
+    """Raise ValueError unless a model axis of ``size`` ranks divides the
+    heads and the intermediate size."""
+    problems = [f"{what} {n} % {size} != 0" for what, n in (
+        ("attention heads", config.num_attention_heads),
+        ("intermediate size", config.intermediate_size)) if n % size]
+    if problems:
+        raise ValueError(f"a model axis of {size} ranks cannot shard this encoder: "
+                         + "; ".join(problems))
+
+
+def shard_bert_model(model: BertModel, mesh, model_axis: str = "model") -> BertModel:
+    """A new rank-local :class:`BertModel` holding this rank's shard of each
+    of ``model``'s parameters over ``mesh[model_axis]`` (copies, on the same
+    device, in the same dtypes; ``model`` itself is untouched), carrying its
+    :class:`~kirag_tpu_torch.parallel.mesh.TensorParallel`. Raises ValueError
+    for a model axis that does not divide the heads or the intermediate
+    size."""
+    tp = TensorParallel(mesh, model_axis)
+    check_tensor_parallel(model.config, tp.size)
+    dims = state_dict_shardings(model.config)
+    local = BertModel(model.config, device="meta")
+    for name, p in model.named_parameters():
+        shard = cut_shard(name, p.detach(), dims[name], tp.size, tp.index).clone()
+        owner, leaf = name.rsplit(".", 1)
+        setattr(local.get_submodule(owner), leaf,
+                nn.Parameter(shard, requires_grad=p.requires_grad))
+    local.tp = tp
+    return local.train(model.training)
+
+
+def gather_state_dict(model: BertModel) -> Dict[str, torch.Tensor]:
+    """The whole model's state dict (detached) from every rank's shard of a
+    :func:`shard_bert_model` model: a collective of its model axis. An
+    unsharded model's own tensors."""
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    tp = model.tp
+    if tp is None or tp.size == 1:
+        return sd
+    return {k: model.join_shards(k, all_gather_list(v, tp.mesh, tp.axis))
+            for k, v in sd.items()}
 
 
 def params_from_jax(params: Dict[str, Any], config: BertConfig) -> Dict[str, torch.Tensor]:

@@ -14,7 +14,9 @@ contriever  masked mean (no norm)
 or an HF checkpoint directory (``config.json`` + ``model.safetensors`` or
 ``pytorch_model.bin``). Its entry points (:meth:`Encoder.from_jax`,
 :meth:`Encoder.load`, :func:`load_encoder`) build the model on the GPU
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``. :meth:`Encoder.shard_params`
+shards the weights over a mesh's model axis (tensor parallelism, for
+inference); every rank then returns the same embeddings.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ from kirag_tpu_torch.models.bert import (
     BertModel,
     config_from_hf,
     convert_hf_state_dict,
+    gather_state_dict,
     params_from_jax,
+    shard_bert_model,
 )
 from kirag_tpu_torch.models.registry import resolve_model_path
 from kirag_tpu_torch.ops.pooling import cls_pool, l2_normalize, masked_mean_pool
@@ -110,15 +114,23 @@ class Encoder:
         return cls(model, encoder_type, compute_dtype=compute_dtype,
                    attention_impl=attention_impl)
 
+    def shard_params(self, mesh, model_axis: str = "model") -> "Encoder":
+        """Keep this rank's shard of the weights over ``mesh[model_axis]``
+        (:func:`~kirag_tpu_torch.models.bert.shard_bert_model`; port of the
+        reference's ``Encoder.shard_params``). Every later call is a
+        collective of that axis: each of its ranks calls it with the same
+        inputs and gets the same [B, H] embeddings."""
+        self.model = shard_bert_model(self.model, mesh, model_axis).eval()
+        return self
+
     def save(self, save_dir: str) -> None:
         """Write ``params.npz`` (f32, the reference's '/'-joined pytree paths)
         and ``encoder_config.json``: the format of the reference's
-        ``Encoder.save``, which its ``Encoder.load`` reads."""
-        os.makedirs(save_dir, exist_ok=True)
-        np.savez(os.path.join(save_dir, "params.npz"), **_jax_flat_params(self.model))
-        with open(os.path.join(save_dir, "encoder_config.json"), "w") as f:
-            json.dump({"encoder_type": self.encoder_type,
-                       "config": dataclasses.asdict(self.config)}, f, indent=2)
+        ``Encoder.save``, which its ``Encoder.load`` reads. A sharded model
+        is gathered (a collective of its model axis) and written by its
+        mesh's first rank only."""
+        save_encoder_state(save_dir, gather_state_dict(self.model), self.config,
+                           self.encoder_type, writer=_first_rank(self.model))
 
     @classmethod
     def load(cls, save_dir: str, device=None, compute_dtype: torch.dtype = torch.float32,
@@ -198,12 +210,35 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _first_rank(model: BertModel) -> bool:
+    return model.tp is None or model.tp.mesh.rank == 0
+
+
+def save_encoder_state(save_dir: str, state_dict: Dict[str, torch.Tensor], config: BertConfig,
+                       encoder_type: str, writer: bool = True) -> None:
+    """:meth:`Encoder.save`'s files for a whole model's ``state_dict``;
+    nothing unless ``writer``."""
+    if not writer:
+        return
+    os.makedirs(save_dir, exist_ok=True)
+    np.savez(os.path.join(save_dir, "params.npz"), **_jax_flat_state(state_dict, config))
+    with open(os.path.join(save_dir, "encoder_config.json"), "w") as f:
+        json.dump({"encoder_type": encoder_type, "config": dataclasses.asdict(config)}, f,
+                  indent=2)
+
+
 def _jax_flat_params(model: BertModel) -> Dict[str, np.ndarray]:
+    """:func:`_jax_flat_state` of an unsharded model."""
+    return _jax_flat_state(model.state_dict(), model.config)
+
+
+def _jax_flat_state(state_dict: Dict[str, torch.Tensor],
+                    config: BertConfig) -> Dict[str, np.ndarray]:
     """The inverse of ``params_from_jax``, flattened to '/'-joined paths:
     ``nn.Linear`` [out, in] weights become [in, out] kernels and a fused
     ``qkv`` is split into query, key and value."""
-    sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
-    h = model.config.hidden_size
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    h = config.hidden_size
     flat: Dict[str, np.ndarray] = {}
 
     def linear(dst: str, src: str) -> None:
@@ -217,10 +252,10 @@ def _jax_flat_params(model: BertModel) -> Dict[str, np.ndarray]:
     for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
         flat[f"embeddings/{name}"] = sd[f"embeddings.{name}.weight"]
     norm("embeddings/layer_norm", "embeddings.layer_norm")
-    for i in range(model.config.num_hidden_layers):
+    for i in range(config.num_hidden_layers):
         dst, src = f"layers/{i}", f"layers.{i}"
         for j, n in enumerate(("query", "key", "value")):
-            if model.config.fused_qkv:
+            if config.fused_qkv:
                 rows = slice(j * h, (j + 1) * h)
                 flat[f"{dst}/attention/{n}/kernel"] = np.ascontiguousarray(
                     sd[f"{src}.attention.qkv.weight"][rows].T)

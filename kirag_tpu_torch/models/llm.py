@@ -56,7 +56,7 @@ import torch.nn.functional as F
 
 from kirag_tpu_torch.device import require_cuda
 from kirag_tpu_torch.kernels.qmm import int4_matmul, supported
-from kirag_tpu_torch.parallel.mesh import all_gather_cols, all_reduce_sum
+from kirag_tpu_torch.parallel.mesh import TensorParallel, all_gather_cols, all_reduce_sum
 
 Params = Dict[str, Any]
 
@@ -148,22 +148,6 @@ def _entry_device(device) -> torch.device:
 
 
 # ----------------------------------------------------------------- tensor parallelism
-
-
-@dataclasses.dataclass(frozen=True)
-class TensorParallel:
-    """The model axis of a mesh that a params tree is sharded over."""
-
-    mesh: Any
-    axis: str
-
-    @property
-    def size(self) -> int:
-        return self.mesh.size(self.axis)
-
-    @property
-    def index(self) -> int:
-        return self.mesh.index(self.axis)
 
 
 def _local_heads(params: Params, config: LlamaConfig) -> Tuple[int, int]:

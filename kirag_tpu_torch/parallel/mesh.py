@@ -20,8 +20,21 @@ order.
 
 Axes:
 
-- ``data``: the corpus-row sharding of the index (and data parallelism);
-- ``model``: tensor parallelism of the LLM's weights.
+- ``data``: the corpus-row sharding of the index, and data parallelism of
+  training (each rank its rows of the batch);
+- ``model``: tensor parallelism of the LLM's and the encoder's weights.
+
+Training differentiates through three of the collectives, each a
+``torch.autograd.Function`` whose backward is the collective the program
+needs (every rank of a group computes the same loss):
+
+- :func:`all_gather_rows`: the group's rows concatenated; backward, this
+  rank's rows of the incoming gradient (no collective: a sum over the group,
+  as ``torch.distributed.nn.functional.all_gather`` takes, would count each
+  gradient once a rank);
+- :func:`copy_to_model` (identity; backward, the sum over the model axis) in
+  front of a column-parallel projection, and :func:`reduce_from_model` (the
+  sum; backward, identity) after a row-parallel one: Megatron's pair.
 
 Unlike the reference, a mesh must cover the whole world: a process cannot
 sit out a collective, so ``data * model != world size`` raises ValueError.
@@ -32,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from datetime import timedelta
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -179,11 +192,7 @@ def all_gather_cols(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     group = mesh.group(axis)
     if group is None:
         return x
-    n = mesh.size(axis)
-    src = x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=1)
+    return torch.cat(all_gather_list(x, mesh, axis), dim=1)
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -195,6 +204,87 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
         return out
     dist.all_reduce(out, group=group)
     return out
+
+
+def all_gather_list(x: torch.Tensor, mesh: Mesh, axis: str) -> List[torch.Tensor]:
+    """The group's tensors along ``axis`` (each of ``x``'s shape), in group
+    order."""
+    group = mesh.group(axis)
+    if group is None:
+        return [x]
+    src = x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
+    dist.all_gather(parts, src, group=group)
+    return parts
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.rows, ctx.start = x.shape[0], mesh.index(axis) * x.shape[0]
+        return torch.cat(all_gather_list(x, mesh, axis))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.start:ctx.start + ctx.rows], None, None
+
+
+def all_gather_rows(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The group's tensors along ``axis`` concatenated along dim 0, in group
+    order (JAX's ``all_gather(x, axis, tiled=True)``). Differentiable: the
+    gradient of ``x`` is this rank's rows of the result's gradient, since
+    every rank of the group computes the same loss from the result."""
+    return _GatherRows.apply(x, mesh, axis)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce_sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``x`` itself; in the backward, its gradient summed over ``axis``.
+    Goes in front of a column-parallel projection: each rank's columns give
+    a part of the input's gradient."""
+    return _CopyToModel.apply(x, mesh, axis)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (a row-parallel projection's partial
+    products); in the backward, the gradient itself on every rank."""
+    return _ReduceFromModel.apply(x, mesh, axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The model axis of a mesh that a model's weights are sharded over."""
+
+    mesh: Any
+    axis: str
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size(self.axis)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.index(self.axis)
 
 
 def broadcast(x: torch.Tensor, mesh: Mesh, axis: Optional[str] = None) -> torch.Tensor:

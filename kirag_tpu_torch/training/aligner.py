@@ -9,6 +9,15 @@ compute dtype: its linear layers cast their f32 weights per call, so the
 gradients reach f32 master weights. On the card, every encoder layer whose
 sequence length is a multiple of 128 goes through the flash attention
 kernels, forward and backward.
+
+Over a mesh (:class:`AlignerTrainer` ``mesh=``), a batch sharded over the
+data axis is embedded rank by rank and the embeddings (and the positives'
+indices) are gathered over that axis with
+:func:`~kirag_tpu_torch.parallel.mesh.all_gather_rows` before the score
+matrix, so every rank computes the loss over the global [num_queries,
+num_docs] matrix, as the reference's GSPMD program does; a model axis of
+more than one rank shards the encoder (:func:`~kirag_tpu_torch.models.bert.
+shard_bert_model`).
 """
 
 from __future__ import annotations
@@ -25,9 +34,15 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from kirag_tpu_torch.models.bert import BertModel, bert_encode
-from kirag_tpu_torch.models.encoders import ENCODER_POOLING, Encoder
+from kirag_tpu_torch.models.bert import (
+    BertModel,
+    bert_encode,
+    gather_state_dict,
+    shard_bert_model,
+)
+from kirag_tpu_torch.models.encoders import ENCODER_POOLING, save_encoder_state
 from kirag_tpu_torch.ops.pooling import l2_normalize
+from kirag_tpu_torch.parallel.mesh import all_gather_rows
 from kirag_tpu_torch.training.trainer import BaseTrainer, TrainerConfig
 
 
@@ -102,12 +117,20 @@ def _remat(fn, remat):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
+def _gather(mesh, axis: Optional[str], *tensors):
+    """Each tensor's rows of every rank along ``axis``, in rank order
+    (differentiable); the tensors themselves without an axis."""
+    if axis is None:
+        return tensors
+    return tuple(all_gather_rows(t, mesh, axis) for t in tensors)
+
+
 def in_batch_contrastive_loss(model: BertModel, batch, encoder_type: str = "e5",
                               temperature: float = 0.01,
                               compute_dtype: torch.dtype = torch.float32, remat=False,
-                              packed: bool = False):
-    """CE over the [num_queries, num_docs] score matrix; returns (loss,
-    {"accuracy": ...}).
+                              packed: bool = False, mesh=None, data_axis: Optional[str] = None):
+    """CE over the global [num_queries, num_docs] score matrix; returns
+    (loss, {"accuracy": ...}).
 
     ``batch`` = {"query_args", "doc_args", "positive_doc_indices"} of tensors
     on the model's device (the training collator's output). ``remat``:
@@ -116,6 +139,8 @@ def in_batch_contrastive_loss(model: BertModel, batch, encoder_type: str = "e5",
     forward included: it is deterministic); all three give the same
     gradients. ``packed`` runs queries and docs through one encoder forward
     (:func:`_embed_packed`) when the geometry packs, else the two-call form.
+    ``data_axis``: the axis of ``mesh`` that the batch's rows are sharded
+    over; the embeddings and labels are gathered over it first.
     """
     if packed and _can_pack(batch):
         q_emb, d_emb = _remat(_embed_packed, remat)(
@@ -124,8 +149,9 @@ def in_batch_contrastive_loss(model: BertModel, batch, encoder_type: str = "e5",
         embed = _remat(_embed, remat)
         q_emb = embed(model, batch["query_args"], encoder_type, compute_dtype)
         d_emb = embed(model, batch["doc_args"], encoder_type, compute_dtype)
+    q_emb, d_emb, labels = _gather(mesh, data_axis, q_emb, d_emb,
+                                   batch["positive_doc_indices"])
     scores = (q_emb @ d_emb.T) / temperature
-    labels = batch["positive_doc_indices"]
     log_probs = F.log_softmax(scores, dim=-1)
     loss = -torch.mean(torch.gather(log_probs, 1, labels[:, None]))
     acc = torch.mean((torch.argmax(scores, dim=-1) == labels).to(torch.float32))
@@ -134,20 +160,30 @@ def in_batch_contrastive_loss(model: BertModel, batch, encoder_type: str = "e5",
 
 class AlignerTrainer(BaseTrainer):
     """Trains the aligner encoder; evaluates per-query MRR over each query's
-    own positive + negative candidates."""
+    own positive + negative candidates.
+
+    ``mesh`` / ``batch_sharding`` (an axis name such as ``"data"``, or None
+    for a replicated batch): see :mod:`kirag_tpu_torch.training.trainer`.
+    Where ``mesh.shape["model"] > 1`` the trainer trains a rank-local copy
+    of ``model`` sharded over the model axis (``model`` itself is left as it
+    is); otherwise it trains ``model`` in place."""
 
     def __init__(self, model: BertModel, config: TrainerConfig, train_loader,
                  eval_loader=None, encoder_type: str = "e5", temperature: float = 0.01,
                  compute_dtype: torch.dtype = torch.float32,
                  num_candidates_per_query: Optional[int] = None, remat=False,
-                 packed: bool = False, trackers=()):
+                 packed: bool = False, trackers=(), mesh=None,
+                 batch_sharding: Optional[str] = None):
         self.encoder_type = encoder_type
         self.temperature = temperature
         self.compute_dtype = compute_dtype
         self.remat = remat
         self.packed = packed
         self.num_candidates_per_query = num_candidates_per_query
-        super().__init__(model, config, train_loader, eval_loader, trackers=trackers)
+        if mesh is not None and mesh.shape.get("model", 1) > 1:
+            model = shard_bert_model(model, mesh)
+        super().__init__(model, config, train_loader, eval_loader, trackers=trackers,
+                         mesh=mesh, batch_sharding=batch_sharding)
 
     @staticmethod
     def pack_batch(collated) -> Dict:
@@ -163,12 +199,22 @@ class AlignerTrainer(BaseTrainer):
     def loss_fn(self, model, batch):
         return in_batch_contrastive_loss(
             model, batch, self.encoder_type, self.temperature, self.compute_dtype,
-            remat=self.remat, packed=self.packed)
+            remat=self.remat, packed=self.packed, mesh=self.mesh,
+            data_axis=self.batch_sharding)
 
     @torch.no_grad()
     def _embed_pair(self, model, batch):
-        return (_embed(model, batch["query_args"], self.encoder_type, self.compute_dtype),
-                _embed(model, batch["doc_args"], self.encoder_type, self.compute_dtype))
+        """The batch's (query, doc) embeddings, gathered over the data axis
+        of a sharded batch."""
+        return _gather(self.mesh, self.batch_sharding,
+                       _embed(model, batch["query_args"], self.encoder_type,
+                              self.compute_dtype),
+                       _embed(model, batch["doc_args"], self.encoder_type, self.compute_dtype))
+
+    def _positives(self, batch) -> np.ndarray:
+        """The batch's positive_doc_indices, gathered as the embeddings are."""
+        return _gather(self.mesh, self.batch_sharding,
+                       batch["positive_doc_indices"])[0].cpu().numpy()
 
     def _score_batch(self, model, batch) -> torch.Tensor:
         q_emb, d_emb = self._embed_pair(model, batch)
@@ -181,7 +227,7 @@ class AlignerTrainer(BaseTrainer):
         for collated in eval_loader:
             batch = self.device_put_batch(self.pack_batch(collated))
             scores = self._score_batch(model, batch).cpu().numpy()
-            pos_idx = batch["positive_doc_indices"].cpu().numpy()
+            pos_idx = self._positives(batch)
             n_q = len(pos_idx)
             n_docs = scores.shape[1]
             for i in range(n_q):
@@ -205,7 +251,7 @@ class AlignerTrainer(BaseTrainer):
             q, d = (x.cpu().numpy() for x in self._embed_pair(model, batch))
             q_embs.append(q)
             d_embs.append(d)
-            pos_global.extend((batch["positive_doc_indices"].cpu().numpy() + offset).tolist())
+            pos_global.extend((self._positives(batch) + offset).tolist())
             offset += len(d)
             if max_docs and offset >= max_docs:
                 break
@@ -219,5 +265,9 @@ class AlignerTrainer(BaseTrainer):
     def save_encoder(self, save_dir: str) -> None:
         """Write the trained encoder in the reference's npz format
         (:meth:`Encoder.save`), which ``load_encoder`` of either package
-        reads, e.g. as the KiRAG CLI's ``--aligner_model_name_or_path``."""
-        Encoder(self.model, self.encoder_type).save(save_dir)
+        reads, e.g. as the KiRAG CLI's ``--aligner_model_name_or_path``.
+        Over a mesh the whole model is gathered and the first rank writes;
+        every rank returns once the files are there."""
+        save_encoder_state(save_dir, gather_state_dict(self.model), self.model.config,
+                           self.encoder_type, writer=self.writer)
+        self.barrier()

@@ -27,6 +27,20 @@ reference's layout: ``<save_dir>/latest/<step>/`` (the newest) and
 ``<save_dir>/best/<step>/`` (the top ``keep_top_k`` by eval metric), each
 holding the model, the optimizer, the step and the epoch, so a resumed run
 repeats an uninterrupted one.
+
+Over a mesh (``mesh=``, one process a rank, the port's SPMD model): every
+rank iterates the same global loader. ``batch_sharding`` names the axis a
+batch's rows shard over (``"data"``): each rank keeps its rows of every leaf
+and the parameter gradients are summed over that axis, since each rank's are
+partial sums of the global loss's gradient; with None the batch is
+replicated and the gradients are whole already. A model sharded over the
+model axis (a ``tp`` attribute, as :func:`~kirag_tpu_torch.models.bert.
+shard_bert_model` makes) trains its shards; the optimizer's statistics (the
+clipping norm, min, max, mean, the non-finite flag) are the whole model's,
+agreed over the axis. Checkpoints do not depend on the mesh: the mesh's
+first rank writes the unsharded trainer's format (whole tensors, the flat
+optimizer state in the whole model's parameter order) and every rank cuts
+its shard on resume. Only the first rank writes files.
 """
 
 from __future__ import annotations
@@ -41,7 +55,10 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from kirag_tpu_torch.parallel.mesh import all_gather_list, all_reduce_sum, shard_rows
 
 logger = logging.getLogger(__name__)
 
@@ -65,19 +82,36 @@ class TrainerConfig:
     max_steps: Optional[int] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class GradSync:
+    """Where a trainer's gradients and parameters lie over a mesh:
+    ``data_axis``, the axis the gradients are summed over (None: whole
+    already); ``tp``, the model axis that the parameters flagged in
+    ``sharded`` are cut over (None: every parameter whole)."""
+
+    mesh: Any
+    data_axis: Optional[str] = None
+    tp: Any = None
+    sharded: Sequence[bool] = ()
+
+
 class AdamW:
     """The optax chain above over ``params``, updating them in place.
 
     :meth:`update` takes one micro batch's gradients (one per parameter, in
     order) and returns their statistics: ``grad_norm``, ``grad_min``,
-    ``grad_max``, ``grad_mean``. f32 arithmetic in optax's order.
+    ``grad_max``, ``grad_mean``. f32 arithmetic in optax's order. With
+    ``sync`` the gradients are summed over its data axis first, and the
+    statistics, the clipping norm and the non-finite skip are the whole
+    model's over its model axis (a collective of the mesh).
     """
 
     def __init__(self, params: Sequence[nn.Parameter], learning_rate: float,
                  weight_decay: float, max_grad_norm: float, warmup_steps: int,
                  accumulation_steps: int = 1, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, sync: Optional[GradSync] = None):
         self.params = list(params)
+        self.sync = sync
         self.learning_rate, self.weight_decay = learning_rate, weight_decay
         self.max_grad_norm, self.warmup_steps = max_grad_norm, warmup_steps
         self.accumulation_steps = accumulation_steps
@@ -87,6 +121,11 @@ class AdamW:
         self.mu = torch.zeros(n, device=device)
         self.nu = torch.zeros(n, device=device)
         self.acc = torch.zeros(n, device=device) if accumulation_steps > 1 else None
+        if sync is not None and sync.tp is not None:
+            self._sizes = torch.tensor([p.numel() for p in self.params], device=device)
+            self._shard_mask = torch.tensor([bool(x) for x in sync.sharded], device=device)
+            self._whole_numel = sum(p.numel() * (sync.tp.size if x else 1)
+                                    for p, x in zip(self.params, sync.sharded))
         self.count = 0            # updates applied (Adam's and the schedule's count)
         self.mini_step = 0        # micro steps accumulated toward the next update
         self.notfinite_count = 0  # consecutive non-finite micro steps
@@ -104,11 +143,39 @@ class AdamW:
     def _flat(self, tensors) -> torch.Tensor:
         return torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
 
+    def _sharded_sums(self, x: torch.Tensor) -> torch.Tensor:
+        """[sum over the sharded parameters' elements, over the replicated
+        ones] of ``x`` (one value an element, in parameter order)."""
+        per = torch.segment_reduce(x, "sum", lengths=self._sizes)
+        return torch.stack([per[self._shard_mask].sum(), per[~self._shard_mask].sum()])
+
+    def _model_sumsq(self, g: torch.Tensor) -> torch.Tensor:
+        """The whole model's sum of squares: the sharded parameters' summed
+        over the model axis, the replicated ones counted once."""
+        tp = self.sync.tp
+        sums = self._sharded_sums(g * g)
+        return all_reduce_sum(sums[:1], tp.mesh, tp.axis)[0] + sums[1]
+
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]) -> Dict[str, float]:
         g = self._flat(grads)
-        stats = torch.stack([torch.sqrt(torch.sum(g * g)), g.min(), g.max(),
-                             g.sum() / g.numel(), torch.isfinite(g).all().float()]).tolist()
+        sync = self.sync
+        if sync is not None and sync.data_axis is not None:
+            g = all_reduce_sum(g, sync.mesh, sync.data_axis)
+        if sync is None or sync.tp is None:
+            stats = torch.stack([torch.sqrt(torch.sum(g * g)), g.min(), g.max(),
+                                 g.sum() / g.numel(),
+                                 torch.isfinite(g).all().float()]).tolist()
+        else:  # the whole model's: every rank's local statistics, combined
+            # [sharded, replicated] sums of squares and of values, min, max,
+            # finite; the replicated elements counted once (this rank's)
+            local = torch.cat([self._sharded_sums(g * g), self._sharded_sums(g),
+                               torch.stack([g.min(), g.max(), torch.isfinite(g).all().float()])])
+            ranks = torch.stack(all_gather_list(local, sync.tp.mesh, sync.tp.axis))
+            sumsq = ranks[:, 0].sum() + local[1]
+            total = ranks[:, 2].sum() + local[3]
+            stats = torch.stack([torch.sqrt(sumsq), ranks[:, 4].min(), ranks[:, 5].max(),
+                                 total / self._whole_numel, ranks[:, 6].min()]).tolist()
         finite = stats.pop() == 1.0
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.total_notfinite += 0 if finite else 1
@@ -125,7 +192,10 @@ class AdamW:
 
     def _apply(self, g: torch.Tensor) -> None:
         f32 = np.float32
-        norm = torch.sqrt(torch.sum(g * g))
+        if self.sync is None or self.sync.tp is None:
+            norm = torch.sqrt(torch.sum(g * g))
+        else:
+            norm = torch.sqrt(self._model_sumsq(g))
         g = torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm)
         self.mu.mul_(self.b1).add_((1 - self.b1) * g)
         self.nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
@@ -152,14 +222,24 @@ class AdamW:
 
 
 def make_optimizer(config: TrainerConfig, total_steps: int,
-                   params: Sequence[nn.Parameter]) -> AdamW:
+                   params: Sequence[nn.Parameter], sync: Optional[GradSync] = None) -> AdamW:
     """AdamW with linear warmup then a constant rate, clipping, accumulation
-    and the non-finite skip, over ``params``. ``total_steps`` counts MICRO
-    batches; warmup is sized in optimizer updates."""
+    and the non-finite skip, over ``params`` (``sync``: see :class:`AdamW`).
+    ``total_steps`` counts MICRO batches; warmup is sized in optimizer
+    updates."""
     num_updates = max(1, total_steps // max(1, config.accumulation_steps))
     warmup_steps = max(1, int(num_updates * config.warmup_ratio))
     return AdamW(params, config.learning_rate, config.weight_decay, config.max_grad_norm,
-                 warmup_steps, accumulation_steps=max(1, config.accumulation_steps))
+                 warmup_steps, accumulation_steps=max(1, config.accumulation_steps),
+                 sync=sync)
+
+
+def _hard_link(src: str, dst: str) -> bool:
+    try:
+        os.link(src, dst)
+    except OSError:
+        return False
+    return True
 
 
 class CheckpointDir:
@@ -195,16 +275,22 @@ class CheckpointDir:
             return steps
         return sorted(steps, key=self._metric, reverse=self.best_mode == "max")
 
-    def save(self, step: int, state: Dict[str, Any], metric: Optional[float] = None) -> bool:
+    def save(self, step: int, state: Dict[str, Any], metric: Optional[float] = None,
+             like: Optional["CheckpointDir"] = None) -> bool:
         """Write ``state`` as step ``step`` unless that step exists; then drop
-        the checkpoints beyond ``max_to_keep``."""
+        the checkpoints beyond ``max_to_keep``. ``like``: another directory
+        that holds this same state as step ``step``; its file is hard-linked
+        (a checkpoint is gigabytes at E5-large) where the file system lets
+        it, else written again."""
         final = os.path.join(self.root, str(step))
         if os.path.exists(final):
             return False
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(state, os.path.join(tmp, "state.pt"))
+        path = os.path.join(tmp, "state.pt")
+        if like is None or not _hard_link(os.path.join(like.root, str(step), "state.pt"), path):
+            torch.save(state, path)
         if metric is not None:
             with open(os.path.join(tmp, "metric.json"), "w") as f:
                 json.dump({"metric": float(metric)}, f)
@@ -224,14 +310,23 @@ class BaseTrainer:
     Subclasses implement :meth:`loss_fn` ((model, batch) -> scalar tensor, or
     (scalar, aux dict)) and :meth:`evaluate` ((model, eval_loader) -> metric).
     ``model`` holds the f32 parameters; every one of them is trained.
+    ``mesh`` and ``batch_sharding`` (an axis name, or None for a replicated
+    batch): see the module docstring. A model sharded over the mesh's model
+    axis carries ``tp`` and the methods ``shard_dims``, ``cut_shard`` and
+    ``join_shards`` (:class:`~kirag_tpu_torch.models.bert.BertModel`'s).
     """
 
     def __init__(self, model: nn.Module, config: TrainerConfig, train_loader,
-                 eval_loader=None, trackers=()):
+                 eval_loader=None, trackers=(), mesh=None, batch_sharding: Optional[str] = None):
+        if batch_sharding is not None and mesh is None:
+            raise ValueError(f"batch_sharding={batch_sharding!r} needs a mesh")
         self.model = model
         self.config = config
         self.train_loader = train_loader
         self.eval_loader = eval_loader
+        self.mesh = mesh
+        self.batch_sharding = batch_sharding
+        self.writer = mesh is None or mesh.rank == 0  # the rank that writes files
         # experiment trackers: each callable receives every log record after
         # the built-in history and metrics.jsonl sinks
         self.trackers = list(trackers)
@@ -239,15 +334,23 @@ class BaseTrainer:
 
         steps_per_epoch = max(1, len(train_loader))
         self.total_steps = config.max_steps or steps_per_epoch * config.num_train_epochs
-        self.params = list(model.parameters())
-        self.optimizer = make_optimizer(config, self.total_steps, self.params)
+        self.names, self.params = (list(x) for x in zip(*model.named_parameters()))
+        tp = getattr(model, "tp", None)
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        sync = None
+        if mesh is not None:
+            dims = model.shard_dims() if self.tp is not None else {}
+            sync = GradSync(mesh, batch_sharding, self.tp,
+                            [dims.get(n) is not None for n in self.names])
+        self.optimizer = make_optimizer(config, self.total_steps, self.params, sync)
         self.step = 0
         self.epoch = 0
         self.history: list = []
 
         os.makedirs(config.save_dir, exist_ok=True)
-        with open(os.path.join(config.save_dir, "configs.json"), "w") as f:
-            json.dump(dataclasses.asdict(config), f, indent=2, default=str)
+        if self.writer:
+            with open(os.path.join(config.save_dir, "configs.json"), "w") as f:
+                json.dump(dataclasses.asdict(config), f, indent=2, default=str)
         root = os.path.abspath(config.save_dir)
         self.best = CheckpointDir(os.path.join(root, "best"), config.keep_top_k,
                                   best_mode=config.metric_mode)
@@ -271,12 +374,16 @@ class BaseTrainer:
 
     def device_put_batch(self, batch):
         """numpy arrays (and nested dicts of them) -> tensors on the model's
-        device; integer arrays as int64."""
+        device; integer arrays as int64. With ``batch_sharding`` this rank's
+        rows of each leaf; a leading dim that does not divide the axis
+        raises ValueError."""
         if isinstance(batch, dict):
             return {k: self.device_put_batch(v) for k, v in batch.items()}
         x = torch.as_tensor(np.asarray(batch))
         if not x.is_floating_point():
             x = x.long()
+        if self.batch_sharding is not None:
+            x = shard_rows(x, self.mesh, self.batch_sharding)
         return x.to(self.device)
 
     def training_step(self, batch) -> Dict[str, float]:
@@ -294,24 +401,67 @@ class BaseTrainer:
 
     # -- checkpointing ----------------------------------------------------------
 
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (nothing in one process)."""
+        if self.mesh is not None and dist.is_initialized():
+            dist.barrier()
+
+    def _whole(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole model's tensor ``name`` from this rank's ``local``
+        shard (a collective of the model axis for a sharded one)."""
+        if self.tp is None or self.model.shard_dims()[name] is None:
+            return local
+        return self.model.join_shards(name, all_gather_list(local, self.tp.mesh, self.tp.axis))
+
+    def _whole_flat(self, flat: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """An optimizer vector (one value per local parameter element) as
+        the whole model's, in its parameter order."""
+        if flat is None or self.tp is None:
+            return flat
+        pieces = flat.split([p.numel() for p in self.params])
+        return torch.cat([self._whole(n, x.view_as(p)).reshape(-1)
+                          for n, x, p in zip(self.names, pieces, self.params)])
+
+    def _local_flat(self, whole: Optional[torch.Tensor],
+                    shapes: Dict[str, torch.Size]) -> Optional[torch.Tensor]:
+        """The inverse of :meth:`_whole_flat`: this rank's elements of a
+        whole-model vector laid out by ``shapes``."""
+        if whole is None or self.tp is None:
+            return whole
+        pieces = whole.split([shapes[n].numel() for n in self.names])
+        return torch.cat([self.model.cut_shard(n, x.view(shapes[n])).reshape(-1)
+                          for n, x in zip(self.names, pieces)])
+
     def _state(self) -> Dict[str, Any]:
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step, "epoch": self.epoch}
+        """The checkpoint: the unsharded trainer's, whatever the mesh."""
+        optimizer = dict(self.optimizer.state_dict())
+        for name in ("mu", "nu", "acc"):
+            optimizer[name] = self._whole_flat(optimizer[name])
+        model = {k: self._whole(k, v.detach()) for k, v in self.model.state_dict().items()}
+        return {"model": model, "optimizer": optimizer, "step": self.step, "epoch": self.epoch}
 
     def save_checkpoint(self, metric: Optional[float] = None) -> None:
         state = self._state()
-        self.latest.save(self.step, state)
-        if metric is not None:
-            self.best.save(self.step, state, metric=metric)
+        if self.writer:
+            self.latest.save(self.step, state)
+            if metric is not None:
+                self.best.save(self.step, state, metric=metric, like=self.latest)
+        self.barrier()  # the checkpoint is on disk for every rank
 
     def resume_training(self) -> bool:
-        """Restore the latest checkpoint if present; True when resumed."""
+        """Restore the latest checkpoint if present; True when resumed. Any
+        mesh's checkpoint loads under any other: each rank cuts its shard."""
         step = self.latest.latest_step()
         if step is None:
             return False
         state = self.latest.load(step)
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        shapes = {k: v.shape for k, v in state["model"].items()}
+        self.model.load_state_dict({k: self.model.cut_shard(k, v) if self.tp else v
+                                    for k, v in state["model"].items()})
+        optimizer = dict(state["optimizer"])
+        for name in ("mu", "nu", "acc"):
+            optimizer[name] = self._local_flat(optimizer[name], shapes)
+        self.optimizer.load_state_dict(optimizer)
         self.step = int(state["step"])
         self.epoch = int(state["epoch"])
         logger.info(f"Resumed from step {self.step} (epoch {self.epoch})")
@@ -327,6 +477,8 @@ class BaseTrainer:
         self.history.append(record)
         logger.info(" ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                              for k, v in record.items()))
+        if not self.writer:
+            return
         # per-step metrics, so an operator can tail or plot a run
         with open(os.path.join(self.config.save_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps({"time": time.time(), **record}) + "\n")

@@ -229,7 +229,8 @@ def test_cli_writes_the_jax_shards_and_an_index_jax_reads(workspace, monkeypatch
 
 def test_cli_refuses_what_is_not_ported(workspace):
     out = str(workspace["root"] / "refused")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh is ported; one that the world's ranks cannot fill is refused
+    with pytest.raises(ValueError, match="does not divide the world size 1"):
         compute_corpus_embeddings.main(embed_args(workspace, out, ["--mesh_model", "2"]),
                                        device="cpu")
 

@@ -47,7 +47,7 @@ def test_every_module_imports_without_jax():
             "kirag_tpu_torch.models.t5", "kirag_tpu_torch.utils.tracing",
             "kirag_tpu_torch.utils.wandb_tracker", "kirag_tpu_torch.preprocessing",
             "kirag_tpu_torch.preprocessing.odqa", "kirag_tpu_torch.parallel",
-            "kirag_tpu_torch.parallel.mesh"} <= names
+            "kirag_tpu_torch.parallel.mesh", "kirag_tpu_torch.parallel.dryrun"} <= names
 
 
 def test_no_source_imports_jax():

@@ -181,3 +181,261 @@ def llm(cases):
             got["ids"], got["logits"] = _np(ids), _np(logits)
         out.append(got)
     return out
+
+
+def _bert(case):
+    """The case's model on ``case.get("device", "cpu")``."""
+    from kirag_tpu_torch.models import BertConfig, BertModel, params_from_jax
+
+    config = BertConfig(**case["cfg"])
+    model = BertModel(config, device=case.get("device", "cpu"))
+    model.load_state_dict(params_from_jax(case["tree"], config))
+    return model
+
+
+def _param_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def bert_tp(cases):
+    """Each case's ``Encoder(...).shard_params(create_mesh(*mesh))`` on its
+    device (default the CPU) at its compute dtype (default f32): the
+    embeddings of ``ids``/``mask``, the whole and this rank's parameter
+    bytes and each parameter's local shape; a model axis that cannot shard
+    the model returns the ValueError's text instead (``"refused"``)."""
+    from kirag_tpu_torch.models import Encoder
+
+    out = []
+    for case in cases:
+        model = _bert(case)
+        encoder = Encoder(model, case.get("encoder_type", "e5"),
+                          compute_dtype=case.get("dtype", torch.float32))
+        whole = _param_bytes(encoder.model)
+        try:
+            encoder.shard_params(create_mesh(*case["mesh"]))
+        except ValueError as e:
+            out.append({"refused": str(e)})
+            continue
+        emb = encoder(case["ids"], case["mask"])
+        out.append({"emb": _np(emb), "bytes": (whole, _param_bytes(encoder.model)),
+                    "shapes": {n: tuple(p.shape) for n, p in encoder.model.named_parameters()},
+                    "caller_untouched": all(p.shape == q.shape for p, q in zip(
+                        model.parameters(), _bert(case).parameters()))})
+    return out
+
+
+def _first(batch):
+    return batch[0]
+
+
+def _aligner_trainer(case, mesh, save_dir, model=None):
+    from kirag_tpu_torch.training import AlignerTrainer, DataLoader, TrainerConfig
+
+    kw = dict(learning_rate=3e-4, num_train_epochs=1, eval_steps=1000, log_steps=1000)
+    kw.update(case.get("tcfg", {}))
+    loader = DataLoader(case["batches"], batch_size=1, shuffle=False, collate_fn=_first)
+    evals = case.get("eval")
+    return AlignerTrainer(
+        model if model is not None else _bert(case), TrainerConfig(save_dir=save_dir, **kw),
+        loader, None if evals is None else DataLoader(evals, batch_size=1, shuffle=False,
+                                                      collate_fn=_first),
+        temperature=0.05, mesh=mesh, batch_sharding=case.get("batch_sharding", "data"),
+        remat=case.get("remat", False), packed=case.get("packed", False),
+        compute_dtype=case.get("dtype", torch.float32))
+
+
+def _jax_flat(trainer, tensors):
+    """Whole-model tensors by parameter name -> the reference's flat layout
+    (copies: a later step does not change them)."""
+    from kirag_tpu_torch.models.encoders import _jax_flat_state
+
+    return {k: v.copy() for k, v in _jax_flat_state(tensors, trainer.model.config).items()}
+
+
+def _whole_params(trainer):
+    from kirag_tpu_torch.models.bert import gather_state_dict
+
+    return _jax_flat(trainer, gather_state_dict(trainer.model))
+
+
+def _record_grads(trainer):
+    """Wrap the optimizer's update so that each micro step's gradients, as
+    the whole model's and summed over the data axis, are kept."""
+    seen = []
+    update = trainer.optimizer.update
+
+    def recording(grads):
+        whole = {}
+        for name, g in zip(trainer.names, grads):
+            if trainer.batch_sharding is not None:
+                g = all_reduce_sum(g, trainer.mesh, trainer.batch_sharding)
+            whole[name] = trainer._whole(name, g)
+        seen.append(_jax_flat(trainer, whole))
+        return update(grads)
+
+    trainer.optimizer.update = recording
+    return seen
+
+
+def _steps(trainer, n):
+    return [trainer.training_step(trainer.train_loader.dataset[i]) for i in range(n)]
+
+
+def aligner(cases):
+    """Each case's ``AlignerTrainer(mesh=create_mesh(*mesh), batch_sharding=)``
+    on its device (default the CPU), by ``case["op"]``:
+
+    - ``"step"``: ``steps`` micro steps: their statistics, the first step's
+      gradients (summed over the data axis, gathered over the model axis,
+      in the reference's layout), the parameters after, this rank's bytes,
+      the kernels' launches in the steps; with ``"eval"`` the trainer's
+      ``evaluate`` and ``evaluate_corpus_mrr`` before the steps; with
+      ``"save_encoder"`` the encoder written there; with ``"checkpoint"``
+      the trainer's checkpoint saved after the steps;
+    - ``"resume"``: two steps with a checkpoint after the first, then a new
+      trainer resumed from it on the same mesh: both second steps' losses
+      and parameters;
+    - ``"load"``: a trainer resumed from ``case["from"]`` (a checkpoint of
+      another layout), one step: its statistics and parameters;
+    - ``"nonfinite"``: one step whose gradient of a (model-sharded) weight
+      is NaN on the last rank only: every rank's parameters and skip
+      counters;
+    - ``"rows"``: the ValueError of a batch whose rows do not divide the
+      data axis;
+    - ``"writes"``: ``train()`` with each rank in its own directory: the
+      files each rank wrote."""
+    import os
+
+    out = []
+    for case in cases:
+        m = create_mesh(*case["mesh"])
+        save_dir = case["save_dir"]
+        op = case["op"]
+        if op == "writes":
+            save_dir = os.path.join(save_dir, str(dist.get_rank()))
+        trainer = _aligner_trainer(case, m, save_dir)
+        got = {"bytes": _param_bytes(trainer.model)}
+        if op == "step":
+            from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+            if case.get("eval") is not None:
+                got["eval"] = (trainer.evaluate(trainer.model, trainer.eval_loader),
+                               trainer.evaluate_corpus_mrr(trainer.model, trainer.eval_loader))
+            seen = _record_grads(trainer)
+            reset_launch_counts()
+            got["stats"] = _steps(trainer, case.get("steps", 1))
+            got["launches"] = dict(launch_counts())
+            got["grads"] = seen[0]
+            got["params"] = _whole_params(trainer)
+            if case.get("save_encoder"):
+                trainer.save_encoder(case["save_encoder"])
+            if case.get("checkpoint"):
+                trainer.save_checkpoint()
+        elif op == "resume":
+            first = _steps(trainer, 1)
+            trainer.save_checkpoint()
+            second = trainer.training_step(trainer.train_loader.dataset[1])
+            got["uninterrupted"] = (second, _whole_params(trainer))
+            again = _aligner_trainer(case, m, save_dir)
+            assert again.resume_training() and again.step == 1
+            resumed = again.training_step(again.train_loader.dataset[1])
+            got["resumed"] = (resumed, _whole_params(again))
+            got["first"] = first[0]
+        elif op == "load":
+            trainer.latest.root = os.path.join(case["from"], "latest")
+            assert trainer.resume_training()
+            got["loaded"] = _whole_params(trainer)
+            got["stats"] = _steps(trainer, 1)
+            got["params"] = _whole_params(trainer)
+        elif op == "nonfinite":
+            update = trainer.optimizer.update
+            sharded = trainer.names.index("layers.1.mlp.intermediate.weight")
+
+            def poisoned(grads):
+                if dist.get_rank() == dist.get_world_size() - 1:
+                    grads = list(grads)
+                    grads[sharded] = grads[sharded] * float("nan")
+                return update(grads)
+
+            before = _whole_params(trainer)
+            trainer.optimizer.update = poisoned
+            got["stats"] = _steps(trainer, 1)
+            after = _whole_params(trainer)
+            got["unchanged"] = all(np.array_equal(before[k], after[k]) for k in before)
+            got["skips"] = (trainer.optimizer.notfinite_count,
+                            trainer.optimizer.total_notfinite, trainer.optimizer.count)
+        elif op == "rows":
+            try:
+                trainer.device_put_batch(trainer.pack_batch(case["batches"][0]))
+                got["error"] = None
+            except ValueError as e:
+                got["error"] = str(e)
+        elif op == "writes":
+            trainer.train()
+            got["files"] = sorted(os.path.relpath(os.path.join(d, f), save_dir)
+                                  for d, _, fs in os.walk(save_dir) for f in fs)
+            got["history"] = len(trainer.history)
+        out.append(got)
+    return out
+
+
+class WordTokenizer:
+    """A word-level stand-in for a HuggingFace tokenizer, so that the ranks
+    need not import transformers (about 12 s a process): lower-cased words
+    and punctuation looked up in ``vocab`` ([UNK] otherwise), [CLS] ...
+    [SEP], right padding with 0; called as the collators call a HF
+    tokenizer."""
+
+    def __init__(self, vocab):
+        self.ids = {w: i for i, w in enumerate(vocab)}
+        self.padding_side = "right"
+
+    def __call__(self, texts, max_length, padding="max_length", truncation=True,
+                 return_tensors="np"):
+        import re
+
+        ids = np.zeros((len(texts), max_length), dtype=np.int64)
+        mask = np.zeros_like(ids)
+        for i, text in enumerate(texts):
+            words = re.findall(r"\w+|[^\w\s]", text.lower())[:max_length - 2]
+            row = ([self.ids["[CLS]"]] + [self.ids.get(w, self.ids["[UNK]"]) for w in words]
+                   + [self.ids["[SEP]"]])
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def cli(cases):
+    """Each case's CLI ``main(argv, device="cpu", tokenizer=WordTokenizer(
+    case["vocab"]))`` under the mesh its ``--mesh_data``/``--mesh_model``
+    build over the ranks (``train_aligner`` logs every step): what it
+    returned, and the files this rank's run left under ``case["root"]`` that
+    were not there before."""
+    import functools
+    import os
+
+    import kirag_tpu_torch.training as training
+    from kirag_tpu_torch.cli import compute_corpus_embeddings, train_aligner
+
+    training.TrainerConfig = functools.partial(training.TrainerConfig, log_steps=1)
+    out = []
+    for case in cases:
+        def files():
+            return {os.path.join(d, f) for d, _, fs in os.walk(case["root"]) for f in fs}
+
+        dist.barrier()
+        before = files()
+        module = {"train_aligner": train_aligner,
+                  "compute_corpus_embeddings": compute_corpus_embeddings}[case["cli"]]
+        result = module.main(case["argv"], device="cpu", tokenizer=WordTokenizer(case["vocab"]))
+        dist.barrier()
+        out.append({"result": result, "new_files": sorted(files() - before)})
+    return out
+
+
+def dryrun(cases):
+    """``parallel.dryrun.dryrun_multichip`` on the CPU over every rank: its
+    summary line."""
+    from kirag_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    return [dryrun_multichip("cpu", work_dir=case.get("work")) for case in cases]
