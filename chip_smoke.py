@@ -124,13 +124,20 @@ weights at E5-large and Llama-3-8B-Instruct width:
 - the mesh (phase 20, after phase 18): (a) NCCL at world size 1 in this
   process, every ``sharded_*`` search over a 1 x 1 mesh of phase 4's rows
   (float32, int8, int4) bitwise its unsharded counterpart, one
-  ``all_gather_cols`` and a sharded search timed; (b) two spawned ranks on
-  the one card over gloo, each making the same seeded 1,000,000 x 1024 rows
-  and keeping its shard (the valid rows ending inside shard 1): the merged
-  exact (capdom) and approximate (W = 1) searches in five formats at Q = 8
-  and 32 bitwise the first rank's unsharded kernel search, then Llama TP
-  over the two ranks at phase 9's depth (bf16, NF4 through K6) and at 2
-  layers (f32) against the unsharded decode; (c) ``torchrun`` of one rank
+  ``all_gather_cols`` and a sharded search timed, and ``RetrievalEngine``
+  over ``TorchIndexer(mesh=)`` of that mesh, its answers bitwise phase 4's
+  engine's; (b) two spawned ranks on the one card over gloo, each making
+  the same seeded 1,000,000 x 1024 rows and keeping its shard (the valid
+  rows ending inside shard 1): the merged exact (capdom) and approximate
+  (W = 1) searches in five formats at Q = 8 and 32 bitwise the first rank's
+  unsharded kernel search; (d) in the same ranks, ``RetrievalEngine`` over
+  ``TorchIndexer(mesh=)`` of those rows with phase 4's texts at their rows
+  (float32 exact and approximate, int8 exact): the first rank encodes and
+  serves phase 4's traffic, the other follows its batches into the
+  search's collectives, every batch bitwise the first rank's unsharded
+  kernel search, requests/s and p50/p95; then Llama TP over the two ranks
+  at phase 9's depth (bf16, NF4 through K6) and at 2 layers (f32) against
+  the unsharded decode; (c) ``torchrun`` of one rank
   running ``cli/retrieve --mesh_data 1`` with run A's arguments (through
   this script's ``--mesh-retrieve``, which hands in phase 9's tokenizers
   and LLM), its ``--save_file`` equal to run A's;
@@ -462,6 +469,9 @@ class RecordingIndex:
         self.index = index
         self.calls = []
 
+    def __getattr__(self, name):  # the engine reads the index's mesh, device and width
+        return getattr(self.index, name)
+
     def search_knn(self, query_vectors, top_docs, **kwargs):
         before = self.index.redispatches
         out = self.index.search_knn(query_vectors, top_docs, **kwargs)
@@ -479,6 +489,67 @@ def make_requests(n_requests: int, n_texts: int):
         requests.append([(pos + j) % n_texts for j in range(n)])
         pos += n
     return requests
+
+
+LONE_REQUESTS = (1, 8, 32)  # texts of the requests sent alone after the threaded ones
+
+
+def drive_engine(engine, texts, n_requests: int, label: str):
+    """``n_requests`` requests (:func:`make_requests`) from 4 threads, then
+    one request at a time of LONE_REQUESTS texts, as a quiet server gets
+    them (one question, padded to 8 rows, and full batches), all at top K:
+    ``(requests, results, latencies, wall)``, the requests as text numbers,
+    the threaded ones' latencies and their wall time in seconds (host
+    clock)."""
+    requests = make_requests(n_requests, len(texts))
+    results, latencies, errors = {}, {}, []
+
+    def worker(mine):
+        for r in mine:
+            t0 = time.perf_counter()
+            try:
+                results[r] = engine.search([texts[i] for i in requests[r]], topk=K)
+            except Exception as e:  # reported below
+                errors.append(e)
+            latencies[r] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(range(i, len(requests), 4),))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"{label}: serving failed: {errors}")
+    for n in LONE_REQUESTS:
+        requests.append(list(range(n)))
+        results[len(requests) - 1] = engine.search(texts[:n], topk=K)
+    return requests, results, np.array([latencies[r] for r in range(n_requests)]), wall
+
+
+def traffic_stats(requests, latencies: np.ndarray, wall: float) -> dict:
+    """Requests/s, texts/s and the latencies' p50/p95 (ms) of the threaded
+    requests, the first ``len(latencies)`` of ``requests``."""
+    n = len(latencies)
+    lat = latencies * 1e3
+    return {"rps": n / wall, "texts_per_s": sum(len(r) for r in requests[:n]) / wall,
+            "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95))}
+
+
+def realtext_questions() -> list:
+    """The first N_TEXTS of the repo's bundled real-text questions (a data
+    file; read by path, since an installed package may own the name
+    `tests`)."""
+    fixtures = runpy.run_path(str(Path(__file__).resolve().parent / "tests"
+                                  / "fixtures_realtext.py"))
+    return [r["question"] for r in fixtures["REALTEXT_QA"]][:N_TEXTS]
+
+
+def phase4_text_rows() -> list:
+    """The rows that hold the texts' embeddings, spread over the corpus."""
+    return [i * (N_ROWS // N_TEXTS) + 7 for i in range(N_TEXTS)]
 
 
 def kernel_quant(compression: str) -> str:
@@ -545,35 +616,10 @@ def serve(label, encoder, collator, index, texts, text_rows, power,
                                search_mode=mode)
     engine = RetrievalEngine(retriever, max_batch=32, max_wait_ms=5.0, topk_buckets=(10, K))
     recorder.calls.clear()  # warmup searches are not part of the run
-    requests = make_requests(n_requests, len(texts))
-    results, latencies, errors = {}, {}, []
-
-    def worker(mine):
-        for r in mine:
-            t0 = time.perf_counter()
-            try:
-                results[r] = engine.search([texts[i] for i in requests[r]], topk=K)
-            except Exception as e:  # reported below
-                errors.append(e)
-            latencies[r] = time.perf_counter() - t0
-
     reset_launch_counts()
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=worker, args=(range(i, len(requests), 4),))
-               for i in range(4)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-    wall = time.perf_counter() - t0
-    if errors or any(t.is_alive() for t in threads):
-        raise RuntimeError(f"{label}: serving failed: {errors}")
-    n_threaded = len(recorder.calls)
-    # then requests alone, as a quiet server gets them: one question (padded
-    # to 8 rows) and full batches of 8 and 32 texts (no pad rows)
-    for n in (1, 8, 32):
-        requests.append(list(range(n)))
-        results[len(requests) - 1] = engine.search(texts[:n], topk=K)
+    requests, results, latencies, wall = drive_engine(engine, texts, n_requests, label)
+    n_threaded = len(recorder.calls) - len(LONE_REQUESTS)  # a lone request is one batch
+    lone = {n: results[n_requests + i] for i, n in enumerate(LONE_REQUESTS)}
     counts = main_path_counts()
     engine.close()
     quant = index.compression
@@ -628,11 +674,8 @@ def serve(label, encoder, collator, index, texts, text_rows, power,
             (redispatched > 0) != (counts[kernel_names(quant)[1]] > 0)):
         raise AssertionError(f"{label}: {redispatched} searches re-dispatched, launches {counts}")
 
-    lat = np.array([latencies[r] for r in range(n_requests)]) * 1e3
-    stats = {"rps": n_requests / wall,
-             "texts_per_s": sum(len(requests[r]) for r in range(n_requests)) / wall,
-             "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
-             "launches": counts, "searches": len(recorder.calls), "redispatched": redispatched}
+    stats = {**traffic_stats(requests, latencies, wall), "launches": counts,
+             "searches": len(recorder.calls), "redispatched": redispatched, "lone": lone}
     if merge:
         searched = (f"none re-dispatched (merge), K2 ran inside "
                     f"{counts[kernel_names(quant)[1]]} of them (window check failed); ")
@@ -5889,6 +5932,9 @@ MESH_LLM_STEPS = 16                   # (b): tokens decoded a run
 MESH_F32_LAYERS = 2                   # (b): the f32 run's depth
 MESH_TIMEOUT = 360                    # s: (b)'s and (c)'s processes
 MESH_GATHER = (32, 100)               # (a): the timed all_gather_cols
+# (d): the sharded engine's runs, (compression, mode, requests from 4 threads)
+MESH_ENGINE_RUNS = (("none", "exact", 200), ("none", "approx", 100), ("int8", "exact", 100))
+MESH_QUERY_TOKENS = 128               # (d): the queries' padded length (K3 takes 128-token tiles)
 
 
 def nonzero(counts: dict) -> dict:
@@ -5935,8 +5981,8 @@ def mesh_searches(corpus, scales, quant, q, n_valid, mesh, local=True) -> dict:
 
 
 def mesh_rank(rank: int, store: str, out: str) -> None:
-    """Phase 20 (b), one of MESH_RANKS processes on the one card over gloo
-    (spawned; loads the library the parent built): writes what
+    """Phase 20 (b) and (d), one of MESH_RANKS processes on the one card over
+    gloo (spawned; loads the library the parent built): writes what
     :func:`mesh_rank_work` returns, or the traceback, to ``out``."""
     import pickle
     import traceback
@@ -5957,10 +6003,11 @@ def mesh_rank_work(rank: int, store: str) -> dict:
     """Every rank makes the same seeded N_ROWS x DIM rows on the card, padded
     to the chunk grid of two shards (so the valid rows end inside shard 1),
     keeps its shard, and searches it in five formats at Q = 8 and 32; the
-    first rank also searches the whole corpus. Then Llama TP over the model
-    axis at phase 9's depth (bf16) and at MESH_F32_LAYERS (f32), the first
-    rank decoding the unsharded params too. The kernels' launches are the
-    sharded runs' only."""
+    first rank also searches the whole corpus. Then (d), the sharded
+    engine over the same rows with phase 4's texts at their rows
+    (:func:`mesh_engine`), and Llama TP over the model axis at phase 9's
+    depth (bf16) and at MESH_F32_LAYERS (f32), the first rank decoding the
+    unsharded params too. The kernels' launches are the sharded runs' only."""
     import torch.distributed as dist
 
     from kirag_tpu_torch.kernels import launch_counts, load_library, reset_launch_counts
@@ -6004,6 +6051,8 @@ def mesh_rank_work(rank: int, store: str) -> dict:
                     checks.append((fmt, n_q, mode))
         del corpus, scales
     search_s = time.perf_counter() - t0
+    engine = mesh_engine(rank, mesh, rows, dev)
+    counts = {k: counts[k] + engine["counts"][k] for k in counts}
     del rows
     torch.cuda.empty_cache()
 
@@ -6067,9 +6116,95 @@ def mesh_rank_work(rank: int, store: str) -> dict:
     dist.barrier()
     dist.destroy_process_group()
     return {"rank": rank, "counts": counts, "results": results, "checks": checks,
-            "llm": tp_np, "llm_checks": llm_checks, "bytes": (whole, here), "k6": k6,
+            "engine": engine, "llm": tp_np, "llm_checks": llm_checks, "bytes": (whole, here), "k6": k6,
             "search_s": search_s, "llm_s": llm_s, "tp_step_ms": 1e3 * tp_s / MESH_LLM_STEPS,
             "device": str(dev)}
+
+
+def mesh_engine(rank: int, mesh, rows: torch.Tensor, dev) -> dict:
+    """Phase 20 (d) on one rank: RetrievalEngine over ``TorchIndexer(mesh=)``
+    of the first N_ROWS of ``rows`` (float32, then int8), for each of
+    MESH_ENGINE_RUNS. Every rank builds the same retriever (phase 4's seeded
+    E5-large, bf16; the queries padded to 128 tokens, so that the encoder
+    runs K3); the first rank embeds phase 4's texts, which every rank writes
+    at phase 4's rows. Each rank constructs the engine; the first rank
+    leads and serves phase 4's traffic (:func:`drive_engine`), then closes,
+    while the other rank's constructor follows its batches. The leader then
+    holds every batch its index searched bitwise against its own unsharded
+    kernel search of the same queries, and each text's own row at top-1.
+    Returns the runs' launches (reset before each engine, read after it
+    closed), each search's results and the leader's traffic."""
+    from kirag_tpu_torch.data import E5Collator
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from kirag_tpu_torch.models import BertConfig, BertModel, Encoder
+    from kirag_tpu_torch.parallel import broadcast
+    from kirag_tpu_torch.retrieval import DenseRetriever
+    from kirag_tpu_torch.serving import RetrievalEngine
+
+    t0 = time.perf_counter()
+    model = BertModel(BertConfig(), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+    encoder = Encoder(model, "e5", compute_dtype=torch.bfloat16)
+    collator = E5Collator(HashTokenizer(), query_maxlength=MESH_QUERY_TOKENS,
+                          doc_maxlength=512, query_padding="max_length")
+    texts, text_rows = realtext_questions(), phase4_text_rows()
+    emb = torch.zeros((len(texts), DIM), device=dev)
+    if rank == 0:
+        emb = torch.from_numpy(DenseRetriever(encoder, collator).calculate_query_embeddings(
+            texts)).to(dev)
+    rows[text_rows] = broadcast(emb, mesh)
+    host = rows[:N_ROWS].cpu().numpy()
+    ids = list(range(N_ROWS))
+    counts, runs = None, {}
+    for compression in dict.fromkeys(c for c, _, _ in MESH_ENGINE_RUNS):
+        index = TorchIndexer(DIM, device=dev, pallas_chunk_size=CHUNK, compression=compression,
+                             mesh=mesh)
+        index.index_data(ids, host)
+        index.to_device()
+        whole = None
+        if rank == 0:  # the reference: the unsharded index of the same rows
+            whole = TorchIndexer(DIM, device=dev, pallas_chunk_size=CHUNK,
+                                 compression=compression)
+            whole.index_data(ids, host)
+            whole.to_device()
+        for _, mode, n_requests in (r for r in MESH_ENGINE_RUNS if r[0] == compression):
+            what = f"(d) {compression} {mode}"
+            recorder = RecordingIndex(index)
+            retriever = DenseRetriever(encoder, collator, indexer=recorder, batch_size=32,
+                                       search_mode=mode)
+            redispatches = index.redispatches
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            engine = RetrievalEngine(retriever, max_batch=32, max_wait_ms=5.0,
+                                     topk_buckets=(10, K))  # a follower's returns at close()
+            if engine.leader:
+                requests, results, latencies, wall = drive_engine(engine, texts, n_requests,
+                                                                  what)
+                engine.close()
+            c = launch_counts()
+            counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+            run = {"seconds": time.perf_counter() - t1, "counts": c, "stats": dict(engine.stats),
+                   "redispatches": index.redispatches - redispatches,
+                   "searches": [(ids_, vals) for _, _, out, _ in recorder.calls
+                                for ids_, vals in out]}
+            if engine.leader:
+                for r, request in enumerate(requests):
+                    for j, row in zip(request, results[r]):
+                        if row[0]["id"] != str(text_rows[j]) or len(row) != K:
+                            raise AssertionError(f"{what}: text {j} top-1 is {row[0]['id']}, "
+                                                 f"not its own row {text_rows[j]}")
+                for q, top_docs, out, _ in recorder.calls:
+                    want = whole.search_knn(q, top_docs, mode=mode)
+                    for (got_ids, got_vals), (want_ids, want_vals) in zip(out, want):
+                        if got_ids != want_ids or not np.array_equal(got_vals, want_vals):
+                            raise AssertionError(f"{what}: a batch of {len(q)} is not bitwise "
+                                                 "the unsharded kernel search")
+                run.update(traffic_stats(requests, latencies, wall), threaded=n_requests)
+            runs[(compression, mode)] = run
+        del index, whole
+        torch.cuda.empty_cache()
+    return {"counts": counts, "runs": runs, "seconds": time.perf_counter() - t0}
 
 
 def mesh_retrieve(spec_path: str) -> int:
@@ -6100,17 +6235,23 @@ def mesh_retrieve(spec_path: str) -> int:
     return 0
 
 
-def mesh_nccl(work: Path, host_rows: np.ndarray, dev, gen, power) -> dict:
+def mesh_nccl(work: Path, host_rows: np.ndarray, served: dict, dev, gen, power) -> dict:
     """Phase 20 (a): NCCL at world size 1 in this process, over a FileStore:
     every sharded_* search over a 1 x 1 mesh of phase 4's float32 rows and
     their int8/int4 layouts bitwise its unsharded counterpart; one
     all_gather_cols and the sharded capdom search timed beside the
-    unsharded one. The NCCL group is destroyed at the end."""
+    unsharded one; then RetrievalEngine over ``TorchIndexer(mesh=)`` of the
+    1 x 1 mesh, its lone requests bitwise phase 4's float32 engine's
+    (``served``: its encoder, collator, texts and lone results). The NCCL
+    group is destroyed at the end."""
     import torch.distributed as dist
 
     from kirag_tpu_torch import ops
+    from kirag_tpu_torch.index import TorchIndexer
     from kirag_tpu_torch.kernels import reset_launch_counts
     from kirag_tpu_torch.parallel import all_gather_cols, create_mesh
+    from kirag_tpu_torch.retrieval import DenseRetriever
+    from kirag_tpu_torch.serving import RetrievalEngine
 
     t0 = time.perf_counter()
     dist.init_process_group("nccl", store=dist.FileStore(str(work / "nccl"), 1), rank=0,
@@ -6152,6 +6293,26 @@ def mesh_nccl(work: Path, host_rows: np.ndarray, dev, gen, power) -> dict:
         search = dict(chunk_size=CHUNK, valid_rows=N_ROWS, **CAPDOM)
         sharded_ms = cuda_ms(lambda: ops.sharded_exact_topk_mips(q, rows, K, mesh, **search))
         unsharded_ms = cuda_ms(lambda: ops.exact_topk_mips(q, rows, K, **search))
+        del rows, layouts, sharded
+        torch.cuda.empty_cache()
+        index = TorchIndexer(DIM, device=dev, pallas_chunk_size=CHUNK, mesh=mesh)
+        index.index_data(list(range(N_ROWS)), host_rows)
+        index.to_device()
+        retriever = DenseRetriever(served["encoder"], served["collator"], indexer=index,
+                                   batch_size=32)
+        reset_launch_counts()
+        engine = RetrievalEngine(retriever, max_batch=32, max_wait_ms=5.0, topk_buckets=(10, K))
+        lone = {n: engine.search(served["texts"][:n], topk=K) for n in served["lone"]}
+        engine.close()
+        engine_counts = main_path_counts()
+        counts = {k: counts[k] + engine_counts[k] for k in counts}
+        for n, want in served["lone"].items():
+            if [[(d["id"], d["score"]) for d in row] for row in lone[n]] != [
+                    [(d["id"], d["score"]) for d in row] for row in want]:
+                raise AssertionError(f"(a) the engine over a 1 x 1 mesh: the request of {n} "
+                                     "texts is not bitwise phase 4's float32 engine's")
+        del index
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     log(f"  (a) NCCL, world size 1, a 1 x 1 mesh over {N_ROWS} x {DIM} float32 rows ({n_pad} "
@@ -6162,13 +6323,16 @@ def mesh_nccl(work: Path, host_rows: np.ndarray, dev, gen, power) -> dict:
         f"{gather_ms:.4f} ms; the float32 capdom search, Q={len(q)}: sharded {sharded_ms:.3f} "
         f"ms (its merge: two all_gathers and a stable sort) against unsharded "
         f"{unsharded_ms:.3f} ms (CUDA events, median of 10); {time.perf_counter() - t0:.1f} s")
+    log(f"  (a) RetrievalEngine over TorchIndexer(mesh=) of the 1 x 1 mesh: requests of "
+        f"{list(served['lone'])} texts alone, ids and scores bitwise phase 4's float32 "
+        f"engine's; launches {nonzero(engine_counts)}")
     return {"launches": counts, "gather_ms": gather_ms, "sharded_ms": sharded_ms,
             "unsharded_ms": unsharded_ms}
 
 
 def mesh_gloo(work: Path, power) -> list:
-    """Phase 20 (b): MESH_RANKS spawned ranks on the one card over gloo
-    (:func:`mesh_rank_work`); both ranks' results the same. Returns the
+    """Phase 20 (b) and (d): MESH_RANKS spawned ranks on the one card over
+    gloo (:func:`mesh_rank_work`); both ranks' results the same. Returns the
     ranks' main-path launches."""
     import pickle
 
@@ -6225,8 +6389,49 @@ def mesh_gloo(work: Path, power) -> list:
         f"{[nonzero(r['counts']) for r in ranks]}")
     log(f"  [{power}] (b) rank 0: searches {r0['search_s']:.1f} s, LLM build and decodes "
         f"{r0['llm_s']:.1f} s, a TP decode step {r0['tp_step_ms']:.1f} ms (host clock, gloo "
-        f"through the host); (b) in all {time.perf_counter() - t0:.1f} s")
+        f"through the host); (b) and (d) in all {time.perf_counter() - t0:.1f} s")
+    mesh_engine_check(ranks, power)
     return [r["counts"] for r in ranks]
+
+
+def mesh_engine_check(ranks: list, power) -> None:
+    """Phase 20 (d) across the ranks: each follower searched what the leader
+    searched and got the same results, K1 (exact) or K5 (approx) ran on
+    every rank, K2 on every rank over the exact runs, K3 on the leader only
+    (the followers encode nothing); the traffic's numbers logged."""
+    r0 = ranks[0]["engine"]
+    k2 = [0] * len(ranks)
+    for (compression, mode), lead in r0["runs"].items():
+        quant = kernel_quant(compression)
+        what = f"(d) {compression} {mode}"
+        for i, r in enumerate(ranks):
+            run = r["engine"]["runs"][(compression, mode)]
+            same = len(run["searches"]) == len(lead["searches"]) and all(
+                a[0] == b[0] and np.array_equal(a[1], b[1])
+                for a, b in zip(run["searches"], lead["searches"]))
+            if not same:
+                raise AssertionError(f"{what}: rank {r['rank']}'s searches differ from the "
+                                     "leader's")
+            name = k5_name(quant) if mode == "approx" else kernel_names(quant)[0]
+            if run["counts"][name] == 0 or (run["counts"]["flash_attention"] > 0) != (i == 0):
+                raise AssertionError(f"{what}: rank {r['rank']} launched "
+                                     f"{nonzero(run['counts'])}")
+            if mode == "exact":
+                k2[i] += run["counts"][kernel_names(quant)[1]]
+        log(f"  (d) RetrievalEngine over {MESH_RANKS} ranks, {compression} {mode}: "
+            f"{lead['stats']['requests']} requests in {lead['stats']['batches']} batches "
+            f"({len(lead['searches'])} queries searched with the warm-up), each text's own row "
+            f"at top-1, every batch bitwise rank 0's unsharded kernel search, each follower's "
+            f"results the leader's; {lead['redispatches']} searches re-dispatched; launches "
+            f"a rank {[nonzero(r['engine']['runs'][(compression, mode)]['counts']) for r in ranks]}")
+        log(f"  [{power}] (d) {compression} {mode} engine: {lead['rps']:.2f} requests/s "
+            f"({lead['texts_per_s']:.2f} texts/s), latency p50 {lead['p50_ms']:.2f} ms, p95 "
+            f"{lead['p95_ms']:.2f} ms ({lead['threaded']} requests, host clock, 4 threads; "
+            f"gloo through the host); the run "
+            f"{lead['seconds']:.1f} s")
+    if not all(k2):
+        raise AssertionError(f"(d): K2 launches a rank over the exact runs {k2}")
+    log(f"  (d) in all {r0['seconds']:.1f} s on rank 0 (retriever, indexes, runs and checks)")
 
 
 def mesh_torchrun(work: Path, mesh_dir: Path, built: dict):
@@ -6278,16 +6483,18 @@ def mesh_torchrun_check(proc, spec: dict, run_a: dict, started: float, power) ->
     return out["counts"]
 
 
-def mesh_phase(work: Path, host_rows: np.ndarray, built: dict, run_a: dict, dev, gen,
-               power) -> dict:
-    """Phase 20, the mesh: (c) starts first, in the background, then (a) and
-    (b) run; (c) is checked last. Returns each run's main-path launches."""
+def mesh_phase(work: Path, host_rows: np.ndarray, served: dict, built: dict, run_a: dict, dev,
+               gen, power) -> dict:
+    """Phase 20, the mesh: (c) starts first, in the background, then (a),
+    and (b) with (d) in the same ranks, run; (c) is checked last. ``served``:
+    phase 4's encoder, collator, texts and the float32 engine's lone
+    results. Returns each run's main-path launches."""
     started = time.perf_counter()
     mesh_dir = work / "mesh"
     mesh_dir.mkdir()
     proc, spec = mesh_torchrun(work, mesh_dir, built)
     try:
-        nccl = mesh_nccl(mesh_dir, host_rows, dev, gen, power)
+        nccl = mesh_nccl(mesh_dir, host_rows, served, dev, gen, power)
         ranks = mesh_gloo(mesh_dir, power)
         retrieved = mesh_torchrun_check(proc, spec, run_a, started, power)
     finally:
@@ -6856,9 +7063,7 @@ def main() -> int:
     collator = E5Collator(HashTokenizer(), query_maxlength=64, doc_maxlength=512)
     # the repo's bundled real-text questions (a data file; read by path, since
     # an installed package may own the name `tests`)
-    fixtures = runpy.run_path(str(Path(__file__).resolve().parent / "tests"
-                                  / "fixtures_realtext.py"))
-    texts = [r["question"] for r in fixtures["REALTEXT_QA"]][:N_TEXTS]
+    texts = realtext_questions()
     text_emb = DenseRetriever(encoder, collator).calculate_query_embeddings(texts)
     # the same weights in f32 are the reference for the bf16 encoder
     ref_model = BertModel(config, device=dev,
@@ -6882,7 +7087,7 @@ def main() -> int:
 
     # the texts' embeddings at known rows spread over the corpus, seeded unit
     # rows everywhere else
-    text_rows = [i * (N_ROWS // N_TEXTS) + 7 for i in range(N_TEXTS)]
+    text_rows = phase4_text_rows()
     rows = unit_rows(N_ROWS, gen, dev)
     rows[text_rows] = torch.from_numpy(text_emb).to(dev)
     host_rows = rows.cpu().numpy()
@@ -6981,7 +7186,9 @@ def main() -> int:
         streamed = streaming(work, encoder, collator, text_emb, texts, dev, gen, power)
         phase(f"phase 20: the mesh (NCCL at world size 1; {MESH_RANKS} ranks on the card over "
               "gloo with sharded searches and Llama TP; torchrun of cli/retrieve --mesh_data 1)")
-        meshed = mesh_phase(work, host_rows, built, kirag["A"], dev, gen, power)
+        meshed = mesh_phase(work, host_rows, {
+            "encoder": encoder, "collator": collator, "texts": texts,
+            "lone": served["float32 index"]["lone"]}, built, kirag["A"], dev, gen, power)
         phase(f"phase 21: training over a mesh (NCCL at world size 1; {MESH_RANKS} ranks on the "
               "card over gloo with DP and TP steps at E5-large width; torchrun of "
               "cli/train_aligner --mesh_data 1)")
@@ -7004,8 +7211,8 @@ def main() -> int:
     # step's largest per-layer projection at the Generator's batch); K3's
     # backward kernels' at the aligner's bf16 query batch. Launches: every
     # main-path run (phases 4, 6, 8, 9, 10's CLI run, 11 b-d, 12 b-d, 13,
-    # 14 c-d, 16's four runs, 17's and 18's streamed searches), not the
-    # comparisons.
+    # 14 c-d, 16's four runs, 17's and 18's streamed searches, 20's and 21's
+    # sharded runs and engines), not the comparisons.
     paths = [s["launches"] for s in served.values()] + [built["launches"]] + [
         r["launches"] for r in kirag.values()] + [trained["launches"]] + [
         s["launches"] for s in served_q.values()] + [

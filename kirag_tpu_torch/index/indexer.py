@@ -54,8 +54,11 @@ mesh's first rank and broadcast). A search is a collective: every rank of
 the mesh calls ``search_knn`` with the same queries, which are broadcast
 from the first rank of the data group, searches its shard and merges the
 shards' candidates (the ``sharded_*`` searches of :mod:`kirag_tpu_torch.ops`);
-every rank gets the result. Over a mesh the ``model`` axis replicates the
-index. Streaming refuses a mesh, as in the reference.
+every rank gets the result. :class:`~kirag_tpu_torch.serving.RetrievalEngine`
+serves such an index by that protocol: its leader, the mesh's first rank,
+broadcasts each batch's embeddings over the whole mesh, and every rank's
+engine then calls ``search_knn`` on them. Over a mesh the ``model`` axis
+replicates the index. Streaming refuses a mesh, as in the reference.
 
 The on-disk format (``serialize``/``deserialize_from``: raw f32 shards, the
 metric, compression and ``pq_m`` in the config, ``pq_codebooks.npy``) is the

@@ -133,8 +133,20 @@ class DenseRetriever:
         if self.indexer is None:
             raise ValueError("must provide an indexer")
         embeddings = self.calculate_query_embeddings(queries, **kwargs)
-        knn_results = self.indexer.search_knn(embeddings, top_docs=topk,
-                                              mode=mode or self.search_mode)
+        return self._documents(self._search(embeddings, topk, mode))
+
+    # the steps of batch_retrieve: encode (calculate_query_embeddings), then
+    # these two; RetrievalEngine over a mesh runs the search on every rank and
+    # the rest on the first rank only
+
+    def _search(self, embeddings: np.ndarray, topk: int,
+                mode: Optional[str] = None) -> List[Tuple[List[str], np.ndarray]]:
+        return self.indexer.search_knn(embeddings, top_docs=topk,
+                                       mode=mode or self.search_mode)
+
+    def _documents(self, knn_results) -> List[List[dict]]:
+        """Each query's ``(db_ids, scores)`` as ranked documents: the
+        corpus's documents with their scores, or ``{"id", "score"}``."""
         retrieval_results = []
         for db_ids, scores in knn_results:
             one = []

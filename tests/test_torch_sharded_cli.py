@@ -9,7 +9,8 @@ retrieval of every question, in two ranks (``tests/torch_dist.py``), at
 ``--mesh_data 2`` and at ``--mesh_model 2``, against the JAX CLI's
 ``setup_retriever_model`` with the same flags over its virtual CPU devices.
 Scores within 1e-5, ids equal except at near-ties; both ranks get the same
-documents, and ``RetrievalEngine`` refuses the sharded retriever.
+documents, and ``RetrievalEngine`` over the sharded retriever (the first
+rank leading, the other following) serves the same documents.
 """
 
 import json
@@ -81,8 +82,10 @@ def test_retrieve_cli_retriever_over_a_mesh(name, ranks, retriever_workspace, mo
     for r in got:
         assert r["shape"] == shape and r["indexer_mesh"]
         assert r["docs"] == got[0]["docs"]
-        # requests would reach one rank while the other waits in the search
-        assert "§A 16" in r["engine"]
+    # the engine serves the sharded retriever: the first rank leads and gets
+    # the CLI's documents, the other rank searched its one batch
+    assert got[0]["engine"] == got[0]["docs"]
+    assert got[1]["engine"] == {"requests": 0, "batches": 1, "queries": len(ws["questions"])}
     monkeypatch.setattr(sys, "argv", ["prog"] + ws["argv"] + flags)
     args = jax_retrieve.setup_parser()
     retriever, _ = jax_retrieve.setup_retriever_model(args)

@@ -1,7 +1,7 @@
 """Runs the port's collectives in several CPU processes over gloo, for the
 parity tests of the sharded paths (``tests/test_torch_mesh.py``,
 ``test_torch_sharded_search.py``, ``test_torch_sharded_index.py``,
-``test_torch_llm_tp.py``).
+``test_torch_llm_tp.py``, ``test_torch_sharded_serving.py``, and others).
 
 The test process calls :func:`run_ranks` once per world size and module: it
 writes the cases to a pickle and starts ``world`` workers, each of which

@@ -122,11 +122,17 @@ def index(cases):
     return out
 
 
+def _pairs(docs):
+    return [[(d["id"], d["score"]) for d in one] for one in docs]
+
+
 def retriever(cases):
     """For each argv of ``cases["argvs"]``: ``cli/retrieve``'s
     ``setup_retriever_model`` over the mesh of its ``--mesh_data`` and
     ``--mesh_model`` (built by the CLI's ``build_mesh``), the retrieval of
-    every question, and what ``RetrievalEngine`` says to that retriever."""
+    every question, and ``RetrievalEngine`` over that retriever: on the first
+    rank the engine's documents for the questions, on the others the
+    batches they followed."""
     from kirag_tpu_torch.cli.common import build_mesh
     from kirag_tpu_torch.cli.retrieve import setup_parser, setup_retriever_model
     from kirag_tpu_torch.serving import RetrievalEngine
@@ -137,14 +143,159 @@ def retriever(cases):
         mesh = build_mesh(args)
         retriever, _ = setup_retriever_model(args, device="cpu", mesh=mesh)
         docs = retriever.batch_retrieve(cases["questions"], topk=cases["topk"])
-        try:
-            RetrievalEngine(retriever, warmup=False)
-            engine = None
-        except NotImplementedError as e:
-            engine = str(e)
+        engine = RetrievalEngine(retriever, warmup=False)  # a follower's returns at close()
+        if engine.leader:
+            served = _pairs(engine.search(cases["questions"], topk=cases["topk"]))
+            engine.close()
+        else:
+            served = dict(engine.stats)
         out.append({"shape": mesh.shape, "indexer_mesh": retriever.indexer.mesh is mesh,
-                    "docs": [[(d["id"], d["score"]) for d in one] for one in docs],
-                    "engine": engine})
+                    "docs": _pairs(docs), "engine": served})
+    return out
+
+
+class _CountingEncoder:
+    """An encoder that counts its calls."""
+
+    def __init__(self, encoder):
+        self.encoder, self.calls = encoder, 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.encoder(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.encoder, name)
+
+
+def _lead(engine, texts):
+    """The leader's traffic: requests of two texts from six threads at once
+    (top 3), lone requests trimmed below their bucket, a request that fails
+    before its batch is broadcast, then one more request; ``(texts, topk,
+    documents)`` each, and the failed request's error."""
+    import threading
+
+    concurrent = [(list(range(i, i + 2)), 3) for i in range(0, 12, 2)]
+    results, errors = {}, []
+    start = threading.Barrier(len(concurrent))
+
+    def worker(n):
+        nums, k = concurrent[n]
+        start.wait()
+        try:
+            results[n] = engine.search([texts[i] for i in nums], topk=k)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(n,)) for n in range(len(concurrent))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent requests failed: {errors}")
+    served = [(nums, k, _pairs(results[n])) for n, (nums, k) in enumerate(concurrent)]
+    for nums, k in ((list(range(12, 15)), 2), (list(range(15, 17)), 4)):
+        served.append((nums, k, _pairs(engine.search([texts[i] for i in nums], topk=k))))
+    try:
+        engine.search([], topk=3)
+        failed = None
+    except ValueError as e:
+        failed = str(e)
+    nums = list(range(17, 20))
+    served.append((nums, 5, _pairs(engine.search([texts[i] for i in nums], topk=5))))
+    return served, failed
+
+
+def engine(cases):
+    """``RetrievalEngine`` over ``TorchIndexer(mesh=create_mesh(*cases["mesh"]))``
+    on the CPU, one engine a ``cases["variants"]`` entry ``(compression,
+    mode)``: the tiny E5 of ``cases["tree"]`` (converted by
+    ``Encoder.from_jax``) over the rows and ids given. The first rank
+    serves :func:`_lead`'s traffic and closes; each other rank's constructor
+    follows until then, and its ``search()`` must raise. With
+    ``cases["fail"]`` an engine's indexer raises inside the first batch's
+    search on every rank: the errors each rank saw (the leader's for that
+    request and the next); then the leader's encoder raises in the warm-up:
+    what each rank's constructor raised."""
+    import transformers
+
+    from kirag_tpu_torch.data import E5Collator
+    from kirag_tpu_torch.index import TorchIndexer
+    from kirag_tpu_torch.models import BertConfig, Encoder
+    from kirag_tpu_torch.retrieval import DenseRetriever
+    from kirag_tpu_torch.serving import RetrievalEngine
+
+    tok = transformers.BertTokenizerFast(vocab_file=cases["vocab"], do_lower_case=True)
+    mesh = create_mesh(*cases["mesh"])
+    encoder = _CountingEncoder(Encoder.from_jax(cases["tree"], BertConfig(**cases["cfg"]),
+                                                "e5", device="cpu"))
+    collator = E5Collator(tok, 64, 64)
+
+    def served_engine(compression, mode):
+        ix = TorchIndexer(cases["dim"], device="cpu", exact_impl="kernel",
+                          pallas_chunk_size=2048, compression=compression, approx_winners=1,
+                          mesh=mesh)
+        ix.index_data(cases["ids"], cases["rows"])
+        ret = DenseRetriever(encoder, collator, indexer=ix, batch_size=4, search_mode=mode)
+        return ret, lambda: RetrievalEngine(ret, max_batch=16, max_wait_ms=100,
+                                            topk_buckets=(3, 5))
+
+    out = {"rank": dist.get_rank(), "variants": {}}
+    for compression, mode in cases["variants"]:
+        encoder.calls = 0
+        _, make = served_engine(compression, mode)
+        eng = make()  # a follower's returns once the leader has closed
+        got = {}
+        if eng.leader:
+            got["served"], got["failed"] = _lead(eng, cases["texts"])
+            eng.close()
+            eng.close()  # a second close does nothing
+        else:
+            try:
+                eng.search(cases["texts"][:1], topk=3)
+            except RuntimeError as e:
+                got["follower_search"] = str(e)
+        got["stats"], got["encoded"] = dict(eng.stats), encoder.calls
+        out["variants"][(compression, mode)] = got
+    if cases.get("fail"):
+        ret, make = served_engine("none", "exact")
+        searches = {"n": 0}
+        run = ret.indexer._run_mips
+
+        def failing(*args, **kwargs):  # the search's own error, on every rank
+            searches["n"] += 1
+            if searches["n"] == 3:  # the first batch after the warm-up's two
+                raise RuntimeError(f"search failed on rank {dist.get_rank()}")
+            return run(*args, **kwargs)
+
+        ret.indexer._run_mips = failing
+        try:
+            eng = make()
+        except RuntimeError as e:  # a follower
+            out["fail"] = [str(e)]
+        else:
+            out["fail"] = []
+            for _ in range(2):
+                try:
+                    eng.search(cases["texts"][:1], topk=3)
+                    out["fail"].append(None)
+                except RuntimeError as e:
+                    out["fail"].append(str(e))
+            eng.close()
+        # a warm-up that fails before its first broadcast (the leader's
+        # encoder): the leader raises, and the followers get the abort
+        ret, make = served_engine("none", "exact")
+        if dist.get_rank() == 0:
+            def broken(*args, **kwargs):
+                raise RuntimeError("encoder failed on rank 0")
+
+            ret.encoder = broken
+        try:
+            make()
+            out["abort"] = "constructed"
+        except RuntimeError as e:
+            out["abort"] = str(e)
     return out
 
 
